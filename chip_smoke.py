@@ -11,16 +11,30 @@ Phases (any failure raises and the script exits non-zero):
   1. the card, the versions, and the build of the CUDA kernels from
      ``collaborative_distillation_tpu_torch/ops/cuda/csrc``;
   2. each kernel against its plain version on the card, at every distinct
-     shape of the mode-16x cascade at 512^2 and 2048^2, plus edge shapes
-     (1-pixel maps, odd sizes, C not a multiple of 4); the 2048^2 stage-1
-     covariance against a float64 centred covariance;
+     shape of the mode-16x cascade at 512^2 and of the UHD slab cascade,
+     the plain UHD cascade's largest conv map, plus edge shapes (1-pixel maps, odd sizes, C not a multiple of 4,
+     unaligned slices); a 16x16 image (relu5_1 at 1x1) stylizes to all-NaN
+     without raising, as the reference does; the 2048^2 and the UHD
+     (slab-summed) stage-1 covariances against float64 centred ones;
   3. the main path: ``WCTEngine(mode="16x").stylize`` on a 2048^2 photo pair,
      with every launch counter set to 0 before it and read after it; the
      counts must equal what the cascade's specs predict;
+  3b. the UHD path: ``WCTEngine(mode="16x", slab_rows=1024).stylize`` on the
+     photo pair reflect-tiled to 4096 x 10240 content and 2048^2 style, one
+     warm cascade with the counters zeroed; the counts must equal the slab
+     plan's (20 ``conv1x1_bias`` launches: 5 stages x 4 slabs);
   4. the card's 512^2 output against the same engine on the CPU (PSNR);
+  4b. the UHD slab output against the plain per-stage cascade on the card
+     (PSNR), a 2048^2 slab run (``slab_rows=512``) against the plain one,
+     and the feature cache on against off;
   5. timings: each kernel, its plain version and one library call at every
      2048^2 shape of the path, weighted by the calls per cascade, beside the
-     least time the card could take; the warm 2048^2 cascade and its stages.
+     least time the card could take; the warm 2048^2 cascade and its stages;
+  5b. the same for ``conv1x1_bias`` at the UHD slab shapes; the warm UHD
+     slab cascade (median of 3), split by stage and into pass 1 and pass 2,
+     its peak memory and profile; ``stylize(as_uint8=True)`` host to host
+     with the streamed last stage against without, three runs each, both
+     with the slab plan's launch counts.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -47,26 +61,58 @@ PEAK_BYTES = 3.35e12         # HBM3
 REPO_PATH = "collaborative_distillation_tpu_torch/ops/cuda/csrc/"
 KERNEL_META = {
     "conv3x3_reflect": ("conv3x3.cu", "collaborative_distillation_tpu/ops/pallas/conv.py:754"),
+    "conv1x1_bias": ("conv1x1.cu", "collaborative_distillation_tpu/ops/pallas/conv.py:437"),
     "sum_gram": ("sum_gram.cu", "collaborative_distillation_tpu/ops/pallas/stats.py:61"),
     "max_pool_2x2": ("pool.cu", "collaborative_distillation_tpu/ops/pallas/pool.py:96"),
     "upsample_nearest_2x": ("pool.cu", "collaborative_distillation_tpu/ops/pallas/pool.py:141"),
 }
 # Tolerances, each against the plain version on the same inputs:
-#   conv3x3: |kernel - plain| <= 1e-5 * S, S = max|x| * max_co sum|w| + max|b|,
-#     the largest magnitude any partial sum can take; both sum up to 4608
-#     float32 products in different orders (typical error ~sqrt(K) eps S).
+#   conv3x3, conv1x1: |kernel - plain| <= 1e-5 * S, S = max|x| * max_co sum|w|
+#     + max|b|, the largest magnitude any partial sum can take; both sum up
+#     to 4608 (3x3) or 128 (1x1) float32 products in different orders
+#     (typical error ~sqrt(K) eps S).
 #   sum_gram: |G_k - G_p| <= 2e-5 * max|G_p| and |S_k - S_p| <= 2e-5 * sum|x - s|;
 #     float32 sums over up to 4M rows in different orders.
-#   covariance at the 2048^2 stage-1 map vs float64 centred: 1e-4 * max|cov64|.
+#   covariance at the 2048^2 and UHD stage-1 maps vs float64 centred:
+#     1e-4 * max|cov64|.
+#   feature cache on vs off: 1e-6 (the same kernels on the same inputs).
 #   pool, upsample: exact (a max and a copy).
 CONV_TOL = 1e-5
 GRAM_TOL = 2e-5
 COV64_TOL = 1e-4
 PSNR_MIN_DB = 40.0
+CACHE_TOL = 1e-6
+UHD_H, UHD_W = 4096, 10240   # the README's 10240x4096 UHD image, rows first
+UHD_SLAB = 1024
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def _encoder_calls(calls, layer_of, k, spec, hh, ww):
+    """Add one encoder run on an (hh, ww) map; returns its output size."""
+    for l in spec.layers:
+        shape = (1, hh, ww, l.in_ch, l.out_ch, l.relu)
+        calls[("conv3x3_reflect", shape)] += 1
+        layer_of.setdefault(shape, (k, "enc", l.name))
+        if l.pool_after:
+            calls[("max_pool_2x2", (1, hh, ww, l.out_ch))] += 1
+            hh, ww = hh // 2, ww // 2
+    return hh, ww
+
+
+def _decoder_calls(calls, layer_of, k, spec, hh, ww):
+    """Add one decoder run on an (hh, ww) map; returns its output size."""
+    for l in spec.layers:
+        shape = (1, hh, ww, l.in_ch, l.out_ch, l.relu)
+        calls[("conv3x3_reflect", shape)] += 1
+        layer_of.setdefault(shape, (k, "dec", l.name))
+        if l.unpool_after:
+            calls[("upsample_nearest_2x", (1, hh, ww, l.out_ch))] += 1
+            hh, ww = hh * 2, ww * 2
+    assert spec.layers[-1].out_ch == 3
+    return hh, ww
 
 
 def path_calls(pyramid, stages, h, w):
@@ -77,24 +123,36 @@ def path_calls(pyramid, stages, h, w):
     for k in stages:
         es, ds = pyramid[k]["enc_spec"], pyramid[k]["dec_spec"]
         for _ in ("style", "content"):
-            hh, ww = h, w
-            for l in es.layers:
-                shape = (1, hh, ww, l.in_ch, l.out_ch, l.relu)
-                calls[("conv3x3_reflect", shape)] += 1
-                layer_of.setdefault(shape, (k, "enc", l.name))
-                if l.pool_after:
-                    calls[("max_pool_2x2", (1, hh, ww, l.out_ch))] += 1
-                    hh, ww = hh // 2, ww // 2
+            hh, ww = _encoder_calls(calls, layer_of, k, es, h, w)
             calls[("sum_gram", (hh * ww, es.out_channels))] += 1
-        last = ds.layers[-1]
-        for l in ds.layers:
-            shape = (1, hh, ww, l.in_ch, l.out_ch, l.relu)
-            calls[("conv3x3_reflect", shape)] += 1
-            layer_of.setdefault(shape, (k, "dec", l.name))
-            if l.unpool_after:
-                calls[("upsample_nearest_2x", (1, hh, ww, l.out_ch))] += 1
-                hh, ww = hh * 2, ww * 2
-        assert last.out_ch == 3 and (hh, ww) == (h, w)
+        assert _decoder_calls(calls, layer_of, k, ds, hh, ww) == (h, w)
+    return calls, layer_of
+
+
+def slab_path_calls(pyramid, stages, margins, slab, h, w, sh, sw, cache_bytes):
+    """Kernel calls of one fused slab cascade (no style key: the style is
+    encoded whole at every stage) on an (h, w) content, h a multiple of
+    ``slab``, and an (sh, sw) style, from the stage margins: per stage, pass
+    1 encodes every extended slab and sums its interior feature rows; pass
+    2 re-encodes unless the stage's stacked features fit in ``cache_bytes``,
+    applies the folded WCT (``conv1x1_bias``) and decodes."""
+    calls, layer_of = Counter(), {}
+    n_slabs = h // slab
+    for k in stages:
+        es, ds = pyramid[k]["enc_spec"], pyramid[k]["dec_spec"]
+        c, down = es.out_channels, 2 ** (k - 1)
+        hh, ww = _encoder_calls(calls, layer_of, k, es, sh, sw)
+        calls[("sum_gram", (hh * ww, c))] += 1
+        rows = slab + 2 * margins[k] if n_slabs > 1 else h
+        cache = n_slabs * (rows // down) * (w // down) * c * 4 <= cache_bytes
+        for _ in range(n_slabs):
+            fh, fw = _encoder_calls(calls, layer_of, k, es, rows, w)
+            calls[("sum_gram", (slab // down * fw, c))] += 1
+        for _ in range(n_slabs):
+            if not cache:
+                _encoder_calls(calls, layer_of, k, es, rows, w)
+            calls[("conv1x1_bias", (1, fh, fw, c, c, False, True, 0))] += 1
+            assert _decoder_calls(calls, layer_of, k, ds, fh, fw) == (rows, w)
     return calls, layer_of
 
 
@@ -105,6 +163,10 @@ def work(kernel, shape):
         n, h, w, ci, co, _ = shape
         px = n * h * w
         return 4 * (px * ci + 9 * ci * co + co + px * co), 2 * 9 * ci * co * px
+    if kernel == "conv1x1_bias":
+        n, h, w, ci, co, _, bias, _ = shape
+        px = n * h * w
+        return 4 * (px * ci + ci * co + (co if bias else 0) + px * co), 2 * ci * co * px
     if kernel == "sum_gram":
         # X^T X is symmetric: c(c+1)/2 distinct entries, a multiply and an add
         # each per row; the column sum and the shift subtraction p*c each
@@ -178,6 +240,24 @@ class Bench:
                     lib.bias.copy_(b)
                 xn = x.permute(0, 3, 1, 2)  # NHWC memory as a channels-last NCHW view
                 library = lambda: lib(xn)
+        elif kernel == "conv1x1_bias":
+            # (N, H, W, Cin, Cout, relu, bias, offset): an offset of a few
+            # floats leaves a contiguous map that is not 16-byte aligned
+            n, h, w, ci, co, relu, bias, offset = shape
+            x = (self.rand(n * h * w * ci + offset) - 0.5)[offset:].view(n, h, w, ci)
+            wt = (self.rand(ci, co) - 0.5) * (2 / ci ** 0.5)
+            b = self.rand(co) - 0.5 if bias else None
+            got, ref = k(x, wt, b, relu), k.plain(x, wt, b, relu)
+            scale = float(x.abs().max() * wt.abs().sum(0).max()
+                          + (b.abs().max() if bias else 0.0))
+            err = float((got - ref).abs().max())
+            tol = CONV_TOL * scale
+            del got, ref
+            call = lambda: k(x, wt, b, relu)
+            plain = lambda: k.plain(x, wt, b, relu)
+            x2 = x.view(-1, ci)
+            library = ((lambda: torch.addmm(b, x2, wt)) if bias
+                       else (lambda: torch.mm(x2, wt)))
         elif kernel == "sum_gram":
             p, c = shape
             x = self.rand(p, c) * 4 + 10   # mean far above the spread, as features are
@@ -218,7 +298,7 @@ class Bench:
         return row
 
 
-def profile_cascade(torch, eng, img, sty) -> dict:
+def profile_cascade(torch, eng, img, sty, label="phase 5") -> dict:
     """One warm cascade under torch.profiler: device time by kernel name, and
     the card's idle share of that same cascade, 1 - busy / span, with the
     span taken by CUDA events around it (profiler on in both)."""
@@ -244,10 +324,10 @@ def profile_cascade(torch, eng, img, sty) -> dict:
                 calls[e.key[:90]] += e.count
     busy = sum(kernels.values())
     if busy == 0:
-        log("phase 5: profiler saw no device time: breakdown not measured")
+        log(f"{label}: profiler saw no device time: breakdown not measured")
         return {"wall_ms": wall_ms, "span_ms": span_ms, "busy_ms": None}
     top = kernels.most_common(12)
-    log(f"phase 5: profiled cascade wall {wall_ms:.2f} ms, event span {span_ms:.2f} ms, "
+    log(f"{label}: profiled cascade wall {wall_ms:.2f} ms, event span {span_ms:.2f} ms, "
         f"device busy {busy:.2f} ms, idle share {1 - busy / span_ms:.3f}; top device time:")
     for name, ms in top:
         log(f"    {ms:8.3f} ms  x{calls[name]:<4d} {name}")
@@ -256,14 +336,32 @@ def profile_cascade(torch, eng, img, sty) -> dict:
             "by_kernel_ms": dict(top), "calls": {n: calls[n] for n, _ in top}}
 
 
-def reflect_tile(torch, img_u8: np.ndarray, size: int) -> np.ndarray:
-    """Reflect-tile an (H, W, 3) image up to (size, size, 3) on the card."""
+def reflect_tile(torch, img_u8: np.ndarray, size: int, width: int | None = None) -> np.ndarray:
+    """Reflect-tile an (H, W, 3) image up to (size, width or size, 3) on the card."""
     from collaborative_distillation_tpu_torch.ops.pad import reflect_index
     x = torch.from_numpy(img_u8).cuda()
     h, w, _ = x.shape
     x = x.index_select(0, reflect_index(h, 0, size - h, x.device))
-    x = x.index_select(1, reflect_index(w, 0, size - w, x.device))
+    x = x.index_select(1, reflect_index(w, 0, (width or size) - w, x.device))
     return x.cpu().numpy()
+
+
+def psnr_device(torch, a, b) -> float:
+    """PSNR of two [0, 1] images on the card, the mean in float64."""
+    mse = float(((a.float() - b.float()) ** 2).double().mean())
+    return float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
+
+
+def stats64(feats):
+    """Float64 centred (mean, cov) of ``feats`` (..., C) on the card."""
+    x64 = feats.reshape(-1, feats.shape[-1]).double()
+    m64 = x64.mean(0)
+    x64 -= m64
+    return m64, (x64.T @ x64) / (x64.shape[0] - 1)
+
+
+def rel_err(got, want) -> float:
+    return float((got.double() - want).abs().max()) / float(want.abs().max())
 
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -280,9 +378,12 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from collaborative_distillation_tpu_torch.ops import cuda as kc
     from collaborative_distillation_tpu_torch.ops.cuda import _build
-    from collaborative_distillation_tpu_torch.ops.wct_transform import feature_stats
+    from collaborative_distillation_tpu_torch.ops.wct_transform import (coloring_matrix,
+                                                                        feature_stats)
     from collaborative_distillation_tpu_torch.models.vgg import apply_decoder, apply_encoder
     from collaborative_distillation_tpu_torch.wct.engine import WCTEngine, stylize_stage
+    from collaborative_distillation_tpu_torch.wct.slab import (FEATURE_CACHE_BYTES,
+                                                               build_fused_slab_cascade)
 
     detail: dict = {}
     # ---- phase 1: card, versions, build ------------------------------------
@@ -309,6 +410,12 @@ def main() -> int:
     eng = WCTEngine(mode="16x")   # default device: the card
     pyr = eng.pyramid
     bench = Bench(torch, pyr)
+    c_uhd = reflect_tile(torch, c512, UHD_H, UHD_W)
+    slab_eng = WCTEngine(mode="16x", slab_rows=UHD_SLAB)
+    cas = slab_eng.slab
+    calls_uhd, layers_uhd = slab_path_calls(pyr, eng.stages, cas.margins, cas.slab_rows,
+                                            UHD_H, UHD_W, 2048, 2048, FEATURE_CACHE_BYTES)
+    names = [k.__name__ for k in kc.KERNELS]
 
     # ---- phase 2: kernel vs plain at the path's shapes ---------------------
     calls512, layers512 = path_calls(pyr, eng.stages, 512, 512)
@@ -323,9 +430,27 @@ def main() -> int:
     edge += [("max_pool_2x2", s) for s in [(1, 7, 9, 16), (2, 8, 8, 3), (1, 1, 5, 8)]]
     edge += [("upsample_nearest_2x", s) for s in [(1, 3, 5, 16), (2, 4, 4, 3)]]
     edge += [("sum_gram", s) for s in [(1000, 24), (777, 128), (5000, 512), (1, 3)]]
+    # conv1x1: (N, H, W, Cin, Cout, relu, bias, float offset)
+    edge += [("conv1x1_bias", s) for s in
+             [(1, 1, 1, 8, 8, False, True, 0), (1, 1, 1, 128, 128, True, True, 0),
+              (1, 7, 13, 24, 24, True, True, 0), (1, 9, 33, 128, 24, False, False, 0),
+              (1, 5, 31, 24, 128, False, True, 1), (1, 16, 17, 8, 128, True, True, 3),
+              (2, 4, 5, 3, 24, False, True, 0), (1, 3, 11, 128, 8, True, False, 2)]]
     for kernel, shape in edge:
         checks.append(bench.run(kernel, shape))
-    log(f"phase 2: {len(checks)} kernel-vs-plain checks passed at 512^2 path and edge shapes")
+    # every (kernel, shape) of the UHD slab path (slabs 10240 wide, sum_gram
+    # over 10.5M rows), and the plain UHD cascade's largest conv map (past
+    # 2^31 bytes), the yardstick of phase 4b
+    calls_plain_uhd, layers_plain_uhd = path_calls(pyr, eng.stages, UHD_H, UHD_W)
+    biggest = max((s for kernel, s in calls_plain_uhd if kernel == "conv3x3_reflect"),
+                  key=lambda s: s[1] * s[2] * (s[3] + s[4]))
+    t0 = time.perf_counter()
+    for kernel, shape in sorted(calls_uhd, key=str):
+        checks.append(bench.run(kernel, shape, layers_uhd.get(shape)))
+    checks.append(bench.run("conv3x3_reflect", biggest, layers_plain_uhd[biggest]))
+    log(f"phase 2: {len(checks)} kernel-vs-plain checks passed at the 512^2 path, edge, "
+        f"all {len(calls_uhd)} UHD slab path and the plain UHD {biggest} shapes "
+        f"(UHD ones in {time.perf_counter() - t0:.1f} s)")
     # 1-pixel reflect: a 16x16 image reaches conv51 at 1x1 in the stage-5
     # encoder; every stage's encoder and decoder, card vs CPU plain
     tiny = np.random.default_rng(0).random((1, 16, 16, 3), np.float32)
@@ -344,6 +469,13 @@ def main() -> int:
         f"card vs cpu max rel err {worst:.3e}")
     if not worst <= 1e-4:
         raise AssertionError(f"16x16 encoder/decoder card vs cpu rel err {worst}")
+    # the whole 16x16 cascade: relu5_1 is 1x1, its covariance 0/0; the
+    # reference stylizes to all-NaN, and so must the port, without raising
+    for e in (eng, slab_eng):
+        o = e.stylize(tiny[0], tiny[0])
+        if not (o.shape == (16, 16, 3) and np.isnan(o).all()):
+            raise AssertionError(f"16x16 cascade: {np.isnan(o).mean():.3f} NaN, expected all")
+    log("phase 2: 16x16 cascade all-NaN on the plain path and the slab engine's bypass")
 
     # stage-1 2048^2 covariance: shifted kernel Gram vs float64 centred
     with torch.inference_mode():
@@ -369,6 +501,25 @@ def main() -> int:
     if not cov_err <= COV64_TOL:
         raise AssertionError(f"stage-1 covariance rel err {cov_err} > {COV64_TOL}")
     del s1, feats, x, x64, cov64
+    # UHD stage-1 statistics from the slab sums (4 slabs, one shift), and the
+    # plain path's whole-map statistics, against float64
+    with torch.inference_mode():
+        img_uhd = eng._prep(c_uhd)
+        mean_s, cov_s, _ = cas.content_stats(1, img_uhd)
+        feats = apply_encoder(pyr[1]["enc"], img_uhd, pyr[1]["enc_spec"], aux=False)["out"]
+        mean_f, cov_f = feature_stats(feats)
+        m64, cov64 = stats64(feats)
+        slab_err, full_err = rel_err(cov_s, cov64), rel_err(cov_f, cov64)
+        slab_mean_err = rel_err(mean_s, m64)
+        p_uhd = feats.shape[1] * feats.shape[2]
+        del feats
+    log(f"phase 2: stage-1 UHD covariance ({p_uhd} x 24) vs float64 centred: slab sums "
+        f"rel err {slab_err:.3e}, whole map {full_err:.3e} (tol {COV64_TOL}); slab mean "
+        f"rel err {slab_mean_err:.3e}")
+    detail["cov64_uhd"] = {"slab_rel_err": slab_err, "whole_map_rel_err": full_err,
+                           "slab_mean_rel_err": slab_mean_err}
+    if not max(slab_err, full_err) <= COV64_TOL:
+        raise AssertionError(f"UHD stage-1 covariance rel err {slab_err}, {full_err}")
 
     # ---- phase 3: the main path at 2048^2 ----------------------------------
     for k in kc.KERNELS:
@@ -377,13 +528,11 @@ def main() -> int:
     out = eng.stylize(c2k, s2k, alpha=1.0)
     main_s = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kc.KERNELS}
-    expect = Counter()
-    for (kernel, _), n in calls2k.items():
-        expect[kernel] += n
+    expect = {n: sum(c for (kernel, _), c in calls2k.items() if kernel == n) for n in names}
     log(f"phase 3: stylize 2048^2 in {main_s:.3f} s (first call, host transfer "
-        f"included); launches {launches}, predicted {dict(expect)}")
-    if any(launches[k] <= 0 for k in launches) or launches != dict(expect):
-        raise AssertionError(f"launch counts {launches} != predicted {dict(expect)}")
+        f"included); launches {launches}, predicted {expect}")
+    if launches != expect or any(launches[n] <= 0 for n in names if n != "conv1x1_bias"):
+        raise AssertionError(f"launch counts {launches} != predicted {expect}")
     content_f = c2k.astype(np.float32) / 255.0
     change = float(np.abs(out - content_f).mean())
     if not (out.shape == c2k.shape and np.isfinite(out).all()
@@ -391,6 +540,34 @@ def main() -> int:
         raise AssertionError(f"bad 2048^2 output: shape {out.shape}, range "
                              f"[{out.min()}, {out.max()}], mean change {change}")
     log(f"phase 3: output finite, in [0, 1], mean |out - content| {change:.4f}")
+    del out
+
+    # ---- phase 3b: the UHD slab path -----------------------------------------
+    t0 = time.perf_counter()
+    slab_eng.stylize(c_uhd, s2k)   # warm: first cuSOLVER/cuBLAS calls at these shapes
+    cold_s = time.perf_counter() - t0
+    for k in kc.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out_uhd = slab_eng.stylize(c_uhd, s2k, alpha=1.0)
+    uhd_s = time.perf_counter() - t0
+    launches_uhd = {k.__name__: k.launches for k in kc.KERNELS}
+    expect_uhd = {n: sum(c for (kernel, _), c in calls_uhd.items() if kernel == n)
+                  for n in names}
+    log(f"phase 3b: stylize {UHD_H}x{UHD_W} slab_rows={UHD_SLAB} in {uhd_s:.3f} s warm "
+        f"({cold_s:.3f} s first call; host transfer included); margins {cas.margins}; "
+        f"launches {launches_uhd}, predicted {expect_uhd}")
+    if launches_uhd != expect_uhd or any(v <= 0 for v in launches_uhd.values()):
+        raise AssertionError(f"UHD launch counts {launches_uhd} != predicted {expect_uhd}")
+    change = float(np.abs(out_uhd - c_uhd.astype(np.float32) / 255.0).mean())
+    if not (out_uhd.shape == c_uhd.shape and np.isfinite(out_uhd).all()
+            and out_uhd.min() >= 0.0 and out_uhd.max() <= 1.0 and change > 0.02):
+        raise AssertionError(f"bad UHD output: shape {out_uhd.shape}, range "
+                             f"[{out_uhd.min()}, {out_uhd.max()}], mean change {change}")
+    log(f"phase 3b: output finite, in [0, 1], mean |out - content| {change:.4f}")
+    detail["uhd_main"] = {"s": uhd_s, "cold_s": cold_s, "launches": launches_uhd,
+                          "mean_change": change}
+    del out_uhd
 
     # ---- phase 4: 512^2 card vs CPU plain cascade ---------------------------
     o_card = eng.stylize(c512, s512)
@@ -401,12 +578,50 @@ def main() -> int:
     if not db >= PSNR_MIN_DB:
         raise AssertionError(f"512^2 card vs cpu PSNR {db:.2f} dB < {PSNR_MIN_DB}")
 
+    # ---- phase 4b: slab against plain on the card ------------------------------
+    with torch.inference_mode():
+        sty2k, img2k = eng._prep(s2k), eng._prep(c2k)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        plain_uhd = eng.stylize_device(img_uhd, sty2k)
+        torch.cuda.synchronize()
+        plain_uhd_s = time.perf_counter() - t0
+        plain_peak = torch.cuda.max_memory_allocated() / 2**30
+        db_uhd = psnr_device(torch, slab_eng.stylize_device(img_uhd, sty2k), plain_uhd)
+        del plain_uhd
+        db_2k = psnr_device(torch, WCTEngine(mode="16x", slab_rows=512).stylize_device(img2k, sty2k),
+                            eng.stylize_device(img2k, sty2k))
+        stats2k = {k: eng._style_stats(k, sty2k) for k in eng.stages}
+        on, off = (build_fused_slab_cascade(pyr, slab_rows=512, external_style_stats=True,
+                                            feature_cache_bytes=b)(img2k, stats2k, 1.0)
+                   for b in (FEATURE_CACHE_BYTES, 0))
+        cache_err = float((on - off).abs().max())
+        del on, off
+    log(f"phase 4b: UHD slab vs plain on the card PSNR {db_uhd:.2f} dB (plain UHD cascade "
+        f"{plain_uhd_s:.3f} s, peak {plain_peak:.2f} GiB); 2048^2 slab_rows=512 vs plain "
+        f"{db_2k:.2f} dB (min {PSNR_MIN_DB}); feature cache on vs off max abs diff "
+        f"{cache_err:.3e} (tol {CACHE_TOL})")
+    detail["slab_vs_plain"] = {"uhd_psnr_db": db_uhd, "psnr_2048_db": db_2k,
+                               "cache_on_off_max_abs": cache_err,
+                               "plain_uhd_s": plain_uhd_s, "plain_uhd_peak_gib": plain_peak}
+    if not (db_uhd >= PSNR_MIN_DB and db_2k >= PSNR_MIN_DB and cache_err <= CACHE_TOL):
+        raise AssertionError(f"slab vs plain: UHD {db_uhd:.2f} dB, 2048^2 {db_2k:.2f} dB, "
+                             f"cache on/off {cache_err}")
+
     # ---- phase 5: timings at the 2048^2 path shapes -------------------------
     rows = []
     for (kernel, shape), n in sorted(calls2k.items(), key=str):
         r = bench.run(kernel, shape, layers2k.get(shape), timed=True)
         r["calls"] = n
         rows.append(r)
+    # conv1x1_bias lies on the UHD slab path only: timed at its shapes there
+    for (kernel, shape), n in sorted(calls_uhd.items(), key=str):
+        if kernel == "conv1x1_bias":
+            r = bench.run(kernel, shape, timed=True)
+            r["calls"] = n
+            rows.append(r)
+    path_launches = {**launches, "conv1x1_bias": launches_uhd["conv1x1_bias"]}
     table = []
     for k in kc.KERNELS:
         name = k.__name__
@@ -424,13 +639,14 @@ def main() -> int:
         rel = [r["max_rel_err"] for r in checks + rows if r["kernel"] == name]
         table.append({
             "name": name, "route": "cuda", "source": REPO_PATH + src, "replaces": rep,
-            "launches": launches[name], "max_abs_err": max(errs), "max_err": max(errs),
+            "launches": path_launches[name], "max_abs_err": max(errs), "max_err": max(errs),
+            "path": "UHD slab" if name == "conv1x1_bias" else "2048^2 plain",
             "max_rel_err": max(rel),
             "ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": bound,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bound_bytes_ms": by_bytes, "bound_ops_ms": by_ops,
             "library_ms": tot("library_ms")})
-    detail["shapes_2048"] = rows
+    detail["shapes_timed"] = rows
     detail["checks"] = checks
 
     # warm cascade: median of 5, and one run split by stage
@@ -444,6 +660,7 @@ def main() -> int:
             torch.cuda.synchronize()
             runs.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2**30
         stage_ms = {}
         alpha = torch.tensor(1.0, device="cuda")
         x = img
@@ -459,11 +676,84 @@ def main() -> int:
             stage_ms[k] = a.elapsed_time(b)
         peak = torch.cuda.max_memory_allocated() / 2**30
     detail["cascade_2048_ms"] = {"runs": runs, "median": statistics.median(runs),
-                                 "stages": stage_ms, "peak_gib": peak}
+                                 "stages": stage_ms, "peak_gib": peak,
+                                 "resident_before_gib": resident}
     log(f"phase 5: 2048^2 cascade warm {statistics.median(runs):.2f} ms "
-        f"(runs {', '.join(f'{r:.2f}' for r in runs)}), peak {peak:.2f} GiB; stages "
+        f"(runs {', '.join(f'{r:.2f}' for r in runs)}), peak {peak:.2f} GiB "
+        f"({resident:.2f} GiB held before it, the UHD phases' inputs among them); stages "
         + ", ".join(f"{k}: {v:.2f} ms" for k, v in stage_ms.items()))
     detail["profile_2048"] = profile_cascade(torch, eng, img, sty)
+    del img, x
+
+    # ---- phase 5b: the warm UHD slab cascade -----------------------------------
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident_uhd = torch.cuda.memory_allocated() / 2**30
+        runs_uhd = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            slab_eng.stylize_device(img_uhd, sty2k)
+            torch.cuda.synchronize()
+            runs_uhd.append((time.perf_counter() - t0) * 1e3)
+        peak_uhd = torch.cuda.max_memory_allocated() / 2**30
+        # one cascade driven stage by stage through the fused cascade's own
+        # parts: pass 1 (encode, statistics, coloring matrix), pass 2 (folded
+        # WCT, decode); the style statistics are taken before it
+        part = slab_eng._fused_fn(cas.slab_rows, False).cascade
+        sstats = slab_eng._fused_style_stats(sty2k)
+        alpha = torch.tensor(1.0, device="cuda")
+        x, split = img_uhd, {}
+        for k in slab_eng.stages:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            keep = part.feature_bytes(k, *x.shape[1:3]) <= FEATURE_CACHE_BYTES
+            cm, cc, kept = part.content_stats(k, x, keep=keep)
+            t = coloring_matrix(cc, sstats[k][1], method=part.method, eps=part.eps,
+                                newton_iters=part.newton_iters)
+            ev[1].record()
+            x = part.color_decode_stage(k, x, t, cm, sstats[k][0], alpha, kept=kept)
+            ev[2].record()
+            torch.cuda.synchronize()
+            split[k] = {"pass1_ms": ev[0].elapsed_time(ev[1]),
+                        "pass2_ms": ev[1].elapsed_time(ev[2]), "feature_cache": keep}
+        del x, kept
+    detail["cascade_uhd_ms"] = {"runs": runs_uhd, "median": statistics.median(runs_uhd),
+                                "stages": split, "peak_gib": peak_uhd,
+                                "resident_before_gib": resident_uhd}
+    log(f"phase 5b: UHD slab cascade warm {statistics.median(runs_uhd):.2f} ms (runs "
+        f"{', '.join(f'{r:.2f}' for r in runs_uhd)}; style statistics included), peak "
+        f"{peak_uhd:.2f} GiB ({resident_uhd:.2f} GiB held before it); stages (pass 1 / "
+        f"pass 2 ms): "
+        + ", ".join(f"{k}: {v['pass1_ms']:.2f} / {v['pass2_ms']:.2f}" for k, v in split.items()))
+    detail["profile_uhd"] = profile_cascade(torch, slab_eng, img_uhd, sty2k, "phase 5b")
+    # uint8 host to host: the streamed last stage against the whole cascade
+    # then one copy, in turns on one card; the tail decodes stage 1 from pass
+    # 1's kept features, so both launch what the slab plan predicts
+    walls, u8 = {"not streamed": [], "streamed": []}, {}
+    stream_min = slab_eng.stream_min_pix
+    slab_eng.stylize(c_uhd, s2k, as_uint8=True)   # warm: the first pinned staging buffers
+    for mode in ("not streamed", "streamed", "streamed", "not streamed", "not streamed",
+                 "streamed"):
+        slab_eng.stream_min_pix = stream_min if mode == "streamed" else UHD_H * UHD_W + 1
+        for k in kc.KERNELS:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u8[mode] = slab_eng.stylize(c_uhd, s2k, as_uint8=True)
+        walls[mode].append((time.perf_counter() - t0) * 1e3)
+        counts = {k.__name__: k.launches for k in kc.KERNELS}
+        if counts != expect_uhd:
+            raise AssertionError(f"{mode}: launches {counts} != predicted {expect_uhd}")
+    slab_eng.stream_min_pix = stream_min
+    u8_diff = int(np.abs(u8["streamed"].astype(np.int16) - u8["not streamed"]).max())
+    detail["uhd_uint8_wall_ms"] = {**walls, "max_level_diff": u8_diff}
+    log(f"phase 5b: stylize(as_uint8=True) {UHD_H}x{UHD_W} host to host: not streamed "
+        f"{', '.join(f'{w:.1f}' for w in walls['not streamed'])} ms, streamed "
+        f"{', '.join(f'{w:.1f}' for w in walls['streamed'])} ms; max level diff {u8_diff}")
+    if not (u8["streamed"].shape == c_uhd.shape and u8_diff <= 1):
+        raise AssertionError(f"streamed vs not streamed uint8: {u8_diff} levels")
     for r in table:
         log(f"  {r['name']}: {r['ms']:.3f} ms/cascade over {r['launches']} launches, "
             f"plain {r['plain_ms']:.3f}, library {r['library_ms']:.3f}, "

@@ -9,8 +9,10 @@ Public surface:
     models   — VGG autoencoder specs, apply functions and the weight zoo
     ops      — NHWC conv/pool/upsample primitives, WCT transform math, and
                the CUDA kernels behind them (``ops.cuda``)
-    wct      — the 5-level stylization cascade engine
-    utils    — carrying the reference package's parameters across
+    wct      — the 5-level stylization cascade engine and its UHD row-slab
+               path
+    utils    — carrying the reference package's parameters across;
+               device-to-host copies into pinned memory
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``: a CPU
 tensor takes each kernel's plain PyTorch version, a CUDA tensor launches the

@@ -7,10 +7,12 @@ the first launch (see :mod:`._build`).
 """
 
 from .conv import conv3x3_reflect
+from .conv1x1 import conv1x1_bias
 from .pool import max_pool_2x2, upsample_nearest_2x
 from .stats import sum_gram
 
-KERNELS = (conv3x3_reflect, sum_gram, max_pool_2x2, upsample_nearest_2x)
+KERNELS = (conv3x3_reflect, conv1x1_bias, sum_gram, max_pool_2x2,
+           upsample_nearest_2x)
 
-__all__ = ["KERNELS", "conv3x3_reflect", "sum_gram", "max_pool_2x2",
-           "upsample_nearest_2x"]
+__all__ = ["KERNELS", "conv3x3_reflect", "conv1x1_bias", "sum_gram",
+           "max_pool_2x2", "upsample_nearest_2x"]

@@ -135,7 +135,7 @@ conv3x3_reflect_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int co = co0 + cg * CPT + j;
       if (co < Cout) {
         float o = acc[p][j] + b[co];
-        yp[co] = relu ? fmaxf(o, 0.f) : o;
+        yp[co] = (relu && o < 0.f) ? 0.f : o;  // NaN stays NaN, as in torch.relu
       }
     }
   }

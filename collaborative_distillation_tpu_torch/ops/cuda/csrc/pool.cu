@@ -18,10 +18,14 @@
 
 namespace {
 
-__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
+// a NaN wins, as in torch's and XLA's max (fmaxf would drop it): a NaN
+// feature map, as a one-pixel covariance gives, must stay NaN
+__device__ __forceinline__ float vmax(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
 __device__ __forceinline__ float4 vmax(float4 a, float4 b) {
-  return make_float4(fmaxf(a.x, b.x), fmaxf(a.y, b.y), fmaxf(a.z, b.z),
-                     fmaxf(a.w, b.w));
+  return make_float4(vmax(a.x, b.x), vmax(a.y, b.y), vmax(a.z, b.z),
+                     vmax(a.w, b.w));
 }
 
 template <typename T>

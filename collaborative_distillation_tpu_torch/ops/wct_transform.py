@@ -5,7 +5,9 @@ plain version on the CPU); the matrix inverse square root and square root
 from ``torch.linalg.eigh`` (a library eigensolver, as ``jnp.linalg.eigh`` is
 in the reference) or from a coupled Newton-Schulz iteration of plain
 products; whitening and coloring collapse into one C x C coloring matrix
-applied as one (P, C) x (C, C) product.
+applied as one (P, C) x (C, C) product. The slab cascade folds the whole
+transform into one affine map applied by the ``conv1x1_bias`` kernel
+(:func:`wct_apply_folded`).
 """
 
 from __future__ import annotations
@@ -13,14 +15,19 @@ from __future__ import annotations
 import torch
 
 from .conv import on_card
+from .cuda import conv1x1 as _k1x1
 from .cuda import stats as _kstats
 
 __all__ = [
     "feature_stats",
+    "gram_shift",
+    "shifted_sum_gram",
+    "stats_from_sums",
     "matrix_isqrt_sqrt_eigh",
     "matrix_isqrt_sqrt_newton",
     "coloring_matrix",
     "wct_transform",
+    "wct_apply_folded",
 ]
 
 # rows whose mean serves as the Gram's shift (see feature_stats)
@@ -39,20 +46,34 @@ def feature_stats(feat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     centred covariance exactly in exact arithmetic. Without the shift the
     float32 Gram of a multi-megapixel map cancels against ``P mean mean^T``.
 
-    A map of one pixel has no covariance: it raises ValueError (the
-    reference divides 0 by 0 and stylizes to NaN).
+    A map of one pixel (a 16x16 image reaches relu5_1 at 1x1) has no
+    covariance: it is 0/0 = NaN, as in the reference, which then stylizes
+    to an all-NaN image.
     """
     c = feat.shape[-1]
     x = feat.reshape(-1, c).float().contiguous()
-    p = x.shape[0]
-    if p < 2:
-        raise ValueError(f"feature_stats needs at least 2 pixels, got {p} "
-                         f"(a 16x16 image reaches relu5_1 at 1x1)")
-    shift = x[:_SHIFT_ROWS].mean(0)
+    shift = gram_shift(x)
+    s, g = shifted_sum_gram(x, shift)
+    return stats_from_sums(shift, s, g, x.shape[0])
+
+
+def gram_shift(x: torch.Tensor) -> torch.Tensor:
+    """The Gram's shift for a (P, C) map: the mean of its first rows."""
+    return x[:_SHIFT_ROWS].mean(0)
+
+
+def shifted_sum_gram(x: torch.Tensor, shift: torch.Tensor):
+    """``(sum(x - shift), (x - shift)^T (x - shift))`` of a contiguous (P, C)
+    matrix: the ``sum_gram`` kernel on the card, its plain version on the CPU."""
     if on_card(x):
-        s, g = _kstats.sum_gram(x, shift)
-    else:
-        s, g = _kstats.sum_gram_plain(x, shift)
+        return _kstats.sum_gram(x, shift)
+    return _kstats.sum_gram_plain(x, shift)
+
+
+def stats_from_sums(shift: torch.Tensor, s: torch.Tensor, g: torch.Tensor,
+                    p: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean, cov) of ``p`` pixels from their shifted sum ``s`` and Gram
+    ``g`` (sums that may have been added up over slabs, one shift for all)."""
     d = s / p
     mean = shift + d
     cov = (g - p * torch.outer(d, d)) / (p - 1)
@@ -65,8 +86,16 @@ def matrix_isqrt_sqrt_eigh(cov: torch.Tensor, *, eps: float = 1e-8,
 
     Eigenvalues at or below ``truncate * lambda_max`` are dropped rather than
     inverted (the reference's rank cutoff, util_wct.py:25/82-89).
+
+    A covariance with a non-finite entry (the 0/0 of a one-pixel map) gives
+    all-NaN roots, as ``jnp.linalg.eigh`` does; ``torch.linalg.eigh`` raises
+    on such a matrix, so it gets zeros in their place and the roots are
+    multiplied by NaN after, with no host sync.
     """
     c = cov.shape[0]
+    finite = torch.isfinite(cov)
+    poison = torch.where(finite.all(), 1.0, float("nan")).to(cov.dtype)
+    cov = torch.where(finite, cov, 0.0)
     cov = cov + eps * torch.eye(c, dtype=cov.dtype, device=cov.device)
     lam, v = torch.linalg.eigh(cov)
     lam_max = torch.clamp(lam[-1], min=eps)
@@ -76,7 +105,7 @@ def matrix_isqrt_sqrt_eigh(cov: torch.Tensor, *, eps: float = 1e-8,
     sq_s = torch.where(keep, torch.sqrt(torch.clamp(lam, min=0.0)), zero)
     isqrt = (v * inv_s[None, :]) @ v.T
     sqrt = (v * sq_s[None, :]) @ v.T
-    return isqrt, sqrt
+    return isqrt * poison, sqrt * poison
 
 
 def _lambda_max_estimate(a: torch.Tensor, iters: int = 8) -> torch.Tensor:
@@ -161,3 +190,24 @@ def wct_transform(content_feat: torch.Tensor, style_mean: torch.Tensor,
     if style_mean.dim() == 2:  # per-image style stats with a single image
         style_mean, style_cov = style_mean[0], style_cov[0]
     return _wct_single(content_feat, style_mean, style_cov, alpha, **kw)
+
+
+def wct_apply_folded(x: torch.Tensor, t: torch.Tensor, c_mean: torch.Tensor,
+                     s_mean: torch.Tensor, alpha) -> torch.Tensor:
+    """The whole WCT of ``x`` (..., C) as one affine map (the reference's
+    ``models/packed_vgg.py:packed_wct_apply`` at ``f == 1``)::
+
+        alpha ((x - c_mean) T^T + s_mean) + (1 - alpha) x = x M + beta,
+        M = alpha T^T + (1 - alpha) I,  beta = alpha (s_mean - c_mean T^T)
+
+    ``M`` and ``beta`` are formed in float32 and applied by the
+    ``conv1x1_bias`` kernel on the card, its plain version on the CPU."""
+    c = t.shape[0]
+    a = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
+    tt = t.float().T
+    m = (a * tt + (1.0 - a) * torch.eye(c, dtype=torch.float32, device=x.device)).contiguous()
+    beta = (a * (s_mean.float() - c_mean.float() @ tt)).contiguous()
+    x = x.float().contiguous()
+    if on_card(x):
+        return _k1x1.conv1x1_bias(x, m, beta, False)
+    return _k1x1.conv1x1_plain(x, m, beta, False)

@@ -1,10 +1,12 @@
-"""The 5-level WCT stylization cascade engine, on the plain per-stage path.
+"""The 5-level WCT stylization cascade engine.
 
-For each stage k = 5..1: encode the style with ``e{k}`` and take its channel
-statistics (cached per style key), encode the content, whiten and colour it
-(:func:`..ops.wct_transform.wct_transform`), decode with ``d{k}``. Inputs are
-reflect-padded to a multiple of 16 before the cascade and cropped after it,
-so pool/upsample round trips are exact at any resolution.
+Plain per-stage path: for each stage k = 5..1, encode the style with ``e{k}``
+and take its channel statistics (cached per style key), encode the content,
+whiten and colour it (:func:`..ops.wct_transform.wct_transform`), decode
+with ``d{k}``. With ``slab_rows`` the same cascade runs in shingled row slabs
+(:mod:`.slab`), the ultra-resolution path. Inputs are reflect-padded to a
+multiple of 16 before the cascade and cropped after it, so pool/upsample
+round trips are exact at any resolution.
 
 The engine runs on the GPU unless the caller passes ``device="cpu"``, which
 takes every kernel's plain PyTorch version.
@@ -23,6 +25,7 @@ from ..models.vgg import apply_decoder, apply_encoder
 from ..models.zoo import load_pyramid
 from ..ops.pad import reflect_index
 from ..ops.wct_transform import feature_stats, wct_transform
+from .slab import SlabCascade, _pad_rows, _to_u8, build_fused_slab_cascade
 
 __all__ = ["WCTEngine", "stage_style_stats", "stylize_stage", "resolve_device",
            "STYLE_CACHE_MAX"]
@@ -89,11 +92,22 @@ class WCTEngine:
     external ``{stage: {"enc_spec", "dec_spec", "enc", "dec"}}`` pyramid
     (e.g. from :func:`..utils.params.pyramid_from_jax`) instead of loading
     ``mode`` from the weight store.
+
+    ``slab_rows`` > 0 routes single images through the row-slab cascade
+    (:mod:`.slab`): the fused one (feature cache, cached style statistics)
+    unless ``fused=False``, which takes the per-stage :class:`SlabCascade`.
+    Images shorter than two margins take the plain path; a height that
+    wastes more than a quarter slab in padding gets an evenly dividing slab
+    (``SlabCascade.pick_slab_rows``). A uint8 output of at least
+    ``stream_min_pix`` pixels leaves the fused path's last stage to the
+    streamed tail (:meth:`SlabCascade.stream_last_stage`).
     """
 
     def __init__(self, mode: str = "16x", weights_root: str | None = None, *,
                  method: str = "eigh", newton_iters: int = 24,
-                 stages=(5, 4, 3, 2, 1), pyramid=None, device=None):
+                 stages=(5, 4, 3, 2, 1), pyramid=None, device=None,
+                 slab_rows: int = 0, fused: bool = True,
+                 stream_min_pix: int = 8 * 1024 * 1024):
         if method not in ("eigh", "newton"):
             raise ValueError(f"unknown WCT method {method!r}")
         self.device = resolve_device(device)
@@ -115,6 +129,14 @@ class WCTEngine:
         # registration threads (invalidate_style) while stylize threads
         # insert and evict; unsynchronized OrderedDict mutation corrupts it
         self._cache_lock = threading.Lock()
+        self.stream_min_pix = stream_min_pix
+        self.slab = None
+        self.fused = bool(slab_rows) and fused
+        self._fused_fns: dict = {}  # (slab_rows, tail_stats) -> fused cascade
+        if slab_rows:
+            self.slab = SlabCascade(self.pyramid, stages=self.stages,
+                                    slab_rows=slab_rows, method=method,
+                                    newton_iters=newton_iters)
 
     # -- style statistics ------------------------------------------------
 
@@ -131,18 +153,30 @@ class WCTEngine:
             while len(self._style_cache) > STYLE_CACHE_MAX:
                 self._style_cache.popitem(last=False)
 
-    def _style_stats(self, k, style: torch.Tensor, cache_key=None):
-        key = (k, cache_key, tuple(style.shape)) if cache_key is not None else None
-        if key is not None:
-            with self._cache_lock:
-                if key in self._style_cache:
-                    self._style_cache.move_to_end(key)
-                    return self._style_cache[key]
-        p = self.pyramid[k]
-        stats = stage_style_stats(p["enc"], p["enc_spec"], style)
-        if key is not None:
-            self._cache_put(key, stats)
+    def _cached(self, tag, style_key, style: torch.Tensor, compute):
+        """``compute()``, LRU-cached under ``(tag, style_key, shape)`` when
+        ``style_key`` is given."""
+        if style_key is None:
+            return compute()
+        key = (tag, style_key, tuple(style.shape))
+        with self._cache_lock:
+            if key in self._style_cache:
+                self._style_cache.move_to_end(key)
+                return self._style_cache[key]
+        stats = compute()
+        self._cache_put(key, stats)
         return stats
+
+    def _style_stats(self, k, style: torch.Tensor, cache_key=None):
+        p = self.pyramid[k]
+        return self._cached(k, cache_key, style,
+                            lambda: stage_style_stats(p["enc"], p["enc_spec"], style))
+
+    def _fused_style_stats(self, style: torch.Tensor, style_key=None):
+        """Per-stage {k: (mean, cov)} for the fused slab cascade, LRU-cached
+        under ``("fused", style_key, shape)``."""
+        return self._cached("fused", style_key, style,
+                            lambda: {k: self._style_stats(k, style) for k in self.stages})
 
     @torch.inference_mode()
     def blend_styles(self, styles, weights=None, *, style_keys=None):
@@ -166,6 +200,9 @@ class WCTEngine:
         w = w / w.sum()
         if style_keys is None:
             style_keys = [None] * n
+        if self.slab is not None and not self.fused:
+            raise ValueError("style blending needs the fused slab path (fused=True): "
+                             "the per-stage slab cascade re-encodes the raw style")
         if all(k is not None for k in style_keys):
             blend_key = "blend:" + "+".join(
                 f"{k}:{wi:.4f}" for k, wi in zip(style_keys, w))
@@ -174,12 +211,16 @@ class WCTEngine:
         proxy = np.zeros((16, 16, 3), np.float32)
         proxy_shape = (1, 16, 16, 3)
         dev = [self._prep(s) for s in styles]
+        blends = {}
         for k in self.stages:
             per_k = [self._style_stats(k, d, cache_key=sk)
                      for d, sk in zip(dev, style_keys)]
             m = sum(float(wi) * p[0] for wi, p in zip(w, per_k))
             c = sum(float(wi) * p[1] for wi, p in zip(w, per_k))
+            blends[k] = (m, c)
             self._cache_put((k, blend_key, proxy_shape), (m, c))
+        if self.fused:
+            self._cache_put(("fused", blend_key, proxy_shape), blends)
         return blend_key, proxy
 
     def stylize_multi(self, content, styles, weights=None, alpha: float = 1.0,
@@ -212,9 +253,9 @@ class WCTEngine:
         img = self._prep(content)
         h, w = np.shape(content)[-3:-1]
         out = self._run(img, self._prep(style), alpha, num_run=num_run,
-                        style_key=style_key)[:, :h, :w]
-        out = self._float_to_u8(out) if as_uint8 else torch.clamp(out, 0.0, 1.0)
-        out = out.cpu().numpy()
+                        style_key=style_key, as_uint8=as_uint8)[:, :h, :w]
+        if not isinstance(out, np.ndarray):  # numpy: streamed to the host as uint8
+            out = (_to_u8(out) if as_uint8 else torch.clamp(out, 0.0, 1.0)).cpu().numpy()
         return out[0] if squeeze else out
 
     @torch.inference_mode()
@@ -229,8 +270,48 @@ class WCTEngine:
                         num_run=num_run, style_key=style_key)
         return torch.clamp(out[:, :h, :w], 0.0, 1.0)
 
-    def _run(self, img, sty, alpha, *, num_run: int, style_key):
+    def _fused_fn(self, slab: int, tail: bool):
+        key = (slab, tail)
+        if key not in self._fused_fns:
+            self._fused_fns[key] = build_fused_slab_cascade(
+                self.pyramid, stages=self.stages, slab_rows=slab, method=self.method,
+                newton_iters=self.newton_iters, external_style_stats=True,
+                tail_stats=tail)
+        return self._fused_fns[key]
+
+    def _run(self, img, sty, alpha, *, num_run: int, style_key, as_uint8: bool = False):
+        """The cascade on padded device inputs: the (padded) device image, or
+        a host uint8 numpy image where a slab path streamed it there."""
         alpha = torch.as_tensor(alpha, dtype=torch.float32, device=self.device)
+        if self.slab is not None and (img.shape[0] > 1 or sty.shape[0] > 1):
+            raise ValueError("the slab path is per-image (its statistics would pool "
+                             "the batch); stylize the images one at a time")
+        if self.slab is None or img.shape[1] < 2 * self.slab.margin:
+            # no slabs, or an image smaller than one slab's margins
+            return self._run_plain(img, sty, alpha, num_run=num_run, style_key=style_key)
+        if not self.fused:
+            for i in range(num_run):
+                img = self.slab.stylize(img, sty, alpha,
+                                        to_host_uint8=as_uint8 and i == num_run - 1)
+            return img
+        h = img.shape[1]
+        slab = self.slab.slab_rows
+        if -(-h // slab) * slab - h > slab // 4:
+            # awkward height: an evenly dividing slab size
+            slab = SlabCascade.pick_slab_rows(h, slab, self.slab.margin,
+                                              self.slab.down_max)
+        img = _pad_rows(img, -(-h // slab) * slab)
+        sstats = self._fused_style_stats(sty, style_key)
+        if as_uint8 and num_run == 1 and img.shape[1] * img.shape[2] >= self.stream_min_pix:
+            head = self._fused_fn(slab, True)
+            h_img, t, c_mean, s_mean, kept = head(img, sstats, alpha)
+            return head.cascade.stream_last_stage(h_img, t, c_mean, s_mean, alpha, kept=kept)
+        fn = self._fused_fn(slab, False)
+        for _ in range(num_run):
+            img = fn(img, sstats, alpha)
+        return img
+
+    def _run_plain(self, img, sty, alpha, *, num_run: int, style_key):
         for _ in range(num_run):
             for k in self.stages:
                 s_mean, s_cov = self._style_stats(k, sty, cache_key=style_key)
@@ -243,8 +324,3 @@ class WCTEngine:
     @staticmethod
     def _u8_to_float(x: torch.Tensor) -> torch.Tensor:
         return x.float() / 255.0
-
-    @staticmethod
-    def _float_to_u8(x: torch.Tensor) -> torch.Tensor:
-        """Round half up (values are clipped to [0, 1] first)."""
-        return (torch.clamp(x.float(), 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)

@@ -155,8 +155,11 @@ def test_engine_runs_on_the_card_unless_asked(monkeypatch):
         WCTEngine(device="meta")
     with pytest.raises(ValueError):
         WCTEngine(device="cpu", method="svd")
-    # the UHD and multi-chip arguments come with later slices, not silently
-    for kw in ({"slab_rows": 256}, {"space": 2}, {"transport": "yuv420"},
-               {"packed": True}, {"halo": "pallas"}):
+    # the single-card UHD path is ported; the multi-chip and transport
+    # arguments come with later slices, not silently, and packing (a TPU
+    # lane layout) has no counterpart
+    assert WCTEngine(device="cpu", slab_rows=256).slab.slab_rows == 256
+    for kw in ({"space": 2}, {"transport": "yuv420"}, {"packed": True},
+               {"halo": "pallas"}):
         with pytest.raises(TypeError):
             WCTEngine(device="cpu", **kw)

@@ -81,6 +81,68 @@ def test_pool_and_upsample_kernels_are_exact(gen, shape, aligned):
     assert torch.equal(kc.upsample_nearest_2x(x), kc.upsample_nearest_2x.plain(x))
 
 
+CONV1X1_CASES = [  # (P, Cin, Cout, relu, bias, offset)
+    (4096, 24, 24, False, True, 0), (4096, 128, 128, False, True, 0),
+    (1000, 32, 64, True, True, 0), (777, 64, 128, True, False, 0),
+    (1, 8, 8, False, True, 0), (1, 128, 3, True, True, 0), (65, 3, 24, True, True, 0),
+    (300, 24, 128, False, True, 1), (129, 128, 24, False, True, 3),
+    (5000, 12, 8, True, False, 0),
+]
+
+
+@pytest.mark.parametrize("case", CONV1X1_CASES, ids=str)
+def test_conv1x1_kernel_matches_plain(gen, case):
+    # tolerance: float32 sums of up to 128 products in another order, relative
+    # to the largest magnitude a partial sum can take; an offset of 1 or 3
+    # floats leaves a contiguous map that is not 16-byte aligned
+    p, ci, co, relu, bias, offset = case
+    buf = _rand(gen, p * ci + offset) - 0.5
+    x = buf[offset:].view(p, ci)
+    w = (_rand(gen, ci, co) - 0.5) * (2 / ci ** 0.5)
+    b = _rand(gen, co) - 0.5 if bias else None
+    got, ref = kc.conv1x1_bias(x, w, b, relu), kc.conv1x1_bias.plain(x, w, b, relu)
+    torch.cuda.synchronize()
+    scale = float(x.abs().max() * w.abs().sum(0).max() + (b.abs().max() if bias else 0))
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
+
+
+def test_kernels_keep_nan_as_torch_does(gen):
+    """A NaN input stays NaN through ReLU and max pool, as in torch and the
+    reference (a one-pixel covariance makes a whole cascade NaN)."""
+    x = _rand(gen, 1, 6, 6, 8) - 0.5
+    x[0, 2, 3, 1] = float("nan")
+    w3 = _rand(gen, 3, 3, 8, 8) - 0.5
+    w1 = _rand(gen, 8, 8) - 0.5
+    b = torch.zeros(8, device="cuda")
+    for got, ref in [(kc.max_pool_2x2(x), kc.max_pool_2x2.plain(x)),
+                     (kc.conv3x3_reflect(x, w3, b, True), kc.conv3x3_reflect.plain(x, w3, b, True)),
+                     (kc.conv1x1_bias(x, w1, b, True), kc.conv1x1_bias.plain(x, w1, b, True))]:
+        assert torch.equal(got.isnan(), ref.isnan()) and bool(got.isnan().any())
+
+
+def test_slab_engine_on_card_matches_cpu():
+    """The slab engine on the card against the same engine on the CPU at
+    512^2 (padded to two 288-row slabs, stage margins up to 144): the same
+    float32 math in other orders, held to the cascade bar of 40 dB."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+
+    import numpy as np
+
+    from collaborative_distillation_tpu_torch.wct.engine import WCTEngine
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with np.load(os.path.join(root, "collaborative_distillation_tpu_torch", "data",
+                              "photo_pair_512.npz")) as d:
+        c, s = d["content"], d["style"]
+    before = kc.conv1x1_bias.launches
+    card = WCTEngine(mode="16x", slab_rows=288).stylize(c, s)
+    assert kc.conv1x1_bias.launches - before == 5 * 2
+    cpu = WCTEngine(mode="16x", slab_rows=288, device="cpu").stylize(c, s)
+    mse = float(np.mean((card.astype(np.float64) - cpu) ** 2))
+    assert 10 * np.log10(1.0 / mse) >= 40.0
+
+
 def test_launch_counts_and_refusals(gen):
     x = _rand(gen, 1, 4, 4, 8)
     before = kc.max_pool_2x2.launches

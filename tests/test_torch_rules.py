@@ -51,6 +51,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kc.conv3x3_reflect(x, torch.zeros(3, 3, 8, 4), torch.zeros(4), True)
     with pytest.raises(ValueError, match="CUDA"):
+        kc.conv1x1_bias(x, torch.zeros(8, 4), torch.zeros(4), False)
+    with pytest.raises(ValueError, match="CUDA"):
         kc.sum_gram(x.reshape(16, 8))
     with pytest.raises(ValueError, match="CUDA"):
         kc.max_pool_2x2(x)
@@ -60,6 +62,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kc.conv3x3_reflect(x, torch.zeros(3, 3, 5, 4), None, True)  # Cin mismatch
     with pytest.raises(ValueError):
         kc.sum_gram(torch.zeros(4, 600))  # C > 512
+    with pytest.raises(ValueError):
+        kc.conv1x1_bias(x, torch.zeros(5, 4), None, False)  # Cin mismatch
+    with pytest.raises(ValueError):
+        kc.conv1x1_bias(torch.zeros(2, 200), torch.zeros(200, 4), None, False)  # Cin > 128
     assert all(k.launches == 0 for k in kc.KERNELS)
     assert all(callable(k.plain) for k in kc.KERNELS)
 

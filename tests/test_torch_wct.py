@@ -59,9 +59,20 @@ def test_feature_stats_shift_is_exact_against_float64(rng):
     _close(c.numpy(), np.cov(x64, rowvar=False), 1e-4)
 
 
-def test_feature_stats_refuses_one_pixel():
-    with pytest.raises(ValueError, match="at least 2 pixels"):
-        tw.feature_stats(torch.ones(1, 1, 1, 8))
+def test_feature_stats_refuses_one_pixel(rng):
+    """A one-pixel map (a 16x16 image at relu5_1) has no covariance: the port
+    gives what the reference gives, the pixel as the mean and 0/0 = NaN as
+    the covariance, and its eigh route turns that into NaN roots without
+    raising, as jnp.linalg.eigh does."""
+    x = rng.standard_normal((1, 1, 1, 8)).astype(np.float32)
+    m, c = tw.feature_stats(torch.from_numpy(x))
+    jm, jc = jw.feature_stats(jnp.asarray(x))
+    np.testing.assert_array_equal(m.numpy(), np.asarray(jm))
+    assert np.isnan(c.numpy()).all() and np.isnan(np.asarray(jc)).all()
+    for method in ("eigh", "newton"):
+        t = tw.coloring_matrix(c, torch.eye(8), method=method)
+        jt = jw.coloring_matrix(jc, jnp.eye(8), method=method)
+        assert np.isnan(t.numpy()).all() and np.isnan(np.asarray(jt)).all()
 
 
 @pytest.mark.parametrize("c", [16, 64])
