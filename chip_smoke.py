@@ -13,7 +13,10 @@ Phases (any failure raises and the script exits non-zero):
   2. each kernel against its plain version on the card, at every distinct
      shape of the mode-16x cascade at 512^2 and of the UHD slab cascade,
      the plain UHD cascade's largest conv map, plus edge shapes (1-pixel maps, odd sizes, C not a multiple of 4,
-     unaligned slices); a 16x16 image (relu5_1 at 1x1) stylizes to all-NaN
+     unaligned slices); ``halo_exchange_rows`` exactly, at every (stage,
+     shard position) shape of the sharded UHD path and at edge shapes (one
+     row, the whole neighbour, N = 2, odd row sizes, offset slices, the
+     shard's own reflection rows as sources); a 16x16 image (relu5_1 at 1x1) stylizes to all-NaN
      without raising, as the reference does; the 2048^2 and the UHD
      (slab-summed) stage-1 covariances against float64 centred ones;
   3. the main path: ``WCTEngine(mode="16x").stylize`` on a 2048^2 photo pair,
@@ -23,10 +26,19 @@ Phases (any failure raises and the script exits non-zero):
      photo pair reflect-tiled to 4096 x 10240 content and 2048^2 style, one
      warm cascade with the counters zeroed; the counts must equal the slab
      plan's (20 ``conv1x1_bias`` launches: 5 stages x 4 slabs);
+  3c. the sharded UHD path: ``WCTEngine(mode="16x", space=4, slab_rows=512,
+     devices=["cuda:0"] * 4).stylize`` on the same pair, four row shards on
+     the one card, counters zeroed; the counts must equal the sharded plan's
+     (20 ``halo_exchange_rows`` launches: 5 stages x 4 shards). With two or
+     more cards the halo check and this phase run once more across cards;
+     with one a line says that no cross-card run was made;
   4. the card's 512^2 output against the same engine on the CPU (PSNR);
   4b. the UHD slab output against the plain per-stage cascade on the card
      (PSNR), a 2048^2 slab run (``slab_rows=512``) against the plain one,
      and the feature cache on against off;
+  4c. the sharded UHD output against the single-card fused slab cascade at
+     the same slab size (PSNR), and the per-conv sharded cascade at 2048^2
+     (``space=4`` without ``slab_rows``) against the plain one;
   5. timings: each kernel, its plain version and one library call at every
      2048^2 shape of the path, weighted by the calls per cascade, beside the
      least time the card could take; the warm 2048^2 cascade and its stages;
@@ -34,7 +46,14 @@ Phases (any failure raises and the script exits non-zero):
      slab cascade (median of 3), split by stage and into pass 1 and pass 2,
      its peak memory and profile; ``stylize(as_uint8=True)`` host to host
      with the streamed last stage against without, three runs each, both
-     with the slab plan's launch counts.
+     with the slab plan's launch counts;
+  5c. ``halo_exchange_rows`` at the sharded UHD shapes beside its plain
+     version and ``torch.cat`` of ready slices; the warm sharded UHD cascade
+     (median of 3), its peak memory and profile.
+
+With ``--cross-card`` (two or more cards) it runs only the halo check and
+the sharded UHD path with neighbouring shards on different cards, against
+the single-card slab cascade, and prints no kernel table.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -65,7 +84,9 @@ KERNEL_META = {
     "sum_gram": ("sum_gram.cu", "collaborative_distillation_tpu/ops/pallas/stats.py:61"),
     "max_pool_2x2": ("pool.cu", "collaborative_distillation_tpu/ops/pallas/pool.py:96"),
     "upsample_nearest_2x": ("pool.cu", "collaborative_distillation_tpu/ops/pallas/pool.py:141"),
+    "halo_exchange_rows": ("halo.cu", "collaborative_distillation_tpu/ops/pallas/halo.py:148"),
 }
+KERNEL_PATH = {"conv1x1_bias": "UHD slab", "halo_exchange_rows": "UHD sharded"}
 # Tolerances, each against the plain version on the same inputs:
 #   conv3x3, conv1x1: |kernel - plain| <= 1e-5 * S, S = max|x| * max_co sum|w|
 #     + max|b|, the largest magnitude any partial sum can take; both sum up
@@ -76,7 +97,7 @@ KERNEL_META = {
 #   covariance at the 2048^2 and UHD stage-1 maps vs float64 centred:
 #     1e-4 * max|cov64|.
 #   feature cache on vs off: 1e-6 (the same kernels on the same inputs).
-#   pool, upsample: exact (a max and a copy).
+#   pool, upsample, halo_exchange_rows: exact (a max and copies).
 CONV_TOL = 1e-5
 GRAM_TOL = 2e-5
 COV64_TOL = 1e-4
@@ -84,6 +105,8 @@ PSNR_MIN_DB = 40.0
 CACHE_TOL = 1e-6
 UHD_H, UHD_W = 4096, 10240   # the README's 10240x4096 UHD image, rows first
 UHD_SLAB = 1024
+SHARDS = 4                   # row shards of the sharded UHD path
+SHARD_SLAB = 512             # two slabs in each 1024-row shard
 
 
 def log(*a):
@@ -156,6 +179,36 @@ def slab_path_calls(pyramid, stages, margins, slab, h, w, sh, sw, cache_bytes):
     return calls, layer_of
 
 
+def sharded_path_calls(pyramid, stages, margins, slab, space, h, w, sh, sw):
+    """Kernel calls of one sharded slab cascade (no style key) on an (h, w)
+    content cut into ``space`` row shards of a multiple of ``slab`` rows,
+    and an (sh, sw) style: per stage the style's encode and statistics on
+    the engine's device, one halo exchange per shard (2 * margin rows from
+    each neighbour), then per shard pass 1 over its slabs of ``slab + 2 *
+    margin`` rows and pass 2, which encodes each slab again."""
+    calls, layer_of = Counter(), {}
+    h_loc = h // space
+    n_slabs = h_loc // slab
+    for k in stages:
+        es, ds = pyramid[k]["enc_spec"], pyramid[k]["dec_spec"]
+        c, down = es.out_channels, 2 ** (k - 1)
+        hh, ww = _encoder_calls(calls, layer_of, k, es, sh, sw)
+        calls[("sum_gram", (hh * ww, c))] += 1
+        hm = 2 * margins[k]
+        rows = slab + hm
+        for d in range(space):
+            pos = "first" if d == 0 else "last" if d == space - 1 else "mid"
+            calls[("halo_exchange_rows", (1, h_loc, w, 3, hm, pos, 0))] += 1
+            for _ in range(n_slabs):
+                fh, fw = _encoder_calls(calls, layer_of, k, es, rows, w)
+                calls[("sum_gram", (slab // down * fw, c))] += 1
+            for _ in range(n_slabs):
+                _encoder_calls(calls, layer_of, k, es, rows, w)
+                calls[("conv1x1_bias", (1, fh, fw, c, c, False, True, 0))] += 1
+                assert _decoder_calls(calls, layer_of, k, ds, fh, fw) == (rows, w)
+    return calls, layer_of
+
+
 def work(kernel, shape):
     """(bytes, flops) the function must move and compute: each input read
     once, each output written once, float32."""
@@ -172,6 +225,12 @@ def work(kernel, shape):
         # each per row; the column sum and the shift subtraction p*c each
         p, c = shape
         return 4 * (p * c + c + c * c + c), p * c * (c + 1) + 2 * p * c
+    if kernel == "halo_exchange_rows":
+        # the extended map written once; the shard and each halo that has a
+        # source read once (a global edge's zero fill reads nothing)
+        n, h, w, c, hm, pos, _ = shape
+        sources = (pos != "first") + (pos != "last")
+        return 4 * n * w * c * ((h + 2 * hm) + (h + sources * hm)), 0
     n, h, w, c = shape
     if kernel == "max_pool_2x2":
         out = n * (h // 2) * (w // 2) * c
@@ -271,6 +330,26 @@ class Bench:
             call = lambda: k(x, shift)
             plain = lambda: k.plain(x, shift)
             library = lambda: x.T @ x
+        elif kernel == "halo_exchange_rows":
+            # (N, H, W, C, hm, shard position, float offset): the shard and
+            # its neighbours are contiguous maps that start ``offset`` floats
+            # into their buffers; the halos are the neighbours' boundary rows
+            n, h, w, c, hm, pos, offset = shape
+            x, up, down = ((self.rand(n * h * w * c + offset))[offset:].view(n, h, w, c)
+                           for _ in range(3))
+            top = up[:, -hm:] if pos != "first" else None
+            bot = down[:, :hm] if pos != "last" else None
+            got, ref = k(x, top, bot, hm), k.plain(x, top, bot, hm)
+            if got.shape != ref.shape:
+                raise AssertionError(f"{kernel}{shape}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
+            err = float((got - ref).abs().max())
+            tol, scale = 0.0, 1.0
+            del got, ref
+            call = lambda: k(x, top, bot, hm)
+            plain = lambda: k.plain(x, top, bot, hm)
+            zeros = torch.zeros((n, hm, w, c), device="cuda")
+            parts = [zeros if top is None else top, x, zeros if bot is None else bot]
+            library = lambda: torch.cat(parts, dim=1)
         else:
             n, h, w, c = shape
             x = self.rand(n, h, w, c)
@@ -369,6 +448,94 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
     return float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
 
 
+def sharded_main_path(torch, kc, engine, c_uhd, s2k, calls_sh, label) -> dict:
+    """The sharded UHD path through ``engine.stylize``, host to host: one
+    warm call, then one with every launch counter set to 0 before it and
+    read after it; the counts must equal the sharded plan's and the output
+    must be a finite, restyled image in [0, 1]."""
+    t0 = time.perf_counter()
+    engine.stylize(c_uhd, s2k)   # warm
+    cold = time.perf_counter() - t0
+    for k in kc.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = engine.stylize(c_uhd, s2k, alpha=1.0)
+    secs = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in kc.KERNELS}
+    expect = {k.__name__: sum(c for (kernel, _), c in calls_sh.items()
+                              if kernel == k.__name__) for k in kc.KERNELS}
+    log(f"{label}: stylize {UHD_H}x{UHD_W} space={SHARDS} slab_rows={engine._tiled_slab} "
+        f"on {[str(d) for d in engine.mesh.devices[0]]} in {secs:.3f} s warm "
+        f"({cold:.3f} s first call; host transfer included); launches {counts}, "
+        f"predicted {expect}")
+    if counts != expect or any(v <= 0 for v in counts.values()):
+        raise AssertionError(f"{label}: launch counts {counts} != predicted {expect}")
+    change = float(np.abs(out - c_uhd.astype(np.float32) / 255.0).mean())
+    if not (out.shape == c_uhd.shape and np.isfinite(out).all()
+            and out.min() >= 0.0 and out.max() <= 1.0 and change > 0.02):
+        raise AssertionError(f"{label}: bad output: shape {out.shape}, range "
+                             f"[{out.min()}, {out.max()}], mean change {change}")
+    log(f"{label}: output finite, in [0, 1], mean |out - content| {change:.4f}")
+    return {"s": secs, "cold_s": cold, "launches": counts, "mean_change": change}
+
+
+def cross_card(torch, kc, WCTEngine, bench, c_uhd, s2k, calls_sh) -> dict:
+    """Phases 2, 3c, 4c and 5c for shards on different cards (two or more
+    visible): the halo kernel reading neighbours' rows on other cards (peer
+    pointers, or the copy where the cards have no peer access) against its
+    plain version, exactly; the sharded UHD path with neighbouring shards on
+    different cards, its launch counts, its output against the single-card
+    slab cascade, and its warm time and per-card peak memory."""
+    n_cards = torch.cuda.device_count()
+    spread = [f"cuda:{i % n_cards}" for i in range(SHARDS)]
+    peer = {f"{a}->{b}": torch.cuda.can_device_access_peer(a, b)
+            for a in range(n_cards) for b in range(n_cards) if a != b}
+    log(f"cross-card: {n_cards} cards, peer access {peer}")
+    for n, h, w, c, hm, offset in [(1, 64, 256, 3, 8, 0), (2, 16, 33, 3, 16, 1),
+                                   (1, 1024, UHD_W, 3, 288, 0)]:
+        x, up, down = (bench.rand(n * h * w * c + offset)[offset:].view(n, h, w, c)
+                       for _ in range(3))
+        up, down = up.to("cuda:1"), down.to(f"cuda:{n_cards - 1}")
+        got = kc.halo_exchange_rows(x, up[:, -hm:], down[:, :hm], hm)
+        torch.cuda.synchronize()
+        if not (got.device == x.device and torch.equal(
+                got, kc.halo_exchange_rows.plain(x, up[:, -hm:], down[:, :hm], hm))):
+            raise AssertionError(f"halo_exchange_rows{(n, h, w, c, hm, offset)} with "
+                                 f"neighbours on other cards differs from its plain version")
+    log("cross-card: halo_exchange_rows with neighbours on other cards equals its plain "
+        "version exactly at 3 shapes")
+    engine = WCTEngine(mode="16x", space=SHARDS, slab_rows=SHARD_SLAB, devices=spread)
+    out = {"main": sharded_main_path(torch, kc, engine, c_uhd, s2k, calls_sh,
+                                     "phase 3c (cross-card)"), "peer": peer}
+    with torch.inference_mode():
+        img, sty = engine._prep(c_uhd), engine._prep(s2k)
+        one_card = WCTEngine(mode="16x", slab_rows=SHARD_SLAB).stylize_device(img, sty)
+        db = psnr_device(torch, engine.stylize_device(img, sty), one_card)
+        del one_card
+        for d in range(n_cards):
+            torch.cuda.synchronize(d)
+            torch.cuda.reset_peak_memory_stats(d)
+        runs, enqueued = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            engine.stylize_device(img, sty)
+            enqueued.append((time.perf_counter() - t0) * 1e3)   # the host has enqueued all work
+            for d in range(n_cards):
+                torch.cuda.synchronize(d)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        peaks = [torch.cuda.max_memory_allocated(d) / 2**30 for d in range(n_cards)]
+    log(f"phase 4c/5c (cross-card): vs the single-card slab cascade PSNR {db:.2f} dB (min "
+        f"{PSNR_MIN_DB}); warm sharded UHD cascade on {spread} "
+        f"{statistics.median(runs):.2f} ms (runs {', '.join(f'{r:.2f}' for r in runs)}; the "
+        f"host had enqueued all work after {', '.join(f'{r:.2f}' for r in enqueued)} ms), "
+        f"peak GiB per card {', '.join(f'{p:.2f}' for p in peaks)}")
+    if not db >= PSNR_MIN_DB:
+        raise AssertionError(f"cross-card sharded vs single-card PSNR {db:.2f} dB")
+    out.update(psnr_db=db, runs_ms=runs, enqueued_ms=enqueued,
+               median_ms=statistics.median(runs), peak_gib=peaks)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -415,7 +582,23 @@ def main() -> int:
     cas = slab_eng.slab
     calls_uhd, layers_uhd = slab_path_calls(pyr, eng.stages, cas.margins, cas.slab_rows,
                                             UHD_H, UHD_W, 2048, 2048, FEATURE_CACHE_BYTES)
+    shard_eng = WCTEngine(mode="16x", space=SHARDS, slab_rows=SHARD_SLAB,
+                          devices=["cuda:0"] * SHARDS)
+    calls_sh, layers_sh = sharded_path_calls(pyr, eng.stages, cas.margins,
+                                             shard_eng._tiled_slab, SHARDS, UHD_H, UHD_W,
+                                             2048, 2048)
     names = [k.__name__ for k in kc.KERNELS]
+    if "--cross-card" in sys.argv[1:]:
+        # only what exists across cards: needs two or more, prints no kernel table
+        if torch.cuda.device_count() < 2:
+            print("chip_smoke --cross-card: needs two or more CUDA devices", file=sys.stderr)
+            return 1
+        detail["cross_card"] = cross_card(torch, kc, WCTEngine, bench, c_uhd, s2k, calls_sh)
+        os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(HERE, "chiprun_out", "chip_smoke_cross_card.json"), "w") as f:
+            json.dump(detail, f, indent=1)
+        print(smi)
+        return 0
 
     # ---- phase 2: kernel vs plain at the path's shapes ---------------------
     calls512, layers512 = path_calls(pyr, eng.stages, 512, 512)
@@ -436,8 +619,19 @@ def main() -> int:
               (1, 7, 13, 24, 24, True, True, 0), (1, 9, 33, 128, 24, False, False, 0),
               (1, 5, 31, 24, 128, False, True, 1), (1, 16, 17, 8, 128, True, True, 3),
               (2, 4, 5, 3, 24, False, True, 0), (1, 3, 11, 128, 8, True, False, 2)]]
+    # halo: (N, H, W, C, hm, position, float offset): one row, the whole
+    # neighbour, N = 2, W*C not a multiple of 4, shards at odd offsets
+    edge += [("halo_exchange_rows", s) for s in
+             [(1, 8, 16, 8, 1, "mid", 0), (1, 8, 16, 8, 8, "mid", 0), (2, 8, 16, 8, 2, "mid", 0),
+              (1, 6, 5, 3, 2, "mid", 0), (2, 6, 5, 3, 3, "first", 1), (1, 4, 7, 1, 1, "last", 3),
+              (2, 64, 33, 3, 32, "mid", 2), (1, 1, 9, 4, 1, "mid", 0)]]
     for kernel, shape in edge:
         checks.append(bench.run(kernel, shape))
+    # the per-conv exchange's sources at a global edge: the shard's own rows
+    xr = bench.rand(2, 6, 5, 3)
+    if not torch.equal(kc.halo_exchange_rows(xr, xr[:, 1:2], xr[:, -2:-1], 1),
+                       kc.halo_exchange_rows.plain(xr, xr[:, 1:2], xr[:, -2:-1], 1)):
+        raise AssertionError("halo_exchange_rows with the shard's own reflection rows")
     # every (kernel, shape) of the UHD slab path (slabs 10240 wide, sum_gram
     # over 10.5M rows), and the plain UHD cascade's largest conv map (past
     # 2^31 bytes), the yardstick of phase 4b
@@ -448,9 +642,16 @@ def main() -> int:
     for kernel, shape in sorted(calls_uhd, key=str):
         checks.append(bench.run(kernel, shape, layers_uhd.get(shape)))
     checks.append(bench.run("conv3x3_reflect", biggest, layers_plain_uhd[biggest]))
+    # every (kernel, shape) of the sharded UHD path that the slab path lacks:
+    # the halo at each (stage, shard position), slabs of 512 + 2 * margin rows
+    only_sh = sorted(set(calls_sh) - set(calls_uhd), key=str)
+    for kernel, shape in only_sh:
+        checks.append(bench.run(kernel, shape, layers_sh.get(shape)))
+    n_halo = sum(kernel == "halo_exchange_rows" for kernel, _ in only_sh)
     log(f"phase 2: {len(checks)} kernel-vs-plain checks passed at the 512^2 path, edge, "
-        f"all {len(calls_uhd)} UHD slab path and the plain UHD {biggest} shapes "
-        f"(UHD ones in {time.perf_counter() - t0:.1f} s)")
+        f"all {len(calls_uhd)} UHD slab path, the plain UHD {biggest} and the "
+        f"{len(only_sh)} further sharded UHD path shapes ({n_halo} of the halo, exact; "
+        f"UHD ones in {time.perf_counter() - t0:.1f} s)")
     # 1-pixel reflect: a 16x16 image reaches conv51 at 1x1 in the stage-5
     # encoder; every stage's encoder and decoder, card vs CPU plain
     tiny = np.random.default_rng(0).random((1, 16, 16, 3), np.float32)
@@ -531,7 +732,7 @@ def main() -> int:
     expect = {n: sum(c for (kernel, _), c in calls2k.items() if kernel == n) for n in names}
     log(f"phase 3: stylize 2048^2 in {main_s:.3f} s (first call, host transfer "
         f"included); launches {launches}, predicted {expect}")
-    if launches != expect or any(launches[n] <= 0 for n in names if n != "conv1x1_bias"):
+    if launches != expect or any(launches[n] <= 0 for n in names if n not in KERNEL_PATH):
         raise AssertionError(f"launch counts {launches} != predicted {expect}")
     content_f = c2k.astype(np.float32) / 255.0
     change = float(np.abs(out - content_f).mean())
@@ -557,7 +758,8 @@ def main() -> int:
     log(f"phase 3b: stylize {UHD_H}x{UHD_W} slab_rows={UHD_SLAB} in {uhd_s:.3f} s warm "
         f"({cold_s:.3f} s first call; host transfer included); margins {cas.margins}; "
         f"launches {launches_uhd}, predicted {expect_uhd}")
-    if launches_uhd != expect_uhd or any(v <= 0 for v in launches_uhd.values()):
+    if launches_uhd != expect_uhd or any(v <= 0 for n, v in launches_uhd.items()
+                                         if n != "halo_exchange_rows"):
         raise AssertionError(f"UHD launch counts {launches_uhd} != predicted {expect_uhd}")
     change = float(np.abs(out_uhd - c_uhd.astype(np.float32) / 255.0).mean())
     if not (out_uhd.shape == c_uhd.shape and np.isfinite(out_uhd).all()
@@ -568,6 +770,17 @@ def main() -> int:
     detail["uhd_main"] = {"s": uhd_s, "cold_s": cold_s, "launches": launches_uhd,
                           "mean_change": change}
     del out_uhd
+
+    # ---- phase 3c: the sharded UHD path, four row shards on the one card --------
+    detail["sharded_main"] = sharded_main_path(torch, kc, shard_eng, c_uhd, s2k, calls_sh,
+                                               "phase 3c")
+    launches_sh = detail["sharded_main"]["launches"]
+    if torch.cuda.device_count() >= 2:
+        detail["cross_card"] = cross_card(torch, kc, WCTEngine, bench, c_uhd, s2k, calls_sh)
+    else:
+        log("phase 3c: one card: the four shards shared it; no cross-card run was made "
+            "(peer pointers and the event ordering between cards' streams are not "
+            "exercised here)")
 
     # ---- phase 4: 512^2 card vs CPU plain cascade ---------------------------
     o_card = eng.stylize(c512, s512)
@@ -609,6 +822,29 @@ def main() -> int:
         raise AssertionError(f"slab vs plain: UHD {db_uhd:.2f} dB, 2048^2 {db_2k:.2f} dB, "
                              f"cache on/off {cache_err}")
 
+    # ---- phase 4c: sharded against single-card, slab and per-conv ---------------
+    with torch.inference_mode():
+        one_card = WCTEngine(mode="16x", slab_rows=SHARD_SLAB).stylize_device(img_uhd, sty2k)
+        db_sh = psnr_device(torch, shard_eng.stylize_device(img_uhd, sty2k), one_card)
+        del one_card
+        before = kc.halo_exchange_rows.launches
+        per_conv = WCTEngine(mode="16x", space=SHARDS, devices=["cuda:0"] * SHARDS)
+        db_pc = psnr_device(torch, per_conv.stylize_device(img2k, sty2k),
+                            eng.stylize_device(img2k, sty2k))
+        pc_halos = kc.halo_exchange_rows.launches - before
+    # one exchange per conv and shard, content and style
+    pc_expect = SHARDS * sum(c for (kernel, _), c in calls2k.items()
+                             if kernel == "conv3x3_reflect")
+    log(f"phase 4c: UHD sharded (space={SHARDS}, slab_rows={SHARD_SLAB}) vs the single-card "
+        f"slab cascade at the same slab size PSNR {db_sh:.2f} dB; 2048^2 per-conv sharded "
+        f"vs plain {db_pc:.2f} dB (min {PSNR_MIN_DB}); per-conv halo launches {pc_halos}, "
+        f"predicted {pc_expect}")
+    detail["sharded_vs_single"] = {"uhd_psnr_db": db_sh, "per_conv_2048_psnr_db": db_pc,
+                                   "per_conv_halo_launches": pc_halos}
+    if not (db_sh >= PSNR_MIN_DB and db_pc >= PSNR_MIN_DB and pc_halos == pc_expect):
+        raise AssertionError(f"sharded vs single-card: UHD {db_sh:.2f} dB, per-conv "
+                             f"{db_pc:.2f} dB, halo launches {pc_halos} != {pc_expect}")
+
     # ---- phase 5: timings at the 2048^2 path shapes -------------------------
     rows = []
     for (kernel, shape), n in sorted(calls2k.items(), key=str):
@@ -621,7 +857,14 @@ def main() -> int:
             r = bench.run(kernel, shape, timed=True)
             r["calls"] = n
             rows.append(r)
-    path_launches = {**launches, "conv1x1_bias": launches_uhd["conv1x1_bias"]}
+    # halo_exchange_rows lies on the sharded UHD path only
+    for (kernel, shape), n in sorted(calls_sh.items(), key=str):
+        if kernel == "halo_exchange_rows":
+            r = bench.run(kernel, shape, timed=True)
+            r["calls"] = n
+            rows.append(r)
+    path_launches = {**launches, "conv1x1_bias": launches_uhd["conv1x1_bias"],
+                     "halo_exchange_rows": launches_sh["halo_exchange_rows"]}
     table = []
     for k in kc.KERNELS:
         name = k.__name__
@@ -640,7 +883,7 @@ def main() -> int:
         table.append({
             "name": name, "route": "cuda", "source": REPO_PATH + src, "replaces": rep,
             "launches": path_launches[name], "max_abs_err": max(errs), "max_err": max(errs),
-            "path": "UHD slab" if name == "conv1x1_bias" else "2048^2 plain",
+            "path": KERNEL_PATH.get(name, "2048^2 plain"),
             "max_rel_err": max(rel),
             "ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": bound,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
@@ -754,6 +997,29 @@ def main() -> int:
         f"{', '.join(f'{w:.1f}' for w in walls['streamed'])} ms; max level diff {u8_diff}")
     if not (u8["streamed"].shape == c_uhd.shape and u8_diff <= 1):
         raise AssertionError(f"streamed vs not streamed uint8: {u8_diff} levels")
+    # ---- phase 5c: the warm sharded UHD cascade ----------------------------------
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident_sh = torch.cuda.memory_allocated() / 2**30
+        runs_sh, enqueued_sh = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            shard_eng.stylize_device(img_uhd, sty2k)
+            enqueued_sh.append((time.perf_counter() - t0) * 1e3)   # the host has enqueued all work
+            torch.cuda.synchronize()
+            runs_sh.append((time.perf_counter() - t0) * 1e3)
+        peak_sh = torch.cuda.max_memory_allocated() / 2**30
+    detail["cascade_sharded_ms"] = {"runs": runs_sh, "median": statistics.median(runs_sh),
+                                    "enqueued_ms": enqueued_sh,
+                                    "peak_gib": peak_sh, "resident_before_gib": resident_sh}
+    log(f"phase 5c: UHD sharded cascade (space={SHARDS} on one card, slab_rows={SHARD_SLAB}) "
+        f"warm {statistics.median(runs_sh):.2f} ms (runs "
+        f"{', '.join(f'{r:.2f}' for r in runs_sh)}; style statistics included; the host had "
+        f"enqueued all work after {', '.join(f'{r:.2f}' for r in enqueued_sh)} ms), peak "
+        f"{peak_sh:.2f} GiB ({resident_sh:.2f} GiB held before it)")
+    detail["profile_sharded"] = profile_cascade(torch, shard_eng, img_uhd, sty2k, "phase 5c")
     for r in table:
         log(f"  {r['name']}: {r['ms']:.3f} ms/cascade over {r['launches']} launches, "
             f"plain {r['plain_ms']:.3f}, library {r['library_ms']:.3f}, "

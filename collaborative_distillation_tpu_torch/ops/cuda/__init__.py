@@ -8,11 +8,12 @@ the first launch (see :mod:`._build`).
 
 from .conv import conv3x3_reflect
 from .conv1x1 import conv1x1_bias
+from .halo import halo_exchange_rows
 from .pool import max_pool_2x2, upsample_nearest_2x
 from .stats import sum_gram
 
 KERNELS = (conv3x3_reflect, conv1x1_bias, sum_gram, max_pool_2x2,
-           upsample_nearest_2x)
+           upsample_nearest_2x, halo_exchange_rows)
 
 __all__ = ["KERNELS", "conv3x3_reflect", "conv1x1_bias", "sum_gram",
-           "max_pool_2x2", "upsample_nearest_2x"]
+           "max_pool_2x2", "upsample_nearest_2x", "halo_exchange_rows"]

@@ -43,6 +43,7 @@ _SIGNATURES = {
     "cd_sum_gram": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cd_max_pool_2x2": [_P, _P, _I, _I, _I, _I, _P],
     "cd_upsample_nearest_2x": [_P, _P, _I, _I, _I, _I, _P],
+    "cd_halo_exchange_rows": [_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _P],
 }
 
 _lock = threading.Lock()

@@ -28,12 +28,17 @@ from ..ops.wct_transform import feature_stats, wct_transform
 from .slab import SlabCascade, _pad_rows, _to_u8, build_fused_slab_cascade
 
 __all__ = ["WCTEngine", "stage_style_stats", "stylize_stage", "resolve_device",
-           "STYLE_CACHE_MAX"]
+           "STYLE_CACHE_MAX", "TILED_MAX_SHARD_PIX"]
 
 # style-statistics cache bound: (stage, key, shape) -> (mean, cov) entries
 # are small (C <= 512: <= 1 MB each), but a long-lived server registering
 # styles forever must not grow device memory without bound.
 STYLE_CACHE_MAX = 64
+# guard for the per-conv-halo sharded path (space > 1 WITHOUT slab_rows),
+# which keeps every shard's full feature maps: beyond this many pixels per
+# shard the engine refuses and points to slab_rows, whose slab-in-shard
+# cascade exists for that regime. 16 MPix per shard is about a 4K image.
+TILED_MAX_SHARD_PIX = 16 * 1024 * 1024
 
 
 def resolve_device(device) -> torch.device:
@@ -48,12 +53,14 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _pad_to_multiple(x: torch.Tensor, mult: int = 16) -> tuple[torch.Tensor, tuple[int, int]]:
-    """Reflect-pad H and W to a multiple of ``mult``, bottom and right, as
-    ``np.pad(mode="reflect")`` does."""
+def _pad_to_multiple(x: torch.Tensor, mult_h: int = 16,
+                     mult_w: int = 16) -> tuple[torch.Tensor, tuple[int, int]]:
+    """Reflect-pad H to a multiple of ``mult_h`` and W to one of ``mult_w``,
+    bottom and right, as ``np.pad(mode="reflect")`` does. Row sharding cuts
+    only H, so W never needs the ``16 * space`` of the rows."""
     _, h, w, _ = x.shape
-    ph = (-h) % mult
-    pw = (-w) % mult
+    ph = (-h) % mult_h
+    pw = (-w) % mult_w
     if ph:
         x = x.index_select(1, reflect_index(h, 0, ph, x.device))
     if pw:
@@ -101,13 +108,25 @@ class WCTEngine:
     (``SlabCascade.pick_slab_rows``). A uint8 output of at least
     ``stream_min_pix`` pixels leaves the fused path's last stage to the
     streamed tail (:meth:`SlabCascade.stream_last_stage`).
+
+    ``space`` > 1 cuts each image's rows into that many shards over
+    ``devices``, a list of devices in shard order in which a device may stand
+    more than once (``["cuda:0"] * 4``: four shards on one card;
+    ``["cpu"] * 4`` with ``device="cpu"``: the CPU). Without ``devices`` the
+    shards take the visible CUDA devices, one each, and the engine raises
+    when there are fewer than ``space``. With ``slab_rows`` every shard
+    streams in slabs (:func:`..parallel.spatial.build_tiled_slab_cascade`);
+    without, every conv exchanges one-row halos
+    (:func:`..parallel.spatial.build_tiled_stylize_fn`) and images over
+    ``TILED_MAX_SHARD_PIX`` pixels per shard are refused. Both are per-image;
+    the result is joined on the engine's device.
     """
 
     def __init__(self, mode: str = "16x", weights_root: str | None = None, *,
                  method: str = "eigh", newton_iters: int = 24,
                  stages=(5, 4, 3, 2, 1), pyramid=None, device=None,
                  slab_rows: int = 0, fused: bool = True,
-                 stream_min_pix: int = 8 * 1024 * 1024):
+                 stream_min_pix: int = 8 * 1024 * 1024, space: int = 0, devices=None):
         if method not in ("eigh", "newton"):
             raise ValueError(f"unknown WCT method {method!r}")
         self.device = resolve_device(device)
@@ -131,12 +150,32 @@ class WCTEngine:
         self._cache_lock = threading.Lock()
         self.stream_min_pix = stream_min_pix
         self.slab = None
-        self.fused = bool(slab_rows) and fused
+        self.space = space if space and space > 1 else 0
+        if devices is not None and not self.space:
+            raise ValueError("devices lists the row shards' devices and needs space > 1; "
+                             "the engine's own device is `device`")
+        self.fused = bool(slab_rows) and fused and not self.space
         self._fused_fns: dict = {}  # (slab_rows, tail_stats) -> fused cascade
-        if slab_rows:
+        self._tiled_fn = None
+        self._tiled_slab = 0   # the sharded slab cascade's effective slab size
+        if slab_rows and not self.space:
             self.slab = SlabCascade(self.pyramid, stages=self.stages,
                                     slab_rows=slab_rows, method=method,
                                     newton_iters=newton_iters)
+        if self.space:
+            # imported here: parallel/spatial.py builds on this package's slab.py
+            from ..parallel.mesh import make_mesh
+            from ..parallel.spatial import build_tiled_slab_cascade, build_tiled_stylize_fn
+            self.mesh = make_mesh(space=self.space, devices=devices)
+            kw = dict(stages=self.stages, method=method, newton_iters=newton_iters)
+            if slab_rows:
+                # memory-bounded path: slab streaming inside each row shard
+                self._tiled_fn = build_tiled_slab_cascade(
+                    self.pyramid, self.mesh, slab_rows=slab_rows,
+                    external_style_stats=True, **kw)
+                self._tiled_slab = self._tiled_fn.slab_rows
+            else:
+                self._tiled_fn = build_tiled_stylize_fn(self.pyramid, self.mesh, **kw)
 
     # -- style statistics ------------------------------------------------
 
@@ -203,13 +242,18 @@ class WCTEngine:
         if self.slab is not None and not self.fused:
             raise ValueError("style blending needs the fused slab path (fused=True): "
                              "the per-stage slab cascade re-encodes the raw style")
+        if self._tiled_fn is not None and not self._tiled_slab:
+            raise ValueError("style blending needs precomputed style statistics: the "
+                             "per-conv sharded path (space without slab_rows) encodes "
+                             "the raw style in shards")
         if all(k is not None for k in style_keys):
             blend_key = "blend:" + "+".join(
                 f"{k}:{wi:.4f}" for k, wi in zip(style_keys, w))
         else:
             blend_key = "blend:" + uuid.uuid4().hex
-        proxy = np.zeros((16, 16, 3), np.float32)
-        proxy_shape = (1, 16, 16, 3)
+        mult_h = 16 * self.space if self.space else 16
+        proxy = np.zeros((mult_h, 16, 3), np.float32)
+        proxy_shape = (1, mult_h, 16, 3)
         dev = [self._prep(s) for s in styles]
         blends = {}
         for k in self.stages:
@@ -239,7 +283,7 @@ class WCTEngine:
         if x.dim() == 3:
             x = x[None]
         x = self._u8_to_float(x) if x.dtype == torch.uint8 else x.float()
-        return _pad_to_multiple(x, 16)[0]
+        return _pad_to_multiple(x, 16 * self.space if self.space else 16, 16)[0]
 
     @torch.inference_mode()
     def stylize(self, content: np.ndarray, style: np.ndarray, alpha: float = 1.0,
@@ -283,9 +327,12 @@ class WCTEngine:
         """The cascade on padded device inputs: the (padded) device image, or
         a host uint8 numpy image where a slab path streamed it there."""
         alpha = torch.as_tensor(alpha, dtype=torch.float32, device=self.device)
-        if self.slab is not None and (img.shape[0] > 1 or sty.shape[0] > 1):
-            raise ValueError("the slab path is per-image (its statistics would pool "
-                             "the batch); stylize the images one at a time")
+        if ((self.slab is not None or self._tiled_fn is not None)
+                and (img.shape[0] > 1 or sty.shape[0] > 1)):
+            raise ValueError("the slab and sharded paths are per-image (their statistics "
+                             "would pool the batch); stylize the images one at a time")
+        if self._tiled_fn is not None:
+            return self._run_tiled(img, sty, alpha, num_run=num_run, style_key=style_key)
         if self.slab is None or img.shape[1] < 2 * self.slab.margin:
             # no slabs, or an image smaller than one slab's margins
             return self._run_plain(img, sty, alpha, num_run=num_run, style_key=style_key)
@@ -310,6 +357,40 @@ class WCTEngine:
         for _ in range(num_run):
             img = fn(img, sstats, alpha)
         return img
+
+    def _shards(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """The rows of ``x`` cut into one contiguous shard per ``space``
+        device, each on its device."""
+        return [part.contiguous().to(dev) for part, dev in
+                zip(x.chunk(self.space, dim=1), self.mesh.devices[0])]
+
+    def _run_tiled(self, img, sty, alpha, *, num_run: int, style_key):
+        """The row-sharded cascade: cut the rows, run, join on the engine's
+        device. The caller crops the padding."""
+        if self._tiled_slab:
+            # slabs inside shards: pad H to slab granularity per shard; the
+            # style statistics are taken once on the engine's device (cached
+            # per style key) and copied to the shards by the cascade
+            mult = self._tiled_slab * self.space
+            img = _pad_rows(img, -(-img.shape[1] // mult) * mult)
+            sty = {k: self._style_stats(k, sty, cache_key=style_key) for k in self.stages}
+        else:
+            # per-conv halos hold FULL per-shard feature maps, the O(H*W)
+            # footprint the slab cascade exists to avoid: refuse
+            # ultra-resolution inputs with a pointer, not an out-of-memory
+            per_shard_pix = img.shape[1] * img.shape[2] / self.space
+            if per_shard_pix > TILED_MAX_SHARD_PIX:
+                raise ValueError(
+                    f"{img.shape[1]}x{img.shape[2]} over space={self.space} leaves "
+                    f"{per_shard_pix / 1e6:.0f} MPix of full-height feature maps per "
+                    f"shard on the per-conv-halo path; construct the engine with "
+                    f"slab_rows (memory-bounded slab-in-shard cascade) for images "
+                    f"this large")
+            sty = self._shards(sty)
+        shards = self._shards(img)
+        for _ in range(num_run):
+            shards = self._tiled_fn(shards, sty, alpha)
+        return torch.cat([s.to(self.device) for s in shards], dim=1)
 
     def _run_plain(self, img, sty, alpha, *, num_run: int, style_key):
         for _ in range(num_run):

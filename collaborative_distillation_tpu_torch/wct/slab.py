@@ -159,12 +159,14 @@ class SlabCascade:
         dec = apply_decoder(p["dec"], csf, p["dec_spec"])["out"]
         return dec[:, offset:offset + interior]
 
-    def content_stats(self, k, img: torch.Tensor, *, keep: bool = False):
-        """Pass 1 of stage ``k`` over ``img`` (1, H, W, 3), H a multiple of
-        ``slab_rows``: ``(mean, cov, kept)``, the exact statistics of the
-        interior feature rows of every slab, all shifted by the mean of the
-        first slab's first interior rows, and with ``keep`` the list of the
-        slabs' features (else None)."""
+    def slab_sums(self, k, img: torch.Tensor, slabs, *, shift=None, keep: bool = False):
+        """Pass 1 of stage ``k`` over ``slabs``, ``(start, rows, offset)``
+        triples into the rows of ``img`` (1, H, W, 3): ``(shift, sum, gram,
+        count, kept)``, the shifted sum and Gram of every slab's interior
+        feature rows added up, their pixel count, and with ``keep`` the list
+        of the slabs' features (else None). ``shift`` is the Gram's shift;
+        None takes the mean of the first slab's first interior rows. Sums of
+        several calls add only where they used one shift."""
         if img.shape[0] != 1:
             raise ValueError("the slab path is per-image (N = 1): WCT statistics "
                              "would pool the batch")
@@ -173,8 +175,8 @@ class SlabCascade:
         down = 2 ** (k - 1)
         interior_f = self.slab_rows // down
         c = spec.out_channels
-        kept, shift, s_sum, g_sum, count = [], None, 0.0, 0.0, 0
-        for start, rows, off in self._slabs(img.shape[1], k):
+        kept, s_sum, g_sum, count = [], 0.0, 0.0, 0
+        for start, rows, off in slabs:
             feats = _encode(p["enc"], spec, img[:, start:start + rows])
             x = feats[:, off // down:off // down + interior_f].reshape(-1, c)
             if shift is None:
@@ -184,8 +186,18 @@ class SlabCascade:
             if keep:
                 kept.append(feats)
             del feats, x
+        return shift, s_sum, g_sum, count, kept if keep else None
+
+    def content_stats(self, k, img: torch.Tensor, *, keep: bool = False):
+        """Pass 1 of stage ``k`` over ``img`` (1, H, W, 3), H a multiple of
+        ``slab_rows``: ``(mean, cov, kept)``, the exact statistics of the
+        interior feature rows of every slab, all shifted by the mean of the
+        first slab's first interior rows, and with ``keep`` the list of the
+        slabs' features (else None)."""
+        shift, s_sum, g_sum, count, kept = self.slab_sums(
+            k, img, self._slabs(img.shape[1], k), keep=keep)
         mean, cov = stats_from_sums(shift, s_sum, g_sum, count)
-        return mean, cov, kept if keep else None
+        return mean, cov, kept
 
     def feature_bytes(self, k, h: int, w: int) -> int:
         """Bytes of stage ``k``'s stacked slab features for an (h, w) image."""
@@ -214,13 +226,18 @@ class SlabCascade:
             img = self.color_decode_stage(k, img, t, c_mean, s_mean, alpha, kept=kept)
         return img
 
-    def _decoded_slabs(self, k, img: torch.Tensor, t, c_mean, s_mean, alpha, kept):
+    def _decoded_slabs(self, k, img: torch.Tensor, t, c_mean, s_mean, alpha, kept,
+                       slabs=None):
         """Pass 2 of stage ``k``: yields ``(row, rows)``, each slab's
         interior rows, decoded from its features (``kept[i]``, which is
-        released, or encoded anew) through the folded WCT."""
+        released, or encoded anew) through the folded WCT. ``slabs``:
+        ``(start, rows, offset)`` triples into ``img``'s rows instead of
+        :meth:`_slabs`'s (a row shard extended by its neighbours' halos)."""
         p = self.pyramid[k]
         slab = self.slab_rows
-        for i, (start, rows, off) in enumerate(self._slabs(img.shape[1], k)):
+        if slabs is None:
+            slabs = self._slabs(img.shape[1], k)
+        for i, (start, rows, off) in enumerate(slabs):
             if kept is not None:
                 feats, kept[i] = kept[i], None
             else:
@@ -229,10 +246,13 @@ class SlabCascade:
             del feats
 
     def color_decode_stage(self, k, img: torch.Tensor, t, c_mean, s_mean, alpha, *,
-                           kept=None) -> torch.Tensor:
-        """Pass 2 of stage ``k``, interior rows into one preallocated image."""
-        out = torch.empty_like(img)
-        for row, rows in self._decoded_slabs(k, img, t, c_mean, s_mean, alpha, kept):
+                           kept=None, slabs=None) -> torch.Tensor:
+        """Pass 2 of stage ``k``, interior rows into one preallocated image
+        of ``slab_rows`` rows per slab (``img``'s own height without
+        ``slabs``)."""
+        slabs = list(self._slabs(img.shape[1], k) if slabs is None else slabs)
+        out = img.new_empty((img.shape[0], len(slabs) * self.slab_rows, *img.shape[2:]))
+        for row, rows in self._decoded_slabs(k, img, t, c_mean, s_mean, alpha, kept, slabs):
             out[:, row:row + rows.shape[1]] = rows
         return out
 

@@ -155,11 +155,18 @@ def test_engine_runs_on_the_card_unless_asked(monkeypatch):
         WCTEngine(device="meta")
     with pytest.raises(ValueError):
         WCTEngine(device="cpu", method="svd")
-    # the single-card UHD path is ported; the multi-chip and transport
-    # arguments come with later slices, not silently, and packing (a TPU
-    # lane layout) has no counterpart
+    # the single-card UHD path and the row-sharded one are ported; the
+    # transport arguments come with later slices, not silently, and packing
+    # (a TPU lane layout) and the choice of halo implementation have no
+    # counterpart
     assert WCTEngine(device="cpu", slab_rows=256).slab.slab_rows == 256
-    for kw in ({"space": 2}, {"transport": "yuv420"}, {"packed": True},
-               {"halo": "pallas"}):
+    for kw in ({"transport": "yuv420"}, {"packed": True}, {"halo": "pallas"}):
         with pytest.raises(TypeError):
             WCTEngine(device="cpu", **kw)
+    # row shards want one CUDA device each unless the caller lists devices
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="needs 2 devices"):
+            WCTEngine(device="cpu", space=2)
+    assert WCTEngine(device="cpu", space=2, devices=["cpu"] * 2).space == 2
+    with pytest.raises(ValueError, match="space > 1"):
+        WCTEngine(device="cpu", devices=["cpu"])

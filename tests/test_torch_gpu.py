@@ -143,6 +143,80 @@ def test_slab_engine_on_card_matches_cpu():
     assert 10 * np.log10(1.0 / mse) >= 40.0
 
 
+HALO_CASES = [  # (N, H, W, C, hm, float offset of the shard, sides)
+    (1, 8, 16, 8, 2, 0, "both"), (1, 8, 16, 8, 8, 0, "both"), (2, 8, 16, 8, 1, 0, "both"),
+    (1, 6, 5, 3, 2, 0, "both"), (2, 6, 5, 3, 3, 1, "both"), (1, 4, 7, 1, 1, 3, "both"),
+    (1, 16, 64, 3, 4, 0, "top"), (1, 16, 64, 3, 4, 0, "bot"), (2, 5, 9, 2, 5, 0, "none"),
+]
+
+
+@pytest.mark.parametrize("case", HALO_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8], ids=str)
+def test_halo_kernel_equals_plain(gen, case, dtype):
+    """A copy: exact at every shape, with 16-byte, 4-byte and 1-byte units
+    (odd row sizes, a shard and neighbours that start at an odd offset)."""
+    n, h, w, c, hm, offset, sides = case
+
+    def shard():
+        buf = (_rand(gen, n * h * w * c + offset) * 200).to(dtype)
+        return buf[offset:].view(n, h, w, c)
+
+    x, up, down = shard(), shard(), shard()
+    top = up[:, -hm:] if sides in ("both", "top") else None
+    bot = down[:, :hm] if sides in ("both", "bot") else None
+    before = kc.halo_exchange_rows.launches
+    got = kc.halo_exchange_rows(x, top, bot, hm)
+    torch.cuda.synchronize()
+    assert kc.halo_exchange_rows.launches == before + 1
+    assert torch.equal(got, kc.halo_exchange_rows.plain(x, top, bot, hm))
+
+
+def test_halo_kernel_takes_the_shards_own_rows_and_refuses_strided_ones(gen):
+    x = _rand(gen, 2, 6, 5, 3)
+    got = kc.halo_exchange_rows(x, x[:, 1:2], x[:, -2:-1], 1)   # the reflection rows
+    assert torch.equal(got, kc.halo_exchange_rows.plain(x, x[:, 1:2], x[:, -2:-1], 1))
+    with pytest.raises(ValueError, match="contiguous"):
+        kc.halo_exchange_rows(x.permute(0, 2, 1, 3), None, None, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        kc.halo_exchange_rows(x, _rand(gen, 2, 2, 3, 5).permute(0, 1, 3, 2), None, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        kc.halo_exchange_rows(x, x[:, :1].cpu(), None, 1)
+
+
+def test_sharded_engines_on_one_card_match_single_device():
+    """Four row shards on cuda:0: the slab-in-shard cascade against the
+    single-card slab engine at the same slab size (global slab boundaries
+    coincide; float32 order only), and the per-conv cascade against the plain
+    engine, both at the cascade bar of 40 dB; 5 stages x 4 shards halo
+    launches for the first."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+
+    import numpy as np
+
+    from collaborative_distillation_tpu_torch.wct.engine import WCTEngine
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with np.load(os.path.join(root, "collaborative_distillation_tpu_torch", "data",
+                              "photo_pair_512.npz")) as d:
+        c, s = d["content"], d["style"]
+    tall = np.concatenate([c, c[::-1], c])[:1152, :128]   # 4 shards x one 288-row slab
+
+    def psnr(a, b):
+        mse = float(np.mean((a.astype(np.float64) - b) ** 2))
+        return float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
+
+    before = kc.halo_exchange_rows.launches
+    sharded = WCTEngine(mode="16x", space=4, slab_rows=288, devices=["cuda:0"] * 4).stylize(tall, s)
+    assert kc.halo_exchange_rows.launches - before == 5 * 4
+    assert psnr(sharded, WCTEngine(mode="16x", slab_rows=288).stylize(tall, s)) >= 40.0
+    per_conv = WCTEngine(mode="16x", space=4, devices=["cuda:0"] * 4).stylize(c, s)
+    assert psnr(per_conv, WCTEngine(mode="16x").stylize(c, s)) >= 40.0
+    if torch.cuda.device_count() < 4:
+        with pytest.raises(ValueError, match="needs 4 devices"):
+            WCTEngine(mode="16x", space=4, slab_rows=288)
+
+
 def test_launch_counts_and_refusals(gen):
     x = _rand(gen, 1, 4, 4, 8)
     before = kc.max_pool_2x2.launches

@@ -17,6 +17,7 @@ import torch
 from collaborative_distillation_tpu_torch.ops import conv as tconv
 from collaborative_distillation_tpu_torch.ops import cuda as kc
 from collaborative_distillation_tpu_torch.ops.cuda import _build
+from collaborative_distillation_tpu_torch.parallel import spatial as tsp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "collaborative_distillation_tpu_torch")
@@ -58,6 +59,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kc.max_pool_2x2(x)
     with pytest.raises(ValueError, match="CUDA"):
         kc.upsample_nearest_2x(x)
+    with pytest.raises(ValueError, match="CUDA"):
+        kc.halo_exchange_rows(x, x[:, -2:], None, 2)
+    with pytest.raises(ValueError):
+        kc.halo_exchange_rows(x, x[:, -1:], None, 2)  # one halo row where two are due
     with pytest.raises(ValueError):
         kc.conv3x3_reflect(x, torch.zeros(3, 3, 5, 4), None, True)  # Cin mismatch
     with pytest.raises(ValueError):
@@ -74,8 +79,12 @@ def test_dispatch_takes_plain_on_cpu_and_refuses_other_devices():
     x = torch.zeros(1, 4, 4, 8)
     assert not tconv.on_card(x)
     assert tconv.max_pool_2x2(x).shape == (1, 2, 2, 8)
+    assert [e.shape for e in tsp._exchange_row_halos([x, x], 2)] == [(1, 8, 4, 8)] * 2
+    assert [e.shape for e in tsp.halo_exchange_rows([x, x])] == [(1, 6, 4, 8)] * 2
     with pytest.raises(ValueError, match="device"):
         tconv.on_card(torch.zeros(1, device="meta"))
+    with pytest.raises(ValueError, match="device"):
+        tsp._exchange_row_halos([torch.zeros(1, 4, 4, 8, device="meta")] * 2, 2)
 
 
 def test_ctypes_signatures_match_c_entry_points():
