@@ -39,6 +39,9 @@ Phases (any failure raises and the script exits non-zero):
   4c. the sharded UHD output against the single-card fused slab cascade at
      the same slab size (PSNR), and the per-conv sharded cascade at 2048^2
      (``space=4`` without ``slab_rows``) against the plain one;
+  4d. a height that is no slab multiple (4000 x 10240): the slab cascade
+     against the plain one, and the sharded cascade against the slab one
+     (PSNR; the last window ends at the image, nothing is mirrored in);
   5. timings: each kernel, its plain version and one library call at every
      2048^2 shape of the path, weighted by the calls per cascade, beside the
      least time the card could take; the warm 2048^2 cascade and its stages;
@@ -49,7 +52,17 @@ Phases (any failure raises and the script exits non-zero):
      with the slab plan's launch counts;
   5c. ``halo_exchange_rows`` at the sharded UHD shapes beside its plain
      version and ``torch.cat`` of ready slices; the warm sharded UHD cascade
-     (median of 3), its peak memory and profile.
+     (median of 3), its peak memory and profile;
+  6. the host boundary: (a) whether the native codec built (or why not);
+     with it, ``stylize_jpeg`` on a UHD 4:2:0 JPEG made from the photo pair,
+     with the counters zeroed (the slab plan's counts), its bytes and
+     ``stylize_planes_jpeg``'s equal to ``stylize_planes`` +
+     ``encode_jpeg_yuv420``; without it, the None contract; (b)
+     ``stylize_planes`` at UHD against the RGB transport (Y plane PSNR); (c)
+     uint8 host-to-host walls at 2048^2 and UHD for ``transport="rgb"`` and
+     ``"yuv420"``, and ``push`` through pinned staging at several chunk sizes
+     against a pageable ``.to()``; (d) ``stylize_pairs`` over four 2048^2
+     uint8 pairs, bit-equal to four ``stylize`` calls, and both walls.
 
 With ``--cross-card`` (two or more cards) it runs only the halo check and
 the sharded UHD path with neighbouring shards on different cards, against
@@ -107,6 +120,8 @@ UHD_H, UHD_W = 4096, 10240   # the README's 10240x4096 UHD image, rows first
 UHD_SLAB = 1024
 SHARDS = 4                   # row shards of the sharded UHD path
 SHARD_SLAB = 512             # two slabs in each 1024-row shard
+AWK_H = 4000                 # phase 4d: no multiple of either slab size
+PUSH_CHUNKS = (4 << 20, 16 << 20, 64 << 20)   # phase 6c: push's staging chunks
 
 
 def log(*a):
@@ -536,6 +551,139 @@ def cross_card(torch, kc, WCTEngine, bench, c_uhd, s2k, calls_sh) -> dict:
     return out
 
 
+def _walls(torch, order, run) -> dict:
+    """Host-to-host wall milliseconds of ``run(label)`` per label, in the
+    given order (labels in turns on one card), after one warm call each."""
+    for label in dict.fromkeys(order):
+        run(label)
+    walls: dict = {label: [] for label in order}
+    for label in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(label)
+        torch.cuda.synchronize()
+        walls[label].append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def _fmt(walls) -> str:
+    return "; ".join(f"{k} {statistics.median(v):.1f} ms (runs {', '.join(f'{x:.1f}' for x in v)})"
+                     for k, v in walls.items())
+
+
+def host_boundary(torch, kc, slab_eng, eng, c_uhd, c2k, s2k, expect_uhd) -> dict:
+    """Phase 6: the host boundary on the card (see the module docstring)."""
+    from collaborative_distillation_tpu_torch.data import native_codec as nc
+    from collaborative_distillation_tpu_torch.utils.colorspace import (rgb_to_yuv420_host,
+                                                                       yuv420_to_rgb_host)
+    from collaborative_distillation_tpu_torch.utils.transfer import push
+    dev = eng.device
+    out: dict = {"codec_built": nc.available(), "codec_reason": nc.unavailable_reason()}
+    # ---- 6a: the codec, and the JPEG endpoints at UHD (the slice's main path)
+    if out["codec_built"]:
+        log(f"phase 6a: native codec built from native/imgcodec.cpp into {nc.build_dir()}")
+        jpeg = nc.encode_jpeg_yuv420(*nc.rgb_to_yuv420(c_uhd), quality=95)
+        y, cbcr = nc.decode_jpeg_yuv420(jpeg)
+        for k in kc.KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        body = slab_eng.stylize_jpeg(jpeg, s2k)
+        jpeg_s = time.perf_counter() - t0
+        counts = {k.__name__: k.launches for k in kc.KERNELS}
+        whole = nc.encode_jpeg_yuv420(*slab_eng.stylize_planes(y, cbcr, s2k), quality=95)
+        planes_body = slab_eng.stylize_planes_jpeg(y, cbcr, s2k)
+        log(f"phase 6a: stylize_jpeg {UHD_H}x{UHD_W} ({len(jpeg)} B in, "
+            f"{0 if body is None else len(body)} B out) in {jpeg_s:.3f} s; launches {counts}, "
+            f"predicted {expect_uhd}; bytes equal to stylize_planes + encode: "
+            f"{body == whole}; stylize_planes_jpeg's: {planes_body == whole}")
+        if counts != expect_uhd or any(v <= 0 for n, v in counts.items()
+                                       if n != "halo_exchange_rows"):
+            raise AssertionError(f"stylize_jpeg launches {counts} != predicted {expect_uhd}")
+        if body is None or body != whole or planes_body != whole:
+            raise AssertionError("streamed JPEG bytes differ from stylize_planes + encode")
+        rgb = yuv420_to_rgb_host(*(p[None] for p in nc.decode_jpeg_yuv420(body)))[0]
+        change = float(np.abs(rgb.astype(np.float32) - c_uhd).mean()) / 255.0
+        if not (rgb.shape == c_uhd.shape and change > 0.02):
+            raise AssertionError(f"stylize_jpeg output {rgb.shape}, mean change {change}")
+        out.update(jpeg_s=jpeg_s, launches=counts, jpeg_in_bytes=len(jpeg),
+                   jpeg_out_bytes=len(body), mean_change=change)
+    else:
+        log(f"phase 6a: native codec NOT built ({out['codec_reason']}); the reference's "
+            f"contract for a machine without it is checked instead")
+        y, cbcr = (p[0] for p in rgb_to_yuv420_host(c_uhd[None]))   # numpy
+        streamable = slab_eng.supports_streamed_jpeg()
+        nones = (slab_eng.stylize_jpeg(b"\xff\xd8\xff", s2k),
+                 slab_eng.stylize_planes_jpeg(y, cbcr, s2k))
+        log(f"phase 6a: supports_streamed_jpeg() {streamable}; stylize_jpeg and "
+            f"stylize_planes_jpeg return {nones}")
+        if not streamable or nones != (None, None):
+            raise AssertionError("the no-codec contract does not hold")
+        for k in kc.KERNELS:
+            k.launches = 0
+        slab_eng.stylize_planes(y, cbcr, s2k)
+        counts = {k.__name__: k.launches for k in kc.KERNELS}
+        log(f"phase 6a: stylize_planes {UHD_H}x{UHD_W} launches {counts}, predicted {expect_uhd}")
+        if counts != expect_uhd:
+            raise AssertionError(f"stylize_planes launches {counts} != predicted {expect_uhd}")
+        out.update(launches=counts)
+    # ---- 6b: stylize_planes against the RGB transport, Y planes
+    yo, _ = slab_eng.stylize_planes(y, cbcr, s2k)
+    rgb_in = yuv420_to_rgb_host(y[None], cbcr[None])[0]
+    y_rgb = rgb_to_yuv420_host(slab_eng.stylize(rgb_in, s2k, as_uint8=True,
+                                                transport="rgb")[None])[0][0]
+    db = psnr(yo / 255.0, y_rgb / 255.0)
+    log(f"phase 6b: stylize_planes {UHD_H}x{UHD_W} Y plane vs the rgb transport's PSNR "
+        f"{db:.2f} dB (min {PSNR_MIN_DB})")
+    out["planes_vs_rgb_y_db"] = db
+    if not db >= PSNR_MIN_DB:
+        raise AssertionError(f"stylize_planes vs rgb transport {db:.2f} dB")
+    # ---- 6c: uint8 host-to-host walls by transport, and push's staging
+    sizes = [("2048^2", c2k, eng)]
+    if out["codec_built"]:   # without the codec the UHD conversion is numpy's: left out
+        sizes.append(("UHD", c_uhd, slab_eng))
+    out["walls_ms"], out["timed"] = {}, {}
+    for label, c, e in sizes:
+        walls = _walls(torch, ["rgb", "yuv420", "yuv420", "rgb", "rgb", "yuv420"],
+                       lambda tr: e.stylize(c, s2k, as_uint8=True, transport=tr))
+        out["walls_ms"][label] = walls
+        for tr in ("rgb", "yuv420"):
+            e.stylize(c, s2k, as_uint8=True, transport=tr, timed=True)
+            out["timed"][f"{label} {tr}"] = e.last_timings
+        log(f"phase 6c: stylize(as_uint8=True) {label} host to host: {_fmt(walls)}; one timed "
+            f"call each: {out['timed'][f'{label} rgb']}, {out['timed'][f'{label} yuv420']}")
+    out["push_ms"] = {}
+    for label, c in (("2048^2", c2k), ("UHD", c_uhd)):
+        want = torch.from_numpy(c).to(dev)
+        for chunk in PUSH_CHUNKS:
+            if not torch.equal(push(c, dev, chunk_bytes=chunk), want):
+                raise AssertionError(f"push {label} chunk {chunk} differs from .to()")
+        ways = {"pageable .to()": lambda: torch.from_numpy(c).to(dev),
+                **{f"push {ch >> 20} MiB": (lambda ch=ch: push(c, dev, chunk_bytes=ch))
+                   for ch in PUSH_CHUNKS}}
+        order = list(ways) + list(ways)[::-1] + list(ways)
+        walls = _walls(torch, order, lambda w: ways[w]())
+        out["push_ms"][label] = walls
+        log(f"phase 6c: upload {label} uint8 RGB ({c.nbytes} B) host to device: {_fmt(walls)}")
+        del want
+    # ---- 6d: stylize_pairs against serial stylize calls
+    contents = [np.ascontiguousarray(x) for x in (c2k, c2k[::-1], c2k[:, ::-1], c2k[::-1, ::-1])]
+    results: dict = {}
+
+    def run(mode):
+        if mode == "serial":
+            results[mode] = [eng.stylize(c, s2k, as_uint8=True) for c in contents]
+        else:
+            results[mode] = list(eng.stylize_pairs([(c, s2k) for c in contents]))
+        if "serial" in results and "stylize_pairs" in results and not all(
+                np.array_equal(a, b) for a, b in zip(results["serial"], results["stylize_pairs"])):
+            raise AssertionError("stylize_pairs differs from serial stylize calls")
+
+    walls = _walls(torch, ["serial", "stylize_pairs", "stylize_pairs", "serial"], run)
+    out["pairs_ms"] = walls
+    log(f"phase 6d: 4 uint8 2048^2 pairs, bit-equal to serial stylize: {_fmt(walls)}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -845,6 +993,32 @@ def main() -> int:
         raise AssertionError(f"sharded vs single-card: UHD {db_sh:.2f} dB, per-conv "
                              f"{db_pc:.2f} dB, halo launches {pc_halos} != {pc_expect}")
 
+    # ---- phase 4d: a height that is no slab multiple ----------------------------
+    from collaborative_distillation_tpu_torch.parallel.spatial import shard_rows
+    with torch.inference_mode():
+        img_awk = img_uhd[:, :AWK_H]
+        plain_awk = eng.stylize_device(img_awk, sty2k)
+        slab_awk = slab_eng.stylize_device(img_awk, sty2k)
+        shard_awk = shard_eng.stylize_device(img_awk, sty2k)
+        db_awk = psnr_device(torch, slab_awk, plain_awk)
+        db_awk_sh = psnr_device(torch, shard_awk, slab_awk)
+        db_awk_sh_plain = psnr_device(torch, shard_awk, plain_awk)
+        del img_awk, plain_awk, slab_awk, shard_awk
+    awk_windows = len(list(cas._slabs(AWK_H, 1)))
+    awk_shards = shard_rows(AWK_H, shard_eng._tiled_slab, SHARDS)
+    log(f"phase 4d: {AWK_H}x{UHD_W} (slab_rows={UHD_SLAB}: {awk_windows} windows, the last "
+        f"shifted to end at the image): slab vs plain PSNR {db_awk:.2f} dB; sharded "
+        f"(space={SHARDS}, slab_rows={shard_eng._tiled_slab}, shard rows {awk_shards}) vs the "
+        f"single-card slab cascade {db_awk_sh:.2f} dB, vs plain {db_awk_sh_plain:.2f} dB "
+        f"(min {PSNR_MIN_DB})")
+    detail["awkward_height"] = {"h": AWK_H, "slab_vs_plain_db": db_awk,
+                                "sharded_vs_slab_db": db_awk_sh,
+                                "sharded_vs_plain_db": db_awk_sh_plain,
+                                "shard_rows": awk_shards}
+    if not (db_awk >= PSNR_MIN_DB and db_awk_sh >= PSNR_MIN_DB):
+        raise AssertionError(f"awkward height: slab vs plain {db_awk:.2f} dB, sharded vs "
+                             f"slab {db_awk_sh:.2f} dB")
+
     # ---- phase 5: timings at the 2048^2 path shapes -------------------------
     rows = []
     for (kernel, shape), n in sorted(calls2k.items(), key=str):
@@ -1020,6 +1194,8 @@ def main() -> int:
         f"enqueued all work after {', '.join(f'{r:.2f}' for r in enqueued_sh)} ms), peak "
         f"{peak_sh:.2f} GiB ({resident_sh:.2f} GiB held before it)")
     detail["profile_sharded"] = profile_cascade(torch, shard_eng, img_uhd, sty2k, "phase 5c")
+    detail["host_boundary"] = host_boundary(torch, kc, slab_eng, eng, c_uhd, c2k, s2k,
+                                            expect_uhd)
     for r in table:
         log(f"  {r['name']}: {r['ms']:.3f} ms/cascade over {r['launches']} launches, "
             f"plain {r['plain_ms']:.3f}, library {r['library_ms']:.3f}, "

@@ -15,8 +15,8 @@ lists take the place of its ``axis_name``). Two paths:
   coloring matrix is built and copied to every shard;
 * slabs inside shards (:func:`build_tiled_slab_cascade`): per stage each
   shard takes ``2 * margin`` rows from each neighbour once, then streams
-  through the stage in row slabs on its own, so its peak memory is bounded
-  by the slab size whatever the image's height.
+  through its windows of the single-card slab plan on its own, so its peak
+  memory is bounded by the slab size whatever the image's height.
 
 Both exchanges go through one kernel, ``halo_exchange_rows``
 (:mod:`..ops.cuda.halo`): CUDA shards launch it, CPU shards take its plain
@@ -44,6 +44,7 @@ __all__ = [
     "feature_stats_psum",
     "wct_transform_spatial",
     "build_tiled_stylize_fn",
+    "shard_rows",
     "slab_coords",
     "build_tiled_slab_cascade",
 ]
@@ -254,22 +255,41 @@ def _exchange_row_halos(shards: list[torch.Tensor], hm: int) -> list[torch.Tenso
             for d, x in enumerate(shards)]
 
 
-def slab_coords(i: int, *, slab: int, m: int, hm: int, h_loc: int, n_slabs: int,
-                is_first: bool, is_last: bool) -> tuple[int, int]:
-    """(ext_start, interior_offset) for local slab ``i``, in the
-    halo-extended image's coordinates (ext row 0 = local row -hm, hm = 2m).
+def shard_rows(h: int, slab: int, space: int) -> list[int]:
+    """Rows of each of ``space`` row shards of an ``h``-row image under the
+    global window plan (:meth:`..wct.slab.SlabCascade._slabs`): the ``h //
+    slab`` whole windows dealt out in order, as evenly as they go, and the
+    remainder (``h % slab`` rows) to the shard that owns the last whole
+    window, so that no window reaches past a neighbour's ``2 * margin`` rows
+    of halo. Shards past the windows get none and sit the image out; an
+    image of fewer than ``slab`` rows is all the first shard's."""
+    full, rest = divmod(h, slab)
+    windows = [full // space + (d < full % space) for d in range(space)]
+    rows = [n * slab for n in windows]
+    rows[max((d for d in range(space) if windows[d]), default=0)] += rest
+    return rows
 
-    mid slabs: one margin each side (start local i*slab - m); the global-top
-    shard's slab 0 starts at the TRUE boundary and extends inward (per-conv
-    reflection there IS the reference's edge semantics); the global-bottom
-    shard's last slab ends at the true boundary likewise. Every slab takes
-    ``slab + hm`` rows."""
+
+def slab_coords(i: int, *, slab: int, m: int, hm: int, h_loc: int,
+                is_first: bool, is_last: bool) -> tuple[int, int]:
+    """(ext_start, interior_offset) for local window ``i``, in the
+    halo-extended shard's coordinates (ext row 0 = local row -hm, hm = 2m);
+    the window's interior is local rows [i*slab, min((i+1)*slab, h_loc)).
+
+    Mid windows take one margin each side (start local i*slab - m); the
+    global-top shard's window 0 starts at the TRUE boundary and extends
+    inward (per-conv reflection there IS the reference's edge semantics);
+    on the global-bottom shard a window that would end past the image is
+    shifted up to end at its last row, its offset moved so that only its
+    own rows count, as in :meth:`..wct.slab.SlabCascade._slabs`. Every
+    window takes ``slab + hm`` rows."""
     start = i * slab + m          # mid: local i*slab - m -> ext +hm
     off = m
     if is_first and i == 0:
         start, off = hm, 0                  # local row 0
-    if is_last and i == n_slabs - 1:
-        start, off = h_loc - slab, hm       # local h - slab - 2m
+    if is_last and (i + 1) * slab + m > h_loc:
+        start = h_loc - slab                # local h_loc - slab - 2m
+        off = i * slab + hm - start
     return start, off
 
 
@@ -293,17 +313,20 @@ def build_tiled_slab_cascade(pyramid, mesh: Mesh, *, stages=(5, 4, 3, 2, 1),
       coloring matrix is built there and copied: shards that each ran their
       own ``eigh`` could differ in the last bit and leave a seam.
 
-    Slab-boundary semantics match :meth:`..wct.slab.SlabCascade._slabs`:
-    interior slab margins come from recompute overlap (here possibly reaching
-    into neighbour halos); the global top and bottom slabs start and end at
-    the true image boundary.
+    The windows are the single-card plan's over the whole image
+    (:meth:`..wct.slab.SlabCascade._slabs`), dealt out to the shards whole
+    (:func:`shard_rows`): interior margins come from recompute overlap (here
+    possibly reaching into neighbour halos); the global top window starts at
+    the true image boundary and the last ones end at it, shifted up where
+    the image's height is no slab multiple. Nothing is padded.
 
     Returns ``fn(shards, style, alpha)``: ``shards`` is one (1, H_loc, W, 3)
-    tensor per ``space`` device, on it, H_loc a positive multiple of
-    ``fn.slab_rows`` (``slab_rows`` rounded up to the pyramid's granularity
-    and to two margins); ``style`` is the style image (encoded whole, on the
-    first shard's device) or, with ``external_style_stats``, ``{stage:
-    (mean, cov)}``. The result is sharded like the input. With
+    tensor per ``space`` device, on it, the rows cut as ``shard_rows(H,
+    fn.slab_rows, space)`` deals them (``slab_rows`` rounded up to the
+    pyramid's granularity and to two margins; a shard of no rows sits the
+    image out), H a multiple of the granularity; ``style`` is the style
+    image (encoded whole, on the first shard's device) or, with
+    ``external_style_stats``, ``{stage: (mean, cov)}``. The result is sharded like the input. With
     ``data_axis="data"`` ``shards`` and ``style`` are lists over the mesh's
     ``data`` rows, each row an independent image with its own statistics.
     """
@@ -333,40 +356,54 @@ def build_tiled_slab_cascade(pyramid, mesh: Mesh, *, stages=(5, 4, 3, 2, 1),
     def run_row(devices, shards, style, alpha):
         if len(shards) != n_space:
             raise ValueError(f"need {n_space} row shards, got {len(shards)}")
-        h_loc = shards[0].shape[1]
-        if h_loc < slab or h_loc % slab or any(x.shape[1] != h_loc for x in shards):
+        sizes = [x.shape[1] for x in shards]
+        h = sum(sizes)
+        if h < 1 or h % plan.down_max or sizes != shard_rows(h, slab, n_space):
             raise ValueError(
-                f"per-shard H {[x.shape[1] for x in shards]} must be one positive "
-                f"multiple of slab_rows {slab}; pad global H to a multiple of "
-                f"{slab * n_space}")
-        n_slabs = h_loc // slab
-        cas = [helpers[d] for d in devices]
-        dev0 = devices[0]
-        alphas = {dev: _alpha_on(alpha, dev) for dev in devices}
+                f"per-shard H {sizes} must follow the global window plan: a "
+                f"multiple of slab_rows {slab} per shard, in order, the remainder on "
+                f"the last shard that owns a whole window (shard_rows({h}, {slab}, "
+                f"{n_space}) = {shard_rows(h, slab, n_space)}), H a multiple of "
+                f"{plan.down_max}")
+        live = [d for d in range(n_space) if sizes[d]]   # the others sit out
+        devs = [devices[d] for d in live]
+        cas = [helpers[dev] for dev in devs]
+        dev0 = devs[0]
+        alphas = {dev: _alpha_on(alpha, dev) for dev in devs}
+        parts = [shards[d] for d in live]
         for k in stages:
             mk = cas[0].margins[k]
-            hm = 2 * mk  # halo rows: edge slabs extend inward by 2m
+            hm = 2 * mk  # halo rows: edge windows extend inward by 2m
             s_mean, s_cov = style[k] if external_style_stats else cas[0].style_stats(
                 k, style.to(dev0))
-            ext = _exchange_row_halos(shards, hm)
-            coords = [[(start, slab + hm, off) for start, off in (
-                slab_coords(i, slab=slab, m=mk, hm=hm, h_loc=h_loc, n_slabs=n_slabs,
-                            is_first=d == 0, is_last=d == n_space - 1)
-                for i in range(n_slabs))] for d in range(n_space)]
+            if len(parts) == 1:
+                # one shard holds the whole image: the single-card plan
+                ext, coords = parts, [list(cas[0]._slabs(h, k))]
+            else:
+                ext = _exchange_row_halos(parts, hm)
+                coords = [[(start, slab + hm, off, min(slab, x.shape[1] - i * slab))
+                           for i in range(-(-x.shape[1] // slab))
+                           for start, off in [slab_coords(
+                               i, slab=slab, m=mk, hm=hm, h_loc=x.shape[1],
+                               is_first=j == 0, is_last=j == len(parts) - 1)]]
+                          for j, x in enumerate(parts)]
             shift, s_sum, g_sum, count = None, 0.0, 0.0, 0
-            for d, dev in enumerate(devices):
-                first, s, g, n_px, _ = cas[d].slab_sums(
-                    k, ext[d], coords[d], shift=None if shift is None else shift.to(dev))
+            for j, dev in enumerate(devs):
+                first, s, g, n_px, _ = cas[j].slab_sums(
+                    k, ext[j], coords[j], shift=None if shift is None else shift.to(dev))
                 if shift is None:
                     shift = first   # the first shard's, on dev0, for every shard
                 s_sum, g_sum, count = s_sum + s.to(dev0), g_sum + g.to(dev0), count + n_px
             c_mean, c_cov = stats_from_sums(shift, s_sum, g_sum, count)
             t = coloring_matrix(c_cov, s_cov.float().to(dev0), method=method, eps=eps,
                                 newton_iters=newton_iters)
-            shards = [cas[d].color_decode_stage(
-                k, ext[d], t.to(dev), c_mean.to(dev), s_mean.float().to(dev), alphas[dev],
-                slabs=coords[d]) for d, dev in enumerate(devices)]
-        return shards
+            parts = [cas[j].color_decode_stage(
+                k, ext[j], t.to(dev), c_mean.to(dev), s_mean.float().to(dev), alphas[dev],
+                slabs=coords[j]) for j, dev in enumerate(devs)]
+        out = list(shards)
+        for d, x in zip(live, parts):
+            out[d] = x
+        return out
 
     def fn(shards, style, alpha):
         if data_axis is None:

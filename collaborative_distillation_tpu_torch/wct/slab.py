@@ -14,7 +14,12 @@ slabs, so the full-resolution feature maps of a level never exist at once:
 * pass 2 applies the whole WCT as one folded affine map (the ``conv1x1_bias``
   kernel), decodes, and writes the interior rows into one preallocated
   output. Edge slabs start and end at the image boundary, where the
-  per-conv reflection is the full image's own.
+  per-conv reflection is the full image's own;
+* the windows cover the image's own rows and nothing past them: a last slab
+  shorter than ``slab_rows`` is a full-size window shifted up to end at the
+  image's last row, of which only the new rows count. No row is padded in
+  by mirroring, so the statistics are the plain cascade's (the reference
+  pads the height to a slab multiple with mirrored rows and sums them).
 
 :class:`SlabCascade` runs one stage at a time, re-encoding every slab in
 pass 2 (the reference's per-stage programs); :func:`build_fused_slab_cascade`
@@ -38,6 +43,7 @@ from ..ops.pad import reflect_index
 from ..ops.wct_transform import (coloring_matrix, feature_stats, gram_shift,
                                  shifted_sum_gram, stats_from_sums,
                                  wct_apply_folded)
+from ..utils.colorspace import rgbf_to_yuv420_device, yuv420_to_rgb_host
 from ..utils.transfer import fetch_async
 
 __all__ = ["receptive_radius", "SlabCascade", "build_fused_slab_cascade",
@@ -123,28 +129,30 @@ class SlabCascade:
         return best
 
     def _slabs(self, h: int, stage: int | None = None):
-        """Yield (input_start, input_rows, interior_offset) per slab.
+        """Yield (input_start, input_rows, interior_offset, interior_rows)
+        per window over the rows [0, h) of the image, and nothing past them.
 
-        Edge slabs start/end at the true image boundary; mid slabs carry a
-        margin on both sides; the last slab's interior starts ``2 * m`` into
-        it. ``stage``: use that stage's own margin (None: the largest).
+        Window i holds the image rows [i * slab, min((i + 1) * slab, h)) as
+        its interior. Every window takes ``slab + 2m`` rows: the first starts
+        at the image's top, the others a margin above their interior, and a
+        window that would end past ``h`` is shifted up to end at ``h``, its
+        interior offset moved so that only its own rows count. A window that
+        starts or ends at the image boundary has the full image's per-conv
+        reflection there; an image of fewer than ``slab + 2m`` rows is one
+        window. ``stage``: that stage's own margin (None: the largest).
         """
         slab = self.slab_rows
         m = self.margins[stage] if stage is not None else self.margin
-        n_slabs = h // slab
-        if n_slabs == 1:
-            yield 0, h, 0
+        rows = slab + 2 * m
+        if h < rows:
+            yield 0, h, 0, h
             return
         assert slab >= 2 * m, (
             f"slab_rows ({slab}) must be >= 2*margin ({2 * m}) so edge slabs "
             f"share the mid-slab shape")
-        for i in range(n_slabs):
-            if i == 0:
-                yield 0, slab + 2 * m, 0
-            elif i == n_slabs - 1:
-                yield h - slab - 2 * m, slab + 2 * m, 2 * m
-            else:
-                yield i * slab - m, slab + 2 * m, m
+        for row in range(0, h, slab):
+            start = min(max(row - m, 0), h - rows)
+            yield start, rows, row - start, min(slab, h - row)
 
     def style_stats(self, k, style: torch.Tensor):
         """(mean, cov) of the whole style image's stage-``k`` features."""
@@ -160,25 +168,25 @@ class SlabCascade:
         return dec[:, offset:offset + interior]
 
     def slab_sums(self, k, img: torch.Tensor, slabs, *, shift=None, keep: bool = False):
-        """Pass 1 of stage ``k`` over ``slabs``, ``(start, rows, offset)``
-        triples into the rows of ``img`` (1, H, W, 3): ``(shift, sum, gram,
-        count, kept)``, the shifted sum and Gram of every slab's interior
-        feature rows added up, their pixel count, and with ``keep`` the list
-        of the slabs' features (else None). ``shift`` is the Gram's shift;
-        None takes the mean of the first slab's first interior rows. Sums of
-        several calls add only where they used one shift."""
+        """Pass 1 of stage ``k`` over ``slabs``, ``(start, rows, offset,
+        interior)`` windows into the rows of ``img`` (1, H, W, 3): ``(shift,
+        sum, gram, count, kept)``, the shifted sum and Gram of every window's
+        interior feature rows added up, their pixel count, and with ``keep``
+        the list of the windows' features (else None). ``shift`` is the
+        Gram's shift; None takes the mean of the first window's first
+        interior rows. Sums of several calls add only where they used one
+        shift."""
         if img.shape[0] != 1:
             raise ValueError("the slab path is per-image (N = 1): WCT statistics "
                              "would pool the batch")
         p = self.pyramid[k]
         spec = p["enc_spec"]
         down = 2 ** (k - 1)
-        interior_f = self.slab_rows // down
         c = spec.out_channels
         kept, s_sum, g_sum, count = [], 0.0, 0.0, 0
-        for start, rows, off in slabs:
+        for start, rows, off, n in slabs:
             feats = _encode(p["enc"], spec, img[:, start:start + rows])
-            x = feats[:, off // down:off // down + interior_f].reshape(-1, c)
+            x = feats[:, off // down:(off + n) // down].reshape(-1, c)
             if shift is None:
                 shift = gram_shift(x)
             s, g = shifted_sum_gram(x, shift)
@@ -190,10 +198,11 @@ class SlabCascade:
 
     def content_stats(self, k, img: torch.Tensor, *, keep: bool = False):
         """Pass 1 of stage ``k`` over ``img`` (1, H, W, 3), H a multiple of
-        ``slab_rows``: ``(mean, cov, kept)``, the exact statistics of the
-        interior feature rows of every slab, all shifted by the mean of the
-        first slab's first interior rows, and with ``keep`` the list of the
-        slabs' features (else None)."""
+        the pyramid's granularity: ``(mean, cov, kept)``, the exact
+        statistics of the image's feature rows (each window's interior rows
+        once), all shifted by the mean of the first window's first interior
+        rows, and with ``keep`` the list of the windows' features (else
+        None)."""
         shift, s_sum, g_sum, count, kept = self.slab_sums(
             k, img, self._slabs(img.shape[1], k), keep=keep)
         mean, cov = stats_from_sums(shift, s_sum, g_sum, count)
@@ -202,15 +211,14 @@ class SlabCascade:
     def feature_bytes(self, k, h: int, w: int) -> int:
         """Bytes of stage ``k``'s stacked slab features for an (h, w) image."""
         down = 2 ** (k - 1)
-        slabs = list(self._slabs(h, k))
-        return (len(slabs) * (slabs[0][1] // down) * (w // down)
+        return (sum(rows // down for _, rows, _, _ in self._slabs(h, k)) * (w // down)
                 * self.pyramid[k]["enc_spec"].out_channels * 4)
 
     def run(self, img: torch.Tensor, stats_of, alpha, *, feature_cache_bytes: int = 0,
             tail: bool = False):
-        """The cascade over ``img`` (1, H, W, 3), H a multiple of
-        ``slab_rows``; ``stats_of(k)`` gives stage ``k``'s style ``(mean,
-        cov)``. Per stage: pass 1, keeping the slabs' features when they fit
+        """The cascade over ``img`` (1, H, W, 3), H a multiple of the
+        pyramid's granularity; ``stats_of(k)`` gives stage ``k``'s style
+        ``(mean, cov)``. Per stage: pass 1, keeping the slabs' features when they fit
         in ``feature_cache_bytes``; the coloring matrix; pass 2. With
         ``tail``, stop before the last stage's pass 2 and return ``(img, t,
         c_mean, s_mean, kept)`` for :meth:`stream_last_stage`."""
@@ -228,30 +236,31 @@ class SlabCascade:
 
     def _decoded_slabs(self, k, img: torch.Tensor, t, c_mean, s_mean, alpha, kept,
                        slabs=None):
-        """Pass 2 of stage ``k``: yields ``(row, rows)``, each slab's
-        interior rows, decoded from its features (``kept[i]``, which is
-        released, or encoded anew) through the folded WCT. ``slabs``:
-        ``(start, rows, offset)`` triples into ``img``'s rows instead of
-        :meth:`_slabs`'s (a row shard extended by its neighbours' halos)."""
+        """Pass 2 of stage ``k``: yields ``(row, rows)``, each window's
+        interior rows and where they go in the output, decoded from its
+        features (``kept[i]``, which is released, or encoded anew) through
+        the folded WCT. ``slabs``: ``(start, rows, offset, interior)``
+        windows into ``img``'s rows instead of :meth:`_slabs`'s (a row shard
+        extended by its neighbours' halos)."""
         p = self.pyramid[k]
-        slab = self.slab_rows
         if slabs is None:
             slabs = self._slabs(img.shape[1], k)
-        for i, (start, rows, off) in enumerate(slabs):
+        row = 0
+        for i, (start, rows, off, n) in enumerate(slabs):
             if kept is not None:
                 feats, kept[i] = kept[i], None
             else:
                 feats = _encode(p["enc"], p["enc_spec"], img[:, start:start + rows])
-            yield i * slab, self._color_decode(k, feats, t, c_mean, s_mean, alpha, off, slab)
+            yield row, self._color_decode(k, feats, t, c_mean, s_mean, alpha, off, n)
+            row += n
             del feats
 
     def color_decode_stage(self, k, img: torch.Tensor, t, c_mean, s_mean, alpha, *,
                            kept=None, slabs=None) -> torch.Tensor:
-        """Pass 2 of stage ``k``, interior rows into one preallocated image
-        of ``slab_rows`` rows per slab (``img``'s own height without
-        ``slabs``)."""
+        """Pass 2 of stage ``k``, the windows' interior rows into one
+        preallocated image (``img``'s own height without ``slabs``)."""
         slabs = list(self._slabs(img.shape[1], k) if slabs is None else slabs)
-        out = img.new_empty((img.shape[0], len(slabs) * self.slab_rows, *img.shape[2:]))
+        out = img.new_empty((img.shape[0], sum(n for *_, n in slabs), *img.shape[2:]))
         for row, rows in self._decoded_slabs(k, img, t, c_mean, s_mean, alpha, kept, slabs):
             out[:, row:row + rows.shape[1]] = rows
         return out
@@ -259,7 +268,8 @@ class SlabCascade:
     def stylize(self, content: torch.Tensor, style: torch.Tensor, alpha=1.0, *,
                 to_host_uint8: bool = False):
         """content (1, H, W, 3); style (1, Hs, Ws, 3), encoded whole at every
-        stage. H is reflect-padded to a slab multiple and cropped back.
+        stage. H is reflect-padded to the pyramid's granularity, as the plain
+        engine pads it, and cropped back.
 
         ``to_host_uint8``: send the last stage's slabs to the host as uint8
         while later slabs compute; returns a numpy (1, H, W, 3) uint8 array.
@@ -267,7 +277,7 @@ class SlabCascade:
         n, h = content.shape[:2]
         if n != 1:
             raise ValueError("the slab path is per-image (N = 1)")
-        img = _pad_rows(content, -(-h // self.slab_rows) * self.slab_rows)
+        img = _pad_rows(content, -(-h // self.down_max) * self.down_max)
         out = self.run(img, lambda k: self.style_stats(k, style), alpha,
                        tail=to_host_uint8)
         if to_host_uint8:
@@ -276,47 +286,85 @@ class SlabCascade:
         return out[:, :h]
 
     def stream_last_stage(self, img: torch.Tensor, t, c_mean, s_mean, alpha, *,
-                          kept=None, emit: str = "u8") -> np.ndarray:
-        """Pass 2 of the cascade's LAST stage, each slab's rows sent to the
-        host as uint8 while the next slab computes.
+                          kept=None, emit: str = "u8", on_band=None):
+        """Pass 2 of the cascade's LAST stage, each window's rows sent to
+        the host while the next window computes.
 
         ``img``: (1, H, W, 3), the image entering the last stage; ``t,
         c_mean, s_mean, kept``: that stage's pass-1 results (the ``tail``
-        return of :meth:`run`; without ``kept`` each slab is encoded anew).
-        On the card each slab's rows are copied on a side stream into one of
-        two pinned staging buffers, and from there into the (pageable)
-        result while the card decodes the next slab. Returns host uint8 (1,
-        H, W, 3). Only ``emit="u8"``: YCbCr planes come with the
-        host-boundary port.
+        return of :meth:`run`; without ``kept`` each window is encoded
+        anew). The bands are the cascade's own windows (:meth:`_slabs`).
+        ``emit``: ``"u8"`` returns host uint8 RGB (1, H, W, 3);
+        ``"yuv420"`` converts each band to YCbCr 4:2:0 planes on the device
+        (half the bytes), fetches them and reassembles RGB on the host, the
+        same uint8 RGB result (it falls back to ``"u8"`` where a band or the
+        width is odd); ``"planes"`` returns the host planes ``(Y (1, H, W),
+        CbCr (1, H/2, W/2, 2))`` for JPEG-native serving.
+
+        ``on_band``: called with each band's host result in order (for
+        ``"planes"`` its ``(y, cbcr)``) while later bands compute; nothing
+        is assembled and the call returns None. On the card each band is
+        copied on a side stream into one of two pinned staging buffers
+        while the card decodes the next one.
         """
-        if emit != "u8":
-            raise ValueError(f"emit={emit!r}: only 'u8' is ported (YCbCr 4:2:0 "
-                             f"planes wait for utils/colorspace.py)")
+        if emit not in ("u8", "yuv420", "planes"):
+            raise ValueError(f"emit must be 'u8', 'yuv420' or 'planes', got {emit!r}")
+        k = self.stages[-1]
+        n, h, w, _ = img.shape
+        windows = list(self._slabs(h, k))
+        even = w % 2 == 0 and all(rows % 2 == 0 for *_, rows in windows)
+        if not even and emit == "planes":
+            raise ValueError(f"emit='planes' needs an even width and even window rows "
+                             f"(W = {w}, windows {[r for *_, r in windows]})")
+        if not even:
+            emit = "u8"
+        planes = emit != "u8"
         alpha = torch.as_tensor(alpha, dtype=torch.float32, device=img.device)
-        out = np.empty((*img.shape[:3], 3), np.uint8)
-        bands = self._decoded_slabs(self.stages[-1], img, t, c_mean, s_mean, alpha, kept)
+        if on_band is not None:
+            out = None
+        elif emit == "planes":
+            out = (np.empty((n, h, w), np.uint8), np.empty((n, h // 2, w // 2, 2), np.uint8))
+        else:
+            out = np.empty((n, h, w, 3), np.uint8)
+
+        def deliver(row, parts):
+            """One band's host arrays (staging views on the card) into the result."""
+            if emit == "yuv420":
+                parts = (yuv420_to_rgb_host(*parts),)
+            if on_band is not None:
+                res = tuple(p.copy() for p in parts) if emit == "planes" else parts[0].copy()
+                on_band(res)
+            elif emit == "planes":
+                out[0][:, row:row + parts[0].shape[1]] = parts[0]
+                out[1][:, row // 2:row // 2 + parts[1].shape[1]] = parts[1]
+            else:
+                out[:, row:row + parts[0].shape[1]] = parts[0]
+
+        bands = ((row, rgbf_to_yuv420_device(rows) if planes else (_to_u8(rows),))
+                 for row, rows in self._decoded_slabs(k, img, t, c_mean, s_mean, alpha, kept,
+                                                      windows))
         if img.device.type != "cuda":
-            for row, rows in bands:
-                out[:, row:row + rows.shape[1]] = _to_u8(rows).numpy()
+            for row, parts in bands:
+                deliver(row, [p.numpy() for p in parts])
             return out
         side = torch.cuda.Stream(img.device)
-        staging = [torch.empty((1, self.slab_rows, img.shape[2], 3), dtype=torch.uint8,
-                               pin_memory=True) for _ in range(2)]
+        most = max(rows for *_, rows in windows)
+        shapes = ([(n, most, w), (n, most // 2, w // 2, 2)] if planes else [(n, most, w, 3)])
+        staging = [[torch.empty(s, dtype=torch.uint8, pin_memory=True) for s in shapes]
+                   for _ in range(2)]
         pending = None
-        for i, (row, rows) in enumerate(bands):
-            # staging[i % 2] was drained (host side) one slab ago
-            done = fetch_async(_to_u8(rows), staging[i % 2], side)
+        for i, (row, parts) in enumerate(bands):
+            # staging[i % 2] was drained (host side) one band ago
+            bufs = [b[:, :p.shape[1]] for b, p in zip(staging[i % 2], parts)]
+            for p, b in zip(parts, bufs):
+                done = fetch_async(p, b, side)   # one side stream: the last event covers all
             if pending is not None:
-                _drain(out, *pending)
-            pending = row, staging[i % 2], done
-        _drain(out, *pending)
+                pending[2].synchronize()
+                deliver(pending[0], [b.numpy() for b in pending[1]])
+            pending = row, bufs, done
+        pending[2].synchronize()
+        deliver(pending[0], [b.numpy() for b in pending[1]])
         return out
-
-
-def _drain(out: np.ndarray, row: int, buf: torch.Tensor, done) -> None:
-    """Wait for a slab's copy into the pinned ``buf``; move it into ``out``."""
-    done.synchronize()
-    out[:, row:row + buf.shape[1]] = buf.numpy()
 
 
 def build_fused_slab_cascade(pyramid, *, stages=(5, 4, 3, 2, 1), slab_rows: int = 1024,
@@ -327,11 +375,11 @@ def build_fused_slab_cascade(pyramid, *, stages=(5, 4, 3, 2, 1), slab_rows: int 
                              tail_stats: bool = False):
     """The production slab cascade: ``fn(img, style, alpha) -> img``.
 
-    ``img`` is (1, H, W, 3) with H a positive multiple of ``slab_rows``
-    (rounded as :class:`SlabCascade` rounds it; ``fn.cascade`` is that
-    helper). Stages whose stacked slab features fit in
-    ``feature_cache_bytes`` keep pass 1's features and skip pass 2's
-    re-encode.
+    ``img`` is (1, H, W, 3) with H a multiple of the pyramid's granularity
+    (``fn.cascade``, the :class:`SlabCascade` helper, has it as
+    ``down_max``; the windows end at H, see :meth:`SlabCascade._slabs`).
+    Stages whose stacked slab features fit in ``feature_cache_bytes`` keep
+    pass 1's features and skip pass 2's re-encode.
 
     ``external_style_stats``: ``style`` is ``{stage: (mean, cov)}``,
     precomputed (the engine caches them per style key) instead of the style
@@ -343,15 +391,14 @@ def build_fused_slab_cascade(pyramid, *, stages=(5, 4, 3, 2, 1), slab_rows: int 
     """
     helper = SlabCascade(pyramid, stages=stages, slab_rows=slab_rows, method=method,
                          newton_iters=newton_iters, eps=eps)
-    slab = helper.slab_rows
 
     def fn(img, style, alpha):
         h = img.shape[1]
-        if h < slab or h % slab:
+        if h < 1 or h % helper.down_max:
             raise ValueError(
-                f"image height {h} must be a positive multiple of slab_rows="
-                f"{slab}; pad the image or pick a smaller slab "
-                f"(WCTEngine.stylize does both)")
+                f"image height {h} must be a positive multiple of the pyramid's "
+                f"granularity {helper.down_max}; pad the image (WCTEngine.stylize "
+                f"pads to 16)")
         stats_of = (style.__getitem__ if external_style_stats
                     else lambda k: helper.style_stats(k, style))
         return helper.run(img, stats_of, alpha, feature_cache_bytes=feature_cache_bytes,

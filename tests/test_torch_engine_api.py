@@ -155,12 +155,14 @@ def test_engine_runs_on_the_card_unless_asked(monkeypatch):
         WCTEngine(device="meta")
     with pytest.raises(ValueError):
         WCTEngine(device="cpu", method="svd")
-    # the single-card UHD path and the row-sharded one are ported; the
-    # transport arguments come with later slices, not silently, and packing
-    # (a TPU lane layout) and the choice of halo implementation have no
-    # counterpart
+    # the single-card UHD path, the row-sharded one and the transports are
+    # ported, with the reference's validation; packing (a TPU lane layout)
+    # and the choice of halo implementation have no counterpart
     assert WCTEngine(device="cpu", slab_rows=256).slab.slab_rows == 256
-    for kw in ({"transport": "yuv420"}, {"packed": True}, {"halo": "pallas"}):
+    assert WCTEngine(device="cpu", transport="yuv420").transport == "yuv420"
+    with pytest.raises(ValueError, match="transport"):
+        WCTEngine(device="cpu", transport="cmyk")
+    for kw in ({"packed": True}, {"halo": "pallas"}):
         with pytest.raises(TypeError):
             WCTEngine(device="cpu", **kw)
     # row shards want one CUDA device each unless the caller lists devices

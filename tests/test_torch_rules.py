@@ -1,5 +1,5 @@
 """Rules of the PyTorch port that hold without a GPU: it imports neither JAX
-nor the reference package, CUDA wrappers refuse what is not a CUDA tensor,
+nor the reference package (nor PIL), CUDA wrappers refuse what is not a CUDA tensor,
 the ctypes signatures match the C entry points, and chip_smoke.py fails
 (printing no result) where there is no card or no repository.
 """
@@ -42,9 +42,10 @@ def _imports(path):
 
 @pytest.mark.parametrize("path", sorted(_port_files()), ids=lambda p: os.path.relpath(p, REPO))
 def test_port_imports_no_jax_and_nothing_of_the_reference(path):
+    # nor PIL: the card's machine has none, and the codec is the port's own
     for name in _imports(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "collaborative_distillation_tpu"), (path, name)
+        assert top not in ("jax", "jaxlib", "collaborative_distillation_tpu", "PIL"), (path, name)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -38,6 +38,17 @@ PSNR_MIN_DB = 40.0
 STAGES = (5, 4, 3, 2, 1)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread per test process: the suite runs several test
+    processes at once, and torch's CPU parallel regions slow down by orders
+    of magnitude when their threads outnumber the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _photo(name, h, w):
     im = Image.open(os.path.join(EXAMPLES, name)).convert("RGB")
     return np.asarray(im.resize((w, h), Image.BICUBIC), np.float32) / 255.0
@@ -85,7 +96,10 @@ def test_slab_boundaries_match_reference(pyramids, stages, slab):
     for n in (1, 2, 3, 4, 7):
         h = n * got.slab_rows
         for k in (None,) + stages:
-            assert list(got._slabs(h, k)) == list(want._slabs(h, k))
+            windows = list(got._slabs(h, k))
+            assert [w[:3] for w in windows] == list(want._slabs(h, k))
+            # at slab multiples every window's interior is one whole slab
+            assert [w[3] for w in windows] == [got.slab_rows] * n
 
 
 def test_pick_slab_rows_matches_reference():
@@ -95,6 +109,33 @@ def test_pick_slab_rows_matches_reference():
     for args in cases:
         assert tslab.SlabCascade.pick_slab_rows(*args) == jslab.SlabCascade.pick_slab_rows(*args)
     assert tslab.SlabCascade.pick_slab_rows(2160, 1024, 144, 16) == 720
+
+
+@pytest.mark.parametrize("slab_rows", [288, 512])
+def test_window_plan_counts_every_row_once(pyramids, slab_rows):
+    """At every height from 288 to 2000 rows in steps of 16, slab multiple
+    or not, at every stage: the windows' interiors tile [0, h) in order, so
+    pass 1 sums every row once and pass 2 writes every output row once;
+    every window lies inside the image, keeps the ``slab + 2m`` shape (or is
+    the whole image), has a margin of context on each side except at the
+    image's edge, and cuts feature rows exactly."""
+    _, tp = pyramids
+    cas = tslab.SlabCascade(tp, slab_rows=slab_rows)
+    for h in range(288, 2001, 16):
+        for k in (None,) + STAGES:
+            m = cas.margin if k is None else cas.margins[k]
+            windows = list(cas._slabs(h, k))
+            row = 0
+            for start, rows, off, n in windows:
+                assert start + off == row and n > 0   # pass 1 reads, pass 2 writes here
+                assert 0 <= start and start + rows <= h
+                assert rows == (h if len(windows) == 1 else slab_rows + 2 * m)
+                assert off >= m or start == 0
+                assert start + rows - (off + n) >= m or start + rows == h
+                assert off % 16 == n % 16 == 0
+                row += n
+            assert row == h
+            assert len(windows) == (1 if h < slab_rows + 2 * m else -(-h // slab_rows))
 
 
 # ---- (d) slab-accumulated statistics ---------------------------------------
@@ -167,10 +208,13 @@ def engines(weights_root, pyramids):
     return je, WCTEngine(pyramid=tp, device="cpu", slab_rows=288)
 
 
-def test_slab_engine_matches_reference_engine(engines, tall):
-    je, te = engines
-    c, s = tall[0][:800], tall[1]   # 800 is no multiple of the slab: padded, cropped
-    want = je.stylize(c, s)
+def test_slab_engine_matches_reference_engine(weights_root, engines, tall):
+    """800 rows are no slab multiple: the reference's slab engine pads them
+    with mirrored rows that enter its statistics, the port's windows end at
+    the image, so the port is held to the reference's plain engine."""
+    _, te = engines
+    c, s = tall[0][:800], tall[1]
+    want = JaxEngine(mode="16x", weights_root=weights_root).stylize(c, s)
     got = te.stylize(c, s)
     assert got.shape == want.shape == c.shape
     assert np.isfinite(got).all() and got.min() >= 0.0 and got.max() <= 1.0
@@ -206,6 +250,32 @@ def test_slab_engine_awkward_height_picks_an_even_slab(engines, tall):
     assert out.shape == c.shape and np.isfinite(out).all()
     assert (tslab.SlabCascade.pick_slab_rows(600, 288, 144, 16), True) not in te._fused_fns
     assert (tslab.SlabCascade.pick_slab_rows(600, 288, 144, 16), False) in te._fused_fns
+
+
+@pytest.fixture(scope="module")
+def mirrored():
+    """The photo pair's content mirrored to 1024 rows, 256 wide, and a 128^2
+    crop of the style."""
+    with np.load(os.path.join(os.path.dirname(tslab.__file__), os.pardir, "data",
+                              "photo_pair_512.npz")) as d:
+        c, s = d["content"], d["style"]
+    c = np.concatenate([c, c[::-1]])[:, :256]
+    return c.astype(np.float32) / 255.0, s[:128, :128].astype(np.float32) / 255.0
+
+
+@pytest.mark.parametrize("h", [704, 800, 1000])
+def test_slab_engine_matches_plain_engine_at_awkward_heights(pyramids, engines, mirrored, h):
+    """Heights that are no slab multiple: the last window ends at the
+    image's last row and no mirrored row enters the statistics, so the slab
+    engine is the plain engine's cascade up to float32 order (the
+    reference's mirrored padding reads 25-33 dB here)."""
+    _, tp = pyramids
+    _, te = engines
+    c, s = mirrored[0][:h], mirrored[1]
+    want = WCTEngine(pyramid=tp, device="cpu").stylize(c, s)
+    got = te.stylize(c, s)
+    assert got.shape == want.shape == c.shape
+    assert _psnr(got, want) >= 90.0
 
 
 # ---- (g) feature cache, streamed tail ----------------------------------------
@@ -251,8 +321,8 @@ def test_stream_last_stage_bands_match_whole_stage(pyramids, tall):
     assert whole.shape == encoded.shape == from_kept.shape == (1, 864, 64, 3)
     assert np.abs(encoded.astype(int) - whole).max() <= 1
     assert np.abs(from_kept.astype(int) - whole).max() <= 1
-    with pytest.raises(ValueError, match="u8"):
-        cas.stream_last_stage(img, t, c_mean, s_mean, 1.0, emit="yuv420")
+    with pytest.raises(ValueError, match="emit"):
+        cas.stream_last_stage(img, t, c_mean, s_mean, 1.0, emit="rgb565")
 
 
 # ---- the one-pixel cascade ---------------------------------------------------

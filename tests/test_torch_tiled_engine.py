@@ -3,8 +3,13 @@
 reference engine's on the virtual CPU mesh and against the port's
 single-device slab engine, with the toy pyramid and images of
 tests/test_tiled_slab.py; atol 3e-3, the reference's own bar between its
-sharded and single-chip slab cascades.
+sharded and single-chip slab cascades. At heights that are no multiple of
+slab_rows * space the reference pads with mirrored rows that enter its
+statistics; the port deals whole windows of the single-card plan to the
+shards and is held to the plain engine there.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -17,11 +22,24 @@ from collaborative_distillation_tpu.wct.engine import WCTEngine as JaxEngine
 
 import torch
 
+from collaborative_distillation_tpu_torch.parallel import spatial as tsp
 from collaborative_distillation_tpu_torch.utils.params import pyramid_from_jax
+from collaborative_distillation_tpu_torch.wct import slab as tslab
 from collaborative_distillation_tpu_torch.wct.engine import WCTEngine
 
 STAGES = (3, 2, 1)
 ATOL = 3e-3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread per test process: the suite runs several test
+    processes at once, and torch's CPU parallel regions slow down by orders
+    of magnitude when their threads outnumber the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _np_tree(pyr):
@@ -61,14 +79,20 @@ def engines(pyramids):
     return je, te
 
 
-def test_engine_awkward_height_pads_and_crops(engines, imgs):
+def _psnr(a, b):
+    return 10 * np.log10(1.0 / np.mean((np.asarray(a, np.float64) - b) ** 2))
+
+
+def test_engine_awkward_height_pads_and_crops(engines, pyramids, imgs):
     je, te = engines
+    jp, _ = pyramids
     assert te._tiled_slab == je._tiled_slab > 0 and te.slab is None
-    c, s = imgs[0][0, :150], imgs[1][0]   # 150 rows pad to 160, then to slab * space
-    want = je.stylize(c, s, alpha=0.9)
+    c, s = imgs[0][0, :150], imgs[1][0]   # 150 rows pad to 160, and no further
+    want = JaxEngine(mode="16x", pyramid=jp, stages=STAGES, packed=False).stylize(
+        c, s, alpha=0.9)
     got = te.stylize(c, s, alpha=0.9)
     assert got.shape == want.shape == c.shape and np.isfinite(got).all()
-    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    assert _psnr(got, want) >= 40.0
 
 
 def test_engine_cached_style_key_matches_single_device_slab_engine(engines, pyramids, imgs):
@@ -102,3 +126,72 @@ def test_engine_refuses_batches_and_too_few_devices(engines, pyramids, imgs):
         # neither moves to the CPU nor doubles up on a device unasked
         with pytest.raises(ValueError, match="needs 4 devices, have 0"):
             WCTEngine(pyramid=tp, stages=STAGES, device="cpu", space=4, slab_rows=48)
+
+
+@pytest.mark.parametrize("slab_rows", [288, 512])
+@pytest.mark.parametrize("space", [2, 4, 8])
+def test_shards_take_whole_windows_of_the_single_card_plan(slab_rows, space):
+    """At every height from 288 to 2000 rows in steps of 16: the shards' rows
+    (``shard_rows``) hold whole windows of the single-card plan in order,
+    the remainder with the last whole one; mapped back to the image, each
+    live shard's windows (``slab_coords`` in the halo-extended shard) are
+    that plan's windows, read only the shard and its neighbours' ``2m``
+    halo rows, never a global edge's zero fill; trailing shards without a
+    window hold no rows."""
+    pyr = {k: {"enc_spec": encoder_spec("16x", k, aux=True),
+               "dec_spec": decoder_spec("16x", k)} for k in (5, 4, 3, 2, 1)}
+    cas = tslab.SlabCascade(pyr, slab_rows=slab_rows)
+    for h in range(288, 2001, 16):
+        rows = tsp.shard_rows(h, slab_rows, space)
+        live = [d for d in range(space) if rows[d]]
+        assert live == list(range(len(live)))   # trailing shards sit out
+        assert sum(rows) == h and all(rows[d] % slab_rows == 0 for d in live[:-1])
+        if len(live) == 1:
+            continue   # one shard holds the image: the single-card plan itself
+        assert all(rows[d] >= slab_rows for d in live)
+        for k in (5, 4, 3, 2, 1):
+            m = cas.margins[k]
+            hm = 2 * m
+            got, a = [], 0
+            for j, d in enumerate(live):
+                for i in range(-(-rows[d] // slab_rows)):
+                    start, off = tsp.slab_coords(i, slab=slab_rows, m=m, hm=hm,
+                                                 h_loc=rows[d], is_first=j == 0,
+                                                 is_last=j == len(live) - 1)
+                    assert 0 <= start and start + slab_rows + hm <= rows[d] + 2 * hm
+                    assert not (j == 0 and start < hm)
+                    assert not (j == len(live) - 1 and start + slab_rows + hm > rows[d] + hm)
+                    got.append((a + start - hm, slab_rows + hm, off,
+                                min(slab_rows, rows[d] - i * slab_rows)))
+                a += rows[d]
+            assert got == list(cas._slabs(h, k))
+
+
+@pytest.fixture(scope="module")
+def photo(weights_root):
+    """The shipped 16x pyramid (through the reference's loader), the photo
+    pair's content mirrored to 1024 rows, 256 wide, and a 128^2 style."""
+    from collaborative_distillation_tpu.models.zoo import load_pyramid
+    jp = load_pyramid("16x", weights_root)
+    with np.load(os.path.join(os.path.dirname(tslab.__file__), os.pardir, "data",
+                              "photo_pair_512.npz")) as d:
+        c, s = d["content"], d["style"]
+    c = np.concatenate([c, c[::-1]])[:, :256].astype(np.float32) / 255.0
+    tp = pyramid_from_jax(_np_tree(jp))
+    return tp, c, s[:128, :128].astype(np.float32) / 255.0, {}
+
+
+@pytest.mark.parametrize("h", [704, 1000])
+@pytest.mark.parametrize("space", [2, 4])
+def test_sharded_engine_matches_plain_engine_at_awkward_heights(photo, space, h):
+    """No slab * space multiple: whole windows per shard, nothing padded,
+    so the sharded cascade is the plain one up to float32 order (the
+    shards' sums are added shard by shard)."""
+    tp, c, s, plain = photo
+    if h not in plain:
+        plain[h] = WCTEngine(pyramid=tp, device="cpu").stylize(c[:h], s)
+    eng = WCTEngine(pyramid=tp, device="cpu", space=space, slab_rows=288,
+                    devices=["cpu"] * space)
+    got = eng.stylize(c[:h], s)
+    assert got.shape == plain[h].shape == (h, 256, 3)
+    assert _psnr(got, plain[h]) >= 80.0

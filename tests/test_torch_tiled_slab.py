@@ -32,6 +32,17 @@ STAGES = (3, 2, 1)
 ATOL = 3e-3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread per test process: the suite runs several test
+    processes at once, and torch's CPU parallel regions slow down by orders
+    of magnitude when their threads outnumber the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_tree(pyr):
     return {k: {**v, "enc": jax.tree.map(np.asarray, v["enc"]),
                 "dec": jax.tree.map(np.asarray, v["dec"])} for k, v in pyr.items()}
@@ -164,7 +175,7 @@ def test_slab_coords_equal_the_reference_plan(stages, target, space, n_slabs):
             first, last = d == 0, d == space - 1
             for i in range(n_slabs):
                 start, off = tsp.slab_coords(i, slab=slab, m=m, hm=hm, h_loc=h_loc,
-                                             n_slabs=n_slabs, is_first=first, is_last=last)
+                                             is_first=first, is_last=last)
                 g_start, g_rows, g_off = whole[d * n_slabs + i]
                 assert (start + d * h_loc - hm, slab + hm, off) == (g_start, g_rows, g_off)
                 assert 0 <= start and start + slab + hm <= h_loc + 2 * hm
