@@ -45,7 +45,8 @@ Phases (any failure raises and the script exits non-zero):
   5. timings: each kernel, its plain version and one library call at every
      2048^2 shape of the path, weighted by the calls per cascade, beside the
      least time the card could take; the warm 2048^2 cascade and its stages;
-  5b. the same for ``conv1x1_bias`` at the UHD slab shapes; the warm UHD
+  5b. the same for ``conv1x1_bias`` and ``sum_gram`` at the UHD slab shapes
+     (``sum_gram``'s as a second summary on its row); the warm UHD
      slab cascade (median of 3), split by stage and into pass 1 and pass 2,
      its peak memory and profile; ``stylize(as_uint8=True)`` host to host
      with the streamed last stage against without, three runs each, both
@@ -238,7 +239,7 @@ def work(kernel, shape):
     if kernel == "sum_gram":
         # X^T X is symmetric: c(c+1)/2 distinct entries, a multiply and an add
         # each per row; the column sum and the shift subtraction p*c each
-        p, c = shape
+        p, c = shape[:2]
         return 4 * (p * c + c + c * c + c), p * c * (c + 1) + 2 * p * c
     if kernel == "halo_exchange_rows":
         # the extended map written once; the shard and each halo that has a
@@ -333,8 +334,12 @@ class Bench:
             library = ((lambda: torch.addmm(b, x2, wt)) if bias
                        else (lambda: torch.mm(x2, wt)))
         elif kernel == "sum_gram":
-            p, c = shape
-            x = self.rand(p, c) * 4 + 10   # mean far above the spread, as features are
+            # (P, C) or (P, C, float offset): an offset leaves a contiguous
+            # matrix that is not 16-byte aligned
+            p, c, *rest = shape
+            offset = rest[0] if rest else 0
+            # mean far above the spread, as features are
+            x = (self.rand(p * c + offset) * 4 + 10)[offset:].view(p, c)
             shift = x[:4096].mean(0)
             (sk, gk), (sp, gp) = k(x, shift), k.plain(x, shift)
             gerr, serr = float((gk - gp).abs().max()), float((sk - sp).abs().max())
@@ -392,6 +397,20 @@ class Bench:
         return row
 
 
+def path_times(mine) -> dict:
+    """A kernel's timed shapes summed over one cascade, weighted by their
+    calls: ms, plain_ms, library_ms and the bound. Each shape is bound by the
+    larger of its two times; the sum is labelled by the side that sets most
+    of it."""
+    tot = lambda key: sum(r[key] * r["calls"] for r in mine)
+    by_bytes = sum(r["bytes_ms"] * r["calls"] for r in mine if r["bytes_ms"] >= r["flops_ms"])
+    by_ops = sum(r["flops_ms"] * r["calls"] for r in mine if r["bytes_ms"] < r["flops_ms"])
+    return {"ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": by_bytes + by_ops,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_bytes_ms": by_bytes, "bound_ops_ms": by_ops,
+            "library_ms": tot("library_ms")}
+
+
 def profile_cascade(torch, eng, img, sty, label="phase 5") -> dict:
     """One warm cascade under torch.profiler: device time by kernel name, and
     the card's idle share of that same cascade, 1 - busy / span, with the
@@ -421,12 +440,16 @@ def profile_cascade(torch, eng, img, sty, label="phase 5") -> dict:
         log(f"{label}: profiler saw no device time: breakdown not measured")
         return {"wall_ms": wall_ms, "span_ms": span_ms, "busy_ms": None}
     top = kernels.most_common(12)
+    # sum_gram's kernels (row or tiled, and the reduce) by their names
+    sg = sum(ms for name, ms in kernels.items() if "sum_gram" in name)
+    sg_calls = sum(n for name, n in calls.items() if "sum_gram" in name)
     log(f"{label}: profiled cascade wall {wall_ms:.2f} ms, event span {span_ms:.2f} ms, "
-        f"device busy {busy:.2f} ms, idle share {1 - busy / span_ms:.3f}; top device time:")
+        f"device busy {busy:.2f} ms, idle share {1 - busy / span_ms:.3f}; sum_gram "
+        f"{sg:.3f} ms over {sg_calls} CUDA launches; top device time:")
     for name, ms in top:
         log(f"    {ms:8.3f} ms  x{calls[name]:<4d} {name}")
     return {"wall_ms": wall_ms, "span_ms": span_ms, "busy_ms": busy,
-            "idle_share": 1 - busy / span_ms,
+            "idle_share": 1 - busy / span_ms, "sum_gram_ms": sg,
             "by_kernel_ms": dict(top), "calls": {n: calls[n] for n, _ in top}}
 
 
@@ -760,7 +783,16 @@ def main() -> int:
              (1, 16, 16, 512, 512, True), (1, 9, 9, 128, 3, False)]]
     edge += [("max_pool_2x2", s) for s in [(1, 7, 9, 16), (2, 8, 8, 3), (1, 1, 5, 8)]]
     edge += [("upsample_nearest_2x", s) for s in [(1, 3, 5, 16), (2, 4, 4, 3)]]
-    edge += [("sum_gram", s) for s in [(1000, 24), (777, 128), (5000, 512), (1, 3)]]
+    # sum_gram: (P, C) or (P, C, float offset): a stage-1 row count, odd and
+    # tiled widths, one row, one past a staging block (300, 250, 126 and 64
+    # rows at C = 24, 32, 64, 128) and a fold chunk (6300 and 6250 rows per
+    # block of the launch plan at C = 24 and 32), starts that are not
+    # 16-byte aligned
+    edge += [("sum_gram", s) for s in
+             [(1000, 24), (777, 128), (5000, 512), (1, 3), (4194304, 24), (1, 1),
+              (1000, 3), (999, 5), (500, 129), (2000, 512), (1, 24), (1, 128),
+              (301, 24), (251, 32), (127, 64), (65, 128), (1663201, 24), (825001, 32),
+              (1000, 3, 1), (1000, 24, 1), (257, 128, 3)]]
     # conv1x1: (N, H, W, Cin, Cout, relu, bias, float offset)
     edge += [("conv1x1_bias", s) for s in
              [(1, 1, 1, 8, 8, False, True, 0), (1, 1, 1, 128, 128, True, True, 0),
@@ -1031,6 +1063,14 @@ def main() -> int:
             r = bench.run(kernel, shape, timed=True)
             r["calls"] = n
             rows.append(r)
+    # sum_gram at the UHD slab path's shapes too (the 2048^2 style's and the
+    # slabs' interior rows): a second summary on the kernel's row
+    rows_sg_uhd = []
+    for (kernel, shape), n in sorted(calls_uhd.items(), key=str):
+        if kernel == "sum_gram":
+            r = bench.run(kernel, shape, timed=True)
+            r["calls"] = n
+            rows_sg_uhd.append(r)
     # halo_exchange_rows lies on the sharded UHD path only
     for (kernel, shape), n in sorted(calls_sh.items(), key=str):
         if kernel == "halo_exchange_rows":
@@ -1039,18 +1079,13 @@ def main() -> int:
             rows.append(r)
     path_launches = {**launches, "conv1x1_bias": launches_uhd["conv1x1_bias"],
                      "halo_exchange_rows": launches_sh["halo_exchange_rows"]}
+    sg_uhd = {"launches": launches_uhd["sum_gram"], **path_times(rows_sg_uhd)}
+    log(f"phase 5b: sum_gram per UHD slab cascade {sg_uhd['ms']:.3f} ms over "
+        f"{sg_uhd['launches']} launches, plain {sg_uhd['plain_ms']:.3f}, x.T @ x "
+        f"{sg_uhd['library_ms']:.3f}, bound {sg_uhd['bound_ms']:.3f} ({sg_uhd['bound_by']})")
     table = []
     for k in kc.KERNELS:
         name = k.__name__
-        mine = [r for r in rows if r["kernel"] == name]
-        tot = lambda key: sum(r[key] * r["calls"] for r in mine)
-        # each shape is bound by the larger of its two times; the row is
-        # labelled by the side that sets most of the summed bound
-        by_bytes = sum(r["bytes_ms"] * r["calls"] for r in mine
-                       if r["bytes_ms"] >= r["flops_ms"])
-        by_ops = sum(r["flops_ms"] * r["calls"] for r in mine
-                     if r["bytes_ms"] < r["flops_ms"])
-        bound = by_bytes + by_ops
         src, rep = KERNEL_META[name]
         errs = [r["max_abs_err"] for r in checks + rows if r["kernel"] == name]
         rel = [r["max_rel_err"] for r in checks + rows if r["kernel"] == name]
@@ -1059,11 +1094,9 @@ def main() -> int:
             "launches": path_launches[name], "max_abs_err": max(errs), "max_err": max(errs),
             "path": KERNEL_PATH.get(name, "2048^2 plain"),
             "max_rel_err": max(rel),
-            "ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": bound,
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "bound_bytes_ms": by_bytes, "bound_ops_ms": by_ops,
-            "library_ms": tot("library_ms")})
-    detail["shapes_timed"] = rows
+            **path_times([r for r in rows if r["kernel"] == name]),
+            **({"uhd_slab": sg_uhd} if name == "sum_gram" else {})})
+    detail["shapes_timed"] = rows + rows_sg_uhd
     detail["checks"] = checks
 
     # warm cascade: median of 5, and one run split by stage

@@ -24,6 +24,17 @@ from collaborative_distillation_tpu_torch.ops.cuda import conv1x1 as k1x1
 WIDTHS = [24, 32, 64, 128]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread per test process: the suite runs several test
+    processes at once, and torch's CPU parallel regions slow down by orders
+    of magnitude when their threads outnumber the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(rng, cin, cout, h=8, w=16):
     x = rng.standard_normal((h, w, cin)).astype(np.float32)
     wt = (rng.standard_normal((cin, cout)) / np.sqrt(cin)).astype(np.float32)

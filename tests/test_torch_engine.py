@@ -18,12 +18,25 @@ import jax
 from collaborative_distillation_tpu.models.zoo import load_pyramid as jax_load_pyramid
 from collaborative_distillation_tpu.wct.engine import WCTEngine as JaxEngine
 
+import torch
+
 from collaborative_distillation_tpu_torch.utils.params import pyramid_from_jax
 from collaborative_distillation_tpu_torch.wct.engine import WCTEngine
 
 EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "docs", "examples")
 PSNR_MIN_DB = 40.0
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread per test process: the suite runs several test
+    processes at once, and torch's CPU parallel regions slow down by orders
+    of magnitude when their threads outnumber the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _photo(name, size):

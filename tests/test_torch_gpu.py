@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from collaborative_distillation_tpu_torch.ops import cuda as kc
-from collaborative_distillation_tpu_torch.ops.wct_transform import feature_stats
+from collaborative_distillation_tpu_torch.ops.wct_transform import (feature_stats, gram_shift,
+                                                                    stats_from_sums)
 
 pytestmark = pytest.mark.gpu
 
@@ -50,12 +51,26 @@ def test_conv3x3_kernel_matches_plain(gen, case):
     assert float((got - ref).abs().max()) <= 1e-5 * scale
 
 
-@pytest.mark.parametrize("case", [(1000, 24, True), (4097, 128, True), (777, 64, False),
-                                  (300, 512, False), (1, 3, True), (65, 16, True)], ids=str)
+SUM_GRAM_CASES = [  # (P, C, shifted, float offset)
+    (1000, 24, True, 0), (4097, 128, True, 0), (777, 64, False, 0), (300, 512, False, 0),
+    (1, 3, True, 0), (65, 16, True, 0),
+    (4194304, 24, True, 0),                        # a stage-1 row count (2048^2)
+    (1, 1, True, 0), (1000, 3, False, 0), (999, 5, True, 0),   # odd widths
+    (500, 129, True, 0), (2000, 512, True, 0),     # the tiled kernel past 128
+    (1, 24, True, 0), (1, 128, False, 0),          # one row
+    (301, 24, True, 0), (251, 32, True, 0), (127, 64, False, 0),
+    (65, 128, True, 0),                            # one past a staging block
+    (1663201, 24, True, 0), (825001, 32, False, 0),    # one past a fold chunk
+    (1000, 3, True, 1), (1000, 24, True, 1), (257, 128, False, 3),  # not 16-byte aligned
+]
+
+
+@pytest.mark.parametrize("case", SUM_GRAM_CASES, ids=str)
 def test_sum_gram_kernel_matches_plain(gen, case):
-    # tolerance: float32 sums over P rows in another order
-    p, c, shifted = case
-    x = _rand(gen, p, c) * 4 + 10
+    # tolerance: float32 sums over P rows in another order; an offset of 1
+    # or 3 floats leaves a contiguous matrix that is not 16-byte aligned
+    p, c, shifted, offset = case
+    x = (_rand(gen, p * c + offset) * 4 + 10)[offset:].view(p, c)
     shift = x[:64].mean(0) if shifted else None
     (s, g), (sp, gp) = kc.sum_gram(x, shift), kc.sum_gram.plain(x, shift)
     torch.cuda.synchronize()
@@ -64,6 +79,21 @@ def test_sum_gram_kernel_matches_plain(gen, case):
     assert float((s - sp).abs().max()) <= 2e-5 * float(xs.abs().sum(0).max())
     s2, g2 = kc.sum_gram(x, shift)
     assert torch.equal(s, s2) and torch.equal(g, g2)  # fixed-order reduction
+
+
+def test_sum_gram_covariance_of_8m_rows_matches_float64(gen):
+    # 8M x 24 (mean 10, spread 4): the shifted Gram's covariance within
+    # 2e-5 of max|cov| in float64; a serial chain over millions of rows
+    # would not hold it
+    p = 8 << 20
+    x = _rand(gen, p, 24) * 4 + 10
+    shift = gram_shift(x)
+    mean, cov = stats_from_sums(shift, *kc.sum_gram(x, shift), p)
+    x64 = x.double()
+    m64 = x64.mean(0)
+    cov64 = ((x64 - m64).T @ (x64 - m64)) / (p - 1)
+    assert float((cov.double() - cov64).abs().max()) <= 2e-5 * float(cov64.abs().max())
+    assert float((mean.double() - m64).abs().max()) <= 2e-5 * float(m64.abs().max())
 
 
 @pytest.mark.parametrize("shape", [(1, 8, 8, 16), (1, 7, 9, 16), (2, 5, 4, 3),

@@ -27,6 +27,17 @@ N_DEV = 4
 SPEC = P(None, "space", None, None)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread per test process: the suite runs several test
+    processes at once, and torch's CPU parallel regions slow down by orders
+    of magnitude when their threads outnumber the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _space_mesh(n=N_DEV):
     # the interpret-mode DMA simulation takes single-axis meshes only
     return Mesh(np.array(jax.devices()[:n]), ("space",))

@@ -35,6 +35,17 @@ PAIRS_16X = [(3, 24), (3, 16), (16, 16), (16, 32), (32, 32), (32, 64), (64, 64),
              (64, 128), (128, 128), (128, 64), (64, 32), (32, 16), (16, 3), (24, 3)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread per test process: the suite runs several test
+    processes at once, and torch's CPU parallel regions slow down by orders
+    of magnitude when their threads outnumber the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _conv_inputs(rng, h, w, cin, cout, n=1):
     x = rng.standard_normal((n, h, w, cin)).astype(np.float32)
     wt = (rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin)).astype(np.float32)
@@ -105,6 +116,20 @@ def test_sum_gram_matches_pallas_fused_sum_gram(rng, c, shifted):
     np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=2e-5, atol=2e-5 * scale)
     np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=2e-5,
                                atol=2e-5 * np.abs(x).sum(0).max())
+
+
+@pytest.mark.parametrize("c", [24, 32, 64, 128, 3, 129, 512])
+@pytest.mark.parametrize("p", [1, 33, 161, 16384, 1056001, 41943040])
+@pytest.mark.parametrize("n_sm", [132, 1])
+def test_sum_gram_launch_plan_covers_every_row_once(p, c, n_sm):
+    nblocks, rows = kstats.launch_plan(p, c, n_sm)
+    ranges = [(k * rows, min(p, (k + 1) * rows)) for k in range(nblocks)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == p
+    assert all(a < b for a, b in ranges)               # no block without rows
+    assert all(b == a2 for (_, b), (a2, _) in zip(ranges, ranges[1:]))
+    if c in kstats._ROW_KERNEL:                        # one wave of row blocks
+        step, per_sm = kstats._ROW_KERNEL[c]
+        assert rows % step == 0 and nblocks <= per_sm * n_sm
 
 
 @pytest.mark.parametrize("hw", [(7, 9), (8, 16), (5, 4)], ids=str)

@@ -17,6 +17,17 @@ import torch
 from collaborative_distillation_tpu_torch.parallel import mesh as tmesh
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread per test process: the suite runs several test
+    processes at once, and torch's CPU parallel regions slow down by orders
+    of magnitude when their threads outnumber the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @dataclass(frozen=True)
 class FakeDev:
     """Carries what both packages sort by."""

@@ -30,6 +30,17 @@ from collaborative_distillation_tpu_torch.utils.params import (
 FIXTURE = os.path.join(os.path.dirname(__file__), "golden_fixtures.npz")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread per test process: the suite runs several test
+    processes at once, and torch's CPU parallel regions slow down by orders
+    of magnitude when their threads outnumber the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 

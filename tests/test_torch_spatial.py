@@ -42,6 +42,17 @@ ATOL = 3e-3
 SPEC = P(None, "space", None, None)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread per test process: the suite runs several test
+    processes at once, and torch's CPU parallel regions slow down by orders
+    of magnitude when their threads outnumber the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_tree(pyr):
     return {k: {**v, "enc": jax.tree.map(np.asarray, v["enc"]),
                 "dec": jax.tree.map(np.asarray, v["dec"])} for k, v in pyr.items()}

@@ -23,6 +23,17 @@ from collaborative_distillation_tpu_torch.ops import wct_transform as tw
 jw = importlib.import_module("collaborative_distillation_tpu.ops.wct_transform")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread per test process: the suite runs several test
+    processes at once, and torch's CPU parallel regions slow down by orders
+    of magnitude when their threads outnumber the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _feat(rng, p, c, offset=3.0):
     mix = rng.standard_normal((c, c)).astype(np.float32) / np.sqrt(c)
     return (rng.standard_normal((p, c)).astype(np.float32) @ mix + offset
