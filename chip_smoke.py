@@ -13,7 +13,8 @@ Phases (any failure raises and the script exits non-zero):
   2. each kernel against its plain version on the card, at every distinct
      shape of the mode-16x cascade at 512^2 and of the UHD slab cascade,
      the plain UHD cascade's largest conv map, plus edge shapes (1-pixel maps, odd sizes, C not a multiple of 4,
-     unaligned slices); ``halo_exchange_rows`` exactly, at every (stage,
+     unaligned slices; for both convs one past each template's pixel tile,
+     off 16-byte alignment); ``halo_exchange_rows`` exactly, at every (stage,
      shard position) shape of the sharded UHD path and at edge shapes (one
      row, the whole neighbour, N = 2, odd row sizes, offset slices, the
      shard's own reflection rows as sources); a 16x16 image (relu5_1 at 1x1) stylizes to all-NaN
@@ -44,7 +45,8 @@ Phases (any failure raises and the script exits non-zero):
      (PSNR; the last window ends at the image, nothing is mirrored in);
   5. timings: each kernel, its plain version and one library call at every
      2048^2 shape of the path, weighted by the calls per cascade, beside the
-     least time the card could take; the warm 2048^2 cascade and its stages;
+     least time the card could take (each conv3x3 row with the template its
+     launch plan chose); the warm 2048^2 cascade and its stages;
   5b. the same for ``conv1x1_bias`` and ``sum_gram`` at the UHD slab shapes
      (``sum_gram``'s as a second summary on its row); the warm UHD
      slab cascade (median of 3), split by stage and into pass 1 and pass 2,
@@ -101,6 +103,7 @@ KERNEL_META = {
     "halo_exchange_rows": ("halo.cu", "collaborative_distillation_tpu/ops/pallas/halo.py:148"),
 }
 KERNEL_PATH = {"conv1x1_bias": "UHD slab", "halo_exchange_rows": "UHD sharded"}
+CONV3X3_NAMES = "conv3x3_kernel"   # the profiler's names of csrc/conv3x3.cu's kernels
 # Tolerances, each against the plain version on the same inputs:
 #   conv3x3, conv1x1: |kernel - plain| <= 1e-5 * S, S = max|x| * max_co sum|w|
 #     + max|b|, the largest magnitude any partial sum can take; both sum up
@@ -229,7 +232,7 @@ def work(kernel, shape):
     """(bytes, flops) the function must move and compute: each input read
     once, each output written once, float32."""
     if kernel == "conv3x3_reflect":
-        n, h, w, ci, co, _ = shape
+        n, h, w, ci, co = shape[:5]
         px = n * h * w
         return 4 * (px * ci + 9 * ci * co + co + px * co), 2 * 9 * ci * co * px
     if kernel == "conv1x1_bias":
@@ -292,8 +295,11 @@ class Bench:
         k = getattr(kc, kernel)
         row = {"kernel": kernel, "shape": list(shape)}
         if kernel == "conv3x3_reflect":
-            n, h, w, ci, co, relu = shape
-            x = self.rand(n, h, w, ci)
+            # (N, H, W, Cin, Cout, relu) or with a float offset: an offset
+            # leaves a contiguous map that is not 16-byte aligned
+            n, h, w, ci, co, relu, *rest = shape
+            offset = rest[0] if rest else 0
+            x = self.rand(n * h * w * ci + offset)[offset:].view(n, h, w, ci)
             if layer is not None:
                 stage, part, name = layer
                 p = self.pyramid[stage][part][name]
@@ -440,16 +446,20 @@ def profile_cascade(torch, eng, img, sty, label="phase 5") -> dict:
         log(f"{label}: profiler saw no device time: breakdown not measured")
         return {"wall_ms": wall_ms, "span_ms": span_ms, "busy_ms": None}
     top = kernels.most_common(12)
-    # sum_gram's kernels (row or tiled, and the reduce) by their names
+    # sum_gram's kernels (row or tiled, and the reduce) and conv3x3's (ring
+    # templates and the first kernel) by their names
     sg = sum(ms for name, ms in kernels.items() if "sum_gram" in name)
     sg_calls = sum(n for name, n in calls.items() if "sum_gram" in name)
+    c3 = sum(ms for name, ms in kernels.items() if CONV3X3_NAMES in name)
+    c3_calls = sum(n for name, n in calls.items() if CONV3X3_NAMES in name)
     log(f"{label}: profiled cascade wall {wall_ms:.2f} ms, event span {span_ms:.2f} ms, "
         f"device busy {busy:.2f} ms, idle share {1 - busy / span_ms:.3f}; sum_gram "
-        f"{sg:.3f} ms over {sg_calls} CUDA launches; top device time:")
+        f"{sg:.3f} ms over {sg_calls} CUDA launches; conv3x3_reflect {c3:.3f} ms over "
+        f"{c3_calls}; top device time:")
     for name, ms in top:
         log(f"    {ms:8.3f} ms  x{calls[name]:<4d} {name}")
     return {"wall_ms": wall_ms, "span_ms": span_ms, "busy_ms": busy,
-            "idle_share": 1 - busy / span_ms, "sum_gram_ms": sg,
+            "idle_share": 1 - busy / span_ms, "sum_gram_ms": sg, "conv3x3_ms": c3,
             "by_kernel_ms": dict(top), "calls": {n: calls[n] for n, _ in top}}
 
 
@@ -780,7 +790,16 @@ def main() -> int:
     edge = [("conv3x3_reflect", s) for s in
             [(1, 1, 1, 128, 128, True), (1, 1, 1, 3, 24, True), (1, 1, 7, 64, 64, True),
              (1, 5, 1, 16, 32, False), (2, 3, 5, 24, 3, True), (1, 17, 33, 3, 16, True),
-             (1, 16, 16, 512, 512, True), (1, 9, 9, 128, 3, False)]]
+             (1, 16, 16, 512, 512, True), (1, 9, 9, 128, 3, False),
+             # (..., float offset): one past each ring template's tile both
+             # ways, off 16-byte alignment; H or W of 2; W no multiple of the
+             # 8-pixel strip
+             (1, 9, 17, 128, 128, True, 1), (1, 17, 17, 64, 64, True, 3),
+             (1, 17, 33, 32, 32, False, 1), (1, 17, 33, 3, 24, True, 1),
+             (1, 33, 33, 16, 16, True, 2), (1, 33, 65, 16, 3, False, 1),
+             (1, 33, 65, 24, 3, True, 0), (1, 2, 2, 128, 64, True, 0),
+             (2, 2, 13, 16, 16, True, 1), (1, 13, 2, 32, 16, False, 0),
+             (1, 37, 45, 64, 128, True, 1)]]
     edge += [("max_pool_2x2", s) for s in [(1, 7, 9, 16), (2, 8, 8, 3), (1, 1, 5, 8)]]
     edge += [("upsample_nearest_2x", s) for s in [(1, 3, 5, 16), (2, 4, 4, 3)]]
     # sum_gram: (P, C) or (P, C, float offset): a stage-1 row count, odd and
@@ -798,7 +817,12 @@ def main() -> int:
              [(1, 1, 1, 8, 8, False, True, 0), (1, 1, 1, 128, 128, True, True, 0),
               (1, 7, 13, 24, 24, True, True, 0), (1, 9, 33, 128, 24, False, False, 0),
               (1, 5, 31, 24, 128, False, True, 1), (1, 16, 17, 8, 128, True, True, 3),
-              (2, 4, 5, 3, 24, False, True, 0), (1, 3, 11, 128, 8, True, False, 2)]]
+              (2, 4, 5, 3, 24, False, True, 0), (1, 3, 11, 128, 8, True, False, 2),
+              # one past a pixel tile of each Cout class, off 16-byte
+              # alignment; many tiles a block (the ring wraps)
+              (1, 1, 257, 24, 24, False, True, 1), (1, 1, 257, 32, 32, False, True, 2),
+              (1, 1, 257, 64, 64, False, True, 3), (1, 1, 129, 128, 128, False, True, 1),
+              (1, 3, 100001, 24, 24, False, True, 1)]]
     # halo: (N, H, W, C, hm, position, float offset): one row, the whole
     # neighbour, N = 2, W*C not a multiple of 4, shards at odd offsets
     edge += [("halo_exchange_rows", s) for s in
@@ -1052,11 +1076,17 @@ def main() -> int:
                              f"slab {db_awk_sh:.2f} dB")
 
     # ---- phase 5: timings at the 2048^2 path shapes -------------------------
+    from collaborative_distillation_tpu_torch.ops.cuda.conv import device_plan
     rows = []
     for (kernel, shape), n in sorted(calls2k.items(), key=str):
         r = bench.run(kernel, shape, layers2k.get(shape), timed=True)
         r["calls"] = n
         rows.append(r)
+        if kernel == "conv3x3_reflect":
+            r["plan"] = device_plan(*shape[:5], 0).kernel
+            log(f"phase 5: conv3x3_reflect {shape[:5]} x{n} plan {r['plan']}: "
+                f"{r['ms']:.4f} ms, bound {max(r['bytes_ms'], r['flops_ms']):.4f}, plain "
+                f"{r['plain_ms']:.4f}, cuDNN {r['library_ms']:.4f}")
     # conv1x1_bias lies on the UHD slab path only: timed at its shapes there
     for (kernel, shape), n in sorted(calls_uhd.items(), key=str):
         if kernel == "conv1x1_bias":
@@ -1083,6 +1113,10 @@ def main() -> int:
     log(f"phase 5b: sum_gram per UHD slab cascade {sg_uhd['ms']:.3f} ms over "
         f"{sg_uhd['launches']} launches, plain {sg_uhd['plain_ms']:.3f}, x.T @ x "
         f"{sg_uhd['library_ms']:.3f}, bound {sg_uhd['bound_ms']:.3f} ({sg_uhd['bound_by']})")
+    by_plan = Counter()   # conv3x3's ms per 2048^2 cascade by the template that ran
+    for r in rows:
+        if r.get("plan"):
+            by_plan[r["plan"]] += r["ms"] * r["calls"]
     table = []
     for k in kc.KERNELS:
         name = k.__name__
@@ -1095,7 +1129,8 @@ def main() -> int:
             "path": KERNEL_PATH.get(name, "2048^2 plain"),
             "max_rel_err": max(rel),
             **path_times([r for r in rows if r["kernel"] == name]),
-            **({"uhd_slab": sg_uhd} if name == "sum_gram" else {})})
+            **({"uhd_slab": sg_uhd} if name == "sum_gram" else {}),
+            **({"by_plan_ms": dict(by_plan)} if name == "conv3x3_reflect" else {})})
     detail["shapes_timed"] = rows + rows_sg_uhd
     detail["checks"] = checks
 

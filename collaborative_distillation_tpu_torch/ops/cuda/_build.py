@@ -38,7 +38,7 @@ _L = ctypes.c_longlong
 # C signatures: every pointer and the stream as void*, so ctypes never cuts
 # a 64-bit address to a 32-bit int.
 _SIGNATURES = {
-    "cd_conv3x3_reflect": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "cd_conv3x3_reflect": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "cd_conv1x1_bias": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
     "cd_sum_gram": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cd_max_pool_2x2": [_P, _P, _I, _I, _I, _I, _P],

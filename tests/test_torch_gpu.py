@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from collaborative_distillation_tpu_torch.ops import cuda as kc
+from collaborative_distillation_tpu_torch.ops.cuda import conv as kconv
 from collaborative_distillation_tpu_torch.ops.wct_transform import (feature_stats, gram_shift,
                                                                     stats_from_sums)
 
@@ -49,6 +50,41 @@ def test_conv3x3_kernel_matches_plain(gen, case):
     torch.cuda.synchronize()
     scale = float(x.abs().max() * wt.abs().sum(dim=(0, 1, 2)).max() + b.abs().max())
     assert float((got - ref).abs().max()) <= 1e-5 * scale
+
+
+# (Cin, Cout) for each template of the launch plan: every ring template at
+# the cascade's widths, and two of the first kernel's
+TEMPLATE_PAIRS = [(128, 128), (64, 128), (128, 64), (32, 64), (16, 32), (32, 32), (24, 24),
+                  (3, 24), (16, 16), (3, 16), (32, 16), (16, 3), (24, 3), (256, 24), (5, 7)]
+
+
+def _conv3x3_check(gen, n, h, w, ci, co, relu, offset=0):
+    """Kernel vs plain on one input (a float offset leaves a contiguous map
+    off 16-byte alignment): the error bound of test_conv3x3_kernel_matches_plain,
+    and a second call bit-equal to the first."""
+    x = _rand(gen, n * h * w * ci + offset)[offset:].view(n, h, w, ci) - 0.5
+    wt = (_rand(gen, 3, 3, ci, co) - 0.5) * (2 / (9 * ci) ** 0.5)
+    b = _rand(gen, co) - 0.5
+    got = kc.conv3x3_reflect(x, wt, b, relu)
+    ref = kc.conv3x3_reflect.plain(x, wt, b, relu)
+    again = kc.conv3x3_reflect(x, wt, b, relu)
+    torch.cuda.synchronize()
+    scale = float(x.abs().max() * wt.abs().sum(dim=(0, 1, 2)).max() + b.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("pair", TEMPLATE_PAIRS, ids=str)
+@pytest.mark.parametrize("hw", ["1x1", "1x2", "2x1", "2x2", "2x37", "17x9", "tile+1"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_conv3x3_templates_at_edge_shapes(gen, pair, hw, offset):
+    # H or W of 1 or 2 (reflection onto itself or the neighbour), W not a
+    # multiple of the 8-pixel strip, one past the template's tile both ways
+    ci, co = pair
+    plan = kconv.launch_plan(1, 64, 64, ci, co, 132)
+    assert (plan.kernel == "first") == (ci not in kconv.RING_WIDTHS or co not in kconv.RING_WIDTHS)
+    h, w = (plan.tile[0] + 1, plan.tile[1] + 1) if hw == "tile+1" else map(int, hw.split("x"))
+    _conv3x3_check(gen, 2 if hw == "2x37" else 1, h, w, ci, co, ci % 2 == 0, offset)
 
 
 SUM_GRAM_CASES = [  # (P, C, shifted, float offset)
@@ -117,6 +153,12 @@ CONV1X1_CASES = [  # (P, Cin, Cout, relu, bias, offset)
     (1, 8, 8, False, True, 0), (1, 128, 3, True, True, 0), (65, 3, 24, True, True, 0),
     (300, 24, 128, False, True, 1), (129, 128, 24, False, True, 3),
     (5000, 12, 8, True, False, 0),
+    # one past a pixel tile of each Cout class (256, 256, 256, 128 pixels),
+    # off 16-byte alignment, and many tiles per block (the ring wraps)
+    (257, 24, 24, False, True, 1), (257, 32, 32, True, True, 2), (257, 64, 64, False, True, 3),
+    (129, 128, 128, False, True, 1), (300001, 24, 24, False, True, 0),
+    (300001, 32, 32, False, True, 1), (100003, 64, 64, True, True, 0),
+    (100003, 128, 128, False, True, 2), (1, 24, 24, False, True, 0),
 ]
 
 
@@ -134,6 +176,7 @@ def test_conv1x1_kernel_matches_plain(gen, case):
     torch.cuda.synchronize()
     scale = float(x.abs().max() * w.abs().sum(0).max() + (b.abs().max() if bias else 0))
     assert float((got - ref).abs().max()) <= 1e-5 * scale
+    assert torch.equal(got, kc.conv1x1_bias(x, w, b, relu))   # repeat calls bit-equal
 
 
 def test_kernels_keep_nan_as_torch_does(gen):
@@ -148,6 +191,20 @@ def test_kernels_keep_nan_as_torch_does(gen):
                      (kc.conv3x3_reflect(x, w3, b, True), kc.conv3x3_reflect.plain(x, w3, b, True)),
                      (kc.conv1x1_bias(x, w1, b, True), kc.conv1x1_bias.plain(x, w1, b, True))]:
         assert torch.equal(got.isnan(), ref.isnan()) and bool(got.isnan().any())
+
+
+@pytest.mark.parametrize("pair", TEMPLATE_PAIRS, ids=str)
+def test_conv3x3_templates_keep_nan(gen, pair):
+    # one NaN input pixel in the middle of a tile and one on the map's edge
+    # (read again by the reflection): NaN where the plain version has it
+    ci, co = pair
+    x = _rand(gen, 1, 40, 70, ci) - 0.5
+    x[0, 20, 30, 0] = float("nan")
+    x[0, 0, 69, ci - 1] = float("nan")
+    wt = _rand(gen, 3, 3, ci, co) - 0.5
+    b = _rand(gen, co) - 0.5
+    got, ref = kc.conv3x3_reflect(x, wt, b, True), kc.conv3x3_reflect.plain(x, wt, b, True)
+    assert torch.equal(got.isnan(), ref.isnan()) and bool(got.isnan().any())
 
 
 def test_slab_engine_on_card_matches_cpu():

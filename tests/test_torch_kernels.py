@@ -22,10 +22,14 @@ from collaborative_distillation_tpu.ops.pallas.stats import fused_sum_gram
 
 import torch
 
+import chip_smoke
+from collaborative_distillation_tpu_torch.models.zoo import stage_specs
 from collaborative_distillation_tpu_torch.ops import conv as tconv
+from collaborative_distillation_tpu_torch.ops.cuda import conv as kconv
 from collaborative_distillation_tpu_torch.ops.cuda import pool as kpool
 from collaborative_distillation_tpu_torch.ops.cuda import stats as kstats
 from collaborative_distillation_tpu_torch.ops.pad import reflect_index
+from collaborative_distillation_tpu_torch.wct.slab import FEATURE_CACHE_BYTES, SlabCascade
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -130,6 +134,84 @@ def test_sum_gram_launch_plan_covers_every_row_once(p, c, n_sm):
     if c in kstats._ROW_KERNEL:                        # one wave of row blocks
         step, per_sm = kstats._ROW_KERNEL[c]
         assert rows % step == 0 and nblocks <= per_sm * n_sm
+
+
+def _path_conv_shapes():
+    """(N, H, W, Cin, Cout) of every conv3x3 launch on the 2048^2 plain, UHD
+    slab (slab_rows=1024), sharded UHD (space=4, slab_rows=512) and plain
+    UHD paths of mode 16x, from chip_smoke.py's plans and the specs alone."""
+    stages = (5, 4, 3, 2, 1)
+    pyr = {k: dict(zip(("enc_spec", "dec_spec"), stage_specs("16x", k))) for k in stages}
+    margins = SlabCascade(pyr, stages=stages, slab_rows=1024).margins
+    h, w = chip_smoke.UHD_H, chip_smoke.UHD_W
+    plans = [chip_smoke.path_calls(pyr, stages, 2048, 2048),
+             chip_smoke.path_calls(pyr, stages, h, w),
+             chip_smoke.slab_path_calls(pyr, stages, margins, 1024, h, w, 2048, 2048,
+                                        FEATURE_CACHE_BYTES),
+             chip_smoke.sharded_path_calls(pyr, stages, margins, 512, 4, h, w, 2048, 2048)]
+    return sorted({s[:5] for calls, _ in plans for k, s in calls if k == "conv3x3_reflect"})
+
+
+# the reference's VGG-19 teachers (mode "original"): widths up to 512
+TEACHER_SHAPES = [(1, 512, 512, ci, co) for ci, co in
+                  [(3, 64), (64, 64), (64, 128), (128, 256), (256, 256), (256, 512),
+                   (512, 512), (512, 256), (256, 128), (128, 64), (64, 3)]]
+EDGE_SHAPES = [(1, 1, 1, 128, 128), (2, 3, 5, 24, 3), (1, 17, 33, 3, 16), (1, 2, 1, 16, 16),
+               (3, 9, 65, 16, 3), (1, 33, 17, 32, 24), (1, 4, 4, 5, 7), (65535, 1, 1, 8, 8),
+               (70000, 1, 1, 16, 16)]
+
+
+@pytest.mark.parametrize("shape", _path_conv_shapes() + TEACHER_SHAPES + EDGE_SHAPES, ids=str)
+@pytest.mark.parametrize("n_sm", [132, 1])
+def test_conv3x3_launch_plan_covers_the_output_once(shape, n_sm):
+    n, h, w, cin, cout = shape
+    plan = kconv.launch_plan(n, h, w, cin, cout, n_sm)
+    ring = cin in kconv.RING_WIDTHS and cout in kconv.RING_WIDTHS
+    assert (plan.kernel != "first") == ring and (plan.template > 0) == ring
+    assert plan.cout_tile >= (cout if ring else 1)
+    th, tw = plan.tile
+    tiles_h, tiles_w = -(-h // th), -(-w // tw)
+    assert plan.tiles == n * tiles_h * tiles_w < 2 ** 31
+    if not ring:   # a block per (tile, Cout tile, image)
+        assert plan.grid == (tiles_h * tiles_w, -(-cout // plan.cout_tile), n)
+        assert plan.grid[1] <= 65535 and plan.grid[2] <= kconv.MAX_GRID_Z
+        return
+    # one persistent wave; block b takes tiles b, b + grid, ...: every block
+    # has a tile and every tile one block
+    assert plan.grid[1:] == (1, 1) and 1 <= plan.grid[0] <= min(plan.tiles, n_sm)
+    # tile t's image and first row and column, as the kernel computes them
+    img, r = np.divmod(np.arange(plan.tiles), tiles_h * tiles_w)
+    y0, x0 = (r // tiles_w) * th, (r % tiles_w) * tw
+    assert len(set(zip(img.tolist(), y0.tolist(), x0.tolist()))) == plan.tiles
+    assert img.min() == 0 and img.max() == n - 1
+    assert (y0 % th == 0).all() and (x0 % tw == 0).all() and (y0 < h).all() and (x0 < w).all()
+    area = (np.minimum(y0 + th, h) - y0) * (np.minimum(x0 + tw, w) - x0)
+    assert int(area.sum()) == n * h * w
+
+
+def test_conv3x3_launch_plan_takes_the_ring_at_every_path_width():
+    shapes = _path_conv_shapes()
+    kinds = {kconv.launch_plan(*s, 132).kernel for s in shapes}
+    assert "first" not in kinds and len(shapes) > 40
+    assert {kconv.launch_plan(*s, 132).kernel for s in TEACHER_SHAPES} >= {"first", "ring_co64"}
+    with pytest.raises(ValueError, match="batch"):   # past gridDim.z: refused, not launched
+        kconv.launch_plan(70000, 1, 1, 8, 8, 132)
+
+
+def test_conv3x3_plan_templates_match_the_cuda_source():
+    """The plan's table (Cout tile, tile rows and columns) is the one
+    csrc/conv3x3.cu instantiates, template by template, by id."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(kconv.__file__), "csrc", "conv3x3.cu")).read()
+    params = {name: [int(v) for v in args.split(",")[:4]] for name, args in
+              re.findall(r"using (Ring\w+) = Ring<([^>]*)>;", src)}
+    cases = dict((int(i), name) for i, name in
+                 re.findall(r"case (\d+):\s*return launch_ring<(\w+)>", src))
+    assert sorted(cases) == sorted(kconv._TEMPLATES)
+    for tid, (_, co_t, th, tw) in kconv._TEMPLATES.items():
+        c_co_t, _, c_th, c_tw = params[cases[tid]]
+        assert (co_t, th, tw) == (c_co_t, c_th, c_tw), tid
 
 
 @pytest.mark.parametrize("hw", [(7, 9), (8, 16), (5, 4)], ids=str)
