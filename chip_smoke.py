@@ -65,7 +65,29 @@ Phases (any failure raises and the script exits non-zero):
      uint8 host-to-host walls at 2048^2 and UHD for ``transport="rgb"`` and
      ``"yuv420"``, and ``push`` through pinned staging at several chunk sizes
      against a pageable ``.to()``; (d) ``stylize_pairs`` over four 2048^2
-     uint8 pairs, bit-equal to four ``stylize`` calls, and both walls.
+     uint8 pairs, bit-equal to four ``stylize`` calls, and both walls;
+  7. the CLIs and the HTTP server (``collaborative_distillation_tpu_torch/cli``),
+     bodies and files written and read by the port (PNG; JPEG where the native
+     codec is built), each launch count read with the counters zeroed around
+     one request or CLI run and held to the plan's, the style's statistics
+     cached or not: (a) ``build_app(WCTEngine(mode="16x"))`` on a local
+     ThreadingHTTPServer, two registered 2048^2 styles (warm log lines
+     awaited), requests at alpha 1 and 0.6, a blend and four concurrent ones,
+     each response equal to the engine's direct call (PNG pixels bit-equal, or
+     JPEG bytes equal to ``encode_jpeg`` of it), ``/metrics`` (7 requests, 0
+     errors, a queue of 2 or more), the p50 and the decode/cascade/encode
+     split; (b) a ``slab_rows=1024`` server and one 4096 x 10240 PNG request
+     against phase 3b's output (PSNR); (c) ``python -m ...cli.serve --port 0``
+     as a process: the bound port from its log, one 512^2 request, exit 0
+     after SIGINT; (d) the stylize CLI in process over 2 x 2 pairs at 2048^2
+     (``stylize_pairs``; the files equal the engine's outputs; ``--profile``
+     writes a trace that names the conv3x3 kernel) and one UHD pair with
+     ``--slab_rows 1024`` against phase 3b's output; (e) the eval CLI on four
+     256^2 crops, on the card against ``--device cpu``; (f) a seeded
+     ``original`` pyramid (teacher widths, Cin/Cout to 512): every kernel at
+     its 512^2 path shapes against the plain version, each stage's encoder
+     and decoder card vs CPU, and the stylize CLI at its default ``--mode
+     original`` on one 512^2 pair.
 
 With ``--cross-card`` (two or more cards) it runs only the halo check and
 the sharded UHD path with neighbouring shards on different cards, against
@@ -157,34 +179,37 @@ def _decoder_calls(calls, layer_of, k, spec, hh, ww):
     return hh, ww
 
 
-def path_calls(pyramid, stages, h, w):
+def path_calls(pyramid, stages, h, w, style=True):
     """Kernel calls of one cascade on an (h, w) content and style of the same
     size: {(kernel, shape): count}, plus {shape: (stage, part, layer)} naming
-    the first layer that runs each conv shape."""
+    the first layer that runs each conv shape. ``style=False``: the style's
+    statistics are cached (no style encode)."""
     calls, layer_of = Counter(), {}
     for k in stages:
         es, ds = pyramid[k]["enc_spec"], pyramid[k]["dec_spec"]
-        for _ in ("style", "content"):
+        for _ in ("style", "content") if style else ("content",):
             hh, ww = _encoder_calls(calls, layer_of, k, es, h, w)
             calls[("sum_gram", (hh * ww, es.out_channels))] += 1
         assert _decoder_calls(calls, layer_of, k, ds, hh, ww) == (h, w)
     return calls, layer_of
 
 
-def slab_path_calls(pyramid, stages, margins, slab, h, w, sh, sw, cache_bytes):
+def slab_path_calls(pyramid, stages, margins, slab, h, w, sh, sw, cache_bytes, style=True):
     """Kernel calls of one fused slab cascade (no style key: the style is
-    encoded whole at every stage) on an (h, w) content, h a multiple of
-    ``slab``, and an (sh, sw) style, from the stage margins: per stage, pass
-    1 encodes every extended slab and sums its interior feature rows; pass
-    2 re-encodes unless the stage's stacked features fit in ``cache_bytes``,
-    applies the folded WCT (``conv1x1_bias``) and decodes."""
+    encoded whole at every stage; ``style=False``: its statistics are
+    cached) on an (h, w) content, h a multiple of ``slab``, and an (sh, sw)
+    style, from the stage margins: per stage, pass 1 encodes every extended
+    slab and sums its interior feature rows; pass 2 re-encodes unless the
+    stage's stacked features fit in ``cache_bytes``, applies the folded WCT
+    (``conv1x1_bias``) and decodes."""
     calls, layer_of = Counter(), {}
     n_slabs = h // slab
     for k in stages:
         es, ds = pyramid[k]["enc_spec"], pyramid[k]["dec_spec"]
         c, down = es.out_channels, 2 ** (k - 1)
-        hh, ww = _encoder_calls(calls, layer_of, k, es, sh, sw)
-        calls[("sum_gram", (hh * ww, c))] += 1
+        if style:
+            hh, ww = _encoder_calls(calls, layer_of, k, es, sh, sw)
+            calls[("sum_gram", (hh * ww, c))] += 1
         rows = slab + 2 * margins[k] if n_slabs > 1 else h
         cache = n_slabs * (rows // down) * (w // down) * c * 4 <= cache_bytes
         for _ in range(n_slabs):
@@ -717,7 +742,449 @@ def host_boundary(torch, kc, slab_eng, eng, c_uhd, c2k, s2k, expect_uhd) -> dict
     return out
 
 
+# ---- phase 7: the CLIs and the HTTP server ------------------------------------------
+
+def _totals(kc, calls) -> dict:
+    """{kernel name: launches} of a plan's {(kernel, shape): count}."""
+    return {k.__name__: sum(c for (kernel, _), c in calls.items() if kernel == k.__name__)
+            for k in kc.KERNELS}
+
+
+def _zero(kc) -> None:
+    for k in kc.KERNELS:
+        k.launches = 0
+
+
+def _counts(kc) -> dict:
+    return {k.__name__: k.launches for k in kc.KERNELS}
+
+
+def _check_counts(label, got, want) -> None:
+    log(f"{label}: launches {got}, predicted {want}")
+    if got != want:
+        raise AssertionError(f"{label}: launch counts {got} != predicted {want}")
+
+
+def _http(url, body=None, timeout=600):
+    """(status, body, headers) of a GET, or of a POST of ``body``; an HTTP
+    error status raises."""
+    import urllib.request
+    req = urllib.request.Request(url, data=body, method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.read(), r.headers
+
+
+def _legs(headers) -> dict:
+    """A response's Server-Timing header as {leg: ms}."""
+    return {k: float(v) for k, v in (p.strip().split(";dur=")
+                                     for p in headers["Server-Timing"].split(","))}
+
+
+def _decoded(body, ctype) -> np.ndarray:
+    from collaborative_distillation_tpu_torch.data import native_codec as nc
+    from collaborative_distillation_tpu_torch.data.png import decode_png
+    return decode_png(body) if ctype == "image/png" else nc.decode_jpeg(body)
+
+
+def _same_as(body, ctype, want, label) -> None:
+    """A response or file against the engine's direct uint8 result: a PNG's
+    pixels bit-equal, a JPEG's bytes equal to ``encode_jpeg`` of it."""
+    from collaborative_distillation_tpu_torch.data import native_codec as nc
+    from collaborative_distillation_tpu_torch.data.png import decode_png
+    same = (np.array_equal(decode_png(body), want) if ctype == "image/png"
+            else body == nc.encode_jpeg(want, quality=95))
+    if not same:
+        raise AssertionError(f"{label}: differs from the engine's direct call")
+
+
+def _psnr_u8(torch, a: np.ndarray, b: np.ndarray) -> float:
+    """PSNR of two uint8 images, on the card."""
+    ta, tb = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    return psnr_device(torch, ta.float() / 255.0, tb.float() / 255.0)
+
+
+class _Server:
+    """``build_app(engine)`` on a ThreadingHTTPServer at 127.0.0.1:0, served
+    from a thread; the server's log lines are kept in ``logs``."""
+
+    def __init__(self, engine):
+        import threading
+        from http.server import ThreadingHTTPServer
+
+        from collaborative_distillation_tpu_torch.cli.serve import build_app
+        self.logs: list = []
+        self.srv = ThreadingHTTPServer(("127.0.0.1", 0), build_app(engine, self.logs.append))
+        self.url = f"http://127.0.0.1:{self.srv.server_address[1]}"
+        threading.Thread(target=self.srv.serve_forever, daemon=True).start()
+
+    def register(self, name, body, timeout=300) -> str:
+        """POST /style/<name> and wait for its warm-up line; returns the
+        engine's cache key for it. The warm-up is best-effort in the
+        server, so its failure line raises here."""
+        _http(f"{self.url}/style/{name}", body)
+        t0 = time.time()
+        while time.time() - t0 < timeout:
+            for line in list(self.logs):
+                if line.startswith(f"style '{name}#") and line.endswith("' warm"):
+                    return line[len("style '"):-len("' warm")]
+                if f"warm-up failed for '{name}#" in line:
+                    raise AssertionError(line)
+            time.sleep(0.02)
+        raise AssertionError(f"style {name!r}: no warm-up line after {timeout} s")
+
+    def close(self) -> None:
+        self.srv.shutdown()
+        self.srv.server_close()
+
+
+def server_2048(torch, kc, WCTEngine, c2k, s2k) -> dict:
+    """7a: the server at 2048^2 (see the module docstring)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from collaborative_distillation_tpu_torch.data.png import encode_png
+    eng = WCTEngine(mode="16x")
+    srv = _Server(eng)
+    out: dict = {}
+    try:
+        health = json.loads(_http(srv.url + "/healthz")[1])
+        log(f"phase 7a: /healthz {health}")
+        if not (health["ok"] and health["device"] == str(eng.device) and health["codec"]):
+            raise AssertionError(f"/healthz {health}")
+        style_b = np.ascontiguousarray(s2k[:, ::-1])
+        t0 = time.perf_counter()
+        bodies = {"a": encode_png(s2k), "b": encode_png(style_b), "c": encode_png(c2k)}
+        out["png_write_2048_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+        ka, kb = srv.register("a", bodies["a"]), srv.register("b", bodies["b"])
+        one = _totals(kc, path_calls(eng.pyramid, eng.stages, 2048, 2048, style=False)[0])
+        blend_key, proxy = eng.blend_styles([s2k, style_b], [0.7, 0.3], style_keys=[ka, kb])
+        wants = {"style=a": eng.stylize(c2k, s2k, style_key=ka, as_uint8=True),
+                 "style=a&alpha=0.6": eng.stylize(c2k, s2k, alpha=0.6, style_key=ka,
+                                                  as_uint8=True),
+                 "style=a:0.7,b:0.3": eng.stylize(c2k, proxy, style_key=blend_key,
+                                                  as_uint8=True)}
+        out["requests"] = {}
+        for query, want in wants.items():
+            _zero(kc)
+            t0 = time.perf_counter()
+            _, body, hdr = _http(f"{srv.url}/stylize?{query}", bodies["c"])
+            wall = (time.perf_counter() - t0) * 1e3
+            _check_counts(f"phase 7a: POST /stylize?{query}", _counts(kc), one)
+            _same_as(body, hdr["Content-Type"], want, f"phase 7a: {query}")
+            out["requests"][query] = {"wall_ms": wall, "legs_ms": _legs(hdr),
+                                      "type": hdr["Content-Type"], "bytes": len(body)}
+            log(f"phase 7a: {query}: {hdr['Content-Type']} {len(body)} B, equal to the "
+                f"engine's direct call; client wall {wall:.1f} ms, server split "
+                f"{_legs(hdr)} ms")
+        # four requests at once from four threads: they queue on the engine lock
+        contents = [np.ascontiguousarray(x) for x in (c2k, c2k[::-1], c2k[:, ::-1], c2k[::-1, ::-1])]
+        queries = ["style=a", "style=b", "style=a", "style=b"]
+        cbodies = [encode_png(c) for c in contents]
+        _zero(kc)
+        with ThreadPoolExecutor(4) as pool:
+            got = list(pool.map(lambda i: _http(f"{srv.url}/stylize?{queries[i]}", cbodies[i]),
+                                range(4)))
+        _check_counts("phase 7a: four concurrent requests", _counts(kc),
+                      {k: 4 * v for k, v in one.items()})
+        for i, (_, body, hdr) in enumerate(got):
+            want = eng.stylize(contents[i], s2k if queries[i] == "style=a" else style_b,
+                               style_key=ka if queries[i] == "style=a" else kb, as_uint8=True)
+            _same_as(body, hdr["Content-Type"], want, f"phase 7a: concurrent request {i}")
+        metrics = json.loads(_http(srv.url + "/metrics")[1])
+        log(f"phase 7a: the four concurrent responses equal the direct calls; /metrics {metrics}")
+        if not (metrics["stylize_requests"] == 7 and metrics["stylize_errors"] == 0
+                and metrics["engine_queue"]["max"] >= 2):
+            raise AssertionError(f"/metrics {metrics}")
+        out["metrics"] = metrics
+        log(f"phase 7a: request p50 {metrics['latency_s']['p50'] * 1e3:.0f} ms (server-side, "
+            f"7 requests at 2048^2), p95 {metrics['latency_s']['p95'] * 1e3:.0f} ms")
+    finally:
+        srv.close()
+    return out
+
+
+def server_uhd(torch, kc, WCTEngine, c_uhd, s2k, ref_u8) -> dict:
+    """7b: the server at UHD with slab_rows (see the module docstring)."""
+    from collaborative_distillation_tpu_torch.data.png import decode_png, encode_png
+    from collaborative_distillation_tpu_torch.wct.slab import FEATURE_CACHE_BYTES
+    eng = WCTEngine(mode="16x", slab_rows=UHD_SLAB)
+    srv = _Server(eng)
+    out: dict = {}
+    try:
+        key = srv.register("s", encode_png(s2k))
+        t0 = time.perf_counter()
+        body_in = encode_png(c_uhd)
+        out["png_write_uhd_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        if not np.array_equal(decode_png(body_in), c_uhd):
+            raise AssertionError("UHD PNG round trip")
+        out["png_read_uhd_ms"] = (time.perf_counter() - t0) * 1e3
+        cached = ("fused", key, (1, 2048, 2048, 3)) in eng._style_cache
+        cas = eng.slab
+        want = _totals(kc, slab_path_calls(eng.pyramid, eng.stages, cas.margins, cas.slab_rows,
+                                           UHD_H, UHD_W, 2048, 2048, FEATURE_CACHE_BYTES,
+                                           style=not cached)[0])
+        _zero(kc)
+        t0 = time.perf_counter()
+        _, body, hdr = _http(srv.url + "/stylize?style=s", body_in)
+        wall = (time.perf_counter() - t0) * 1e3
+        _check_counts(f"phase 7b: POST /stylize {UHD_H}x{UHD_W} (style statistics cached: "
+                      f"{cached})", _counts(kc), want)
+        t0 = time.perf_counter()
+        got = _decoded(body, hdr["Content-Type"])
+        read_ms = (time.perf_counter() - t0) * 1e3
+        db = _psnr_u8(torch, got, ref_u8)
+        out.update(wall_ms=wall, legs_ms=_legs(hdr), type=hdr["Content-Type"],
+                   in_bytes=len(body_in), out_bytes=len(body), response_read_ms=read_ms,
+                   psnr_vs_phase_3b_db=db)
+        log(f"phase 7b: {UHD_H}x{UHD_W} PNG request ({len(body_in)} B, written by the port in "
+            f"{out['png_write_uhd_ms']:.0f} ms, read back in {out['png_read_uhd_ms']:.0f} ms): "
+            f"{hdr['Content-Type']} {len(body)} B in {wall:.0f} ms client wall; server split "
+            f"{_legs(hdr)} ms; response decoded in {read_ms:.0f} ms; vs phase 3b's output "
+            f"PSNR {db:.2f} dB (min {PSNR_MIN_DB})")
+        if got.shape != c_uhd.shape or not db >= PSNR_MIN_DB:
+            raise AssertionError(f"UHD response {got.shape}, {db:.2f} dB")
+    finally:
+        srv.close()
+    return out
+
+
+def serve_entry_point(c512, s512) -> dict:
+    """7c: ``python -m ...cli.serve --port 0`` as a process of its own."""
+    import re
+    import signal
+    import threading
+
+    from collaborative_distillation_tpu_torch.data.png import encode_png
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "collaborative_distillation_tpu_torch.cli.serve",
+                             "--mode", "16x", "--port", "0"], cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines: list = []
+    bound = threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if re.search(r"at http://[\d.]+:\d+ ", line):
+                bound.set()
+        bound.set()
+
+    threading.Thread(target=read, daemon=True).start()
+    try:
+        if not bound.wait(300):
+            raise AssertionError("cli.serve logged no bound port in 300 s")
+        found = [m for m in (re.search(r"at (http://[\d.]+:\d+) ", x) for x in lines) if m]
+        if not found:
+            raise AssertionError(f"cli.serve exited {proc.poll()}: {lines[-20:]}")
+        url, up_s = found[0].group(1), time.perf_counter() - t0
+        health = json.loads(_http(url + "/healthz")[1])
+        _http(url + "/style/s", encode_png(s512))
+        _, body, hdr = _http(url + "/stylize?style=s", encode_png(c512))
+        got = _decoded(body, hdr["Content-Type"])
+        change = float(np.abs(got.astype(np.float32) - c512).mean()) / 255.0
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+        log(f"phase 7c: cli.serve bound {url} {up_s:.1f} s after start; /healthz {health}; one "
+            f"512^2 request: {hdr['Content-Type']} {got.shape}, mean change {change:.4f}; exit "
+            f"{rc} after SIGINT; last log line {lines[-1]!r}")
+        if not (health["device"].startswith("cuda") and got.shape == c512.shape
+                and change > 0.02 and rc == 0):
+            raise AssertionError(f"cli.serve: {health}, {got.shape}, change {change}, rc {rc}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return {"startup_s": up_s, "exit": rc, "type": hdr["Content-Type"]}
+
+
+def _average_paeth_png(img: np.ndarray) -> bytes:
+    """PNG bytes of an (H, W, 3) uint8 image whose rows alternate the
+    Average and Paeth filters, as photo writers choose them. Filtering is
+    whole-array numpy (each prediction reads the raw bytes); reversing it
+    is sequential along a row and takes the port's C helper."""
+    import struct
+    import zlib
+
+    from collaborative_distillation_tpu_torch.data import png
+    h, w, _ = img.shape
+    x = img.reshape(h, w * 3).astype(np.int16)
+    a, b, c = (np.zeros_like(x) for _ in range(3))
+    a[:, 3:], b[1:], c[1:, 3:] = x[:, :-3], x[:-1], x[:-1, :-3]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    even = (np.arange(h) % 2 == 0)[:, None]
+    rows = np.concatenate([np.where(even, 3, 4), (x - np.where(even, (a + b) // 2, paeth)) % 256],
+                          axis=1).astype(np.uint8)
+    return (png.PNG_SIGNATURE + png._chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + png._chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + png._chunk(b"IEND", b""))
+
+
+def stylize_cli(torch, kc, eng, c2k, s2k, c_uhd, ref_u8, expect_uhd, tmp) -> dict:
+    """7d: the stylize CLI in process (see the module docstring)."""
+    from collaborative_distillation_tpu_torch.cli import stylize as cli
+    from collaborative_distillation_tpu_torch.data import png
+    from collaborative_distillation_tpu_torch.utils.image import (jpeg_or_png, read_image,
+                                                                  save_image)
+    out: dict = {}
+    contents = {"c1": c2k, "c2": np.ascontiguousarray(c2k[::-1])}
+    styles = {"s1": s2k, "s2": np.ascontiguousarray(s2k[:, ::-1])}
+    for sub, imgs in (("content", contents), ("style", styles)):
+        os.makedirs(os.path.join(tmp, sub))
+        for name, img in imgs.items():
+            save_image(img, os.path.join(tmp, sub, name + ".png"))
+    # c2 as a file with Average and Paeth rows: the CLI reads it through the
+    # C helper, built here with g++ at first use
+    with open(os.path.join(tmp, "content", "c2.png"), "wb") as f:
+        f.write(_average_paeth_png(contents["c2"]))
+    t0 = time.perf_counter()
+    with open(os.path.join(tmp, "content", "c2.png"), "rb") as f:
+        same = np.array_equal(png.decode_png(f.read()), contents["c2"])
+    log(f"phase 7d: a 2048^2 PNG with Average and Paeth rows read back equal: {same} in "
+        f"{(time.perf_counter() - t0) * 1e3:.0f} ms (C helper built into {png.build_dir()}: "
+        f"{png._lib is not None})")
+    if not (same and png._lib is not None):
+        raise AssertionError(f"Average/Paeth PNG: equal {same}, helper {png._reason}")
+    both = _totals(kc, path_calls(eng.pyramid, eng.stages, 2048, 2048)[0])
+    one = _totals(kc, path_calls(eng.pyramid, eng.stages, 2048, 2048, style=False)[0])
+    # four pairs, each style encoded at its first pair and cached for the second
+    want = {k: 2 * both[k] + 2 * one[k] for k in both}
+    prof = os.path.join(tmp, "profile")
+    _zero(kc)
+    t0 = time.perf_counter()
+    cli.main(["--mode", "16x", "--contentPath", os.path.join(tmp, "content"), "--stylePath",
+              os.path.join(tmp, "style"), "--outf", os.path.join(tmp, "out"), "--log_mark", "g",
+              "--profile", prof])
+    out["grid_s"] = time.perf_counter() - t0
+    _check_counts("phase 7d: stylize CLI, 2 x 2 pairs at 2048^2 (stylize_pairs)", _counts(kc),
+                  want)
+    for c, s in ((c, s) for c in contents for s in styles):
+        path, _ = jpeg_or_png(os.path.join(tmp, "out", f"g_mode=16x_alpha=1.0_{c}+{s}.jpg"))
+        with open(path, "rb") as f:
+            _same_as(f.read(), "image/png" if path.endswith(".png") else "image/jpeg",
+                     eng.stylize(contents[c], styles[s], as_uint8=True), f"phase 7d: {path}")
+    with open(os.path.join(prof, "trace.json")) as f:
+        named = CONV3X3_NAMES in f.read()
+    log(f"phase 7d: the four files (*{os.path.splitext(path)[1]}) equal the engine's outputs; "
+        f"{out['grid_s']:.2f} s with the profiler on; its trace names {CONV3X3_NAMES}: {named}")
+    if not named:
+        raise AssertionError(f"--profile trace does not name {CONV3X3_NAMES}")
+    # one UHD pair: stylize(as_uint8=True), the streamed tail
+    for sub, img in (("uhd_content", c_uhd), ("uhd_style", s2k)):
+        os.makedirs(os.path.join(tmp, sub))
+        save_image(img, os.path.join(tmp, sub, "u.png"))
+    _zero(kc)
+    t0 = time.perf_counter()
+    cli.main(["--mode", "16x", "--UHD", "--UHD_contentPath", os.path.join(tmp, "uhd_content"),
+              "--UHD_stylePath", os.path.join(tmp, "uhd_style"), "--slab_rows", str(UHD_SLAB),
+              "--outf", os.path.join(tmp, "out"), "--log_mark", "u"])
+    out["uhd_s"] = time.perf_counter() - t0
+    _check_counts(f"phase 7d: stylize CLI, one {UHD_H}x{UHD_W} pair --slab_rows {UHD_SLAB}",
+                  _counts(kc), expect_uhd)
+    path, _ = jpeg_or_png(os.path.join(tmp, "out", "u_mode=16x_alpha=1.0_u+u.jpg"))
+    db = _psnr_u8(torch, read_image(path), ref_u8)
+    out["uhd_psnr_vs_phase_3b_db"] = db
+    log(f"phase 7d: UHD pair in {out['uhd_s']:.2f} s (PNG read and written by the port "
+        f"included) -> {os.path.basename(path)}, vs phase 3b's output PSNR {db:.2f} dB "
+        f"(min {PSNR_MIN_DB})")
+    if not db >= PSNR_MIN_DB:
+        raise AssertionError(f"stylize CLI UHD pair {db:.2f} dB")
+    return out
+
+
+def eval_cli(c512, s512, tmp) -> dict:
+    """7e: the eval CLI on four 256^2 crops, on the card and on the CPU."""
+    from collaborative_distillation_tpu_torch.cli import eval as cli
+    from collaborative_distillation_tpu_torch.utils.image import save_image
+    os.makedirs(os.path.join(tmp, "eval"))
+    for i, img in enumerate((c512[:256, :256], c512[256:, 256:], s512[:256, 256:],
+                             s512[256:, :256])):
+        save_image(np.ascontiguousarray(img), os.path.join(tmp, "eval", f"{i}.png"))
+    argv = ["--mode", "16x", "--images", os.path.join(tmp, "eval"), "--size", "256",
+            "--n_images", "4"]
+    t0 = time.perf_counter()
+    card = cli.run(argv)
+    card_s = time.perf_counter() - t0
+    cpu = cli.run(argv + ["--device", "cpu"])
+    worst = {k: (abs(card[k]["psnr"] - cpu[k]["psnr"]), abs(card[k]["ssim"] - cpu[k]["ssim"]))
+             for k in card}
+    log(f"phase 7e: eval on the card ({card_s:.2f} s) {card}; |card - cpu| per stage (PSNR dB, "
+        f"SSIM) {worst} (max 0.05, 1e-3)")
+    if not all(d <= 0.05 and e <= 1e-3 for d, e in worst.values()):
+        raise AssertionError(f"eval card vs cpu {worst}")
+    return {"card": card, "cpu": cpu}
+
+
+def teacher_widths(torch, kc, WCTEngine, c512, s512, tmp) -> dict:
+    """7f: a seeded ``original`` pyramid (teacher widths, Cin/Cout to 512)."""
+    from collaborative_distillation_tpu_torch.cli import stylize as cli
+    from collaborative_distillation_tpu_torch.models.vgg import (apply_decoder, apply_encoder,
+                                                                 init_params)
+    from collaborative_distillation_tpu_torch.models.zoo import stage_specs
+    from collaborative_distillation_tpu_torch.utils.image import (jpeg_or_png, read_image,
+                                                                  save_image)
+    root = os.path.join(tmp, "weights")
+    os.makedirs(os.path.join(root, "original"))
+    gen = torch.Generator().manual_seed(0)
+    for k in (5, 4, 3, 2, 1):
+        for spec, name in zip(stage_specs("original", k), (f"e{k}", f"d{k}")):
+            p = init_params(spec, gen)
+            np.savez(os.path.join(root, "original", name + ".npz"),
+                     **{f"{n}/{kind}": t.numpy() for n, leaf in p.items()
+                        for kind, t in leaf.items()})
+    teng = WCTEngine(mode="original", weights_root=root)
+    tpyr = teng.pyramid
+    calls, layers = path_calls(tpyr, teng.stages, 512, 512)
+    bench = Bench(torch, tpyr)
+    checks = [bench.run(kernel, shape, layers.get(shape)) for kernel, shape in
+              sorted(calls, key=str)]
+    widest = max(s[3] for kernel, s in calls if kernel == "conv3x3_reflect")
+    worst_conv = max(r["max_rel_err"] for r in checks if r["kernel"] == "conv3x3_reflect")
+    # each stage's encoder + decoder on a 64^2 crop, card vs the plain path on the CPU
+    cpu = WCTEngine(mode="original", weights_root=root, device="cpu")
+    x = np.ascontiguousarray(c512[:64, :64], np.float32)[None] / 255.0
+    chain = {}
+    with torch.inference_mode():
+        for k in teng.stages:
+            card, plain = (apply_decoder(e.pyramid[k]["dec"], apply_encoder(
+                e.pyramid[k]["enc"], torch.from_numpy(x).to(e.device),
+                e.pyramid[k]["enc_spec"], aux=False)["out"], e.pyramid[k]["dec_spec"])["out"].cpu()
+                for e in (teng, cpu))
+            chain[k] = float((card - plain).abs().max() / (plain.abs().max() + 1e-30))
+    log(f"phase 7f: seeded original pyramid (conv3x3 up to Cin {widest}): {len(checks)} "
+        f"kernel-vs-plain checks at its 512^2 path shapes passed (conv3x3 max err "
+        f"{worst_conv:.3e} of the largest partial sum, tol {CONV_TOL}); encoder+decoder card vs "
+        f"cpu max rel err by stage {chain} (tol 1e-4)")
+    if not max(chain.values()) <= 1e-4:
+        raise AssertionError(f"teacher encoder+decoder card vs cpu {chain}")
+    for sub, img in (("t_content", c512), ("t_style", s512)):
+        os.makedirs(os.path.join(tmp, sub))
+        save_image(img, os.path.join(tmp, sub, "p.png"))
+    _zero(kc)
+    t0 = time.perf_counter()
+    cli.main(["--weights_root", root, "--contentPath", os.path.join(tmp, "t_content"),
+              "--stylePath", os.path.join(tmp, "t_style"), "--outf", os.path.join(tmp, "t_out"),
+              "--log_mark", "t"])   # --mode original: the CLI's default
+    cli_s = time.perf_counter() - t0
+    _check_counts("phase 7f: stylize CLI --mode original, one 512^2 pair", _counts(kc),
+                  _totals(kc, calls))
+    path, _ = jpeg_or_png(os.path.join(tmp, "t_out", "t_mode=original_alpha=1.0_p+p.jpg"))
+    with open(path, "rb") as f:
+        _same_as(f.read(), "image/png" if path.endswith(".png") else "image/jpeg",
+                 teng.stylize(c512, s512, as_uint8=True), "phase 7f: the CLI's file")
+    card_f = teng.stylize(c512, s512)
+    db = psnr(card_f, cpu.stylize(c512, s512))
+    log(f"phase 7f: CLI in {cli_s:.2f} s, its file equals the engine's uint8 output; float "
+        f"output finite: {bool(np.isfinite(card_f).all())}, range [{card_f.min():.3f}, "
+        f"{card_f.max():.3f}]; card vs cpu PSNR {db:.2f} dB (random weights: not gated)")
+    if not np.isfinite(card_f).all():
+        raise AssertionError("teacher-width cascade output is not finite")
+    return {"checks": len(checks), "widest_cin": widest, "conv_max_rel_err": worst_conv,
+            "chain_rel_err": chain, "cli_s": cli_s, "card_vs_cpu_db": db}
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -973,6 +1440,7 @@ def main() -> int:
     log(f"phase 3b: output finite, in [0, 1], mean |out - content| {change:.4f}")
     detail["uhd_main"] = {"s": uhd_s, "cold_s": cold_s, "launches": launches_uhd,
                           "mean_change": change}
+    ref_uhd_u8 = (np.clip(out_uhd, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)   # phase 7's yardstick
     del out_uhd
 
     # ---- phase 3c: the sharded UHD path, four row shards on the one card --------
@@ -1264,6 +1732,21 @@ def main() -> int:
     detail["profile_sharded"] = profile_cascade(torch, shard_eng, img_uhd, sty2k, "phase 5c")
     detail["host_boundary"] = host_boundary(torch, kc, slab_eng, eng, c_uhd, c2k, s2k,
                                             expect_uhd)
+    # ---- phase 7: the CLIs and the server ------------------------------------------
+    import tempfile
+    t7 = time.perf_counter()
+    detail["server_2048"] = server_2048(torch, kc, WCTEngine, c2k, s2k)
+    detail["server_uhd"] = server_uhd(torch, kc, WCTEngine, c_uhd, s2k, ref_uhd_u8)
+    detail["serve_entry_point"] = serve_entry_point(c512, s512)
+    with tempfile.TemporaryDirectory() as tmp:
+        detail["stylize_cli"] = stylize_cli(torch, kc, eng, c2k, s2k, c_uhd, ref_uhd_u8,
+                                            expect_uhd, tmp)
+        detail["eval_cli"] = eval_cli(c512, s512, tmp)
+        detail["teacher_widths"] = teacher_widths(torch, kc, WCTEngine, c512, s512, tmp)
+    detail["phase7_s"] = time.perf_counter() - t7
+    detail["total_s"] = time.perf_counter() - t_start
+    log(f"phase 7: {detail['phase7_s']:.1f} s; chip_smoke.py so far {detail['total_s']:.1f} s "
+        f"(kernel build included)")
     for r in table:
         log(f"  {r['name']}: {r['ms']:.3f} ms/cascade over {r['launches']} launches, "
             f"plain {r['plain_ms']:.3f}, library {r['library_ms']:.3f}, "

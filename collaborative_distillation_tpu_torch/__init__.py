@@ -12,7 +12,9 @@ Public surface:
     wct      — the 5-level stylization cascade engine and its UHD row-slab
                path
     utils    — carrying the reference package's parameters across;
-               device-to-host copies into pinned memory
+               host<->device copies; image files, logging, profiling
+    data     — the native JPEG/YCbCr codec binding, PNG, inference datasets
+    cli      — stylize, serve, eval and export entry points
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``: a CPU
 tensor takes each kernel's plain PyTorch version, a CUDA tensor launches the

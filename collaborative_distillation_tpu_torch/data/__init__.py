@@ -1,2 +1,3 @@
 """Image data at the host boundary: the native JPEG/YCbCr codec binding
-(``native_codec``) and the photo pair the checks and tests stylize."""
+(``native_codec``), PNG (``png``), the inference datasets (``pipeline``) and
+the photo pair the checks and tests stylize."""

@@ -1,9 +1,10 @@
 """ctypes binding for the repository's native image codec (``native/imgcodec.cpp``).
 
-The port's own copy of the part of the reference package's binding that the
-host boundary needs: YCbCr 4:2:0 conversions, whole-plane JPEG decode and
-encode, and the incremental plane reader and writer. The shared object is
-built at first use with ``g++ -O3 -fPIC -shared ... -ljpeg`` into
+The port's own copy of the reference package's binding: RGB JPEG decode
+(optionally DCT-scaled) and encode, the box resize behind
+:func:`decode_jpeg_shorter_side`, YCbCr 4:2:0 conversions, whole-plane JPEG
+decode and encode, and the incremental plane reader and writer. The shared
+object is built at first use with ``g++ -O3 -fPIC -shared ... -ljpeg`` into
 ``build/torch_kernels/imgcodec-<source hash>/`` at the repository root
 (never into ``native/``), so a fresh checkout builds itself.
 
@@ -23,7 +24,8 @@ import threading
 
 import numpy as np
 
-__all__ = ["available", "unavailable_reason", "decode_jpeg_yuv420", "encode_jpeg_yuv420",
+__all__ = ["available", "unavailable_reason", "jpeg_dims", "decode_jpeg",
+           "decode_jpeg_shorter_side", "encode_jpeg", "decode_jpeg_yuv420", "encode_jpeg_yuv420",
            "jpeg_yuv420_reader", "jpeg_yuv420_writer", "rgb_to_yuv420", "yuv420_to_rgb",
            "MAX_DECODE_PIXELS"]
 
@@ -41,6 +43,9 @@ _PI = ctypes.POINTER(ctypes.c_int)
 # (argtypes, restype) of every C entry point used here
 _SIGNATURES = {
     "cd_jpeg_dims": ([ctypes.c_char_p, _L, _I, _PI, _PI], _I),
+    "cd_jpeg_decode": ([ctypes.c_char_p, _L, _I, _P, _I, _I], _I),
+    "cd_jpeg_encode": ([_P, _I, _I, _I, _P, _L], _L),
+    "cd_resize_rgb": ([_P, _I, _I, _P, _I, _I], _I),
     "cd_rgb_to_yuv420": ([_P, _I, _I, _P, _P], _I),
     "cd_yuv420_to_rgb": ([_P, _P, _I, _I, _P], _I),
     "cd_jpeg_decode_yuv420": ([ctypes.c_char_p, _L, _P, _P, _I, _I], _I),
@@ -114,15 +119,96 @@ def unavailable_reason() -> str | None:
     return _reason
 
 
-def _dims(lib, data: bytes):
+def _dims(lib, data: bytes, scale_denom: int = 1):
     w, h = ctypes.c_int(), ctypes.c_int()
-    if lib.cd_jpeg_dims(data, len(data), 1, ctypes.byref(w), ctypes.byref(h)) != 0:
+    if lib.cd_jpeg_dims(data, len(data), scale_denom, ctypes.byref(w), ctypes.byref(h)) != 0:
         return None
     return w.value, h.value
 
 
 def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _encoded(call, w: int, h: int) -> bytes | None:
+    """Run a ``cd_jpeg_encode*`` entry point into a worst-case buffer, with
+    one 2x retry when libjpeg had to grow it (-2); None on failure."""
+    cap, n = w * h * 3 + (1 << 16), -2
+    for _ in range(2):
+        out = np.empty(cap, np.uint8)
+        n = call(_ptr(out), cap)
+        if n != -2:
+            break
+        cap *= 2
+    return out[:n].tobytes() if n > 0 else None
+
+
+def jpeg_dims(data: bytes) -> tuple[int, int] | None:
+    """JPEG bytes -> (width, height) from the header alone; None when the
+    codec is unavailable or the header is bad."""
+    lib = _load()
+    return None if lib is None else _dims(lib, data)
+
+
+def decode_jpeg(data: bytes, scale_denom: int = 1, *,
+                max_pixels: int | None = None) -> np.ndarray | None:
+    """JPEG bytes -> (H, W, 3) uint8 RGB, optionally DCT-scaled by
+    1/``scale_denom`` (1, 2, 4 or 8). None when the codec is unavailable,
+    the data does not decode, or the claimed size exceeds ``max_pixels``
+    (default MAX_DECODE_PIXELS)."""
+    lib = _load()
+    if lib is None:
+        return None
+    dims = _dims(lib, data, scale_denom)
+    limit = MAX_DECODE_PIXELS if max_pixels is None else max_pixels
+    if dims is None or dims[0] * dims[1] > limit:
+        return None
+    w, h = dims
+    out = np.empty((h, w, 3), np.uint8)
+    if lib.cd_jpeg_decode(data, len(data), scale_denom, _ptr(out), w, h) != 0:
+        return None
+    return out
+
+
+def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes | None:
+    """(H, W, 3) uint8 RGB -> baseline JPEG bytes (libjpeg's default 4:2:0);
+    None when the codec is unavailable or the array is not that."""
+    lib = _load()
+    if lib is None or rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
+        return None
+    rgb = np.ascontiguousarray(rgb)
+    h, w = rgb.shape[:2]
+    return _encoded(lambda buf, cap: lib.cd_jpeg_encode(_ptr(rgb), w, h, quality, buf, cap),
+                    w, h)
+
+
+def decode_jpeg_shorter_side(data: bytes, shorter_side: int) -> np.ndarray | None:
+    """Decode and resize so that min(H, W) == ``shorter_side``: the coarsest
+    DCT scale that still over-resolves the target, then a box-filter
+    resize. None when the codec is unavailable or the data does not decode."""
+    lib = _load()
+    if lib is None:
+        return None
+    dims = _dims(lib, data)
+    if dims is None:
+        return None
+    denom = 1
+    while denom < 8 and min(dims) // (denom * 2) >= shorter_side:
+        denom *= 2
+    arr = decode_jpeg(data, denom)
+    if arr is None:
+        return None
+    sh, sw = arr.shape[:2]
+    if sw < sh:
+        dw, dh = shorter_side, max(1, round(sh * shorter_side / sw))
+    else:
+        dh, dw = shorter_side, max(1, round(sw * shorter_side / sh))
+    if (dw, dh) == (sw, sh):
+        return arr
+    dst = np.empty((dh, dw, 3), np.uint8)
+    if lib.cd_resize_rgb(_ptr(arr), sw, sh, _ptr(dst), dw, dh) != 0:
+        return None
+    return dst
 
 
 def decode_jpeg_yuv420(data: bytes, *, max_pixels: int | None = None
@@ -158,15 +244,8 @@ def encode_jpeg_yuv420(y: np.ndarray, cbcr: np.ndarray, quality: int = 95) -> by
     if h % 2 or w % 2 or cbcr.shape != (h // 2, w // 2, 2):
         return None
     y, cbcr = np.ascontiguousarray(y), np.ascontiguousarray(cbcr)
-    # worst-case buffer, one 2x retry when libjpeg had to grow it (-2)
-    cap, n = w * h * 3 + (1 << 16), -2
-    for _ in range(2):
-        out = np.empty(cap, np.uint8)
-        n = lib.cd_jpeg_encode_yuv420(_ptr(y), _ptr(cbcr), w, h, quality, _ptr(out), cap)
-        if n != -2:
-            break
-        cap *= 2
-    return out[:n].tobytes() if n > 0 else None
+    return _encoded(lambda buf, cap: lib.cd_jpeg_encode_yuv420(_ptr(y), _ptr(cbcr), w, h,
+                                                               quality, buf, cap), w, h)
 
 
 class _JpegYuv420Writer:
