@@ -87,7 +87,25 @@ Phases (any failure raises and the script exits non-zero):
      ``original`` pyramid (teacher widths, Cin/Cout to 512): every kernel at
      its 512^2 path shapes against the plain version, each stage's encoder
      and decoder card vs CPU, and the stylize CLI at its default ``--mode
-     original`` on one 512^2 pair.
+     original`` on one 512^2 pair;
+  8. training (``collaborative_distillation_tpu_torch/train``, ``cli/train.py``),
+     TF32 off: (a) the conv3x3, pool and upsample kernels' autograd Functions
+     against the plain versions' autograd at every conv, pool and upsample
+     shape of a stage-5 step at N = 16, 256^2 (teacher and student widths)
+     and edge shapes: conv gradients to ``CONV_TOL`` of the largest partial
+     sum under the kernel's own ReLU decisions, pool (ties: the first
+     maximum) and upsample exactly, a ReLU at 0 exactly 0.5 g; (b) one step
+     of each mode on the card against the CPU (stage 2, N = 2, 64^2: losses
+     to 1e-5 relative, student gradients to 1e-4 of each leaf's max|g|,
+     frozen gradients None); (c) ``cli.train`` in process at stage 5 x 16 x
+     256^2 on 48 PNGs written by the port, six steps each of ``wct_se`` and
+     ``wct_sd_kd2sd --updim_relu`` (a seeded teacher store, the shipped
+     ``16x_base`` students) and ``wct_sd --lw_perc 0`` (the shipped weights
+     alone): launches per step held to the specs', finite losses, the
+     checkpoint's keys in the reference's layout, ``--resume`` at the next
+     epoch, nonzero gradients into the zero-filled aux adapters, the median
+     step time, images/s, peak memory and one profiled step's split into the
+     hand-written kernels, cuDNN's backward and the rest.
 
 With ``--cross-card`` (two or more cards) it runs only the halo check and
 the sharded UHD path with neighbouring shards on different cards, against
@@ -137,7 +155,11 @@ CONV3X3_NAMES = "conv3x3_kernel"   # the profiler's names of csrc/conv3x3.cu's k
 #     1e-4 * max|cov64|.
 #   feature cache on vs off: 1e-6 (the same kernels on the same inputs).
 #   pool, upsample, halo_exchange_rows: exact (a max and copies).
+#   phase 8a, a conv3x3 with a ReLU: the kernel's and the plain version's
+#     pre-activations may take opposite sides of 0 where they lie within
+#     rounding of it, at most RELU_FLIP_SHARE of a shape's outputs (and 2).
 CONV_TOL = 1e-5
+RELU_FLIP_SHARE = 1e-5
 GRAM_TOL = 2e-5
 COV64_TOL = 1e-4
 PSNR_MIN_DB = 40.0
@@ -1183,6 +1205,435 @@ def teacher_widths(torch, kc, WCTEngine, c512, s512, tmp) -> dict:
             "chain_rel_err": chain, "cli_s": cli_s, "card_vs_cpu_db": db}
 
 
+# ---- phase 8: training ----------------------------------------------------------
+
+TRAIN_STAGE, TRAIN_N, TRAIN_HW = 5, 16, 256   # cli.train's full width: stage 5 x 16 x 256^2
+TRAIN_STEPS = 6
+TRAIN_IMAGES = 48
+# hand-written kernels, by the profiler's names; cuDNN's convolution kernels
+# by theirs (every forward conv3x3 of the step is ours, so these are the
+# backward's; "cf32" is the complex GEMM of its FFT convolutions); cuBLAS's
+# GEMMs (conv0's and the aux adapters' x @ w, forward and backward) on their own
+OUR_KERNEL_NAMES = (CONV3X3_NAMES, "max_pool_2x2_kernel", "upsample_nearest_2x_kernel")
+CUDNN_CONV_NAMES = ("dgrad", "wgrad", "fprop", "cudnn", "convolve", "implicit_gemm", "fft",
+                    "cf32")
+GEMM_NAMES = ("gemm", "cutlass")
+
+
+def _grad_close(got, want, scale, tol, label) -> float:
+    """max |got - want| over max |scale|; raises over ``tol``."""
+    err = float((got - want).abs().max()) / max(float(scale.abs().max()), 1e-30)
+    if not err <= tol:
+        raise AssertionError(f"{label}: gradient error {err:.3e} of the largest partial sum "
+                             f"> {tol}")
+    return err
+
+
+def train_autograd_checks(torch) -> dict:
+    """8a: the kernels' autograd Functions against the plain versions'
+    autograd on the card, TF32 off, at the training path's shapes (stage-5
+    teacher and student widths, N = 16, 256^2 -> 16^2) and edge shapes."""
+    from collaborative_distillation_tpu_torch.models.specs import decoder_spec, encoder_spec
+    from collaborative_distillation_tpu_torch.ops import conv as tconv
+    from collaborative_distillation_tpu_torch.ops.cuda import conv as kconv
+    from collaborative_distillation_tpu_torch.ops.cuda import pool as kpool
+    from collaborative_distillation_tpu_torch.train.trainer import full_float32
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rand = lambda *s: torch.rand(s, generator=gen, device="cuda")
+    convs, pools, ups = set(), set(), set()
+    for fam in ("original", "16x"):
+        hh = TRAIN_HW
+        for l in encoder_spec(fam, TRAIN_STAGE, aux=fam == "16x").layers:
+            convs.add((TRAIN_N, hh, hh, l.in_ch, l.out_ch, l.relu))
+            if l.pool_after:
+                pools.add((TRAIN_N, hh, hh, l.out_ch))
+                hh //= 2
+        for l in decoder_spec(fam, TRAIN_STAGE).layers:
+            convs.add((TRAIN_N, hh, hh, l.in_ch, l.out_ch, l.relu))
+            if l.unpool_after:
+                ups.add((TRAIN_N, hh, hh, l.out_ch))
+                hh *= 2
+    path = len(convs)
+    convs |= {(1, 1, 1, 16, 16, True), (2, 7, 9, 24, 32, True), (1, 1, 5, 3, 3, False),
+              (1, 3, 2, 64, 64, True), (3, 17, 5, 512, 256, True)}
+    pools |= {(1, 7, 9, 16), (2, 3, 5, 8), (1, 2, 2, 3)}
+    ups |= {(1, 1, 1, 8), (2, 3, 5, 16)}
+    worst, worst_fwd, flips = 0.0, 0.0, 0
+    with full_float32():
+        for n, h, w, ci, co, relu in sorted(convs):
+            x = rand(n, h, w, ci).requires_grad_()
+            wt = ((rand(3, 3, ci, co) - 0.5) * (2 / (9 * ci) ** 0.5)).requires_grad_()
+            b = (rand(co) - 0.5).requires_grad_()
+            g = rand(n, h, w, co) - 0.5
+            y = tconv.conv3x3(x, wt, b, relu=relu)
+            got = torch.autograd.grad(y, (x, wt, b), g)
+            gp = g
+            with torch.no_grad():
+                # the forward: the Function's output and, under a ReLU, the
+                # kernel's pre-activation, against the plain version to
+                # CONV_TOL of the largest partial sum (as phase 2)
+                plain = kconv.conv3x3_plain(x, wt, b, False)
+                fscale = float(x.abs().max() * wt.abs().sum(dim=(0, 1, 2)).max() + b.abs().max())
+                pairs = [(y, plain.clamp_min(0) if relu else plain)]
+                if relu:
+                    pre = kconv.conv3x3_reflect(x, wt, b, False)
+                    pairs.append((pre, plain))
+                for a, r in pairs:
+                    err = float((a - r).abs().max()) / fscale
+                    if not err <= CONV_TOL:
+                        raise AssertionError(f"conv3x3 forward at {(n, h, w, ci, co, relu)}: "
+                                             f"{err:.3e} of the largest partial sum > {CONV_TOL}")
+                    worst_fwd = max(worst_fwd, err)
+                if relu:
+                    # the plain version's autograd under the kernel's own ReLU
+                    # decisions: a pre-activation within rounding of 0 may take
+                    # the other side in the two forwards (a kink, not a fault);
+                    # at most RELU_FLIP_SHARE of the outputs may
+                    nflip = int(((pre > 0) != (plain > 0)).sum())
+                    if nflip > max(2, RELU_FLIP_SHARE * pre.numel()):
+                        raise AssertionError(f"conv3x3 at {(n, h, w, ci, co, relu)}: {nflip} "
+                                             f"of {pre.numel()} ReLU decisions differ")
+                    flips += nflip
+                    gp = g * torch.where(pre > 0, 1.0, torch.where(pre == 0, 0.5, 0.0))
+                    del pre
+                del plain, pairs
+            want = torch.autograd.grad(kconv.conv3x3_plain(x, wt, b, False), (x, wt, b), gp)
+            ab = [t.detach().abs().requires_grad_() for t in (x, wt, b)]
+            scale = torch.autograd.grad(kconv.conv3x3_plain(*ab, False), ab, g.abs())
+            for a, r, sc, name in zip(got, want, scale, "xwb"):
+                worst = max(worst, _grad_close(a, r, sc, CONV_TOL,
+                                               f"conv3x3 d{name} at {(n, h, w, ci, co, relu)}"))
+            del x, wt, b, g, gp, y, got, want, ab, scale
+        # whole numbers in [0, 2]: ties in most windows, sums exact
+        for shape in sorted(pools):
+            x = torch.floor(rand(*shape) * 3).requires_grad_()
+            y = tconv.max_pool_2x2(x)
+            g = torch.floor(rand(*y.shape) * 7) - 3
+            got = torch.autograd.grad(y, x, g)[0]
+            want = torch.autograd.grad(F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(
+                0, 2, 3, 1), x, g)[0]
+            if not (torch.equal(got, want) and torch.equal(y, kpool.max_pool_2x2_plain(x.detach()))):
+                raise AssertionError(f"max_pool_2x2 gradient at {shape}: not the first maximum's")
+        x = torch.ones(2, 8, 8, 4, device="cuda", requires_grad=True)   # every window tied
+        got = torch.autograd.grad(tconv.max_pool_2x2(x).sum(), x)[0]
+        if not torch.equal(got[:, 0::2, 0::2], torch.ones_like(got[:, 0::2, 0::2])) \
+                or float(got.sum()) != 2 * 4 * 4 * 4:
+            raise AssertionError("max_pool_2x2 ties: the gradient is not at each first maximum")
+        for shape in sorted(ups):
+            x = rand(*shape).requires_grad_()
+            g = torch.floor(rand(shape[0], 2 * shape[1], 2 * shape[2], shape[3]) * 7) - 3
+            y = tconv.upsample_nearest_2x(x)
+            got = torch.autograd.grad(y, x, g)[0]
+            want = torch.autograd.grad(kpool.upsample_nearest_2x_plain(x), x, g)[0]
+            if not (torch.equal(got, want)
+                    and torch.equal(y, kpool.upsample_nearest_2x_plain(x.detach()))):
+                raise AssertionError(f"upsample_nearest_2x forward or gradient at {shape}")
+        # pre-activations exactly 0: JAX's subgradient, exactly half
+        x = rand(2, 9, 7, 32)
+        wt = torch.zeros(3, 3, 32, 64, device="cuda", requires_grad=True)
+        b = torch.zeros(64, device="cuda", requires_grad=True)
+        g = rand(2, 9, 7, 64) - 0.5
+        gw, gb = torch.autograd.grad(tconv.conv3x3(x, wt, b, relu=True), (wt, b), g)
+        lin = torch.autograd.grad(kconv.conv3x3_plain(x, wt, b, False), wt, g)[0]
+        if not torch.equal(gb, (0.5 * g).sum(dim=(0, 1, 2))):
+            raise AssertionError("ReLU at 0 on the card: bias gradient is not 0.5 g")
+        _grad_close(gw, 0.5 * lin, lin, CONV_TOL, "conv3x3 dw at a ReLU tie")
+    out = {"conv_shapes": len(convs), "path_conv_shapes": path, "pool_shapes": len(pools),
+           "upsample_shapes": len(ups), "conv_max_rel_err": worst,
+           "conv_forward_max_rel_err": worst_fwd, "relu_flips": flips}
+    log(f"phase 8a: autograd Functions vs the plain versions (TF32 off): "
+        f"{len(convs)} conv3x3 shapes ({path} of the stage-5 N={TRAIN_N} {TRAIN_HW}^2 path, "
+        f"teacher and student widths), forward max err {worst_fwd:.3e}, gradients max err "
+        f"{worst:.3e} of the largest partial sum (tol {CONV_TOL}; ReLUs under the kernel's "
+        f"pre-activations, {flips} of which take the other side in the plain forward, limit "
+        f"{RELU_FLIP_SHARE} of a shape's outputs); {len(pools)} pool and {len(ups)} upsample "
+        f"shapes exact, forward and gradient (ties: the first maximum); ReLU at 0 passes "
+        f"exactly 0.5 g")
+    return out
+
+
+def train_card_vs_cpu(torch) -> dict:
+    """8b: one step of each mode on the card against the same step on the
+    CPU: stage 2, N = 2, 64^2, the same seeded weights and batch."""
+    from collaborative_distillation_tpu_torch.models.specs import decoder_spec, encoder_spec
+    from collaborative_distillation_tpu_torch.models.vgg import init_params
+    from collaborative_distillation_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                                                    student_spec)
+    out = {}
+    batch = np.random.default_rng(0).random((2, 64, 64, 3), dtype=np.float32)
+    for mode in ("wct_se", "wct_sd", "wct_sd_kd2sd"):
+        gen = torch.Generator().manual_seed(0)
+        frozen = {"be": init_params(encoder_spec("original", 2), gen),
+                  "bd": init_params(decoder_spec("original", 2), gen),
+                  "se": init_params(encoder_spec("16x", 2, aux=True), gen)}
+        cfg = TrainConfig(mode=mode, stage=2)
+        student = init_params(student_spec(cfg), gen)
+        card, cpu = (Trainer(cfg, student, frozen, device=d) for d in ("cuda", "cpu"))
+        lc, _ = card.train_step(batch)
+        lp, _ = cpu.train_step(batch)
+        loss_err = max(abs(float(lc[k]) - float(lp[k])) / abs(float(lp[k])) for k in lp)
+        grad_err = step_err = 0.0
+        for name, leaf in cpu.params.items():
+            for kind, t in leaf.items():
+                gc = card.params[name][kind].grad.cpu()
+                grad_err = max(grad_err, float((gc - t.grad).abs().max())
+                               / max(float(t.grad.abs().max()), 1e-30))
+                # Adam's first update, lr g / (|g| + eps), where |g| is over
+                # 1e-3 of the leaf's max (nearer 0 it may step the other way)
+                strong = t.grad.abs() >= 1e-3 * t.grad.abs().max()
+                du = card.params[name][kind].detach().cpu() - t.detach()
+                step_err = max(step_err, float(du[strong].abs().max()) / cfg.lr)
+        frozen_none = all(t.grad is None for tr in (card, cpu) for f in tr.frozen.values()
+                          for leaf in f.values() for t in leaf.values())
+        out[mode] = {"loss_rel_err": loss_err, "grad_rel_err": grad_err,
+                     "update_err_lr": step_err, "frozen_grad_none": frozen_none}
+        if not (loss_err <= 1e-5 and grad_err <= 1e-4 and step_err <= 1e-3 and frozen_none):
+            raise AssertionError(f"phase 8b {mode}: card vs cpu {out[mode]}")
+    log(f"phase 8b: one step card vs cpu (stage 2, N=2, 64^2): " + "; ".join(
+        f"{m} losses {r['loss_rel_err']:.2e} rel, student grads {r['grad_rel_err']:.2e} of "
+        f"max|g|, updates {r['update_err_lr']:.2e} lr, frozen grads None"
+        for m, r in out.items()) + " (tol 1e-5, 1e-4, 1e-3)")
+    return out
+
+
+def _train_runs(mode: str) -> list:
+    """The stage-5 encoder and decoder passes of one training step, in order."""
+    from collaborative_distillation_tpu_torch.models.specs import decoder_spec, encoder_spec
+    k = TRAIN_STAGE
+    be, bd = encoder_spec("original", k), decoder_spec("original", k)
+    se, sd = encoder_spec("16x", k, aux=True), decoder_spec("16x", k)   # aux: 1x1, no kernel
+    return {"wct_se": [se, bd, be, be], "wct_sd": [se, sd],
+            "wct_sd_kd2sd": [be, se, bd, sd, be]}[mode]
+
+
+def _train_launches(mode: str) -> dict:
+    """Kernel launches of one training step at stage 5, from the specs: every
+    forward conv3x3, pool and upsample (the backward launches none)."""
+    runs = _train_runs(mode)
+    return {"conv3x3_reflect": sum(len(s.layers) for s in runs),
+            "max_pool_2x2": sum(sum(l.pool_after for l in s.layers) for s in runs),
+            "upsample_nearest_2x": sum(sum(l.unpool_after for l in s.layers) for s in runs)}
+
+
+def _train_kernel_bound_ms(mode: str) -> float:
+    """The least time the card could take for one step's hand-written kernels:
+    each conv3x3's FLOPs at the FP32 peak or its bytes at the HBM rate, the
+    larger, summed, plus the pools' and upsamples' bytes."""
+    total = 0.0
+    for spec in _train_runs(mode):
+        hh = TRAIN_HW if spec.kind == "encoder" else TRAIN_HW >> (TRAIN_STAGE - 1)
+        for l in spec.layers:
+            nbytes, flops = work("conv3x3_reflect", (TRAIN_N, hh, hh, l.in_ch, l.out_ch))
+            total += max(nbytes / PEAK_BYTES, flops / PEAK_FP32_FLOPS)
+            if l.pool_after or l.unpool_after:
+                kernel = "max_pool_2x2" if l.pool_after else "upsample_nearest_2x"
+                total += work(kernel, (TRAIN_N, hh, hh, l.out_ch))[0] / PEAK_BYTES
+                hh = hh // 2 if l.pool_after else hh * 2
+    return total * 1e3
+
+
+class _StepProbe:
+    """Wraps ``Trainer.train_step`` for a CLI run in process: per step its
+    wall time (synchronised), its kernel launches (counters zeroed around
+    it), its losses; keeps the trainer and the last batch."""
+
+    def __init__(self, torch, kc, trainer_cls):
+        self.torch, self.kc, self.cls = torch, kc, trainer_cls
+        self.orig = trainer_cls.train_step
+        self.steps, self.trainer, self.batch, self.aux_grad = [], None, None, None
+
+    def __enter__(self):
+        probe = self
+
+        def step(trainer, batch):
+            torch = probe.torch
+            torch.cuda.synchronize()
+            _zero(probe.kc)
+            t0 = time.perf_counter()
+            losses, rec = probe.orig(trainer, batch)
+            torch.cuda.synchronize()
+            probe.steps.append({"s": time.perf_counter() - t0, "launches": _counts(probe.kc),
+                                "losses": {k: float(v) for k, v in losses.items()}})
+            if probe.aux_grad is None:
+                probe.aux_grad = {n: float(leaf["w"].grad.abs().max())
+                                  for n, leaf in trainer.params.items() if "aux" in n}
+            probe.trainer, probe.batch = trainer, batch
+            return losses, rec
+
+        self.cls.train_step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.train_step = self.orig
+
+
+def _profile_step(torch, trainer, batch) -> dict:
+    """One more step of ``trainer`` under torch.profiler: its busy device
+    time split into the hand-written kernels, cuDNN's backward and the rest,
+    and the device time under each backward node (``Conv3x3Backward``, ...)."""
+    from torch.profiler import ProfilerActivity, profile
+    trainer.train_step(batch)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+    split, top, nodes = Counter(), Counter(), Counter()
+    node = "autograd::engine::evaluate_function: "
+    for e in prof.key_averages():
+        if e.key.startswith(node):
+            nodes[e.key[len(node):]] += getattr(e, "device_time_total", 0.0) / 1e3
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            ms = getattr(e, "self_device_time_total", 0.0) / 1e3
+            if ms <= 0:
+                continue
+            top[e.key[:80]] += ms
+            key = e.key.lower()
+            part = ("kernels" if any(n in e.key for n in OUR_KERNEL_NAMES) else
+                    "cudnn_backward" if any(n in key for n in CUDNN_CONV_NAMES) else
+                    "gemm" if any(n in key for n in GEMM_NAMES) else "rest")
+            split[part] += ms
+    busy = sum(split.values())
+    return {"busy_ms": busy, **{f"{k}_ms": split[k] for k in ("kernels", "cudnn_backward",
+                                                                "gemm", "rest")},
+            "top_ms": dict(top.most_common(8)), "backward_nodes_ms": dict(nodes.most_common(8))}
+
+
+def _write_training_pngs(torch, c512, s512, folder) -> None:
+    """TRAIN_IMAGES PNG crops of the reflect-tiled photo pair, shorter side
+    300 to 420."""
+    from collaborative_distillation_tpu_torch.utils.image import save_image
+    os.makedirs(folder)
+    rng = np.random.default_rng(0)
+    tiles = [reflect_tile(torch, c512, 1024), reflect_tile(torch, s512, 1024)]
+    for i in range(TRAIN_IMAGES):
+        h, w = (int(v) for v in rng.integers(300, 421, 2))
+        y, x = (int(v) for v in rng.integers(0, 1024 - 420, 2))
+        save_image(np.ascontiguousarray(tiles[i % 2][y:y + h, x:x + w]),
+                   os.path.join(folder, f"{i:02d}.png"))
+
+
+def train_cli_runs(torch, kc, c512, s512, tmp) -> dict:
+    """8c: ``cli.train`` in process at stage 5 x 16 x 256^2, f32: wct_se and
+    wct_sd_kd2sd on a seeded teacher store, wct_sd --lw_perc 0 on the
+    shipped weights alone; each with its launches per step, checkpoint keys,
+    a resume, step times, peak memory and one profiled step."""
+    import shutil
+
+    from collaborative_distillation_tpu_torch.cli import train as cli
+    from collaborative_distillation_tpu_torch.models.vgg import init_params
+    from collaborative_distillation_tpu_torch.models.zoo import (default_weights_root,
+                                                                 stage_specs)
+    from collaborative_distillation_tpu_torch.train.trainer import Trainer
+    k = TRAIN_STAGE
+    shipped = default_weights_root()
+    root = os.path.join(tmp, "train_weights")
+    os.makedirs(os.path.join(root, "original"))
+    shutil.copytree(os.path.join(shipped, "16x_base"), os.path.join(root, "16x_base"))
+    gen = torch.Generator().manual_seed(0)
+    for spec, name in zip(stage_specs("original", k), (f"e{k}", f"d{k}")):
+        np.savez(os.path.join(root, "original", name + ".npz"),
+                 **{f"{n}/{kind}": t.numpy() for n, leaf in init_params(spec, gen).items()
+                    for kind, t in leaf.items()})
+    data = os.path.join(tmp, "train_images")
+    _write_training_pngs(torch, c512, s512, data)
+    runs = {
+        "wct_se": ["--mode", "wct_se", "--pretrained_init", "--weights_root", root],
+        "wct_sd": ["--mode", "wct_sd", "--lw_perc", "0", "--pretrained_init"],
+        "wct_sd_kd2sd": ["--mode", "wct_sd_kd2sd", "--pretrained_init", "--weights_root", root,
+                         "--SD", os.path.join(shipped, "16x_base", f"d{k}.npz"),
+                         "--updim_relu"],
+    }
+    common = ["--stage", str(k), "-b", str(TRAIN_N), "--content_train", data, "--cache_data",
+              "--device", "cuda",
+              "--print_interval", "1", "--save_interval", "100"]
+    out = {}
+    cwd = os.getcwd()
+    os.chdir(tmp)   # the CLI writes Experiments/ in its working directory
+    try:
+        for mode, argv in runs.items():
+            torch.cuda.reset_peak_memory_stats()
+            with _StepProbe(torch, kc, Trainer) as probe:
+                t0 = time.perf_counter()
+                cli.main(argv + common + ["--max_steps", str(TRAIN_STEPS), "-p", mode])
+                wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            steps = probe.steps
+            want = {**{kk.__name__: 0 for kk in kc.KERNELS}, **_train_launches(mode)}
+            _check_counts(f"phase 8c: {mode}, one step", steps[0]["launches"], want)
+            for i, st in enumerate(steps):
+                if st["launches"] != want:
+                    raise AssertionError(f"phase 8c: {mode} step {i + 1} launches "
+                                         f"{st['launches']} != {want}")
+                if not all(np.isfinite(v) for v in st["losses"].values()):
+                    raise AssertionError(f"phase 8c: {mode} step {i + 1} losses {st['losses']}")
+            (run_dir,) = [d for d in os.listdir("Experiments") if d.endswith("_" + mode)]
+            wdir = os.path.join("Experiments", run_dir, "weights")
+            (ckpt,) = [os.path.join(wdir, f) for f in os.listdir(wdir) if f.endswith(".npz")]
+            with np.load(ckpt) as z:
+                keys = set(z.files)
+            layers = probe.trainer.params
+            want_keys = ({f"params/{n}/{kk}" for n in layers for kk in ("w", "b")}
+                         | {f"opt_state/0/{i}/{n}/{kk}" for i in (1, 2) for n in layers
+                            for kk in ("w", "b")}
+                         | {"opt_state/0/0", "meta/epoch", "meta/step", "meta/mode",
+                            "meta/stage"})
+            if keys != want_keys:
+                raise AssertionError(f"phase 8c: {mode} checkpoint keys {sorted(keys ^ want_keys)}")
+            prof = _profile_step(torch, probe.trainer, probe.batch)
+            times = [st["s"] for st in steps[1:]]
+            med = statistics.median(times)
+            # resume: 48 images at batch 16 are 3 steps an epoch, so the run
+            # ended after epoch 2 and the resumed one starts epoch 3
+            with _StepProbe(torch, kc, Trainer) as again:
+                cli.main(argv + common + ["--max_steps", "1", "--epoch", "3", "--resume", ckpt,
+                                          "-p", mode + "_resumed"])
+            (rdir,) = [d for d in os.listdir("Experiments") if d.endswith(mode + "_resumed")]
+            rlog = open(os.path.join("Experiments", rdir, "weights", [
+                f for f in os.listdir(os.path.join("Experiments", rdir, "weights"))
+                if f.startswith("log_")][0])).read()
+            if "at epoch 2" not in rlog or "E3S0" not in rlog or len(again.steps) != 1:
+                raise AssertionError(f"phase 8c: {mode} --resume did not continue at epoch 3")
+            prof["kernels_bound_ms"] = _train_kernel_bound_ms(mode)
+            out[mode] = {"steps_s": [st["s"] for st in steps], "median_s": med,
+                         "images_per_s": TRAIN_N / med, "peak_gib": peak, "wall_s": wall,
+                         "launches_per_step": want, "losses_first": steps[0]["losses"],
+                         "losses_last": steps[-1]["losses"], "aux_grad_max": probe.aux_grad,
+                         "profile": prof, "resumed_losses": again.steps[0]["losses"]}
+            log(f"phase 8c: cli.train {mode} stage {k} x {TRAIN_N} x {TRAIN_HW}^2: "
+                f"{len(steps)} steps, median step {med * 1e3:.1f} ms over steps 2-{len(steps)} "
+                f"({TRAIN_N / med:.2f} images/s; steps {', '.join(f'{t * 1e3:.0f}' for t in times)} "
+                f"ms), peak {peak:.2f} GiB, wall {wall:.1f} s; losses first "
+                f"{steps[0]['losses']}, last {steps[-1]['losses']}; checkpoint keys in the "
+                f"reference's layout ({len(keys)}); --resume continued at epoch 3")
+            if not prof["busy_ms"]:
+                log(f"phase 8c: {mode}: the profiler saw no device time: split not measured")
+            log(f"phase 8c: {mode} profiled step: busy {prof['busy_ms']:.1f} ms = hand-written "
+                f"kernels {prof['kernels_ms']:.1f} (bound {prof['kernels_bound_ms']:.1f}) + cuDNN "
+                f"backward convs {prof['cudnn_backward_ms']:.1f} + cuBLAS GEMMs "
+                f"{prof['gemm_ms']:.1f} + rest {prof['rest_ms']:.1f}; backward nodes: " + "; ".join(
+                    f"{n} {ms:.1f}" for n, ms in prof["backward_nodes_ms"].items())
+                + "; top kernels: " + "; ".join(
+                    f"{n} {ms:.1f}" for n, ms in prof["top_ms"].items()))
+        aux = out["wct_sd_kd2sd"]["aux_grad_max"]
+        log(f"phase 8c: wct_sd_kd2sd --updim_relu from zero-filled aux adapters: first-step "
+            f"max|grad w| {aux}")
+        if not aux or not all(v > 0 for v in aux.values()):
+            raise AssertionError(f"phase 8c: zero aux adapters got no gradient {aux}")
+    finally:
+        os.chdir(cwd)
+    return out
+
+
+def training(torch, kc, c512, s512, tmp) -> dict:
+    """Phase 8: the training path (8a, 8b, 8c), with its own clock."""
+    t0 = time.perf_counter()
+    out = {"autograd": train_autograd_checks(torch), "card_vs_cpu": train_card_vs_cpu(torch),
+           "cli": train_cli_runs(torch, kc, c512, s512, tmp)}
+    out["phase8_s"] = time.perf_counter() - t0
+    log(f"phase 8: {out['phase8_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1743,10 +2194,12 @@ def main() -> int:
                                             expect_uhd, tmp)
         detail["eval_cli"] = eval_cli(c512, s512, tmp)
         detail["teacher_widths"] = teacher_widths(torch, kc, WCTEngine, c512, s512, tmp)
-    detail["phase7_s"] = time.perf_counter() - t7
+        detail["phase7_s"] = time.perf_counter() - t7
+        # ---- phase 8: training ---------------------------------------------------------
+        detail["training"] = training(torch, kc, c512, s512, tmp)
     detail["total_s"] = time.perf_counter() - t_start
-    log(f"phase 7: {detail['phase7_s']:.1f} s; chip_smoke.py so far {detail['total_s']:.1f} s "
-        f"(kernel build included)")
+    log(f"phase 7: {detail['phase7_s']:.1f} s; phase 8: {detail['training']['phase8_s']:.1f} s; "
+        f"chip_smoke.py {detail['total_s']:.1f} s (kernel build included)")
     for r in table:
         log(f"  {r['name']}: {r['ms']:.3f} ms/cascade over {r['launches']} launches, "
             f"plain {r['plain_ms']:.3f}, library {r['library_ms']:.3f}, "

@@ -11,14 +11,19 @@ Public surface:
                the CUDA kernels behind them (``ops.cuda``)
     wct      — the 5-level stylization cascade engine and its UHD row-slab
                path
-    utils    — carrying the reference package's parameters across;
-               host<->device copies; image files, logging, profiling
-    data     — the native JPEG/YCbCr codec binding, PNG, inference datasets
-    cli      — stylize, serve, eval and export entry points
+    train    — the collaborative-distillation loss graphs, the trainer and
+               the L1-pruning initializer
+    utils    — carrying the reference package's parameters (and Adam
+               states) across; checkpoints; host<->device copies; image
+               files, logging, profiling
+    data     — the native JPEG/YCbCr codec binding, PNG, the training and
+               inference datasets and the threaded loader
+    cli      — stylize, serve, eval, export and train entry points
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``: a CPU
 tensor takes each kernel's plain PyTorch version, a CUDA tensor launches the
-kernel or raises.
+kernel or raises. Where autograd records, the kernels run under
+``torch.autograd.Function``s whose backward is plain PyTorch.
 """
 
 import torch

@@ -5,6 +5,7 @@ collaborative_distillation_tpu_torch.cli.<name>``:
     serve   — an HTTP server over a warm engine, with a style registry
     eval    — per-stage reconstruction PSNR/SSIM of a model family
     export  — a trainer checkpoint's student params into the weight store
+    train   — collaborative distillation of a student stage (three modes)
 
 Each runs on the GPU unless ``--device cpu`` is given, and raises before
 doing any work where CUDA is unavailable.

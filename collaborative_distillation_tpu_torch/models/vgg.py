@@ -103,12 +103,16 @@ def apply_decoder(params: Params, x: torch.Tensor, spec: StageSpec, *,
 
 
 class _Stage(nn.Module):
-    """HWIO parameters of one stage as frozen ``nn.Parameter``s (the port has
-    no backward kernels yet, so the modules are for inference). Takes loaded
-    ``params``, or draws them with :func:`init_params` from ``generator``."""
+    """HWIO parameters of one stage as ``nn.Parameter``s. Takes loaded
+    ``params``, or draws them with :func:`init_params` from ``generator``.
+
+    By default they are frozen and hold the given tensors themselves (an
+    engine's pyramid, for inference). ``trainable=True`` makes them leaves
+    that require grad, copied so that an optimizer's in-place updates never
+    reach the caller's tensors (a student being trained)."""
 
     def __init__(self, spec: StageSpec, params: Params | None = None, *,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, trainable: bool = False):
         super().__init__()
         if params is None:
             if generator is None:
@@ -118,8 +122,11 @@ class _Stage(nn.Module):
         self.convs = nn.ModuleDict()
         for name in spec.param_shapes():
             m = nn.Module()
-            m.w = nn.Parameter(params[name]["w"], requires_grad=False)
-            m.b = nn.Parameter(params[name]["b"], requires_grad=False)
+            for kind in ("w", "b"):
+                t = params[name][kind]
+                if trainable:
+                    t = t.detach().clone()
+                setattr(m, kind, nn.Parameter(t, requires_grad=trainable))
             self.convs[name] = m
 
     def params(self) -> Params:

@@ -4,6 +4,12 @@ Each op that the reference ran through a Pallas kernel dispatches on the
 device of its input: a CPU tensor takes the kernel's plain PyTorch version, a
 CUDA tensor launches the hand-written kernel (``ops/cuda``), which raises on
 what it does not take. Nothing falls back from the card to the plain path.
+
+Where autograd is recording and an input requires grad, the op goes through
+its ``torch.autograd.Function`` (``ops/cuda/autograd.py``), whose forward is
+the same kernel or plain version and whose backward has JAX's subgradients;
+otherwise it takes the launch as it is, so inference counts and computes
+exactly what it did.
 """
 
 from __future__ import annotations
@@ -11,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .cuda import autograd as _grad
 from .cuda import conv as _kconv
 from .cuda import pool as _kpool
 from .pad import reflect_pad
@@ -35,10 +42,18 @@ def on_card(x: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain path for device {x.device}")
 
 
+def _records_grad(*tensors) -> bool:
+    """True where autograd records and one of ``tensors`` requires grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
 def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
             relu: bool = True) -> torch.Tensor:
     """Reflect-pad(1) + 3x3 VALID conv (+ optional ReLU): the reference's
     universal conv block (model_original.py:494 ``relu(conv(pad(x)))``)."""
+    if _records_grad(x, w, b):
+        fwd = _kconv.conv3x3_reflect if on_card(x) else _kconv.conv3x3_plain
+        return _grad.Conv3x3.apply(x, w, b, relu, fwd)
     if on_card(x):
         return _kconv.conv3x3_reflect(x, w, b, relu)
     return _kconv.conv3x3_plain(x, w, b, relu)
@@ -51,11 +66,16 @@ def conv1x1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
     y = x @ w.reshape(w.shape[-2], w.shape[-1])
     if b is not None:
         y = y + b
-    return torch.relu(y) if relu else y
+    if not relu:
+        return y
+    return _grad.JaxRelu.apply(y) if _records_grad(y) else torch.relu(y)
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     """2x2/stride-2 max pool, floor semantics (nn.MaxPool2d(2, 2))."""
+    if _records_grad(x):
+        fwd = _kpool.max_pool_2x2 if on_card(x) else _kpool.max_pool_2x2_plain
+        return _grad.MaxPool2x2.apply(x, fwd)
     if on_card(x):
         return _kpool.max_pool_2x2(x)
     return _kpool.max_pool_2x2_plain(x)
@@ -63,6 +83,9 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x upsample (nn.UpsamplingNearest2d(scale_factor=2))."""
+    if _records_grad(x):
+        fwd = _kpool.upsample_nearest_2x if on_card(x) else _kpool.upsample_nearest_2x_plain
+        return _grad.UpsampleNearest2x.apply(x, fwd)
     if on_card(x):
         return _kpool.upsample_nearest_2x(x)
     return _kpool.upsample_nearest_2x_plain(x)

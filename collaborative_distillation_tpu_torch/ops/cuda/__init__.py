@@ -3,7 +3,9 @@
 Each wrapper module keeps the kernel's plain PyTorch version beside it and
 counts its launches in a plain integer attribute (``<wrapper>.launches``).
 Nothing here builds or loads the kernels at import: the library is built at
-the first launch (see :mod:`._build`).
+the first launch (see :mod:`._build`). :mod:`.autograd` holds the
+``torch.autograd.Function``s that carry gradients through the conv, pool and
+upsample kernels.
 """
 
 from .conv import conv3x3_reflect

@@ -132,8 +132,20 @@ conv3x3_reflect.launches = 0
 conv3x3_reflect.plain = conv3x3_plain
 
 
+def _refuse_grad(name: str, *tensors: torch.Tensor | None) -> None:
+    """A launch records no gradient: while autograd records, an input that
+    requires grad is refused (``ops.conv`` launches the kernel inside its
+    ``torch.autograd.Function`` for those), so no tensor that needs a
+    gradient leaves a kernel without a ``grad_fn``."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise ValueError(f"{name}: an input requires grad and the launch records none; "
+                         f"call it through ops.conv, whose autograd Function launches it")
+
+
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """The kernels take contiguous float32 tensors on one CUDA device."""
+    """The kernels take contiguous float32 tensors on one CUDA device, and
+    no input that requires grad while autograd records."""
+    _refuse_grad(name, *tensors)
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:

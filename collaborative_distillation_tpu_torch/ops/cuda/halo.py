@@ -17,6 +17,7 @@ import functools
 import torch
 
 from . import _build
+from .conv import _refuse_grad
 
 __all__ = ["halo_exchange_rows_plain", "halo_exchange_rows"]
 
@@ -94,6 +95,7 @@ def halo_exchange_rows(x: torch.Tensor, top: torch.Tensor | None,
     rows contiguous (any batch stride, any CUDA device), or ``None`` for
     zeros -> (N, H + 2*hm, W, C) on ``x``'s device."""
     name = "halo_exchange_rows"
+    _refuse_grad(name, x, top, bot)
     _check_rows(name, x, top, bot, hm)
     rows = [t for t in (top, bot) if t is not None]
     if any(t.device.type != "cuda" for t in [x, *rows]):

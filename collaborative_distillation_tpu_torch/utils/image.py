@@ -8,8 +8,9 @@ PNG there ask for it (:func:`jpeg_or_png`).
 
 :func:`resize` reproduces ``PIL.Image.resize`` with its default filter for
 RGB, antialiased bicubic (a = -0.5, support scaled by the downscale
-factor), in PIL's fixed point: 22-bit coefficients, the horizontal pass
-rounded to uint8, then the vertical one.
+factor), or with ``resample="bilinear"`` PIL's BILINEAR (the triangle,
+support 1, scaled alike), in PIL's fixed point: 22-bit coefficients, the
+horizontal pass rounded to uint8, then the vertical one.
 """
 
 from __future__ import annotations
@@ -64,21 +65,33 @@ def read_image(path: str) -> np.ndarray:
         return decode_image(f.read(), name=path)
 
 
-def _coeffs(in_size: int, out_size: int):
+def _bicubic(t: np.ndarray) -> np.ndarray:
+    return np.where(t < 1.0, (1.5 * t - 2.5) * t * t + 1,
+                    np.where(t < 2.0, (((t - 5) * t + 8) * t - 4) * -0.5, 0.0))
+
+
+def _bilinear(t: np.ndarray) -> np.ndarray:
+    return np.where(t < 1.0, 1.0 - t, 0.0)
+
+
+_FILTERS = {"bicubic": (_bicubic, 2.0), "bilinear": (_bilinear, 1.0)}   # (filter, support)
+
+
+def _coeffs(in_size: int, out_size: int, resample: str = "bicubic"):
     """PIL's ``precompute_coeffs`` and ``normalize_coeffs_8bpc`` for the
-    bicubic filter: the first input index of each output and its fixed-point
-    weights (out_size, ksize), zero past the window's end."""
+    bicubic or bilinear filter: the first input index of each output and its
+    fixed-point weights (out_size, ksize), zero past the window's end."""
+    fn, fsupport = _FILTERS[resample]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
+    support = fsupport * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     center = (np.arange(out_size) + 0.5) * scale
     xmin = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.int64)
     xmax = np.minimum(np.trunc(center + support + 0.5), in_size).astype(np.int64) - xmin
     x = np.arange(ksize)
     t = np.abs(((x[None] + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale))
-    w = np.where(t < 1.0, (1.5 * t - 2.5) * t * t + 1,
-                 np.where(t < 2.0, (((t - 5) * t + 8) * t - 4) * -0.5, 0.0))
+    w = fn(t)
     w = np.where(x[None] < xmax[:, None], w, 0.0)
     ww = np.cumsum(w, axis=1)[:, -1:]   # in order, as the C loop sums
     w = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
@@ -87,9 +100,9 @@ def _coeffs(in_size: int, out_size: int):
     return idx, fixed
 
 
-def _resample(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+def _resample(img: np.ndarray, axis: int, out_size: int, resample: str) -> np.ndarray:
     """One pass of PIL's 8-bit resampling along ``axis`` (0 rows, 1 columns)."""
-    idx, k = _coeffs(img.shape[axis], out_size)
+    idx, k = _coeffs(img.shape[axis], out_size, resample)
     shape = [1, 1, 1]
     shape[axis] = out_size
     acc = None
@@ -99,16 +112,19 @@ def _resample(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
     return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
-def resize(img: np.ndarray, width: int, height: int) -> np.ndarray:
+def resize(img: np.ndarray, width: int, height: int, resample: str = "bicubic") -> np.ndarray:
     """(H, W, 3) uint8 -> (height, width, 3) uint8, as PIL's
-    ``Image.fromarray(img).resize((width, height))`` computes it."""
+    ``Image.fromarray(img).resize((width, height))`` computes it, or with
+    ``resample="bilinear"`` as ``.resize((width, height), Image.BILINEAR)``."""
     if width <= 0 or height <= 0:
         raise ValueError(f"resize to {width}x{height}: height and width must be > 0")
+    if resample not in _FILTERS:
+        raise ValueError(f"resample {resample!r}: the port has {sorted(_FILTERS)}")
     h, w = img.shape[:2]
     if w != width:
-        img = _resample(img, 1, width)
+        img = _resample(img, 1, width, resample)
     if h != height:
-        img = _resample(img, 0, height)
+        img = _resample(img, 0, height, resample)
     return img if (w, h) != (width, height) else img.copy()
 
 

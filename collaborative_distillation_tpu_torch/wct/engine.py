@@ -72,10 +72,10 @@ def resolve_device(device) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "WCTEngine runs on the GPU unless asked otherwise, and CUDA is not "
+            "the port runs on the GPU unless asked otherwise, and CUDA is not "
             "available; pass device='cpu' for the plain PyTorch path")
     if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"WCTEngine runs on 'cuda' or 'cpu', got {dev}")
+        raise ValueError(f"the port runs on 'cuda' or 'cpu', got {dev}")
     return dev
 
 

@@ -384,3 +384,95 @@ def test_host_boundary_on_card_matches_cpu():
     serial = [plain.stylize(a, b, as_uint8=True) for a, b in pairs]
     for got, want in zip(plain.stylize_pairs(pairs), serial):
         np.testing.assert_array_equal(got, want)
+
+
+GRAD_CASES = [  # (N, H, W, Cin, Cout): student and teacher widths, odd and 1-pixel maps
+    (2, 16, 16, 3, 16), (2, 8, 8, 64, 128), (1, 4, 4, 512, 512), (2, 7, 9, 24, 32),
+    (1, 1, 1, 16, 16), (1, 1, 5, 3, 3)]
+
+
+@pytest.mark.parametrize("case", GRAD_CASES, ids=str)
+def test_autograd_functions_match_plain_on_card(gen, case):
+    """The kernels' Functions against the plain versions, forward and own
+    autograd, TF32 off: conv3x3 to 1e-5 of the largest partial sum, pool and
+    upsample exactly."""
+    from collaborative_distillation_tpu_torch.ops import conv as tconv
+    from collaborative_distillation_tpu_torch.train.trainer import full_float32
+    n, h, w, ci, co = case
+    x = _rand(gen, n, h, w, ci).requires_grad_()
+    wt = ((_rand(gen, 3, 3, ci, co) - 0.5) * (2 / (9 * ci) ** 0.5)).requires_grad_()
+    b = (_rand(gen, co) - 0.5).requires_grad_()
+    g = _rand(gen, n, h, w, co) - 0.5
+    with full_float32():
+        y = tconv.conv3x3(x, wt, b, relu=False)
+        got = torch.autograd.grad(y, (x, wt, b), g)
+        plain = kc.conv3x3_reflect.plain(x, wt, b, False)
+        want = torch.autograd.grad(plain, (x, wt, b), g)
+        with torch.no_grad():
+            fscale = float(x.abs().max() * wt.abs().sum(dim=(0, 1, 2)).max() + b.abs().max())
+            assert float((y - plain).abs().max()) <= 1e-5 * fscale
+        # the largest magnitude a partial sum of each gradient can take
+        ab = [t.detach().abs().requires_grad_() for t in (x, wt, b)]
+        scale = torch.autograd.grad(kc.conv3x3_reflect.plain(*ab, False), ab, g.abs())
+    for a, r, s in zip(got, want, scale):
+        assert float((a - r).abs().max()) <= 1e-5 * float(s.abs().max())
+    xi = torch.floor(_rand(gen, n, 2 * max(h, 1), 2 * max(w, 1), ci) * 3).requires_grad_()
+    gp = torch.floor(_rand(gen, n, max(h, 1), max(w, 1), ci) * 7) - 3
+    pooled = tconv.max_pool_2x2(xi)
+    got = torch.autograd.grad(pooled, xi, gp)[0]
+    want = torch.autograd.grad(torch.nn.functional.max_pool2d(
+        xi.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1), xi, gp)[0]
+    assert torch.equal(got, want)
+    assert torch.equal(pooled, kc.max_pool_2x2.plain(xi.detach()))
+    y = tconv.upsample_nearest_2x(x)
+    up = torch.autograd.grad(y, x, torch.ones(n, 2 * h, 2 * w, ci, device="cuda"))[0]
+    assert torch.equal(up, torch.full_like(x, 4.0))
+    assert torch.equal(y, kc.upsample_nearest_2x.plain(x.detach()))
+
+
+def test_relu_tie_on_card_is_half_the_gradient(gen):
+    from collaborative_distillation_tpu_torch.ops import conv as tconv
+    x = _rand(gen, 1, 8, 8, 16)
+    w = torch.zeros(3, 3, 16, 32, device="cuda", requires_grad=True)
+    b = torch.zeros(32, device="cuda", requires_grad=True)
+    g = _rand(gen, 1, 8, 8, 32)
+    y = tconv.conv3x3(x, w, b, relu=True)
+    assert y.grad_fn is not None
+    y.backward(g)
+    assert torch.equal(b.grad, 0.5 * g.sum(dim=(0, 1, 2)))
+
+
+def test_trainer_step_on_card_matches_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from collaborative_distillation_tpu_torch.models.specs import decoder_spec, encoder_spec
+    from collaborative_distillation_tpu_torch.models.vgg import init_params
+    from collaborative_distillation_tpu_torch.train.trainer import TrainConfig, Trainer
+    k = 2
+    gen = torch.Generator().manual_seed(0)
+    frozen = {"be": init_params(encoder_spec("original", k), gen),
+              "bd": init_params(decoder_spec("original", k), gen)}
+    student = init_params(encoder_spec("16x", k, aux=True), gen)
+    batch = np.random.default_rng(0).random((2, 64, 64, 3), dtype=np.float32)
+    cfg = TrainConfig(mode="wct_se", stage=k)
+    card, cpu = (Trainer(cfg, student, frozen, device=d) for d in ("cuda", "cpu"))
+    p0 = {name: {kind: t.detach().clone() for kind, t in leaf.items()}
+          for name, leaf in cpu.params.items()}
+    lc, _ = card.train_step(batch)
+    lp, _ = cpu.train_step(batch)
+    for name in lp:
+        assert abs(float(lc[name]) - float(lp[name])) <= 1e-5 * abs(float(lp[name]))
+    for name, leaf in cpu.params.items():
+        for kind, t in leaf.items():
+            g = t.grad
+            gc = card.params[name][kind].grad.cpu()
+            assert float((gc - g).abs().max()) <= 1e-4 * float(g.abs().max()), (name, kind)
+            # Adam's first update is lr * g / (|g| + eps): where |g| is over
+            # 1e-3 of the leaf's max, the card's within 1e-3 lr of the CPU's;
+            # a component nearer 0 may step the other way (2 lr)
+            du = card.params[name][kind].detach().cpu() - t.detach()
+            strong = g.abs() >= 1e-3 * g.abs().max()
+            assert float(du.abs().max()) <= 2 * cfg.lr, (name, kind)
+            assert float(du[strong].abs().max()) <= 1e-3 * cfg.lr, (name, kind)
