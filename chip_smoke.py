@@ -9,7 +9,9 @@ the CUDA toolkit:
 
 Phases (any failure raises and the script exits non-zero):
   1. the card, the versions, and the build of the CUDA kernels from
-     ``collaborative_distillation_tpu_torch/ops/cuda/csrc``;
+     ``collaborative_distillation_tpu_torch/ops/cuda/csrc``; whether the CUDA
+     toolkit ships nvJPEG (``include/nvjpeg.h``, ``lib64/libnvjpeg.so*``;
+     recorded only);
   2. each kernel against its plain version on the card, at every distinct
      shape of the mode-16x cascade at 512^2 and of the UHD slab cascade,
      the plain UHD cascade's largest conv map, plus edge shapes (1-pixel maps, odd sizes, C not a multiple of 4,
@@ -17,7 +19,10 @@ Phases (any failure raises and the script exits non-zero):
      off 16-byte alignment); ``halo_exchange_rows`` exactly, at every (stage,
      shard position) shape of the sharded UHD path and at edge shapes (one
      row, the whole neighbour, N = 2, odd row sizes, offset slices, the
-     shard's own reflection rows as sources); a 16x16 image (relu5_1 at 1x1) stylizes to all-NaN
+     shard's own reflection rows as sources) and, exactly, at every shape of
+     the per-conv sharded path at 2000 x 2048 (shards of unequal heights);
+     conv3x3 on every max-unpooled map of the 2048^2 photo-WCT decoders (3
+     of 4 values 0); a 16x16 image (relu5_1 at 1x1) stylizes to all-NaN
      without raising, as the reference does; the 2048^2 and the UHD
      (slab-summed) stage-1 covariances against float64 centred ones;
   3. the main path: ``WCTEngine(mode="16x").stylize`` on a 2048^2 photo pair,
@@ -38,15 +43,21 @@ Phases (any failure raises and the script exits non-zero):
      (PSNR), a 2048^2 slab run (``slab_rows=512``) against the plain one,
      and the feature cache on against off;
   4c. the sharded UHD output against the single-card fused slab cascade at
-     the same slab size (PSNR), and the per-conv sharded cascade at 2048^2
-     (``space=4`` without ``slab_rows``) against the plain one;
+     the same slab size (PSNR), and the per-conv sharded cascade (``space=4``
+     without ``slab_rows``: whole 16-row blocks per shard, the style's
+     statistics taken whole) against the plain one at 2048^2, at a 2000 x
+     2048 content and at a 2000 x 2048 style, with its halo launches held to
+     the plan's;
   4d. a height that is no slab multiple (4000 x 10240): the slab cascade
      against the plain one, and the sharded cascade against the slab one
      (PSNR; the last window ends at the image, nothing is mirrored in);
   5. timings: each kernel, its plain version and one library call at every
      2048^2 shape of the path, weighted by the calls per cascade, beside the
      least time the card could take (each conv3x3 row with the template its
-     launch plan chose); the warm 2048^2 cascade and its stages;
+     launch plan chose); the warm 2048^2 cascade and its stages, its FLOPs
+     (``utils/flops.py:cascade_flops``, no style leg) over the warm median
+     of the cascade with the style's statistics cached, against the card's
+     FP32 peak (``card_peak_flops``);
   5b. the same for ``conv1x1_bias`` and ``sum_gram`` at the UHD slab shapes
      (``sum_gram``'s as a second summary on its row); the warm UHD
      slab cascade (median of 3), split by stage and into pass 1 and pass 2,
@@ -99,13 +110,26 @@ Phases (any failure raises and the script exits non-zero):
      to 1e-5 relative, student gradients to 1e-4 of each leaf's max|g|,
      frozen gradients None); (c) ``cli.train`` in process at stage 5 x 16 x
      256^2 on 48 PNGs written by the port, six steps each of ``wct_se`` and
-     ``wct_sd_kd2sd --updim_relu`` (a seeded teacher store, the shipped
+     ``wct_sd_kd2sd --updim_relu`` (phase 9c's teacher store, the shipped
      ``16x_base`` students) and ``wct_sd --lw_perc 0`` (the shipped weights
      alone): launches per step held to the specs', finite losses, the
      checkpoint's keys in the reference's layout, ``--resume`` at the next
      epoch, nonzero gradients into the zero-filled aux adapters, the median
      step time, images/s, peak memory and one profiled step's split into the
-     hand-written kernels, cuDNN's backward and the rest.
+     hand-written kernels, cuDNN's backward and the rest;
+  9. run before phases 7 and 8: (a) photo-WCT, ``stylize(pwct=True)`` at
+     2048^2 with the counters zeroed (the plain path's conv3x3 and sum_gram
+     launches, ``max_pool_2x2`` for the style only, no upsample), finite and
+     unlike ``pwct=False``, the 512^2 pair card vs CPU with the card's pool
+     indices shared (each stage's encoder and decoder to STAGE_TOL, the
+     cascade as PSNR; without sharing, a printed figure), the warm
+     median of 5 and peak memory, the slab and sharded engines' refusals;
+     (b) ``stylize_cascade_fn`` at 2048^2 against the engine's unclipped
+     output; (c) ``python -m ...cli.make_teacher --out <tmp>`` on the card
+     (stages 1-5), timed, each stage's calibration re-run on the store (mean
+     activation 1), a stage-2 ``normalize_encoder`` card vs CPU; (d)
+     ``apply_mobilenet_encoder`` (stages 1-5, 512^2, a seeded state dict),
+     ``gram_matrix`` and ``adain`` card vs CPU.
 
 With ``--cross-card`` (two or more cards) it runs only the halo check and
 the sharded UHD path with neighbouring shards on different cards, against
@@ -130,9 +154,11 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_FP32_FLOPS = 67e12      # FP32 outside the tensor cores: FFMA kernels
-PEAK_BYTES = 3.35e12         # HBM3
+# The card's FP32 peak outside the tensor cores (the FFMA kernels' bound),
+# set by main() from utils/flops.py:card_peak_flops; the H100 SXM's HBM3 rate
+# (NVIDIA data sheet, at the 700 W limit)
+PEAK_FP32_FLOPS = 0.0
+PEAK_BYTES = 3.35e12
 REPO_PATH = "collaborative_distillation_tpu_torch/ops/cuda/csrc/"
 KERNEL_META = {
     "conv3x3_reflect": ("conv3x3.cu", "collaborative_distillation_tpu/ops/pallas/conv.py:754"),
@@ -155,10 +181,14 @@ CONV3X3_NAMES = "conv3x3_kernel"   # the profiler's names of csrc/conv3x3.cu's k
 #     1e-4 * max|cov64|.
 #   feature cache on vs off: 1e-6 (the same kernels on the same inputs).
 #   pool, upsample, halo_exchange_rows: exact (a max and copies).
+#   a whole encoder or decoder, card vs CPU on the same inputs (phases 2
+#     and 9a): 1e-4 of the output's largest magnitude (CONV_TOL compounded
+#     over up to 16 convs, pools and unpools; 7.6e-6 read at 16x16).
 #   phase 8a, a conv3x3 with a ReLU: the kernel's and the plain version's
 #     pre-activations may take opposite sides of 0 where they lie within
 #     rounding of it, at most RELU_FLIP_SHARE of a shape's outputs (and 2).
 CONV_TOL = 1e-5
+STAGE_TOL = 1e-4
 RELU_FLIP_SHARE = 1e-5
 GRAM_TOL = 2e-5
 COV64_TOL = 1e-4
@@ -169,6 +199,7 @@ UHD_SLAB = 1024
 SHARDS = 4                   # row shards of the sharded UHD path
 SHARD_SLAB = 512             # two slabs in each 1024-row shard
 AWK_H = 4000                 # phase 4d: no multiple of either slab size
+PC_AWK_H = 2000              # phases 2, 4c: a multiple of 16, not of 16 * SHARDS
 PUSH_CHUNKS = (4 << 20, 16 << 20, 64 << 20)   # phase 6c: push's staging chunks
 
 
@@ -273,6 +304,42 @@ def sharded_path_calls(pyramid, stages, margins, slab, space, h, w, sh, sw):
                 calls[("conv1x1_bias", (1, fh, fw, c, c, False, True, 0))] += 1
                 assert _decoder_calls(calls, layer_of, k, ds, fh, fw) == (rows, w)
     return calls, layer_of
+
+
+def per_conv_halo_calls(pyramid, stages, rows, w):
+    """Halo exchanges of one per-conv sharded cascade (``space`` without
+    ``slab_rows``) on a content cut into shards of ``rows`` rows, ``w``
+    wide: one one-row exchange per shard before each conv of the content's
+    encoder and of the decoder (the style's statistics are taken whole, with
+    no exchange). Every shard reads both neighbours' rows or, at a global
+    edge, its own, so all shapes are "mid" ones."""
+    calls = Counter()
+    for k in stages:
+        down = 2 ** (k - 1)
+        for spec, scale in ((pyramid[k]["enc_spec"], 1), (pyramid[k]["dec_spec"], down)):
+            f = scale
+            for l in spec.layers:
+                for h in rows:
+                    calls[("halo_exchange_rows", (1, h // f, w // f, l.in_ch, 1, "mid", 0))] += 1
+                if l.pool_after:
+                    f *= 2
+                if l.unpool_after:
+                    f //= 2
+    return calls
+
+
+def pwct_path_calls(pyramid, stages, h, w) -> dict:
+    """Launches per kernel of one photo-WCT cascade (no style key) on an (h,
+    w) content and style: the plain path's conv3x3 and sum_gram launches;
+    ``max_pool_2x2`` only for the style's encoder (the content's pools take
+    the argmax pool, plain torch), and no upsample (the decoder unpools)."""
+    calls, _ = path_calls(pyramid, stages, h, w)
+    counts = Counter()
+    for (kernel, _), n in calls.items():
+        counts[kernel] += n
+    counts["max_pool_2x2"] //= 2
+    counts["upsample_nearest_2x"] = 0
+    return counts
 
 
 def work(kernel, shape):
@@ -464,10 +531,11 @@ def path_times(mine) -> dict:
             "library_ms": tot("library_ms")}
 
 
-def profile_cascade(torch, eng, img, sty, label="phase 5") -> dict:
+def profile_cascade(torch, eng, img, sty, label="phase 5", **kw) -> dict:
     """One warm cascade under torch.profiler: device time by kernel name, and
     the card's idle share of that same cascade, 1 - busy / span, with the
-    span taken by CUDA events around it (profiler on in both)."""
+    span taken by CUDA events around it (profiler on in both); ``kw`` goes
+    to ``stylize_device``."""
     from torch.profiler import ProfilerActivity, profile
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with torch.inference_mode(), profile(
@@ -475,7 +543,7 @@ def profile_cascade(torch, eng, img, sty, label="phase 5") -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         a.record()
-        eng.stylize_device(img, sty)
+        eng.stylize_device(img, sty, **kw)
         b.record()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1512,28 +1580,22 @@ def _write_training_pngs(torch, c512, s512, folder) -> None:
                    os.path.join(folder, f"{i:02d}.png"))
 
 
-def train_cli_runs(torch, kc, c512, s512, tmp) -> dict:
+def train_cli_runs(torch, kc, c512, s512, tmp, teachers) -> dict:
     """8c: ``cli.train`` in process at stage 5 x 16 x 256^2, f32: wct_se and
-    wct_sd_kd2sd on a seeded teacher store, wct_sd --lw_perc 0 on the
-    shipped weights alone; each with its launches per step, checkpoint keys,
-    a resume, step times, peak memory and one profiled step."""
+    wct_sd_kd2sd against phase 9c's teacher store (``teachers``, written by
+    ``cli.make_teacher`` on the card), wct_sd --lw_perc 0 on the shipped
+    weights alone; each with its launches per step, checkpoint keys, a
+    resume, step times, peak memory and one profiled step."""
     import shutil
 
     from collaborative_distillation_tpu_torch.cli import train as cli
-    from collaborative_distillation_tpu_torch.models.vgg import init_params
-    from collaborative_distillation_tpu_torch.models.zoo import (default_weights_root,
-                                                                 stage_specs)
+    from collaborative_distillation_tpu_torch.models.zoo import default_weights_root
     from collaborative_distillation_tpu_torch.train.trainer import Trainer
     k = TRAIN_STAGE
     shipped = default_weights_root()
     root = os.path.join(tmp, "train_weights")
-    os.makedirs(os.path.join(root, "original"))
+    shutil.copytree(os.path.join(teachers, "original"), os.path.join(root, "original"))
     shutil.copytree(os.path.join(shipped, "16x_base"), os.path.join(root, "16x_base"))
-    gen = torch.Generator().manual_seed(0)
-    for spec, name in zip(stage_specs("original", k), (f"e{k}", f"d{k}")):
-        np.savez(os.path.join(root, "original", name + ".npz"),
-                 **{f"{n}/{kind}": t.numpy() for n, leaf in init_params(spec, gen).items()
-                    for kind, t in leaf.items()})
     data = os.path.join(tmp, "train_images")
     _write_training_pngs(torch, c512, s512, data)
     runs = {
@@ -1624,17 +1686,357 @@ def train_cli_runs(torch, kc, c512, s512, tmp) -> dict:
     return out
 
 
-def training(torch, kc, c512, s512, tmp) -> dict:
-    """Phase 8: the training path (8a, 8b, 8c), with its own clock."""
+def training(torch, kc, c512, s512, tmp, teachers) -> dict:
+    """Phase 8: the training path (8a, 8b, 8c), with its own clock;
+    ``teachers``: phase 9c's store."""
     t0 = time.perf_counter()
     out = {"autograd": train_autograd_checks(torch), "card_vs_cpu": train_card_vs_cpu(torch),
-           "cli": train_cli_runs(torch, kc, c512, s512, tmp)}
+           "cli": train_cli_runs(torch, kc, c512, s512, tmp, teachers)}
     out["phase8_s"] = time.perf_counter() - t0
     log(f"phase 8: {out['phase8_s']:.1f} s")
     return out
 
 
+# ---- phase 9: photo-WCT, the cascade function, the teacher store, small modules --
+
+def nvjpeg_presence() -> dict:
+    """Phase 1: whether the CUDA toolkit ships nvJPEG, ``include/nvjpeg.h``
+    and ``lib64/libnvjpeg.so*`` under ``CUDA_HOME`` or nvcc's parent.
+    Records only; builds nothing."""
+    import glob
+
+    from collaborative_distillation_tpu_torch.ops.cuda import _build
+    home = os.environ.get("CUDA_HOME") or os.path.dirname(
+        os.path.dirname(os.path.realpath(_build._nvcc())))
+    header = os.path.join(home, "include", "nvjpeg.h")
+    libs = sorted(glob.glob(os.path.join(home, "lib64", "libnvjpeg.so*")))
+    out = {"cuda_home": home, "header": os.path.exists(header), "libs": libs}
+    log(f"phase 1: nvJPEG in the CUDA toolkit at {home}: include/nvjpeg.h "
+        f"{'present' if out['header'] else 'absent'}; lib64/libnvjpeg.so* "
+        f"{', '.join(os.path.basename(x) for x in libs) if libs else 'absent'}")
+    return out
+
+
+def unpooled_conv_checks(torch, kc, pyr, stages, h, w) -> list:
+    """Phase 2: conv3x3 against its plain version at every decoder conv of
+    the photo-WCT cascade that reads a max-unpooled map (three of every four
+    values exactly 0), with the decoder's weights, at an (h, w) cascade;
+    each timed beside its plain version and cuDNN's reflect conv (one call a
+    cascade each)."""
+    from collaborative_distillation_tpu_torch.ops.conv import (max_pool_2x2_with_argmax,
+                                                                max_unpool_2x2)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    with torch.inference_mode():
+        for k in stages:
+            spec, params = pyr[k]["dec_spec"], pyr[k]["dec"]
+            hh, ww = h >> (k - 1), w >> (k - 1)
+            after_unpool = False
+            for l in spec.layers:
+                if after_unpool:
+                    src = torch.rand((1, hh, ww, l.in_ch), generator=gen, device="cuda")
+                    x = max_unpool_2x2(*max_pool_2x2_with_argmax(src), (hh, ww))
+                    wt, b = params[l.name]["w"].contiguous(), params[l.name]["b"].contiguous()
+                    got = kc.conv3x3_reflect(x, wt, b, l.relu)
+                    ref = kc.conv3x3_reflect.plain(x, wt, b, l.relu)
+                    scale = float(x.abs().max() * wt.abs().sum(dim=(0, 1, 2)).max()
+                                  + b.abs().max())
+                    err = float((got - ref).abs().max())
+                    zeros = float((x == 0).float().mean())
+                    rows.append({"kernel": "conv3x3_reflect", "unpooled": True,
+                                 "shape": [1, hh, ww, l.in_ch, l.out_ch, l.relu],
+                                 "zero_share": zeros, "max_abs_err": err,
+                                 "max_rel_err": err / scale, "tol": CONV_TOL * scale,
+                                 "ok": err <= CONV_TOL * scale})
+                    if not err <= CONV_TOL * scale:
+                        raise AssertionError(f"conv3x3 on an unpooled map {rows[-1]['shape']}: "
+                                             f"error {err} > {CONV_TOL * scale}")
+                    lib = torch.nn.Conv2d(l.in_ch, l.out_ch, 3, padding=1,
+                                          padding_mode="reflect", device="cuda")
+                    lib.weight.copy_(wt.permute(3, 2, 0, 1))
+                    lib.bias.copy_(b)
+                    xn = x.permute(0, 3, 1, 2)
+                    nbytes, flops = work("conv3x3_reflect", rows[-1]["shape"])
+                    rows[-1].update(
+                        calls=1, ms=cuda_ms(torch, lambda: kc.conv3x3_reflect(x, wt, b, l.relu), 10),
+                        plain_ms=cuda_ms(torch, lambda: kc.conv3x3_reflect.plain(x, wt, b, l.relu),
+                                         10),
+                        library_ms=cuda_ms(torch, lambda: lib(xn), 10),
+                        bytes_ms=nbytes / PEAK_BYTES * 1e3, flops_ms=flops / PEAK_FP32_FLOPS * 1e3)
+                after_unpool = l.unpool_after
+                if l.unpool_after:
+                    hh, ww = hh * 2, ww * 2
+    return rows
+
+
+def pwct_shared_indices(torch, eng, eng_cpu, c, s) -> dict:
+    """Phase 9a: photo-WCT card vs CPU with the card's pool indices fed to
+    both decoders. Alone, each device's argmax may break a near-tie in a
+    2x2 window another way and move a whole patch through the later stages,
+    which would hide a small conv error. Per stage, on the card's input:
+    the encoder's output, and the decoder's on the card's WCT features and
+    indices, card vs CPU to STAGE_TOL. Then the whole cascade, each device
+    on its own inputs and statistics but with the card's indices, as PSNR
+    after the crop and clip; and the card's side equal to the engine's
+    ``stylize(pwct=True)``."""
+    from collaborative_distillation_tpu_torch.models.vgg import (apply_decoder_pwct,
+                                                                 apply_encoder)
+    from collaborative_distillation_tpu_torch.ops.wct_transform import wct_transform
+    h, w = c.shape[:2]
+    enc_err = dec_err = 0.0
+    with torch.inference_mode():
+        img, sty = eng._prep(c), eng._prep(s)
+        img_cpu, sty_cpu = img.cpu(), sty.cpu()
+        a_card, a_cpu = torch.tensor(1.0, device="cuda"), torch.tensor(1.0)
+        for k in eng.stages:
+            p, q = eng.pyramid[k], eng_cpu.pyramid[k]
+            es, ds = p["enc_spec"], p["dec_spec"]
+            f = apply_encoder(p["enc"], img, es, aux=False, with_pool_argmax=True)
+            idx = {n: v.cpu() if torch.is_tensor(v) else v
+                   for n, v in f.items() if n.startswith("pool")}
+            enc_err = max(enc_err, rel_err(
+                f["out"].cpu(), apply_encoder(q["enc"], img.cpu(), es, aux=False)["out"]))
+            sm, sc = eng._style_stats(k, sty)
+            csf = wct_transform(f["out"], sm, sc, a_card, method=eng.method,
+                                newton_iters=eng.newton_iters)
+            img = apply_decoder_pwct(p["dec"], csf, ds, f)
+            dec_err = max(dec_err, rel_err(img.cpu(),
+                                           apply_decoder_pwct(q["dec"], csf.cpu(), ds, idx)))
+            g = apply_encoder(q["enc"], img_cpu, es, aux=False)["out"]
+            sm, sc = eng_cpu._style_stats(k, sty_cpu)
+            img_cpu = apply_decoder_pwct(q["dec"], wct_transform(
+                g, sm, sc, a_cpu, method=eng_cpu.method, newton_iters=eng_cpu.newton_iters),
+                ds, idx)
+        card = torch.clamp(img[0, :h, :w], 0.0, 1.0).cpu().numpy()
+        cpu = torch.clamp(img_cpu[0, :h, :w], 0.0, 1.0).numpy()
+    engine_err = float(np.abs(card - eng.stylize(c, s, pwct=True)).max())
+    return {"encoder_max_rel_err": enc_err, "decoder_max_rel_err": dec_err,
+            "psnr_db": psnr(card, cpu), "engine_max_abs": engine_err}
+
+
+def photo_wct(torch, kc, eng, eng_cpu, slab_eng, shard_eng, c2k, s2k, c512, s512) -> dict:
+    """Phase 9a: ``stylize(pwct=True)`` at 2048^2 with the launch counters
+    zeroed (the specs' prediction), finite and unlike ``pwct=False``; the
+    512^2 pair on the card against the CPU engine; the warm median of 5 and
+    peak memory; the slab and sharded engines refuse it."""
+    names = [k.__name__ for k in kc.KERNELS]
+    want = pwct_path_calls(eng.pyramid, eng.stages, 2048, 2048)
+    want = {n: want[n] for n in names}
+    _zero(kc)
+    t0 = time.perf_counter()
+    out = eng.stylize(c2k, s2k, pwct=True)
+    first_s = time.perf_counter() - t0
+    counts = _counts(kc)
+    _check_counts("phase 9a: stylize(pwct=True) 2048^2", counts, want)
+    plain = eng.stylize(c2k, s2k)
+    change = float(np.abs(out - plain).mean())
+    if not (out.shape == c2k.shape and np.isfinite(out).all() and change > 0.01):
+        raise AssertionError(f"phase 9a: photo-WCT output shape {out.shape}, finite "
+                             f"{np.isfinite(out).all()}, mean |pwct - plain| {change}")
+    shared = pwct_shared_indices(torch, eng, eng_cpu, c512, s512)
+    if not (shared["encoder_max_rel_err"] <= STAGE_TOL
+            and shared["decoder_max_rel_err"] <= STAGE_TOL
+            and shared["psnr_db"] >= PSNR_MIN_DB and shared["engine_max_abs"] <= CACHE_TOL):
+        raise AssertionError(f"phase 9a: 512^2 photo-WCT card vs cpu, indices shared: {shared}")
+    # each device's own indices: a figure, not a gate (argmax flips)
+    db = psnr(eng.stylize(c512, s512, pwct=True), eng_cpu.stylize(c512, s512, pwct=True))
+    with torch.inference_mode():
+        img, sty = eng._prep(c2k), eng._prep(s2k)
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.stylize_device(img, sty, pwct=True)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2**30
+        eng.stylize_device(img, sty, pwct=True)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        prof = profile_cascade(torch, eng, img, sty, "phase 9a", pwct=True)
+        del img, sty
+    refused = []
+    for label, e in (("slab", slab_eng), ("sharded", shard_eng)):
+        try:
+            e.stylize(c512, s512, pwct=True)
+        except ValueError as err:
+            if "pwct=True is only supported" in str(err):
+                refused.append(label)
+                continue
+            raise
+        raise AssertionError(f"phase 9a: the {label} engine ran pwct=True")
+    log(f"phase 9a: stylize(pwct=True) 2048^2 in {first_s:.3f} s (first call, host transfer "
+        f"included); launches {counts}, predicted {want}; mean |pwct - plain| {change:.4f}; "
+        f"512^2 card vs cpu with the card's pool indices: encoders max rel err "
+        f"{shared['encoder_max_rel_err']:.3e}, decoders {shared['decoder_max_rel_err']:.3e} "
+        f"(tol {STAGE_TOL}), cascade {shared['psnr_db']:.2f} dB (min {PSNR_MIN_DB}), its card "
+        f"side vs stylize(pwct=True) max abs {shared['engine_max_abs']:.3e} (tol {CACHE_TOL}); "
+        f"each device's own indices {db:.2f} dB (argmax flips; no bar); warm "
+        f"{statistics.median(runs):.2f} ms (runs {', '.join(f'{r:.2f}' for r in runs)}), "
+        f"peak {peak:.2f} GiB ({resident:.2f} GiB held before it); refused by the "
+        f"{' and '.join(refused)} engines")
+    return {"launches": counts, "first_s": first_s, "mean_change_vs_plain": change,
+            "psnr_512_card_vs_cpu_db": db, "card_vs_cpu_shared_indices": shared,
+            "runs_ms": runs,
+            "median_ms": statistics.median(runs), "peak_gib": peak,
+            "resident_before_gib": resident, "refused_by": refused, "profile": prof}
+
+
+def cascade_fn_check(torch, eng, c2k, s2k) -> dict:
+    """Phase 9b: ``stylize_cascade_fn`` at 2048^2 against the engine's
+    unclipped output: the same kernels on the same inputs."""
+    from collaborative_distillation_tpu_torch.wct.engine import stylize_cascade_fn
+    with torch.inference_mode():
+        img, sty = eng._prep(c2k), eng._prep(s2k)
+        got = stylize_cascade_fn(eng.pyramid, stages=eng.stages)(eng.pyramid, img, sty, 1.0)
+        want = eng._run(img, sty, 1.0, num_run=1, style_key=None)
+        err = float((got - want).abs().max())
+    log(f"phase 9b: stylize_cascade_fn 2048^2 vs the engine's unclipped output: max abs "
+        f"{err:.3e} (tol {CACHE_TOL})")
+    if not err <= CACHE_TOL:
+        raise AssertionError(f"phase 9b: stylize_cascade_fn vs engine {err}")
+    return {"max_abs": err}
+
+
+def teacher_store(torch, tmp) -> dict:
+    """Phase 9c: ``python -m ...cli.make_teacher --out <tmp>`` on the card
+    (stages 1-5, the synthetic calibration), timed; each stage's
+    calibration re-run on the written store (every filter not floored at
+    mean activation 1 within 1e-3, the floored ones found from their means
+    before normalization); a stage-2 ``normalize_encoder`` on the
+    card against the CPU on the same params and batches (1e-4 of each
+    leaf's largest magnitude). Returns the store's root for phase 8c."""
+    from collaborative_distillation_tpu_torch.cli.make_teacher import synth_calibration_batches
+    from collaborative_distillation_tpu_torch.cli.normalize_vgg import (_layer_mean,
+                                                                        normalize_encoder)
+    from collaborative_distillation_tpu_torch.models.specs import decoder_spec, encoder_spec
+    from collaborative_distillation_tpu_torch.models.vgg import init_params
+    from collaborative_distillation_tpu_torch.models.zoo import PREPROC_CONV0, load_stage_params
+    root = os.path.join(tmp, "teacher_store")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "collaborative_distillation_tpu_torch.cli.make_teacher",
+                           "--out", root], cwd=HERE, capture_output=True, text=True)
+    build_s = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"phase 9c: make_teacher exited {proc.returncode}:\n"
+                             f"{proc.stdout}{proc.stderr}")
+    batches = synth_calibration_batches(16, 4, 128, 0)
+    # the floored filters, from the means before normalization: the store's
+    # bias is the drawn one over the filter's floored mean, so the drawn
+    # biases (make_teacher's seed-0 draws, encoder then decoder per stage)
+    # give that mean back as (store's mean) x (drawn b / store's b); a
+    # filter is floored where it lies under 1e-2 (make_teacher's rel_floor)
+    # of its layer's average, and every other filter is held to 1
+    gen = torch.Generator().manual_seed(0)
+    worst, floored, total = 0.0, 0, 0
+    with torch.inference_mode():
+        xs = [torch.from_numpy(b).cuda() for b in batches]
+        for k in range(1, 6):
+            spec = encoder_spec("original", k)
+            drawn = init_params(spec, gen)
+            init_params(decoder_spec("original", k), gen)
+            params = load_stage_params(os.path.join(root, "original", f"e{k}.npz"), spec,
+                                       "cuda")
+            for layer in spec.layers:
+                m = (sum(_layer_mean(params, spec, x, layer.name).double() * x.shape[0]
+                         for x in xs) / sum(x.shape[0] for x in xs)).cpu().numpy()
+                clamped = (drawn[layer.name]["b"].double()
+                           / params[layer.name]["b"].cpu().double()).numpy()
+                if not (clamped > 0).all():
+                    raise AssertionError(f"phase 9c: {layer.name} of stage {k}: the store's "
+                                         f"biases are not the seed-0 draws rescaled")
+                before = m * clamped
+                low = before < 1e-2 * before.mean()
+                floored, total = floored + int(low.sum()), total + low.size
+                worst = max(worst, float(np.abs(m[~low] - 1.0).max()))
+    if not worst <= 1e-3:
+        raise AssertionError(f"phase 9c: a filter's mean activation is {worst} from 1")
+    spec2 = encoder_spec("original", 2)
+    raw = init_params(spec2, torch.Generator().manual_seed(7))
+    raw["conv0"] = {kind: torch.from_numpy(a) for kind, a in PREPROC_CONV0.items()}
+    cal = synth_calibration_batches(8, 4, 128, 1)
+    card = normalize_encoder({n: {kk: t.cuda() for kk, t in leaf.items()}
+                              for n, leaf in raw.items()}, spec2, cal)
+    cpu = normalize_encoder(raw, spec2, cal)
+    leaf_err = max(float((card[n][kk].cpu() - cpu[n][kk]).abs().max())
+                   / float(cpu[n][kk].abs().max()) for n in cpu for kk in cpu[n])
+    if not leaf_err <= 1e-4:
+        raise AssertionError(f"phase 9c: normalize_encoder card vs cpu {leaf_err}")
+    log(f"phase 9c: cli.make_teacher stages 1-5 on the card in {build_s:.1f} s (a new "
+        f"process: interpreter, imports and the card's start included); every filter not "
+        f"floored at mean activation 1 within {worst:.2e} (tol 1e-3; {floored} of {total} "
+        f"floored, by their means before normalization); "
+        f"stage-2 normalize_encoder card vs cpu max leaf rel err {leaf_err:.2e} (tol 1e-4)")
+    return {"root": root, "build_s": build_s, "unit_mean_max_err": worst,
+            "floored_filters": floored, "filters": total, "normalize_card_vs_cpu": leaf_err,
+            "log": proc.stdout.strip().splitlines()}
+
+
+def small_modules(torch, eng, c512) -> dict:
+    """Phase 9d: ``apply_mobilenet_encoder`` at stages 1-5 on a seeded
+    synthetic state dict at 512^2, and ``gram_matrix`` and ``adain`` on a
+    stage-3 feature map, on the card against the CPU (1e-5 of the largest
+    output)."""
+    from torch import nn
+
+    from collaborative_distillation_tpu_torch.models.mobilenet import (
+        MOBILENET_BLOCKS, apply_mobilenet_encoder, convert_mobilenet_state_dict)
+    from collaborative_distillation_tpu_torch.models.vgg import apply_encoder
+    from collaborative_distillation_tpu_torch.ops.style_stats import adain, gram_matrix
+
+    def block(cin, cout, stride, first):
+        if first:
+            return nn.Sequential(nn.Conv2d(cin, cout, 3, stride, 1, bias=False),
+                                 nn.BatchNorm2d(cout), nn.ReLU())
+        return nn.Sequential(nn.Conv2d(cin, cin, 3, stride, 1, groups=cin, bias=False),
+                             nn.BatchNorm2d(cin), nn.ReLU(), nn.Conv2d(cin, cout, 1, bias=False),
+                             nn.BatchNorm2d(cout), nn.ReLU())
+
+    torch.manual_seed(0)
+    model = nn.Sequential(*(block(*b, i == 0) for i, b in enumerate(MOBILENET_BLOCKS)))
+    for m in model.modules():
+        if isinstance(m, nn.BatchNorm2d):
+            with torch.no_grad():
+                m.running_mean.uniform_(-0.5, 0.5)
+                m.running_var.uniform_(0.5, 2.0)
+                m.weight.uniform_(0.5, 1.5)
+                m.bias.uniform_(-0.3, 0.3)
+    sd = {f"module.model.{k}": v for k, v in model.state_dict().items()}
+    x = torch.from_numpy(c512.astype(np.float32) / 255.0)[None]
+    out = {"mobilenet": {}}
+    with torch.inference_mode():
+        for stage in range(1, 6):
+            tree = convert_mobilenet_state_dict(sd, stage)
+            card = apply_mobilenet_encoder(tree, x.cuda(), stage)["out"].cpu()
+            cpu = apply_mobilenet_encoder(tree, x, stage)["out"]
+            out["mobilenet"][stage] = rel_err(card, cpu.double())
+            # each device's own distance from float64, so a zero above is two
+            # float32 results that agree, not one result read twice
+            ref64 = apply_mobilenet_encoder(tree, x.double(), stage)["out"]
+            out.setdefault("mobilenet_vs_float64", {})[stage] = (rel_err(card, ref64),
+                                                                  rel_err(cpu, ref64))
+        p = eng.pyramid[3]
+        feat = apply_encoder(p["enc"], x.cuda(), p["enc_spec"], aux=False)["out"]
+        sfeat = feat.flip(1).contiguous()
+        out["gram"] = rel_err(gram_matrix(feat).cpu(), gram_matrix(feat.cpu()).double())
+        out["adain"] = rel_err(adain(feat, sfeat).cpu(),
+                               adain(feat.cpu(), sfeat.cpu()).double())
+    worst = max(max(out["mobilenet"].values()), out["gram"], out["adain"])
+    log(f"phase 9d: card vs cpu max rel err: apply_mobilenet_encoder 512^2 stages 1-5 "
+        + ", ".join(f"{k}: {v:.2e} (card / cpu vs float64 {a:.2e} / {c:.2e})"
+                    for (k, v), (a, c) in zip(out["mobilenet"].items(),
+                                              out["mobilenet_vs_float64"].values()))
+        + f"; gram_matrix {out['gram']:.2e}, adain {out['adain']:.2e} on the stage-3 map "
+        f"{tuple(feat.shape)} (tol 1e-5)")
+    if not worst <= 1e-5:
+        raise AssertionError(f"phase 9d: card vs cpu {out}")
+    return out
+
+
 def main() -> int:
+    global PEAK_FP32_FLOPS
     t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
@@ -1642,6 +2044,12 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    from collaborative_distillation_tpu_torch.utils.flops import card_peak_flops, cascade_flops
+    PEAK_FP32_FLOPS, peak_label = card_peak_flops(0, "float32")
+    if not PEAK_FP32_FLOPS:
+        print(f"chip_smoke: no FP32 peak for {peak_label} in utils/flops.py:CARD_PEAKS; "
+              f"the bounds need one", file=sys.stderr)
+        return 1
     from collaborative_distillation_tpu_torch.ops import cuda as kc
     from collaborative_distillation_tpu_torch.ops.cuda import _build
     from collaborative_distillation_tpu_torch.ops.wct_transform import (coloring_matrix,
@@ -1667,6 +2075,7 @@ def main() -> int:
             log("  ptxas:", line.strip())
     detail["card"] = smi
     detail["build_s"] = _build.last_build["seconds"]
+    detail["nvjpeg"] = nvjpeg_presence()
 
     with np.load(os.path.join(HERE, "collaborative_distillation_tpu_torch", "data",
                               "photo_pair_512.npz")) as d:
@@ -1683,6 +2092,7 @@ def main() -> int:
                                             UHD_H, UHD_W, 2048, 2048, FEATURE_CACHE_BYTES)
     shard_eng = WCTEngine(mode="16x", space=SHARDS, slab_rows=SHARD_SLAB,
                           devices=["cuda:0"] * SHARDS)
+    per_conv = WCTEngine(mode="16x", space=SHARDS, devices=["cuda:0"] * SHARDS)
     calls_sh, layers_sh = sharded_path_calls(pyr, eng.stages, cas.margins,
                                              shard_eng._tiled_slab, SHARDS, UHD_H, UHD_W,
                                              2048, 2048)
@@ -1774,6 +2184,33 @@ def main() -> int:
         f"all {len(calls_uhd)} UHD slab path, the plain UHD {biggest} and the "
         f"{len(only_sh)} further sharded UHD path shapes ({n_halo} of the halo, exact; "
         f"UHD ones in {time.perf_counter() - t0:.1f} s)")
+    # the per-conv sharded path at 2000 rows: shards of unequal heights (whole
+    # 16-row blocks, the remainder on the last), one exchange per conv; and
+    # photo-WCT's decoder convs on max-unpooled maps (3 of 4 values 0)
+    awk_rows = per_conv._block_rows(PC_AWK_H)
+    pc_calls = per_conv_halo_calls(pyr, eng.stages, awk_rows, 2048)
+    pc_rows = []
+    for (kernel, shape), n in sorted(pc_calls.items(), key=str):
+        pc_rows.append({**bench.run(kernel, shape, timed=True), "calls": n})
+    unpooled = unpooled_conv_checks(torch, kc, pyr, eng.stages, 2048, 2048)
+    checks += pc_rows + unpooled
+    detail["per_conv_awkward_halo"] = {"shard_rows": awk_rows, "launches": sum(pc_calls.values()),
+                                       **path_times(pc_rows)}
+    detail["unpooled_conv3x3"] = {"launches": len(unpooled), **path_times(unpooled)}
+    log(f"phase 2: the per-conv sharded path at {PC_AWK_H}x2048 (shard rows {awk_rows}): "
+        f"{len(pc_rows)} halo shapes, exact; a cascade's "
+        f"{detail['per_conv_awkward_halo']['launches']} exchanges "
+        f"{detail['per_conv_awkward_halo']['ms']:.3f} ms (bound "
+        f"{detail['per_conv_awkward_halo']['bound_ms']:.3f}, plain "
+        f"{detail['per_conv_awkward_halo']['plain_ms']:.3f}, torch.cat "
+        f"{detail['per_conv_awkward_halo']['library_ms']:.3f}); conv3x3 on "
+        f"{len(unpooled)} max-unpooled 2048^2 decoder maps "
+        f"({min(r['zero_share'] for r in unpooled):.3f}+ zeros): max rel err "
+        f"{max(r['max_rel_err'] for r in unpooled):.3e} (tol {CONV_TOL}), "
+        f"{detail['unpooled_conv3x3']['ms']:.3f} ms a cascade (bound "
+        f"{detail['unpooled_conv3x3']['bound_ms']:.3f}, plain "
+        f"{detail['unpooled_conv3x3']['plain_ms']:.3f}, cuDNN "
+        f"{detail['unpooled_conv3x3']['library_ms']:.3f})")
     # 1-pixel reflect: a 16x16 image reaches conv51 at 1x1 in the stage-5
     # encoder; every stage's encoder and decoder, card vs CPU plain
     tiny = np.random.default_rng(0).random((1, 16, 16, 3), np.float32)
@@ -1790,7 +2227,7 @@ def main() -> int:
             worst = max(worst, float((rec["cuda"] - rec["cpu"]).abs().max()) / scale)
     log(f"phase 2: 16x16 encoder+decoder, stages {eng.stages} (conv51 at 1x1), "
         f"card vs cpu max rel err {worst:.3e}")
-    if not worst <= 1e-4:
+    if not worst <= STAGE_TOL:
         raise AssertionError(f"16x16 encoder/decoder card vs cpu rel err {worst}")
     # the whole 16x16 cascade: relu5_1 is 1x1, its covariance 0/0; the
     # reference stylizes to all-NaN, and so must the port, without raising
@@ -1951,22 +2388,31 @@ def main() -> int:
         db_sh = psnr_device(torch, shard_eng.stylize_device(img_uhd, sty2k), one_card)
         del one_card
         before = kc.halo_exchange_rows.launches
-        per_conv = WCTEngine(mode="16x", space=SHARDS, devices=["cuda:0"] * SHARDS)
         db_pc = psnr_device(torch, per_conv.stylize_device(img2k, sty2k),
                             eng.stylize_device(img2k, sty2k))
         pc_halos = kc.halo_exchange_rows.launches - before
-    # one exchange per conv and shard, content and style
-    pc_expect = SHARDS * sum(c for (kernel, _), c in calls2k.items()
-                             if kernel == "conv3x3_reflect")
+        # rows past a multiple of 16 * space, in the content and in the style:
+        # whole 16-row blocks, the style's statistics taken whole
+        db_awk_c = psnr_device(torch, per_conv.stylize_device(img2k[:, :PC_AWK_H], sty2k),
+                               eng.stylize_device(img2k[:, :PC_AWK_H], sty2k))
+        db_awk_s = psnr_device(torch, per_conv.stylize_device(img2k, sty2k[:, :PC_AWK_H]),
+                               eng.stylize_device(img2k, sty2k[:, :PC_AWK_H]))
+    # one exchange per conv of the content's encoder and the decoder, and shard
+    pc_expect = sum(per_conv_halo_calls(pyr, eng.stages, [2048 // SHARDS] * SHARDS,
+                                        2048).values())
     log(f"phase 4c: UHD sharded (space={SHARDS}, slab_rows={SHARD_SLAB}) vs the single-card "
         f"slab cascade at the same slab size PSNR {db_sh:.2f} dB; 2048^2 per-conv sharded "
-        f"vs plain {db_pc:.2f} dB (min {PSNR_MIN_DB}); per-conv halo launches {pc_halos}, "
+        f"vs plain {db_pc:.2f} dB; {PC_AWK_H}x2048 content {db_awk_c:.2f} dB, {PC_AWK_H}x2048 "
+        f"style {db_awk_s:.2f} dB (min {PSNR_MIN_DB}); per-conv halo launches {pc_halos}, "
         f"predicted {pc_expect}")
     detail["sharded_vs_single"] = {"uhd_psnr_db": db_sh, "per_conv_2048_psnr_db": db_pc,
-                                   "per_conv_halo_launches": pc_halos}
-    if not (db_sh >= PSNR_MIN_DB and db_pc >= PSNR_MIN_DB and pc_halos == pc_expect):
+                                   "per_conv_halo_launches": pc_halos,
+                                   "per_conv_awkward_content_psnr_db": db_awk_c,
+                                   "per_conv_awkward_style_psnr_db": db_awk_s}
+    if not (min(db_sh, db_pc, db_awk_c, db_awk_s) >= PSNR_MIN_DB and pc_halos == pc_expect):
         raise AssertionError(f"sharded vs single-card: UHD {db_sh:.2f} dB, per-conv "
-                             f"{db_pc:.2f} dB, halo launches {pc_halos} != {pc_expect}")
+                             f"{db_pc:.2f} / {db_awk_c:.2f} / {db_awk_s:.2f} dB, halo "
+                             f"launches {pc_halos} != {pc_expect}")
 
     # ---- phase 4d: a height that is no slab multiple ----------------------------
     from collaborative_distillation_tpu_torch.parallel.spatial import shard_rows
@@ -2086,6 +2532,29 @@ def main() -> int:
         f"(runs {', '.join(f'{r:.2f}' for r in runs)}), peak {peak:.2f} GiB "
         f"({resident:.2f} GiB held before it, the UHD phases' inputs among them); stages "
         + ", ".join(f"{k}: {v:.2f} ms" for k, v in stage_ms.items()))
+    # the utilization's workload is cascade_flops', which leaves out the
+    # style's encoders and statistics (cached per style, a server's steady
+    # state): time it with the style's statistics cached, warm median of 5
+    with torch.inference_mode():
+        eng.stylize_device(img, sty, style_key="phase 5")
+        cached = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.stylize_device(img, sty, style_key="phase 5")
+            torch.cuda.synchronize()
+            cached.append((time.perf_counter() - t0) * 1e3)
+    flops = cascade_flops("16x", 2048, 2048)
+    tflops = flops / (statistics.median(cached) / 1e3) / 1e12
+    detail["cascade_2048_ms"].update(cached_style_runs=cached,
+                                     cached_style_median=statistics.median(cached),
+                                     flops=flops, tflops=tflops,
+                                     share_of_fp32_peak=tflops * 1e12 / PEAK_FP32_FLOPS)
+    log(f"phase 5: 2048^2 cascade with the style's statistics cached warm "
+        f"{statistics.median(cached):.2f} ms (runs {', '.join(f'{r:.2f}' for r in cached)}); "
+        f"its {flops / 1e12:.4f} TFLOP (utils/flops.py:cascade_flops, no style leg) over "
+        f"that median: {tflops:.2f} TFLOP/s, {tflops * 1e12 / PEAK_FP32_FLOPS:.1%} of the "
+        f"card's FP32 peak ({peak_label}, {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s)")
     detail["profile_2048"] = profile_cascade(torch, eng, img, sty)
     del img, x
 
@@ -2183,23 +2652,33 @@ def main() -> int:
     detail["profile_sharded"] = profile_cascade(torch, shard_eng, img_uhd, sty2k, "phase 5c")
     detail["host_boundary"] = host_boundary(torch, kc, slab_eng, eng, c_uhd, c2k, s2k,
                                             expect_uhd)
-    # ---- phase 7: the CLIs and the server ------------------------------------------
     import tempfile
-    t7 = time.perf_counter()
-    detail["server_2048"] = server_2048(torch, kc, WCTEngine, c2k, s2k)
-    detail["server_uhd"] = server_uhd(torch, kc, WCTEngine, c_uhd, s2k, ref_uhd_u8)
-    detail["serve_entry_point"] = serve_entry_point(c512, s512)
     with tempfile.TemporaryDirectory() as tmp:
+        # ---- phase 9: photo-WCT, the cascade function, the teacher store ---------
+        t9 = time.perf_counter()
+        detail["photo_wct"] = photo_wct(torch, kc, eng, eng_cpu, slab_eng, shard_eng, c2k, s2k,
+                                        c512, s512)
+        detail["cascade_fn"] = cascade_fn_check(torch, eng, c2k, s2k)
+        detail["teacher_store"] = teacher_store(torch, tmp)
+        detail["small_modules"] = small_modules(torch, eng, c512)
+        detail["phase9_s"] = time.perf_counter() - t9
+        # ---- phase 7: the CLIs and the server --------------------------------------
+        t7 = time.perf_counter()
+        detail["server_2048"] = server_2048(torch, kc, WCTEngine, c2k, s2k)
+        detail["server_uhd"] = server_uhd(torch, kc, WCTEngine, c_uhd, s2k, ref_uhd_u8)
+        detail["serve_entry_point"] = serve_entry_point(c512, s512)
         detail["stylize_cli"] = stylize_cli(torch, kc, eng, c2k, s2k, c_uhd, ref_uhd_u8,
                                             expect_uhd, tmp)
         detail["eval_cli"] = eval_cli(c512, s512, tmp)
         detail["teacher_widths"] = teacher_widths(torch, kc, WCTEngine, c512, s512, tmp)
         detail["phase7_s"] = time.perf_counter() - t7
         # ---- phase 8: training ---------------------------------------------------------
-        detail["training"] = training(torch, kc, c512, s512, tmp)
+        detail["training"] = training(torch, kc, c512, s512, tmp,
+                                      detail["teacher_store"]["root"])
     detail["total_s"] = time.perf_counter() - t_start
-    log(f"phase 7: {detail['phase7_s']:.1f} s; phase 8: {detail['training']['phase8_s']:.1f} s; "
-        f"chip_smoke.py {detail['total_s']:.1f} s (kernel build included)")
+    log(f"phase 9: {detail['phase9_s']:.1f} s; phase 7: {detail['phase7_s']:.1f} s; phase 8: "
+        f"{detail['training']['phase8_s']:.1f} s; chip_smoke.py {detail['total_s']:.1f} s "
+        f"(kernel build included)")
     for r in table:
         log(f"  {r['name']}: {r['ms']:.3f} ms/cascade over {r['launches']} launches, "
             f"plain {r['plain_ms']:.3f}, library {r['library_ms']:.3f}, "

@@ -6,19 +6,22 @@ functions keep the reference package's layouts (NHWC activations, HWIO
 weights, float32) so the two can be compared like for like.
 
 Public surface:
-    models   — VGG autoencoder specs, apply functions and the weight zoo
-    ops      — NHWC conv/pool/upsample primitives, WCT transform math, and
-               the CUDA kernels behind them (``ops.cuda``)
-    wct      — the 5-level stylization cascade engine and its UHD row-slab
-               path
+    models   — VGG autoencoder specs, apply functions and the weight zoo;
+               MobileNetV1 encoders
+    ops      — NHWC conv/pool/upsample primitives, WCT transform math, Gram
+               and AdaIN statistics, and the CUDA kernels behind them
+               (``ops.cuda``)
+    wct      — the 5-level stylization cascade engine (photo-WCT included),
+               the whole cascade as one function, and its UHD row-slab path
     train    — the collaborative-distillation loss graphs, the trainer and
                the L1-pruning initializer
     utils    — carrying the reference package's parameters (and Adam
                states) across; checkpoints; host<->device copies; image
-               files, logging, profiling
+               files, logging, profiling; FLOP counts and the card's peak
     data     — the native JPEG/YCbCr codec binding, PNG, the training and
                inference datasets and the threaded loader
-    cli      — stylize, serve, eval, export and train entry points
+    cli      — stylize, serve, eval, export, train, make_teacher and
+               normalize_vgg entry points
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``: a CPU
 tensor takes each kernel's plain PyTorch version, a CUDA tensor launches the

@@ -61,7 +61,13 @@ class _GaugedLock:
         with self._meta:
             self.depth += 1
             self.max_depth = max(self.max_depth, self.depth)
-        self._lock.acquire()
+        try:
+            self._lock.acquire()
+        except BaseException:
+            # an interrupted wait never held the lock: it leaves the queue
+            with self._meta:
+                self.depth -= 1
+            raise
         return self
 
     def __exit__(self, *exc):

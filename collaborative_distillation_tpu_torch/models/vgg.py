@@ -17,10 +17,12 @@ import math
 import torch
 from torch import nn
 
-from ..ops.conv import conv1x1, conv3x3, max_pool_2x2, upsample_nearest_2x
+from ..ops.conv import (conv1x1, conv3x3, max_pool_2x2, max_pool_2x2_with_argmax,
+                        max_unpool_2x2, upsample_nearest_2x)
 from .specs import StageSpec
 
-__all__ = ["init_params", "apply_encoder", "apply_decoder", "Encoder", "Decoder"]
+__all__ = ["init_params", "apply_encoder", "apply_decoder", "apply_decoder_pwct", "Encoder",
+           "Decoder"]
 
 Params = dict[str, dict[str, torch.Tensor]]
 
@@ -42,7 +44,8 @@ def init_params(spec: StageSpec, generator: torch.Generator,
 
 
 def apply_encoder(params: Params, x: torch.Tensor, spec: StageSpec, *,
-                  aux_relu: bool = False, aux: bool = True) -> dict[str, torch.Tensor]:
+                  aux_relu: bool = False, aux: bool = True,
+                  with_pool_argmax: bool = False) -> dict[str, torch.Tensor]:
     """Run an encoder stage on an NHWC map; returns named features.
 
     Keys: ``out`` (final relu{k}_1), ``relu{j}1`` taps (j<=k, pre-pool) and
@@ -51,6 +54,9 @@ def apply_encoder(params: Params, x: torch.Tensor, spec: StageSpec, *,
     adapters: the reference's jit drops unused taps, eager PyTorch computes
     them, and at 2048^2 they map every tap up to teacher width (64..512
     channels) at full resolution for a stylization that never reads them.
+    ``with_pool_argmax`` pools with :func:`..ops.conv.max_pool_2x2_with_argmax`
+    and adds ``pool{p}_idx`` (the argmax map) and ``pool{p}_hw`` (the
+    pooled map's input H, W) for photo-WCT's :func:`apply_decoder_pwct`.
     """
     if spec.kind != "encoder":
         raise ValueError(f"apply_encoder needs an encoder spec, got {spec.kind!r}")
@@ -58,13 +64,19 @@ def apply_encoder(params: Params, x: torch.Tensor, spec: StageSpec, *,
     if spec.has_conv0:
         p = params["conv0"]
         x = conv1x1(x, p["w"], p["b"], relu=False)
+    n_pool = 0
     for layer in spec.layers:
         p = params[layer.name]
         x = conv3x3(x, p["w"], p["b"], relu=layer.relu)
         if layer.tap:
             outs[layer.tap] = x
         if layer.pool_after:
-            x = max_pool_2x2(x)
+            n_pool += 1
+            if with_pool_argmax:
+                outs[f"pool{n_pool}_hw"] = tuple(x.shape[1:3])
+                x, outs[f"pool{n_pool}_idx"] = max_pool_2x2_with_argmax(x)
+            else:
+                x = max_pool_2x2(x)
     outs["out"] = x
     for layer in spec.aux if aux else ():
         src = outs[f"relu{layer.name[4]}1"]
@@ -100,6 +112,27 @@ def apply_decoder(params: Params, x: torch.Tensor, spec: StageSpec, *,
         p = params[layer.name]
         outs[layer.tap] = conv1x1(src, p["w"], p["b"], relu=aux_relu)
     return outs
+
+
+def apply_decoder_pwct(params: Params, x: torch.Tensor, spec: StageSpec,
+                       pool_idx: dict) -> torch.Tensor:
+    """Photo-WCT decode: max-unpool with the encoder's argmax indices in
+    place of the nearest upsample, and no ReLU on the last conv, so the
+    output may be negative (model_cd.py SmallDecoder*.forward_pwct).
+    ``pool_idx`` holds ``pool{p}_idx`` and ``pool{p}_hw`` from
+    :func:`apply_encoder` with ``with_pool_argmax=True``; pools are numbered
+    in encoder order, so the decoder takes them in reverse."""
+    if spec.kind != "decoder":
+        raise ValueError(f"apply_decoder_pwct needs a decoder spec, got {spec.kind!r}")
+    p_no = sum(layer.unpool_after for layer in spec.layers)
+    last = spec.layers[-1]
+    for layer in spec.layers:
+        p = params[layer.name]
+        x = conv3x3(x, p["w"], p["b"], relu=layer.relu and layer is not last)
+        if layer.unpool_after:
+            x = max_unpool_2x2(x, pool_idx[f"pool{p_no}_idx"], pool_idx[f"pool{p_no}_hw"])
+            p_no -= 1
+    return x
 
 
 class _Stage(nn.Module):

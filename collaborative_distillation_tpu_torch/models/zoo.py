@@ -15,7 +15,7 @@ import torch
 from .specs import StageSpec, decoder_spec, encoder_spec
 
 __all__ = ["default_weights_root", "stage_specs", "load_stage_params",
-           "load_pyramid", "load_tree_npz", "PREPROC_CONV0"]
+           "load_pyramid", "load_tree_npz", "save_tree_npz", "PREPROC_CONV0"]
 
 # The hardcoded preprocessing conv baked into Encoder5 (model_original.py:428-433):
 # RGB->BGR, x255, subtract the Caffe VGG ImageNet mean. HWIO layout.
@@ -43,6 +43,16 @@ def load_tree_npz(path: str) -> dict[str, dict[str, np.ndarray]]:
             name, kind = key.rsplit("/", 1)
             tree.setdefault(name, {})[kind] = data[key]
     return tree
+
+
+def save_tree_npz(tree, path: str) -> None:
+    """``{layer: {"w": .., "b": ..}}`` (numpy arrays or tensors) -> a store
+    entry at ``path`` that :func:`load_tree_npz` reads back, in the
+    reference's layout (flat ``<layer>/<w|b>`` keys); makes the directory."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **{f"{name}/{kind}": (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
+                                         else np.asarray(a))
+                      for name, leaf in tree.items() for kind, a in leaf.items()})
 
 
 def _family_and_dirs(mode: str) -> tuple[str, str, str]:

@@ -23,7 +23,7 @@ from .cuda import pool as _kpool
 from .pad import reflect_pad
 
 __all__ = ["reflect_pad", "conv2d", "conv3x3", "conv1x1", "max_pool_2x2",
-           "upsample_nearest_2x", "on_card"]
+           "max_pool_2x2_with_argmax", "max_unpool_2x2", "upsample_nearest_2x", "on_card"]
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
@@ -79,6 +79,34 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     if on_card(x):
         return _kpool.max_pool_2x2(x)
     return _kpool.max_pool_2x2_plain(x)
+
+
+def max_pool_2x2_with_argmax(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """2x2/stride-2 max pool that also returns each window's argmax, int32
+    ``dy * 2 + dx`` (ties to the first maximum, as ``jnp.argmax``); an odd
+    last row or column is dropped. The photo-WCT encoder's pool
+    (model_cd.py:443-449). The reference leaves it to XLA, not a Pallas
+    kernel: plain torch on both devices, its maxima the ``max_pool_2x2``
+    kernel's bit for bit (a maximum is exact)."""
+    n, h, w, c = x.shape
+    h2, w2 = h // 2, w // 2
+    win = (x[:, :2 * h2, :2 * w2].reshape(n, h2, 2, w2, 2, c)
+           .permute(0, 1, 3, 2, 4, 5).reshape(n, h2, w2, 4, c))
+    return win.amax(dim=3), win.argmax(dim=3).to(torch.int32)
+
+
+def max_unpool_2x2(x: torch.Tensor, idx: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Inverse of :func:`max_pool_2x2_with_argmax`: each pooled value back
+    at its argmax position, zeros elsewhere (torch ``MaxUnpool2d(2, 2)``),
+    zero-padded to ``out_hw``. A one-hot product, as the reference's."""
+    n, h2, w2, c = x.shape
+    onehot = idx.unsqueeze(3) == torch.arange(4, device=idx.device).view(4, 1)
+    y = (onehot.to(x.dtype) * x.unsqueeze(3)).reshape(n, h2, w2, 2, 2, c)
+    y = y.permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * h2, 2 * w2, c)
+    oh, ow = out_hw
+    if (oh, ow) != (2 * h2, 2 * w2):
+        y = F.pad(y, (0, 0, 0, ow - 2 * w2, 0, oh - 2 * h2))
+    return y
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:

@@ -9,10 +9,12 @@ lists take the place of its ``axis_name``). Two paths:
   takes one-row halos from its mesh neighbours; at the two *global* edges
   the halo is the reference's reflection row, so tiled == untiled up to
   float32 reassociation. 2x2 pools and nearest upsamples are shard-local
-  (local H stays even because the global H is padded to a multiple of
-  16 * n_shards). The WCT statistics are shard-local sums added up over the
-  mesh (a covariance is a sum over pixels, so the tiling is exact) and one
-  coloring matrix is built and copied to every shard;
+  (every shard holds a multiple of the deepest stage's downsample factor;
+  the engine deals whole 16-row blocks, so shards may differ in height).
+  The content's WCT statistics are shard-local sums added up over the mesh
+  (a covariance is a sum over pixels, so the tiling is exact) and one
+  coloring matrix is built and copied to every shard; the style's come in
+  whole;
 * slabs inside shards (:func:`build_tiled_slab_cascade`): per stage each
   shard takes ``2 * margin`` rows from each neighbour once, then streams
   through its windows of the single-card slab plan on its own, so its peak
@@ -197,12 +199,13 @@ def build_tiled_stylize_fn(pyramid, mesh: Mesh, *, stages=(5, 4, 3, 2, 1),
                            method: str = "eigh", newton_iters: int = 24):
     """Row-sharded full cascade over ``mesh``'s ``space`` axis.
 
-    Returns ``f(content, style, alpha)``; content and style are lists of
-    (N, H_loc, W, 3) row shards, one per ``space`` device and on it, with
-    H_loc divisible by the deepest stage's downsample factor (pad the global
-    H to a multiple of 16 * space). Style statistics are taken from the
-    sharded style image with the same reduction. The output is sharded like
-    the input. The stages' parameters are copied to each device once, here.
+    Returns ``f(content, style_stats, alpha)``; content is a list of (N,
+    H_loc, W, 3) row shards, one per ``space`` device and on it, each H_loc a
+    positive multiple of the deepest stage's downsample factor (the shards
+    may differ in height). ``style_stats`` is ``{stage: (mean, cov)}`` on any
+    device, taken from the whole style image (the engine caches them per
+    style). The output is sharded like the input. The stages' parameters are
+    copied to each device once, here.
     """
     devices = mesh.devices[0]
     n_space = len(devices)
@@ -210,22 +213,19 @@ def build_tiled_stylize_fn(pyramid, mesh: Mesh, *, stages=(5, 4, 3, 2, 1),
                   _per_device(pyramid[k]["dec"], devices)) for k in stages}
     down_max = 2 ** (max(stages) - 1)
 
-    def fn(content, style, alpha):
-        if len(content) != n_space or len(style) != n_space:
-            raise ValueError(f"need {n_space} content and style shards, got "
-                             f"{len(content)} and {len(style)}")
-        if any(x.shape[1] % down_max for x in (*content, *style)):
+    def fn(content, style_stats, alpha):
+        if len(content) != n_space:
+            raise ValueError(f"need {n_space} content shards, got {len(content)}")
+        if any(x.shape[1] % down_max or not x.shape[1] for x in content):
             raise ValueError(
-                f"per-shard H {content[0].shape[1]}/{style[0].shape[1]} must divide the "
-                f"deepest stage's downsample factor {down_max}; pad the global H to a "
-                f"multiple of {down_max} * n_space (the engine pads to 16 * space) so "
-                f"pools and upsamples stay shard-local")
+                f"per-shard H {[x.shape[1] for x in content]} must be positive multiples of "
+                f"the deepest stage's downsample factor {down_max}, so that pools and "
+                f"upsamples stay shard-local (the engine deals whole 16-row blocks)")
         img = content
         for k in stages:
             enc, dec = params[k]
             enc_spec, dec_spec = pyramid[k]["enc_spec"], pyramid[k]["dec_spec"]
-            s_mean, s_cov = feature_stats_psum(
-                apply_encoder_spatial(enc, style, enc_spec)["out"])
+            s_mean, s_cov = style_stats[k]
             c_out = apply_encoder_spatial(enc, img, enc_spec)["out"]
             csf = wct_transform_spatial(c_out, s_mean, s_cov, alpha, method=method,
                                         newton_iters=newton_iters)

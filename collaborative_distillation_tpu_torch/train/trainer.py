@@ -11,7 +11,6 @@ upsamples launch the hand-written kernels under ``torch.autograd.Function``s
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from functools import partial
@@ -22,6 +21,7 @@ import torch
 
 from ..models.specs import StageSpec, decoder_spec, encoder_spec
 from ..models.vgg import Decoder, Encoder
+from ..ops.precision import full_float32
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.params import adam_state_from_jax, adam_state_to_jax
 from ..wct.engine import resolve_device
@@ -106,24 +106,6 @@ def _tensors(tree, device) -> dict:
     """A parameter dict of tensors or arrays -> float32 tensors on ``device``."""
     return {name: {kind: _tensor(a, device) for kind, a in leaf.items()}
             for name, leaf in tree.items()}
-
-
-@contextlib.contextmanager
-def full_float32():
-    """cuDNN convolutions and matmuls in full float32 inside the block,
-    restored after it. The package turns TF32 off when imported, but a
-    caller may turn it on again afterwards (PyTorch allows it in cuDNN by
-    default); TF32 would move the backward about 1e-3 relative from the
-    float32 reference, so the step holds float32 whatever the caller set."""
-    cudnn = torch.backends.cudnn
-    prec = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                         deterministic=cudnn.deterministic, allow_tf32=False):
-            yield
-    finally:
-        torch.set_float32_matmul_precision(prec)
 
 
 class Trainer:

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..data import native_codec
-from ..models.vgg import apply_decoder, apply_encoder
+from ..models.vgg import apply_decoder, apply_decoder_pwct, apply_encoder
 from ..models.zoo import load_pyramid
 from ..ops.pad import reflect_index
 from ..ops.wct_transform import feature_stats, wct_transform
@@ -41,8 +41,8 @@ from ..utils.colorspace import (rgb_to_yuv420_host, rgbf_to_yuv420_device,
 from ..utils.transfer import fetch, push
 from .slab import SlabCascade, _to_u8, build_fused_slab_cascade
 
-__all__ = ["WCTEngine", "stage_style_stats", "stylize_stage", "resolve_device",
-           "STYLE_CACHE_MAX", "TILED_MAX_SHARD_PIX"]
+__all__ = ["WCTEngine", "stage_style_stats", "stylize_stage", "stylize_stage_pwct",
+           "stylize_cascade_fn", "resolve_device", "STYLE_CACHE_MAX", "TILED_MAX_SHARD_PIX"]
 
 # style-statistics cache bound: (stage, key, shape) -> (mean, cov) entries
 # are small (C <= 512: <= 1 MB each), but a long-lived server registering
@@ -79,14 +79,12 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _pad_to_multiple(x: torch.Tensor, mult_h: int = 16,
-                     mult_w: int = 16) -> tuple[torch.Tensor, tuple[int, int]]:
-    """Reflect-pad H to a multiple of ``mult_h`` and W to one of ``mult_w``,
-    bottom and right, as ``np.pad(mode="reflect")`` does. Row sharding cuts
-    only H, so W never needs the ``16 * space`` of the rows."""
+def _pad_to_multiple(x: torch.Tensor) -> tuple[torch.Tensor, tuple[int, int]]:
+    """Reflect-pad H and W to multiples of 16, bottom and right, as
+    ``np.pad(mode="reflect")`` does."""
     _, h, w, _ = x.shape
-    ph = (-h) % mult_h
-    pw = (-w) % mult_w
+    ph = (-h) % 16
+    pw = (-w) % 16
     if ph:
         x = x.index_select(1, reflect_index(h, 0, ph, x.device))
     if pw:
@@ -127,6 +125,39 @@ def stylize_stage(enc_params, dec_params, enc_spec, dec_spec, img, s_mean, s_cov
     return apply_decoder(dec_params, csf, dec_spec)["out"]
 
 
+def stylize_stage_pwct(enc_params, dec_params, enc_spec, dec_spec, img, s_mean, s_cov,
+                       alpha, method: str, newton_iters: int = 24) -> torch.Tensor:
+    """Photo-WCT variant of :func:`stylize_stage`: the encoder's pool argmax
+    indices drive max-unpooling in the decoder, whose last conv has no ReLU
+    (structure-preserving; the reference's forward_pwct paths,
+    model_cd.py:443-449/621-635)."""
+    feats = apply_encoder(enc_params, img, enc_spec, aux=False, with_pool_argmax=True)
+    csf = wct_transform(feats["out"], s_mean, s_cov, alpha, method=method,
+                        newton_iters=newton_iters)
+    return apply_decoder_pwct(dec_params, csf, dec_spec, feats)
+
+
+def stylize_cascade_fn(pyramid, *, stages=(5, 4, 3, 2, 1), method: str = "eigh",
+                       newton_iters: int = 24):
+    """The whole cascade as one function of tensors: returns ``f(params,
+    content, style, alpha)``, ``params`` as ``{stage: {"enc", "dec"}}`` (a
+    pyramid serves), content and style padded NHWC maps on one device. Each
+    stage takes the style's statistics afresh: no cache, no padding, no
+    crop, no clip. The oracle the engine's paths are held to."""
+    specs = {k: (pyramid[k]["enc_spec"], pyramid[k]["dec_spec"]) for k in stages}
+
+    def f(params, content, style, alpha):
+        img = content
+        for k in stages:
+            enc_spec, dec_spec = specs[k]
+            s_mean, s_cov = stage_style_stats(params[k]["enc"], enc_spec, style)
+            img = stylize_stage(params[k]["enc"], params[k]["dec"], enc_spec, dec_spec, img,
+                                s_mean, s_cov, alpha, method, newton_iters)
+        return img
+
+    return f
+
+
 class WCTEngine:
     """User-facing stylization engine.
 
@@ -158,10 +189,14 @@ class WCTEngine:
     when there are fewer than ``space``. With ``slab_rows`` every shard
     streams through its whole windows of the single-card slab plan
     (:func:`..parallel.spatial.build_tiled_slab_cascade`); without, every
-    conv exchanges one-row halos (:func:`..parallel.spatial.build_tiled_stylize_fn`,
-    rows padded to ``16 * space``) and images over ``TILED_MAX_SHARD_PIX``
-    pixels per shard are refused. Both are per-image; the result is joined
-    on the engine's device.
+    conv exchanges one-row halos (:func:`..parallel.spatial.build_tiled_stylize_fn`):
+    the rows, padded to 16 as on the plain path, are dealt to the shards in
+    whole 16-row blocks (the remainder to the last shards), images of fewer
+    blocks than shards and images over ``TILED_MAX_SHARD_PIX`` pixels per
+    shard are refused. On both the style's statistics are taken whole on
+    the engine's device and cached per style key, so no pad row beyond the
+    plain path's enters them. Both are per-image; the result is joined on
+    the engine's device.
 
     ``transport``: how uint8 images cross the host link. ``"rgb"``: 3 bytes
     per pixel, bit-exact. ``"yuv420"``: JPEG-native YCbCr 4:2:0 planes, 1.5
@@ -210,9 +245,6 @@ class WCTEngine:
             raise ValueError("devices lists the row shards' devices and needs space > 1; "
                              "the engine's own device is `device`")
         self.fused = bool(slab_rows) and fused and not self.space
-        # rows pad to 16, or to 16 per shard on the per-conv sharded path,
-        # whose pools and upsamples must stay shard-local
-        self._mult_h = 16 * self.space if self.space and not slab_rows else 16
         self._fused_fns: dict = {}  # (slab_rows, tail_stats) -> fused cascade
         self._tiled_fn = None
         self._tiled_slab = 0   # the sharded slab cascade's effective slab size
@@ -301,16 +333,16 @@ class WCTEngine:
             raise ValueError("style blending needs the fused slab path (fused=True): "
                              "the per-stage slab cascade re-encodes the raw style")
         if self._tiled_fn is not None and not self._tiled_slab:
-            raise ValueError("style blending needs precomputed style statistics: the "
-                             "per-conv sharded path (space without slab_rows) encodes "
-                             "the raw style in shards")
+            raise ValueError("style blending is refused on the per-conv sharded path "
+                             "(space without slab_rows), whose reference stylizes with "
+                             "the black proxy there; construct the engine with slab_rows")
         if all(k is not None for k in style_keys):
             blend_key = "blend:" + "+".join(
                 f"{k}:{wi:.4f}" for k, wi in zip(style_keys, w))
         else:
             blend_key = "blend:" + uuid.uuid4().hex
-        proxy = np.zeros((self._mult_h, 16, 3), np.float32)
-        proxy_shape = (1, self._mult_h, 16, 3)
+        proxy = np.zeros((16, 16, 3), np.float32)
+        proxy_shape = (1, 16, 16, 3)
         dev = [self._prep(s) for s in styles]
         blends = {}
         for k in self.stages:
@@ -341,7 +373,7 @@ class WCTEngine:
         if x.dim() == 3:
             x = x[None]
         x = self._u8_to_float(x) if x.dtype == torch.uint8 else x.float()
-        return _pad_to_multiple(x, self._mult_h, 16)[0]
+        return _pad_to_multiple(x)[0]
 
     def _to_device(self, content, style, transport: str | None = None):
         """Upload one pair: ``(img, sty, squeeze, orig_hw, transport)``, the
@@ -367,7 +399,7 @@ class WCTEngine:
             if ph or pw:
                 content = np.pad(content, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="edge")
             img = yuv420_to_rgbf_device(*self._upload_yuv420(content))
-            img = _pad_to_multiple(img, self._mult_h, 16)[0]
+            img = _pad_to_multiple(img)[0]
         else:
             # float (or device) content cannot take the 4:2:0 path, and the
             # two legs must agree: lossless input never gets a lossy output
@@ -441,14 +473,18 @@ class WCTEngine:
 
     @torch.inference_mode()
     def stylize(self, content, style, alpha: float = 1.0, *, num_run: int = 1,
-                style_key=None, as_uint8: bool = False, transport: str | None = None,
-                timed: bool = False) -> np.ndarray:
+                style_key=None, as_uint8: bool = False, pwct: bool = False,
+                transport: str | None = None, timed: bool = False) -> np.ndarray:
         """Stylize one content/style pair (or a batch). Inputs: (H, W, 3) or
         (N, H, W, 3), float in [0, 1] or uint8 in [0, 255]; returns the same
         rank, clipped to [0, 1] (float) or rounded to uint8 (``as_uint8``).
         uint8 images cross the host link as 3 bytes per pixel and are
         converted on the device; ``transport`` ("auto", "rgb", "yuv420")
         overrides the engine's for this call (see the class).
+
+        ``pwct=True`` runs photo-WCT (:func:`stylize_stage_pwct`) on the
+        plain per-stage path; slab and sharded engines refuse it. The
+        style's statistics keep the standard encoder and its cache.
 
         ``timed=True`` waits for the card after the upload and after the
         cascade and records the legs' wall times in ``self.last_timings``
@@ -462,7 +498,7 @@ class WCTEngine:
             self._sync()
             t1 = time.perf_counter()
         out = self._run(img, sty, alpha, num_run=num_run, style_key=style_key,
-                        as_uint8=as_uint8, transport=transport)
+                        as_uint8=as_uint8, transport=transport, pwct=pwct)
         if timed:
             self._sync()
             t2 = time.perf_counter()
@@ -477,13 +513,14 @@ class WCTEngine:
     @torch.inference_mode()
     def stylize_device(self, content: torch.Tensor, style: torch.Tensor,
                        alpha: float = 1.0, *, num_run: int = 1,
-                       style_key=None) -> torch.Tensor:
+                       style_key=None, pwct: bool = False) -> torch.Tensor:
         """Device-resident stylization: float (N, H, W, 3) or (H, W, 3)
         tensors in, a float (N, H, W, 3) tensor on the engine's device out,
-        cropped to the input's H, W and clipped to [0, 1]; no host transfer."""
+        cropped to the input's H, W and clipped to [0, 1]; no host transfer.
+        ``pwct`` as in :meth:`stylize`."""
         h, w = content.shape[-3:-1]
         out = self._run(self._prep(content), self._prep(style), alpha,
-                        num_run=num_run, style_key=style_key)
+                        num_run=num_run, style_key=style_key, pwct=pwct)
         return torch.clamp(out[:, :h, :w], 0.0, 1.0)
 
     # -- the planes and JPEG endpoints ----------------------------------------
@@ -506,7 +543,7 @@ class WCTEngine:
         self._check_planes(y)
         orig_hw = y.shape
         img = yuv420_to_rgbf_device(push(y[None], self.device), push(cbcr[None], self.device))
-        img = _pad_to_multiple(img, self._mult_h, 16)[0]
+        img = _pad_to_multiple(img)[0]
         out = self._run(img, self._prep(style), alpha, num_run=num_run,
                         style_key=style_key, emit_planes=True)
         if isinstance(out, tuple):  # streamed: host planes already
@@ -626,7 +663,7 @@ class WCTEngine:
             if yb.shape[0] > n:
                 state["buf"] = (yb[n:], cb[n // 2:])
 
-        img = _pad_to_multiple(img, 16, 16)[0]
+        img = _pad_to_multiple(img)[0]
         out = self._run(img, self._prep(style), alpha, num_run=1, style_key=style_key,
                         emit_planes=True, band_sink=sink)
         if (out is None and state["ok"] and state["buf"] is None
@@ -724,14 +761,18 @@ class WCTEngine:
 
     def _run(self, img, sty, alpha, *, num_run: int, style_key, as_uint8: bool = False,
              transport: str | None = None, stream_ok: bool = True,
-             emit_planes: bool = False, band_sink=None):
+             emit_planes: bool = False, band_sink=None, pwct: bool = False):
         """The cascade on padded device inputs: the (padded) device image,
         or where the fused slab path streamed its last stage to the host,
         its host result: uint8 RGB (``as_uint8``; over 4:2:0 planes with
         ``transport="yuv420"``), host planes (``emit_planes``), or None
         after feeding every band to ``band_sink``. ``stream_ok=False`` keeps
         the cascade whole (:meth:`stylize_pairs` overlaps readbacks across
-        pairs itself)."""
+        pairs itself). ``pwct``: photo-WCT, on the plain path only."""
+        if pwct and (self.slab is not None or self._tiled_fn is not None):
+            raise ValueError(
+                "pwct=True is only supported on the plain per-stage path; "
+                "construct the engine without slab_rows/space for photo-WCT")
         alpha = torch.as_tensor(alpha, dtype=torch.float32, device=self.device)
         if ((self.slab is not None or self._tiled_fn is not None)
                 and (img.shape[0] > 1 or sty.shape[0] > 1)):
@@ -742,7 +783,8 @@ class WCTEngine:
             return self._run_tiled(img, sty, alpha, num_run=num_run, style_key=style_key)
         if self.slab is None or img.shape[1] < 2 * self.slab.margin:
             # no slabs, or an image smaller than one slab's margins
-            return self._run_plain(img, sty, alpha, num_run=num_run, style_key=style_key)
+            return self._run_plain(img, sty, alpha, num_run=num_run, style_key=style_key,
+                                   pwct=pwct)
         if not self.fused:
             for i in range(num_run):
                 img = self.slab.stylize(img, sty, alpha,
@@ -776,42 +818,55 @@ class WCTEngine:
 
     def _run_tiled(self, img, sty, alpha, *, num_run: int, style_key):
         """The row-sharded cascade: cut the rows, run, join on the engine's
-        device. The caller crops the padding."""
+        device. The style's statistics are taken once, whole, on the
+        engine's device (cached per style key) and copied to the shards by
+        the cascade. The caller crops the padding."""
+        h = img.shape[1]
         if self._tiled_slab:
             # slabs inside shards: whole windows of the global plan per
-            # shard, nothing padded; the style statistics are taken once on
-            # the engine's device (cached per style key) and copied to the
-            # shards by the cascade
+            # shard, nothing padded
             from ..parallel.spatial import shard_rows
-            rows = shard_rows(img.shape[1], self._tiled_slab, self.space)
-            sty = {k: self._style_stats(k, sty, cache_key=style_key) for k in self.stages}
+            rows = shard_rows(h, self._tiled_slab, self.space)
         else:
+            rows = self._block_rows(h)
             # per-conv halos hold FULL per-shard feature maps, the O(H*W)
             # footprint the slab cascade exists to avoid: refuse
             # ultra-resolution inputs with a pointer, not an out-of-memory
-            per_shard_pix = img.shape[1] * img.shape[2] / self.space
+            per_shard_pix = max(rows) * img.shape[2]
             if per_shard_pix > TILED_MAX_SHARD_PIX:
                 raise ValueError(
-                    f"{img.shape[1]}x{img.shape[2]} over space={self.space} leaves "
+                    f"{h}x{img.shape[2]} over space={self.space} leaves "
                     f"{per_shard_pix / 1e6:.0f} MPix of full-height feature maps per "
                     f"shard on the per-conv-halo path; construct the engine with "
                     f"slab_rows (memory-bounded slab-in-shard cascade) for images "
                     f"this large")
-            rows = [img.shape[1] // self.space] * self.space
-            sty = self._shards(sty, [sty.shape[1] // self.space] * self.space)
+        sty = {k: self._style_stats(k, sty, cache_key=style_key) for k in self.stages}
         shards = self._shards(img, rows)
         for _ in range(num_run):
             shards = self._tiled_fn(shards, sty, alpha)
         return torch.cat([s.to(self.device) for s in shards], dim=1)
 
-    def _run_plain(self, img, sty, alpha, *, num_run: int, style_key):
+    def _block_rows(self, h: int) -> list[int]:
+        """The per-conv path's cut of ``h`` rows (a multiple of 16): whole
+        16-row blocks dealt out as evenly as they go, the remainder to the
+        last shards, so that no shard holds a row past the plain path's
+        padding and every shard's pools and upsamples stay local."""
+        blocks, space = h // 16, self.space
+        if blocks < space:
+            raise ValueError(
+                f"the per-conv sharded path deals whole 16-row blocks to its {space} "
+                f"shards: an image of {h} padded rows has {blocks}; it needs at least "
+                f"{16 * (space - 1) + 1} rows")
+        return [16 * (blocks // space + (d >= space - blocks % space)) for d in range(space)]
+
+    def _run_plain(self, img, sty, alpha, *, num_run: int, style_key, pwct: bool = False):
+        stage = stylize_stage_pwct if pwct else stylize_stage
         for _ in range(num_run):
             for k in self.stages:
                 s_mean, s_cov = self._style_stats(k, sty, cache_key=style_key)
                 p = self.pyramid[k]
-                img = stylize_stage(p["enc"], p["dec"], p["enc_spec"], p["dec_spec"],
-                                    img, s_mean, s_cov, alpha, self.method,
-                                    self.newton_iters)
+                img = stage(p["enc"], p["dec"], p["enc_spec"], p["dec_spec"], img, s_mean,
+                            s_cov, alpha, self.method, self.newton_iters)
         return img
 
     @staticmethod

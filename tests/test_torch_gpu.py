@@ -476,3 +476,39 @@ def test_trainer_step_on_card_matches_cpu():
             strong = g.abs() >= 1e-3 * g.abs().max()
             assert float(du.abs().max()) <= 2 * cfg.lr, (name, kind)
             assert float(du[strong].abs().max()) <= 1e-3 * cfg.lr, (name, kind)
+
+
+@pytest.mark.parametrize("rows", [(16, 16, 16, 32), (1, 1, 1, 2), (3, 3, 3, 5)], ids=str)
+def test_halo_kernel_at_unequal_shard_heights(gen, rows):
+    """The per-conv sharded path deals whole 16-row blocks, the remainder to
+    the last shards: shards of unequal heights, one row each at stage 5.
+    Every shard's extended map equals the plain exchange's, exactly."""
+    from collaborative_distillation_tpu_torch.parallel import spatial as tsp
+    shards = [_rand(gen, 1, h, 37, 16) for h in rows]
+    got = tsp.halo_exchange_rows(shards)
+    for d, x in enumerate(shards):
+        top = shards[d - 1][:, -1:] if d else (x[:, 1:2] if x.shape[1] > 1 else shards[1][:, :1])
+        bot = (shards[d + 1][:, :1] if d < len(rows) - 1 else
+               (x[:, -2:-1] if x.shape[1] > 1 else shards[d - 1][:, -1:]))
+        assert torch.equal(got[d], kc.halo_exchange_rows.plain(x, top, bot, 1))
+
+
+@pytest.mark.parametrize("shape", [(1, 32, 48, 128, 128), (1, 64, 40, 64, 64),
+                                   (1, 130, 66, 16, 16), (1, 34, 18, 32, 32)], ids=str)
+def test_conv3x3_on_an_unpooled_map(gen, shape):
+    """Photo-WCT's decoder convs read max-unpooled maps: three of every four
+    values exactly 0 (an odd size zero-filled at the edge)."""
+    from collaborative_distillation_tpu_torch.ops.conv import (max_pool_2x2_with_argmax,
+                                                                max_unpool_2x2)
+    n, h, w, ci, co = shape
+    x0 = _rand(gen, n, h, w, ci) - 0.5
+    pooled, idx = max_pool_2x2_with_argmax(x0)
+    assert torch.equal(pooled, kc.max_pool_2x2(x0))   # the pool kernel's maxima, bit for bit
+    x = max_unpool_2x2(pooled, idx, (h + 1, w + 1))
+    wt = (_rand(gen, 3, 3, ci, co) - 0.5) * (2 / (9 * ci) ** 0.5)
+    b = _rand(gen, co) - 0.5
+    got = kc.conv3x3_reflect(x, wt, b, True)
+    ref = kc.conv3x3_reflect.plain(x, wt, b, True)
+    torch.cuda.synchronize()
+    scale = float(x.abs().max() * wt.abs().sum(dim=(0, 1, 2)).max() + b.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-5 * scale

@@ -355,3 +355,21 @@ def test_auto_transport_takes_planes_only_past_the_cutoff(engine, rng, monkeypat
         assert _post(url + "/stylize?style=g", _jpeg(img))[0] == 200 and len(calls) == 1
     finally:
         srv.shutdown()
+
+
+def test_gauged_lock_leaves_the_queue_when_its_wait_raises():
+    """An interrupted wait (``acquire`` raising, as KeyboardInterrupt does
+    while a request waits for the card) leaves ``depth`` where it was;
+    ``max_depth`` still counts the thread that waited."""
+    class _Interrupted:
+        def acquire(self):
+            raise KeyboardInterrupt
+
+    lock = serve._GaugedLock()
+    with lock:
+        assert (lock.depth, lock.max_depth) == (1, 1)
+    lock._lock = _Interrupted()
+    with pytest.raises(KeyboardInterrupt):
+        with lock:
+            pass
+    assert (lock.depth, lock.max_depth) == (0, 1)
