@@ -10,8 +10,11 @@ the CUDA toolkit:
 Phases (any failure raises and the script exits non-zero):
   1. the card, the versions, and the build of the CUDA kernels from
      ``collaborative_distillation_tpu_torch/ops/cuda/csrc``; whether the CUDA
-     toolkit ships nvJPEG (``include/nvjpeg.h``, ``lib64/libnvjpeg.so*``;
-     recorded only);
+     toolkit ships nvJPEG (``include/nvjpeg.h``, ``lib64/libnvjpeg.so*``),
+     and beside the kernels the build of the nvJPEG shim from
+     ``collaborative_distillation_tpu_torch/data/csrc/nvjpeg_codec.cpp``, its
+     link line and the libnvjpeg the process mapped: the script fails where
+     nvJPEG does not load;
   2. each kernel against its plain version on the card, at every distinct
      shape of the mode-16x cascade at 512^2 and of the UHD slab cascade,
      the plain UHD cascade's largest conv map, plus edge shapes (1-pixel maps, odd sizes, C not a multiple of 4,
@@ -67,31 +70,41 @@ Phases (any failure raises and the script exits non-zero):
   5c. ``halo_exchange_rows`` at the sharded UHD shapes beside its plain
      version and ``torch.cat`` of ready slices; the warm sharded UHD cascade
      (median of 3), its peak memory and profile;
-  6. the host boundary: (a) whether the native codec built (or why not);
-     with it, ``stylize_jpeg`` on a UHD 4:2:0 JPEG made from the photo pair,
-     with the counters zeroed (the slab plan's counts), its bytes and
-     ``stylize_planes_jpeg``'s equal to ``stylize_planes`` +
-     ``encode_jpeg_yuv420``; without it, the None contract; (b)
+  6. the host boundary: (a) nvJPEG against libjpeg's decodes in
+     ``data/jpeg_fixture.npz`` (4:2:0 planes to NVJPEG_PLANE_MAX levels, RGB
+     of 4:2:0, 4:4:4, progressive, odd-sized and grey files at PSNR_MIN_DB),
+     its q95 tables against the IJG ones, both encoders' q95 files of the
+     same planes decoded on the card, nvJPEG's decode and encode walls at
+     2048^2 and UHD and its own memory; ``stylize_jpeg`` on a UHD 4:2:0 JPEG
+     made from the photo pair by nvJPEG, with the counters zeroed (the slab
+     plan's counts), its bytes and ``stylize_planes_jpeg``'s equal to
+     ``stylize_planes(on_device=True)`` + ``encode_jpeg_yuv420``, the host
+     planes of the streamed tail within a level of the device ones; (b)
      ``stylize_planes`` at UHD against the RGB transport (Y plane PSNR); (c)
      uint8 host-to-host walls at 2048^2 and UHD for ``transport="rgb"`` and
      ``"yuv420"``, and ``push`` through pinned staging at several chunk sizes
      against a pageable ``.to()``; (d) ``stylize_pairs`` over four 2048^2
      uint8 pairs, bit-equal to four ``stylize`` calls, and both walls;
   7. the CLIs and the HTTP server (``collaborative_distillation_tpu_torch/cli``),
-     bodies and files written and read by the port (PNG; JPEG where the native
-     codec is built), each launch count read with the counters zeroed around
+     bodies and files written and read by the port (PNG; JPEG by nvJPEG),
+     each launch count read with the counters zeroed around
      one request or CLI run and held to the plan's, the style's statistics
      cached or not: (a) ``build_app(WCTEngine(mode="16x"))`` on a local
      ThreadingHTTPServer, two registered 2048^2 styles (warm log lines
      awaited), requests at alpha 1 and 0.6, a blend and four concurrent ones,
      each response equal to the engine's direct call (PNG pixels bit-equal, or
-     JPEG bytes equal to ``encode_jpeg`` of it), ``/metrics`` (7 requests, 0
-     errors, a queue of 2 or more), the p50 and the decode/cascade/encode
-     split; (b) a ``slab_rows=1024`` server and one 4096 x 10240 PNG request
-     against phase 3b's output (PSNR); (c) ``python -m ...cli.serve --port 0``
+     JPEG bytes equal to the card's ``encode_jpeg`` of it), ``/metrics`` (7
+     requests, 0 errors, a queue of 2 or more), the p50 and the
+     decode/cascade/encode split, then JPEG_REQUESTS JPEG bodies one at a
+     time (``image/jpeg``, the plan's launches, the first equal to the direct
+     call, client p50/p95 and the split); (b) a ``slab_rows=1024`` server,
+     one 4096 x 10240 PNG request against phase 3b's output (PSNR) and three
+     JPEG ones (``image/jpeg``, launches, walls, split, PSNR at
+     JPEG_PSNR_MIN_DB); (c) ``python -m ...cli.serve --port 0``
      as a process: the bound port from its log, one 512^2 request, exit 0
-     after SIGINT; (d) the stylize CLI in process over 2 x 2 pairs at 2048^2
-     (``stylize_pairs``; the files equal the engine's outputs; ``--profile``
+     after SIGINT; (d) the stylize CLI in process over 2 x 2 pairs at 2048^2,
+     one style a ``.jpg`` written and read back by nvJPEG, the outputs
+     ``.jpg`` (``stylize_pairs``; the files equal the engine's outputs; ``--profile``
      writes a trace that names the conv3x3 kernel) and one UHD pair with
      ``--slab_rows 1024`` against phase 3b's output; (e) the eval CLI on four
      256^2 crops, on the card against ``--device cpu``; (f) a seeded
@@ -194,6 +207,18 @@ GRAM_TOL = 2e-5
 COV64_TOL = 1e-4
 PSNR_MIN_DB = 40.0
 CACHE_TOL = 1e-6
+# nvJPEG against libjpeg's decodes in data/jpeg_fixture.npz (phase 6a): the
+# file's own 4:2:0 planes within NVJPEG_PLANE_MAX levels and a mean of
+# NVJPEG_PLANE_MEAN (only the IDCTs' rounding differs; read 1 and 0.016);
+# RGB and an nvJPEG q95 round trip at PSNR_MIN_DB (nvJPEG's chroma upsampling
+# is not libjpeg's fancy one). A JPEG request (phases 7a, 7b) against the
+# uint8 cascade output: JPEG_PSNR_MIN_DB, its content and its response each
+# once through q95 (38.9 dB with libjpeg on the CPU at 512^2).
+NVJPEG_PLANE_MAX = 1
+NVJPEG_PLANE_MEAN = 0.05
+JPEG_PSNR_MIN_DB = 35.0
+JPEG_FIXTURE_FILES = ("in1", "c444", "prog", "odd", "grey")
+JPEG_REQUESTS = 10           # phase 7a: JPEG requests at 2048^2, one at a time
 UHD_H, UHD_W = 4096, 10240   # the README's 10240x4096 UHD image, rows first
 UHD_SLAB = 1024
 SHARDS = 4                   # row shards of the sharded UHD path
@@ -719,61 +744,172 @@ def _fmt(walls) -> str:
                      for k, v in walls.items())
 
 
+def _wall_ms(torch, fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def nvjpeg_checks(torch, c2k, c_uhd) -> dict:
+    """Phase 6a: nvJPEG against libjpeg's decodes in the fixture, its
+    quality-95 tables and round trips, and its decode and encode walls at
+    2048^2 and UHD with its own memory (see the module docstring)."""
+    from collaborative_distillation_tpu_torch.data import jpeg_header
+    from collaborative_distillation_tpu_torch.data import nvjpeg_codec as nj
+    from collaborative_distillation_tpu_torch.utils.transfer import push
+    with np.load(os.path.join(HERE, "collaborative_distillation_tpu_torch", "data",
+                              "jpeg_fixture.npz")) as d:
+        fx = {k: d[k] for k in d.files}
+    out: dict = {"version": nj.version()}
+    planes = nj.decode_jpeg_yuv420(fx["in1_jpeg"].tobytes())
+    out["planes"] = {}
+    for label, got, want in zip(("y", "cbcr"), planes, (fx["in1_y"], fx["in1_cbcr"])):
+        diff = np.abs(got.cpu().numpy().astype(np.int16) - want)
+        out["planes"][label] = {"max": int(diff.max()), "mean": float(diff.mean())}
+    out["rgb"] = {}
+    for name in JPEG_FIXTURE_FILES:
+        got = nj.decode_jpeg(fx[f"{name}_jpeg"].tobytes()).cpu().numpy()
+        want = fx[f"{name}_rgb"]
+        out["rgb"][name] = {"shape": list(got.shape),
+                            "max": int(np.abs(got.astype(np.int16) - want).max()),
+                            "psnr_db": psnr(got / 255.0, want / 255.0)}
+    log(f"phase 6a: nvJPEG {out['version']} vs libjpeg on the fixture: 512^2 4:2:0 planes "
+        f"max/mean |diff| Y {out['planes']['y']['max']} / {out['planes']['y']['mean']:.4f}, "
+        f"CbCr {out['planes']['cbcr']['max']} / {out['planes']['cbcr']['mean']:.4f} (max "
+        f"{NVJPEG_PLANE_MAX}, mean {NVJPEG_PLANE_MEAN}); RGB PSNR (max |diff|) " + ", ".join(
+            f"{k} {v['psnr_db']:.2f} dB ({v['max']})" for k, v in out["rgb"].items())
+        + f" (min {PSNR_MIN_DB})")
+    if any(v["max"] > NVJPEG_PLANE_MAX or v["mean"] > NVJPEG_PLANE_MEAN
+           for v in out["planes"].values()):
+        raise AssertionError(f"nvJPEG planes vs libjpeg {out['planes']}")
+    if any(not v["psnr_db"] >= PSNR_MIN_DB or v["shape"] != list(fx[f"{k}_rgb"].shape)
+           for k, v in out["rgb"].items()):
+        raise AssertionError(f"nvJPEG RGB vs libjpeg {out['rgb']}")
+    # the encoder: its q95 tables, and both encoders' q95 files of the same
+    # planes decoded on the card against the planes
+    y, cbcr = push(fx["content_y"], "cuda"), push(fx["content_cbcr"], "cuda")
+    body = nj.encode_jpeg_yuv420(y, cbcr, quality=95)
+    hdr = jpeg_header.parse(body)
+    tables = [hdr.quant_tables[c.tq].tolist() for c in hdr.components]
+    ijg = [t.tolist() for t in jpeg_header.ijg_quant_tables(95)]
+    out["q95_tables_equal_ijg"] = tables == [ijg[0], ijg[1], ijg[1]]
+    out["q95"] = {}
+    for label, data in (("nvjpeg", body), ("libjpeg", fx["content_q95"].tobytes())):
+        yo, co = nj.decode_jpeg_yuv420(data)
+        out["q95"][label] = {"bytes": len(data),
+                             "y_db": psnr(yo.cpu().numpy() / 255.0, fx["content_y"] / 255.0),
+                             "cbcr_db": psnr(co.cpu().numpy() / 255.0, fx["content_cbcr"] / 255.0)}
+    log(f"phase 6a: nvJPEG q95 DQT tables equal the IJG tables of q95: "
+        f"{out['q95_tables_equal_ijg']}; q95 files of the 512^2 content planes decoded on the "
+        f"card vs the planes: " + "; ".join(
+            f"{k} {v['bytes']} B, Y {v['y_db']:.2f} dB, CbCr {v['cbcr_db']:.2f} dB"
+            for k, v in out["q95"].items()))
+    if not out["q95_tables_equal_ijg"]:
+        raise AssertionError(f"nvJPEG q95 tables {tables} != IJG {ijg}")
+    if any(not (v["y_db"] >= PSNR_MIN_DB and v["cbcr_db"] >= PSNR_MIN_DB)
+           for v in out["q95"].values()):
+        raise AssertionError(f"q95 round trips {out['q95']}")
+    # walls: host clock around a synchronized call (the default backend
+    # decodes Huffman on the host), after one warm call each, in turns
+    out["walls_ms"] = {}
+    nj.memory(reset_peak=True)
+    for label, c, reps in (("2048^2", c2k, 5), ("UHD", c_uhd, 3)):
+        rgb = push(c, "cuda")
+        data = nj.encode_jpeg(rgb, quality=95)
+        yp, cp = nj.decode_jpeg_yuv420(data)
+        calls = {"decode planes": lambda: nj.decode_jpeg_yuv420(data),
+                 "decode rgb": lambda: nj.decode_jpeg(data),
+                 "encode planes": lambda: nj.encode_jpeg_yuv420(yp, cp, quality=95),
+                 "encode rgb": lambda: nj.encode_jpeg(rgb, quality=95)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        walls: dict = {k: [] for k in calls}
+        for k, fn in calls.items():
+            fn()
+        for _ in range(reps):
+            for k, fn in calls.items():
+                walls[k].append(_wall_ms(torch, fn))
+        out["walls_ms"][label] = {
+            "bytes": len(data), "torch_peak_over_inputs_gib":
+                (torch.cuda.max_memory_allocated() - base) / 2**30,
+            **{k: {"median": statistics.median(v), "runs": v} for k, v in walls.items()}}
+        log(f"phase 6a: nvJPEG {label} q95 ({len(data)} B): " + "; ".join(
+            f"{k} {statistics.median(v):.2f} ms (runs {', '.join(f'{x:.2f}' for x in v)})"
+            for k, v in walls.items()))
+        del rgb, yp, cp
+    out["nvjpeg_memory"] = nj.memory()
+    log(f"phase 6a: nvJPEG's own allocations (not in torch's peaks): device "
+        f"{out['nvjpeg_memory']['device'] / 2**20:.1f} MiB now, peak "
+        f"{out['nvjpeg_memory']['device_peak'] / 2**20:.1f} MiB; pinned "
+        f"{out['nvjpeg_memory']['pinned'] / 2**20:.1f} MiB now, peak "
+        f"{out['nvjpeg_memory']['pinned_peak'] / 2**20:.1f} MiB; torch's peak over the "
+        f"inputs while coding UHD {out['walls_ms']['UHD']['torch_peak_over_inputs_gib']:.3f} GiB")
+    return out
+
+
 def host_boundary(torch, kc, slab_eng, eng, c_uhd, c2k, s2k, expect_uhd) -> dict:
     """Phase 6: the host boundary on the card (see the module docstring)."""
     from collaborative_distillation_tpu_torch.data import native_codec as nc
+    from collaborative_distillation_tpu_torch.data import nvjpeg_codec as nj
     from collaborative_distillation_tpu_torch.utils.colorspace import (rgb_to_yuv420_host,
                                                                        yuv420_to_rgb_host)
-    from collaborative_distillation_tpu_torch.utils.transfer import push
+    from collaborative_distillation_tpu_torch.utils.transfer import fetch, push
     dev = eng.device
     out: dict = {"codec_built": nc.available(), "codec_reason": nc.unavailable_reason()}
-    # ---- 6a: the codec, and the JPEG endpoints at UHD (the slice's main path)
-    if out["codec_built"]:
-        log(f"phase 6a: native codec built from native/imgcodec.cpp into {nc.build_dir()}")
-        jpeg = nc.encode_jpeg_yuv420(*nc.rgb_to_yuv420(c_uhd), quality=95)
-        y, cbcr = nc.decode_jpeg_yuv420(jpeg)
-        for k in kc.KERNELS:
-            k.launches = 0
-        t0 = time.perf_counter()
-        body = slab_eng.stylize_jpeg(jpeg, s2k)
-        jpeg_s = time.perf_counter() - t0
-        counts = {k.__name__: k.launches for k in kc.KERNELS}
-        whole = nc.encode_jpeg_yuv420(*slab_eng.stylize_planes(y, cbcr, s2k), quality=95)
-        planes_body = slab_eng.stylize_planes_jpeg(y, cbcr, s2k)
-        log(f"phase 6a: stylize_jpeg {UHD_H}x{UHD_W} ({len(jpeg)} B in, "
-            f"{0 if body is None else len(body)} B out) in {jpeg_s:.3f} s; launches {counts}, "
-            f"predicted {expect_uhd}; bytes equal to stylize_planes + encode: "
-            f"{body == whole}; stylize_planes_jpeg's: {planes_body == whole}")
-        if counts != expect_uhd or any(v <= 0 for n, v in counts.items()
-                                       if n != "halo_exchange_rows"):
-            raise AssertionError(f"stylize_jpeg launches {counts} != predicted {expect_uhd}")
-        if body is None or body != whole or planes_body != whole:
-            raise AssertionError("streamed JPEG bytes differ from stylize_planes + encode")
-        rgb = yuv420_to_rgb_host(*(p[None] for p in nc.decode_jpeg_yuv420(body)))[0]
-        change = float(np.abs(rgb.astype(np.float32) - c_uhd).mean()) / 255.0
-        if not (rgb.shape == c_uhd.shape and change > 0.02):
-            raise AssertionError(f"stylize_jpeg output {rgb.shape}, mean change {change}")
-        out.update(jpeg_s=jpeg_s, launches=counts, jpeg_in_bytes=len(jpeg),
-                   jpeg_out_bytes=len(body), mean_change=change)
-    else:
-        log(f"phase 6a: native codec NOT built ({out['codec_reason']}); the reference's "
-            f"contract for a machine without it is checked instead")
-        y, cbcr = (p[0] for p in rgb_to_yuv420_host(c_uhd[None]))   # numpy
-        streamable = slab_eng.supports_streamed_jpeg()
-        nones = (slab_eng.stylize_jpeg(b"\xff\xd8\xff", s2k),
-                 slab_eng.stylize_planes_jpeg(y, cbcr, s2k))
-        log(f"phase 6a: supports_streamed_jpeg() {streamable}; stylize_jpeg and "
-            f"stylize_planes_jpeg return {nones}")
-        if not streamable or nones != (None, None):
-            raise AssertionError("the no-codec contract does not hold")
-        for k in kc.KERNELS:
-            k.launches = 0
-        slab_eng.stylize_planes(y, cbcr, s2k)
-        counts = {k.__name__: k.launches for k in kc.KERNELS}
-        log(f"phase 6a: stylize_planes {UHD_H}x{UHD_W} launches {counts}, predicted {expect_uhd}")
-        if counts != expect_uhd:
-            raise AssertionError(f"stylize_planes launches {counts} != predicted {expect_uhd}")
-        out.update(launches=counts)
+    # ---- 6a: nvJPEG, and the JPEG endpoints at UHD (the slice's main path)
+    log(f"phase 6a: the CPU's codec (libjpeg, native/imgcodec.cpp) here: "
+        f"{'built' if out['codec_built'] else out['codec_reason']}; a CUDA engine never uses it")
+    out["nvjpeg"] = nvjpeg_checks(torch, c2k, c_uhd)
+    jpeg = nj.encode_jpeg(push(c_uhd, dev), quality=95)
+    y_dev, c_dev = nj.decode_jpeg_yuv420(jpeg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
+    nj.memory(reset_peak=True)
+    _zero(kc)
+    t0 = time.perf_counter()
+    body = slab_eng.stylize_jpeg(jpeg, s2k)
+    jpeg_s = time.perf_counter() - t0
+    counts = _counts(kc)
+    peak = {"torch_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "resident_before_gib": resident, "nvjpeg_device_gib": nj.memory()["device_peak"] / 2**30,
+            "nvjpeg_pinned_gib": nj.memory()["pinned_peak"] / 2**30}
+    log(f"phase 6a: stylize_jpeg {UHD_H}x{UHD_W} peak memory: torch {peak['torch_gib']:.2f} GiB "
+        f"({resident:.2f} GiB held before it), and nvJPEG's own (not in torch's count) device "
+        f"{peak['nvjpeg_device_gib']:.3f} GiB, pinned {peak['nvjpeg_pinned_gib']:.3f} GiB")
+    whole = nj.encode_jpeg_yuv420(*slab_eng.stylize_planes(y_dev, c_dev, s2k, on_device=True),
+                                  quality=95)
+    planes_body = slab_eng.stylize_planes_jpeg(y_dev, c_dev, s2k)
+    log(f"phase 6a: stylize_jpeg {UHD_H}x{UHD_W} through nvJPEG ({len(jpeg)} B in, "
+        f"{0 if body is None else len(body)} B out) in {jpeg_s:.3f} s; launches {counts}, "
+        f"predicted {expect_uhd}; bytes equal to stylize_planes(on_device=True) + "
+        f"encode_jpeg_yuv420: {body == whole}; stylize_planes_jpeg's: {planes_body == whole}")
+    if counts != expect_uhd or any(v <= 0 for n, v in counts.items()
+                                   if n != "halo_exchange_rows"):
+        raise AssertionError(f"stylize_jpeg launches {counts} != predicted {expect_uhd}")
+    if body is None or body != whole or planes_body != whole:
+        raise AssertionError("stylize_jpeg bytes differ from stylize_planes + encode")
+    rgb = nj.decode_jpeg(body).cpu().numpy()
+    change = float(np.abs(rgb.astype(np.float32) - c_uhd).mean()) / 255.0
+    if not (rgb.shape == c_uhd.shape and change > 0.02):
+        raise AssertionError(f"stylize_jpeg output {rgb.shape}, mean change {change}")
+    # the host planes (the streamed tail) against the device planes of the whole cascade
+    y, cbcr = fetch(y_dev), fetch(c_dev)
+    host = slab_eng.stylize_planes(y, cbcr, s2k)
+    dev_planes = slab_eng.stylize_planes(y_dev, c_dev, s2k, on_device=True)
+    streamed_diff = max(int(np.abs(a.astype(np.int16) - b.cpu().numpy()).max())
+                        for a, b in zip(host, dev_planes))
+    log(f"phase 6a: stylize_planes streamed to host planes vs on_device: max level diff "
+        f"{streamed_diff}")
+    if streamed_diff > 1:
+        raise AssertionError(f"streamed vs device planes: {streamed_diff} levels")
+    out.update(jpeg_s=jpeg_s, launches=counts, jpeg_in_bytes=len(jpeg), peak_memory=peak,
+               jpeg_out_bytes=len(body), mean_change=change,
+               streamed_vs_device_planes=streamed_diff)
+    del y_dev, c_dev, dev_planes
     # ---- 6b: stylize_planes against the RGB transport, Y planes
     yo, _ = slab_eng.stylize_planes(y, cbcr, s2k)
     rgb_in = yuv420_to_rgb_host(y[None], cbcr[None])[0]
@@ -871,18 +1007,20 @@ def _legs(headers) -> dict:
 
 
 def _decoded(body, ctype) -> np.ndarray:
-    from collaborative_distillation_tpu_torch.data import native_codec as nc
+    """A PNG or JPEG response or file as a host uint8 image (JPEG by nvJPEG)."""
+    from collaborative_distillation_tpu_torch.data import nvjpeg_codec as nj
     from collaborative_distillation_tpu_torch.data.png import decode_png
-    return decode_png(body) if ctype == "image/png" else nc.decode_jpeg(body)
+    return decode_png(body) if ctype == "image/png" else nj.decode_jpeg(body).cpu().numpy()
 
 
 def _same_as(body, ctype, want, label) -> None:
     """A response or file against the engine's direct uint8 result: a PNG's
-    pixels bit-equal, a JPEG's bytes equal to ``encode_jpeg`` of it."""
-    from collaborative_distillation_tpu_torch.data import native_codec as nc
+    pixels bit-equal, a JPEG's bytes equal to the card's ``encode_jpeg`` of
+    it (nvJPEG from the port's 4:2:0 planes)."""
+    from collaborative_distillation_tpu_torch.data import jpeg
     from collaborative_distillation_tpu_torch.data.png import decode_png
     same = (np.array_equal(decode_png(body), want) if ctype == "image/png"
-            else body == nc.encode_jpeg(want, quality=95))
+            else body == jpeg.encode_jpeg(want, "cuda", quality=95))
     if not same:
         raise AssertionError(f"{label}: differs from the engine's direct call")
 
@@ -938,7 +1076,8 @@ def server_2048(torch, kc, WCTEngine, c2k, s2k) -> dict:
     try:
         health = json.loads(_http(srv.url + "/healthz")[1])
         log(f"phase 7a: /healthz {health}")
-        if not (health["ok"] and health["device"] == str(eng.device) and health["codec"]):
+        if not (health["ok"] and health["device"] == str(eng.device)
+                and health["codec"] == "available" and health["jpeg_codec"] == "nvjpeg"):
             raise AssertionError(f"/healthz {health}")
         style_b = np.ascontiguousarray(s2k[:, ::-1])
         t0 = time.perf_counter()
@@ -987,8 +1126,49 @@ def server_2048(torch, kc, WCTEngine, c2k, s2k) -> dict:
         out["metrics"] = metrics
         log(f"phase 7a: request p50 {metrics['latency_s']['p50'] * 1e3:.0f} ms (server-side, "
             f"7 requests at 2048^2), p95 {metrics['latency_s']['p95'] * 1e3:.0f} ms")
+        out["jpeg_requests"] = _jpeg_requests(torch, kc, srv, eng, c2k, s2k, ka, one)
     finally:
         srv.close()
+    return out
+
+
+def _jpeg_requests(torch, kc, srv, eng, c2k, s2k, key, one) -> dict:
+    """7a: JPEG bodies at 2048^2, one at a time: nvJPEG decodes each body
+    and encodes each response; launches per request, the first response's
+    bytes against the engine's direct call on what the server read, client
+    walls and the Server-Timing legs."""
+    from collaborative_distillation_tpu_torch.data import jpeg
+    body_in = jpeg.encode_jpeg(c2k, "cuda", quality=95)
+    read = jpeg.decode_jpeg(body_in, "cuda").cpu().numpy()   # what the server reads
+    walls, legs = [], []
+    for i in range(JPEG_REQUESTS):
+        _zero(kc)
+        t0 = time.perf_counter()
+        _, body, hdr = _http(f"{srv.url}/stylize?style=a", body_in)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        legs.append(_legs(hdr))
+        if _counts(kc) != one or hdr["Content-Type"] != "image/jpeg":
+            raise AssertionError(f"phase 7a: JPEG request {i}: {hdr['Content-Type']}, "
+                                 f"launches {_counts(kc)} != {one}")
+        if i == 0:
+            want = eng.stylize(read, s2k, style_key=key, as_uint8=True)
+            _same_as(body, "image/jpeg", want, "phase 7a: JPEG request")
+            db = _psnr_u8(torch, _decoded(body, "image/jpeg"),
+                          eng.stylize(c2k, s2k, style_key=key, as_uint8=True))
+    order = sorted(walls)
+    out = {"in_bytes": len(body_in), "out_bytes": len(body), "walls_ms": walls,
+           "p50_ms": order[len(order) // 2], "p95_ms": order[min(len(order) - 1,
+                                                                int(len(order) * 0.95))],
+           "legs_ms": {k: statistics.median(x[k] for x in legs) for k in legs[0]},
+           "psnr_vs_png_path_db": db}
+    log(f"phase 7a: {JPEG_REQUESTS} JPEG requests at 2048^2 ({len(body_in)} B in, "
+        f"{len(body)} B out), each image/jpeg with the plan's launches {one}, the first equal "
+        f"to the engine's direct call: client p50 {out['p50_ms']:.1f} ms, p95 "
+        f"{out['p95_ms']:.1f} ms (walls {', '.join(f'{w:.1f}' for w in walls)}); "
+        f"Server-Timing medians {out['legs_ms']} ms; decoded vs the uint8 output of the "
+        f"unencoded content {db:.2f} dB (min {JPEG_PSNR_MIN_DB})")
+    if not db >= JPEG_PSNR_MIN_DB:
+        raise AssertionError(f"phase 7a: JPEG request {db:.2f} dB")
     return out
 
 
@@ -1033,6 +1213,33 @@ def server_uhd(torch, kc, WCTEngine, c_uhd, s2k, ref_u8) -> dict:
             f"PSNR {db:.2f} dB (min {PSNR_MIN_DB})")
         if got.shape != c_uhd.shape or not db >= PSNR_MIN_DB:
             raise AssertionError(f"UHD response {got.shape}, {db:.2f} dB")
+        # JPEG bodies: nvJPEG decodes the content and encodes the response
+        from collaborative_distillation_tpu_torch.data import jpeg
+        want = _totals(kc, slab_path_calls(eng.pyramid, eng.stages, cas.margins, cas.slab_rows,
+                                           UHD_H, UHD_W, 2048, 2048, FEATURE_CACHE_BYTES,
+                                           style=False)[0])
+        jpeg_in = jpeg.encode_jpeg(c_uhd, "cuda", quality=95)
+        walls, legs = [], []
+        for i in range(3):
+            _zero(kc)
+            t0 = time.perf_counter()
+            _, jbody, jhdr = _http(srv.url + "/stylize?style=s", jpeg_in)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            legs.append(_legs(jhdr))
+            if _counts(kc) != want or jhdr["Content-Type"] != "image/jpeg":
+                raise AssertionError(f"phase 7b: UHD JPEG request {i}: {jhdr['Content-Type']}, "
+                                     f"launches {_counts(kc)} != {want}")
+        jgot = _decoded(jbody, "image/jpeg")
+        jdb = _psnr_u8(torch, jgot, ref_u8)
+        out["jpeg"] = {"in_bytes": len(jpeg_in), "out_bytes": len(jbody), "walls_ms": walls,
+                       "legs_ms": legs, "psnr_vs_phase_3b_db": jdb}
+        log(f"phase 7b: {UHD_H}x{UHD_W} JPEG requests ({len(jpeg_in)} B in, {len(jbody)} B "
+            f"out), each image/jpeg with the slab plan's launches (style cached) {want}: client "
+            f"walls {', '.join(f'{w:.0f}' for w in walls)} ms; Server-Timing "
+            f"{'; '.join(str(x) for x in legs)} ms; vs phase 3b's output PSNR {jdb:.2f} dB "
+            f"(min {JPEG_PSNR_MIN_DB})")
+        if jgot.shape != c_uhd.shape or not jdb >= JPEG_PSNR_MIN_DB:
+            raise AssertionError(f"UHD JPEG response {jgot.shape}, {jdb:.2f} dB")
     finally:
         srv.close()
     return out
@@ -1127,6 +1334,12 @@ def stylize_cli(torch, kc, eng, c2k, s2k, c_uhd, ref_u8, expect_uhd, tmp) -> dic
     # C helper, built here with g++ at first use
     with open(os.path.join(tmp, "content", "c2.png"), "wb") as f:
         f.write(_average_paeth_png(contents["c2"]))
+    # s2 as a JPEG, written and read back by nvJPEG: the CLI stylizes what it reads
+    os.remove(os.path.join(tmp, "style", "s2.png"))
+    save_image(styles["s2"], os.path.join(tmp, "style", "s2.jpg"))
+    styles["s2"] = read_image(os.path.join(tmp, "style", "s2.jpg"))
+    log(f"phase 7d: style s2 written and read back as .jpg by nvJPEG: PSNR "
+        f"{_psnr_u8(torch, styles['s2'], np.ascontiguousarray(s2k[:, ::-1])):.2f} dB")
     t0 = time.perf_counter()
     with open(os.path.join(tmp, "content", "c2.png"), "rb") as f:
         same = np.array_equal(png.decode_png(f.read()), contents["c2"])
@@ -1717,6 +1930,22 @@ def nvjpeg_presence() -> dict:
     return out
 
 
+def nvjpeg_load(nj, seconds: float) -> dict:
+    """Phase 1: the nvJPEG shim built from ``data/csrc/nvjpeg_codec.cpp``
+    and loaded; what it linked and which libnvjpeg the process mapped. The
+    script fails here where nvJPEG does not load on the card."""
+    if not nj.available():
+        raise AssertionError(f"nvJPEG did not load on the card: {nj.unavailable_reason()}")
+    with open("/proc/self/maps") as f:
+        mapped = sorted({line.split()[-1] for line in f if "libnvjpeg" in line})
+    out = {"seconds": seconds, "version": nj.version(), "mapped": mapped,
+           **{k: nj.last_build.get(k) for k in ("dir", "built", "command")}}
+    log(f"phase 1: nvJPEG {out['version']} shim (built={out['built']}, {seconds:.1f} s, "
+        f"{out['dir']}): {' '.join(os.path.basename(x) for x in out['command'][:1])} "
+        f"{' '.join(out['command'][1:])}; mapped {', '.join(mapped)}")
+    return out
+
+
 def unpooled_conv_checks(torch, kc, pyr, stages, h, w) -> list:
     """Phase 2: conv3x3 against its plain version at every decoder conv of
     the photo-WCT cascade that reads a max-unpooled map (three of every four
@@ -2066,16 +2295,25 @@ def main() -> int:
                          check=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
+    import threading
+
+    from collaborative_distillation_tpu_torch.data import nvjpeg_codec as nj
     t0 = time.perf_counter()
+    nvjpeg_s: list = []   # the nvJPEG shim builds beside the kernels
+    nvjpeg_thread = threading.Thread(
+        target=lambda: (nj.available(), nvjpeg_s.append(time.perf_counter() - t0)))
+    nvjpeg_thread.start()
     _build.library()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"(built={_build.last_build['built']}, {_build.last_build['dir']})")
+    nvjpeg_thread.join()
     for line in _build.last_build["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas:", line.strip())
     detail["card"] = smi
     detail["build_s"] = _build.last_build["seconds"]
     detail["nvjpeg"] = nvjpeg_presence()
+    detail["nvjpeg_load"] = nvjpeg_load(nj, nvjpeg_s[0])
 
     with np.load(os.path.join(HERE, "collaborative_distillation_tpu_torch", "data",
                               "photo_pair_512.npz")) as d:

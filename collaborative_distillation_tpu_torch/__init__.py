@@ -18,8 +18,9 @@ Public surface:
     utils    — carrying the reference package's parameters (and Adam
                states) across; checkpoints; host<->device copies; image
                files, logging, profiling; FLOP counts and the card's peak
-    data     — the native JPEG/YCbCr codec binding, PNG, the training and
-               inference datasets and the threaded loader
+    data     — JPEG by device (nvJPEG on the card, the native libjpeg
+               binding on the host), PNG, the training and inference
+               datasets and the threaded loader
     cli      — stylize, serve, eval, export, train, make_teacher and
                normalize_vgg entry points
 

@@ -88,7 +88,8 @@ def run(argv=None) -> dict:
 
     pyramid = load_pyramid(args.mode, args.weights_root or None,
                            stages=tuple(args.stages), device=device)
-    ds = CenterCropDataset(args.images, shorter_side=args.size + 16, crop=args.size)
+    ds = CenterCropDataset(args.images, shorter_side=args.size + 16, crop=args.size,
+                           device=device)
     n = min(args.n_images, len(ds))
     if n == 0:
         raise SystemExit(f"no images found under {args.images}")

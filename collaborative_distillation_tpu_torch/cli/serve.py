@@ -13,18 +13,19 @@
 
 The reference package's server on the port's engine, on the GPU unless
 ``--device cpu``. Image bodies are read by the port itself: PNG always,
-JPEG where the native codec is built; a JPEG body where it is not gets a
-415 whose error is the codec's reason. Responses are ``image/jpeg`` where
-the codec is built and ``image/png`` otherwise (``Content-Type`` says
-which), with a ``Server-Timing`` header that splits the request into
-decode, cascade and encode milliseconds.
+JPEG by the codec of the engine's device (nvJPEG on the card, libjpeg on
+the CPU; :mod:`..data.jpeg`); a JPEG body where that codec cannot load gets
+a 415 whose error is the codec's reason. Responses are ``image/jpeg``
+through the same codec where it loads and ``image/png`` otherwise
+(``Content-Type`` says which), with a ``Server-Timing`` header that splits
+the request into decode, cascade and encode milliseconds.
 
 Requests serialize through one engine lock (one card); decode and encode
-happen outside it, except on the streamed JPEG-to-JPEG path
-(``engine.stylize_jpeg``), whose banded entropy decode and encode overlap
-the locked transfers. Per-style statistics are cached inside the engine
-under a generation-keyed name, so the steady-state cost of a request is one
-content cascade.
+happen outside it, except on the JPEG-to-JPEG path
+(``engine.stylize_jpeg``), which decodes and encodes inside (on the CPU its
+banded entropy decode and encode overlap the locked transfers). Per-style
+statistics are cached inside the engine under a generation-keyed name, so
+the steady-state cost of a request is one content cascade.
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
-from ..data import native_codec
+from ..data import jpeg
+from ..data.jpeg_header import jpeg_dims
 from ..data.png import encode_png
 from ..utils.image import CodecUnavailable, decode_image
 
@@ -77,19 +79,25 @@ class _GaugedLock:
         return False
 
 
-def encode_response(out: np.ndarray) -> tuple[bytes, str]:
+def encode_response(out: np.ndarray, device=None) -> tuple[bytes, str]:
     """A stylized uint8 image -> (body, content type): JPEG (quality 95)
-    where the codec is built, PNG otherwise."""
-    body = native_codec.encode_jpeg(out, quality=95)
+    through ``device``'s codec where it loads, PNG otherwise."""
+    body = jpeg.encode_jpeg(out, device, quality=95) if jpeg.available(device) else None
     if body is not None:
         return body, "image/jpeg"
     return encode_png(out), "image/png"
+
+
+def codec_state(device) -> str:
+    """"available", or why the device's JPEG codec cannot load."""
+    return "available" if jpeg.available(device) else jpeg.unavailable_reason(device)
 
 
 def build_app(engine, log, *, max_styles: int = 256,
               warm_shapes: list[tuple[int, int]] | None = None):
     from ..wct import engine as engine_mod
 
+    device = engine.device   # its codec reads and writes every JPEG here
     # LRU-bounded registry: a long-lived server registering styles forever
     # must not grow host memory (raw style images) or device memory (the
     # engine's statistics cache, itself LRU'd) without bound. Each
@@ -185,7 +193,7 @@ def build_app(engine, log, *, max_styles: int = 256,
             return False
         if engine.transport == "auto":
             cutoff = engine_mod._YUV_AUTO_PIX
-            dims = native_codec.jpeg_dims(data) if cutoff is not None else None
+            dims = jpeg_dims(data) if cutoff is not None else None
             return dims is not None and dims[0] * dims[1] >= cutoff
         return True
 
@@ -196,40 +204,46 @@ def build_app(engine, log, *, max_styles: int = 256,
         if planes_ok(data):
             # JPEG-native: ordinary photo JPEGs store YCbCr 4:2:0, so the
             # planes are read straight out and the card does all pixel math.
-            # Fully streamed first (banded decode under the upload, banded
-            # encode under the readback), where this engine can stream.
+            # The engine's JPEG-to-JPEG path first, where it has one (on the
+            # CPU streamed: banded decode under the upload, banded encode
+            # under the readback).
             if engine.supports_streamed_jpeg():
                 with lock:
                     body = engine.stylize_jpeg(data, style_arr, alpha=alpha,
                                                style_key=keyed, quality=95)
                 if body is not None:
                     return body, "image/jpeg", {"cascade": time.perf_counter() - t0}
-            planes = native_codec.decode_jpeg_yuv420(data)
+            # the device's form: host planes on the CPU, device planes on the card
+            planes = jpeg.decode_jpeg_yuv420(data, device)
             if planes is not None:
                 legs["decode"] = time.perf_counter() - t0
                 with lock:
                     t1 = time.perf_counter()
-                    # big requests: streamed tail + incremental encode;
-                    # None -> the assembled planes
+                    # big requests: the engine's JPEG tail; None -> the
+                    # assembled planes
                     body = engine.stylize_planes_jpeg(*planes, style_arr, alpha=alpha,
                                                       style_key=keyed, quality=95)
                     if body is None:
                         yo, co = engine.stylize_planes(*planes, style_arr, alpha=alpha,
-                                                       style_key=keyed)
+                                                       style_key=keyed,
+                                                       on_device=device.type == "cuda")
                     legs["cascade"] = time.perf_counter() - t1
                 t2 = time.perf_counter()
                 ctype = "image/jpeg"
                 if body is None:
-                    body = native_codec.encode_jpeg_yuv420(yo, co, quality=95)
+                    body = jpeg.encode_jpeg_yuv420(yo, co, device, quality=95)
                 if body is None:
                     # the encode failed: the stylized planes are in hand,
-                    # so finish on the host instead of running again
+                    # so finish from them instead of running again
                     from ..utils.colorspace import yuv420_to_rgb_host
-                    body, ctype = encode_response(yuv420_to_rgb_host(yo[None], co[None])[0])
+                    from ..utils.transfer import fetch
+                    yo, co = (p if isinstance(p, np.ndarray) else fetch(p) for p in (yo, co))
+                    body, ctype = encode_response(yuv420_to_rgb_host(yo[None], co[None])[0],
+                                                  device)
                 legs["encode"] = time.perf_counter() - t2
                 return body, ctype, legs
         # the whole-image path: PNG, other JPEG samplings, rgb transport
-        content = decode_image(data, name="the request body")
+        content = decode_image(data, name="the request body", device=device)
         t1 = time.perf_counter()
         legs["decode"] = t1 - t0
         with lock:
@@ -238,7 +252,7 @@ def build_app(engine, log, *, max_styles: int = 256,
                                  as_uint8=True)
             legs["cascade"] = time.perf_counter() - t2
         t3 = time.perf_counter()
-        body, ctype = encode_response(out)
+        body, ctype = encode_response(out, device)
         legs["encode"] = time.perf_counter() - t3
         return body, ctype, legs
 
@@ -277,7 +291,7 @@ def build_app(engine, log, *, max_styles: int = 256,
         return entry
 
     t_start = time.time()
-    codec_state = "available" if native_codec.available() else native_codec.unavailable_reason()
+    codec = {"codec": codec_state(device), "jpeg_codec": jpeg.codec_name(device)}
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # route through our logger
@@ -305,7 +319,7 @@ def build_app(engine, log, *, max_styles: int = 256,
             if path == "/healthz":
                 self._json(200, {"ok": True, "mode": engine.mode, "method": engine.method,
                                  "stages": list(engine.stages),
-                                 "device": str(engine.device), "codec": codec_state})
+                                 "device": str(engine.device), **codec})
             elif path == "/styles":
                 with registry_lock:
                     names = sorted(styles)
@@ -323,7 +337,8 @@ def build_app(engine, log, *, max_styles: int = 256,
                     name = url.path[len("/style/"):]
                     if not name:
                         return self._json(400, {"error": "style name required"})
-                    arr = decode_image(self._read_body(), name=f"style {name!r}")
+                    arr = decode_image(self._read_body(), name=f"style {name!r}",
+                                       device=device)
                     keyed = register(name, arr)
                     threading.Thread(target=warm, args=(keyed, arr), daemon=True).start()
                     return self._json(200, {"registered": name, "size": list(arr.shape[:2]),
@@ -343,12 +358,12 @@ def build_app(engine, log, *, max_styles: int = 256,
                     return self._send(200, body, ctype, {"Server-Timing": timing})
                 return self._json(404, {"error": f"unknown path {url.path}"})
             except CodecUnavailable as e:
-                # a JPEG where the native codec is not built: the client can
-                # send PNG instead
+                # a JPEG where the device's codec cannot load: the client
+                # can send PNG instead
                 if t0 is not None:
                     record_stylize(time.time() - t0, ok=False)
                 log(f"request refused: {e}")
-                return self._json(415, {"error": native_codec.unavailable_reason(),
+                return self._json(415, {"error": jpeg.unavailable_reason(device),
                                         "accepts": ["image/png"]})
             except Exception as e:  # noqa: BLE001 — turn into a 500, keep serving
                 if t0 is not None:
@@ -370,7 +385,7 @@ def main(argv=None) -> int:
                     help="enable slab streaming for large inputs")
     ap.add_argument("--transport", default="auto", choices=["auto", "rgb", "yuv420"],
                     help="host<->device transport for images (yuv420 halves link bytes "
-                         "for JPEG bodies where the native codec is built)")
+                         "for JPEG bodies: their 4:2:0 planes go to the cascade as read)")
     ap.add_argument("--weights_root", default="")
     ap.add_argument("--warm_shapes", default="",
                     help="comma-separated HxW request shapes to run once at startup "
@@ -397,8 +412,8 @@ def main(argv=None) -> int:
     server = ThreadingHTTPServer((args.host, args.port),
                                  build_app(engine, log, warm_shapes=warm_shapes))
     host, port = server.server_address[:2]
-    log(f"serving mode={args.mode} on {device} at http://{host}:{port} (codec: "
-        f"{'available' if native_codec.available() else native_codec.unavailable_reason()})")
+    log(f"serving mode={args.mode} on {device} at http://{host}:{port} (JPEG codec "
+        f"{jpeg.codec_name(device)}: {codec_state(device)})")
     try:
         server.serve_forever()
     except KeyboardInterrupt:

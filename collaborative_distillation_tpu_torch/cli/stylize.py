@@ -10,9 +10,10 @@ Runs on the GPU unless ``--device cpu``. One pair goes through
 ``stylize(..., as_uint8=True)`` (at UHD with ``--slab_rows`` the last stage
 streams to the host); several through ``stylize_pairs``, which overlaps one
 pair's upload and another's readback with the cascade. Outputs are named
-``<log_mark>_mode=<mode>_alpha=<alpha>_<content>+<style>.jpg``; where the
-native JPEG codec is unavailable the same stem is written as ``.png`` and
-the log says why. ``--bf16``, ``--packed`` and ``--halo pallas`` have no
+``<log_mark>_mode=<mode>_alpha=<alpha>_<content>+<style>.jpg``. JPEG files
+are read and written by the codec of ``--device`` (nvJPEG on the card,
+libjpeg on the CPU); where it cannot load the same stem is written as
+``.png`` and the log says why. ``--bf16``, ``--packed`` and ``--halo pallas`` have no
 counterpart in the port and are refused.
 """
 
@@ -105,7 +106,7 @@ def main(argv=None) -> int:
         content_dir, style_dir, texture_dir=args.texturePath,
         content_size=args.content_size, style_size=args.style_size,
         picked_content_mark=args.picked_content_mark,
-        picked_style_mark=args.picked_style_mark, synthesis=args.synthesis)
+        picked_style_mark=args.picked_style_mark, synthesis=args.synthesis, device=device)
     log(f"Number of content-style pairs: {len(dataset)}")
 
     engine = WCTEngine(mode=args.mode, weights_root=args.weights_root or None,
@@ -144,10 +145,10 @@ def main(argv=None) -> int:
             name, cshape = meta.popleft()
             log("*" * 30 + f' #{i}: Transferred "{name}"')
             out_name = f"{args.log_mark}_mode={args.mode}_alpha={args.alpha}_{name}"
-            path, why = jpeg_or_png(os.path.join(args.outf, out_name))
+            path, why = jpeg_or_png(os.path.join(args.outf, out_name), device=device)
             if why:
                 log(f"writing {os.path.basename(path)} as PNG: {why}")
-            save_image(out, path)
+            save_image(out, path, device=device)
             dt = time.time() - t_prev
             t_prev = time.time()
             total_t += dt

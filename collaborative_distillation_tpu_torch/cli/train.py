@@ -202,8 +202,8 @@ def _train(args, k: int, root: str, exp: Experiment) -> int:
             if step % args.save_interval == 0:
                 grid = np.concatenate([batch.astype(np.float32) / 255.0,
                                        rec.cpu().numpy()], axis=0)
-                path, why = jpeg_or_png(exp.image_path(epoch, step))
-                save_image_grid(grid, path, nrow=args.batch_size)
+                path, why = jpeg_or_png(exp.image_path(epoch, step), device=trainer.device)
+                save_image_grid(grid, path, nrow=args.batch_size, device=trainer.device)
                 if why:
                     log(f"grid written as PNG ({why})")
             if args.max_steps and total_steps >= args.max_steps:

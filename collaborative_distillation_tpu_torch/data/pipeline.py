@@ -2,8 +2,10 @@
 
 The port's copy of the reference package's pipeline, with the same names,
 semantics and random streams, reading files through :mod:`..utils.image`
-instead of PIL (JPEG through the native codec, which raises
-``CodecUnavailable`` where it does not build):
+instead of PIL (JPEG through libjpeg on the host, which raises
+``CodecUnavailable`` where it does not build; :class:`CenterCropDataset` and
+:class:`PairGridDataset` take a ``device`` whose codec reads their JPEGs,
+for the CLIs that run on the card):
 
 * :class:`ImageFolderDataset` — training content: shorter-side resize,
   random crop, random hflip (or ``aug="strong"``);
@@ -42,9 +44,11 @@ def is_img(name: str) -> bool:
     return name.lower().endswith(IMG_EXTENSIONS)
 
 
-def load_image(path: str) -> np.ndarray:
-    """An image file -> (H, W, 3) uint8 RGB."""
-    return read_image(path)
+def load_image(path: str, device="cpu") -> np.ndarray:
+    """An image file -> (H, W, 3) uint8 RGB on the host; a JPEG decoded by
+    ``device``'s codec (the datasets decode on the host unless a CLI that
+    runs on the card passes its device)."""
+    return read_image(path, device=device)
 
 
 def resize_shorter_side(img: np.ndarray, size: int) -> np.ndarray:
@@ -227,17 +231,19 @@ class NpyFolderDataset:
 class CenterCropDataset:
     """Eval images: resize shorter side + deterministic center crop."""
 
-    def __init__(self, img_dir: str, shorter_side: int = 300, crop: int = 256):
+    def __init__(self, img_dir: str, shorter_side: int = 300, crop: int = 256, *,
+                 device="cpu"):
         self.paths = sorted(
             os.path.join(img_dir, f) for f in os.listdir(img_dir) if is_img(f))
         self.shorter_side = shorter_side
         self.crop = crop
+        self.device = device
 
     def __len__(self) -> int:
         return len(self.paths)
 
     def __getitem__(self, idx: int) -> tuple[np.ndarray, str]:
-        img = load_image(self.paths[idx])
+        img = load_image(self.paths[idx], self.device)
         if self.shorter_side:
             img = resize_shorter_side(img, self.shorter_side)
         return _center_crop(_to_float(img), self.crop), self.paths[idx]
@@ -255,8 +261,9 @@ class PairGridDataset:
     def __init__(self, content_dir: str, style_dir: str, *, texture_dir: str | None = None,
                  content_size: int = 0, style_size: int = 0,
                  picked_content_mark: str = "", picked_style_mark: str = "",
-                 synthesis: bool = False, seed: int = 0):
+                 synthesis: bool = False, seed: int = 0, device="cpu"):
         self.synthesis = synthesis
+        self.device = device
         self.content_size = content_size
         self.style_size = style_size
         self.rng = np.random.default_rng(seed)
@@ -277,7 +284,7 @@ class PairGridDataset:
 
     def __getitem__(self, idx: int) -> tuple[np.ndarray, np.ndarray, str]:
         cpath, spath = self.pairs[idx]
-        style = load_image(spath)
+        style = load_image(spath, self.device)
         if self.style_size:
             style = resize_shorter_side(style, self.style_size)
         style = _to_float(style)
@@ -285,7 +292,7 @@ class PairGridDataset:
             content = self.rng.random(style.shape, dtype=np.float32)
             name = os.path.basename(cpath).rsplit(".", 1)[0] + ".jpg"
         else:
-            content = load_image(cpath)
+            content = load_image(cpath, self.device)
             if self.content_size:
                 content = resize_shorter_side(content, self.content_size)
             content = _to_float(content)

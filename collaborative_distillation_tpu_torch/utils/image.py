@@ -1,10 +1,13 @@
 """Image files: read, write and resize without PIL.
 
-PNG is the port's own (:mod:`..data.png`); JPEG goes through the native
-codec (:mod:`..data.native_codec`). Where the codec is unavailable, reading
-a JPEG raises :class:`CodecUnavailable` with the file's name and the
-codec's reason, and so does writing to a ``.jpg`` path: callers that want
-PNG there ask for it (:func:`jpeg_or_png`).
+PNG is the port's own (:mod:`..data.png`); JPEG goes through the codec of
+the device the caller names (:mod:`..data.jpeg`): libjpeg for ``"cpu"``,
+nvJPEG for a CUDA device, the card when ``device`` is None, as every other
+entry point's default. Arrays in and out are host numpy arrays on either
+device. Where the device's codec cannot load, reading a JPEG raises
+:class:`CodecUnavailable` with the file's name and the codec's reason, and
+so does writing to a ``.jpg`` path: callers that want PNG there ask for it
+(:func:`jpeg_or_png`).
 
 :func:`resize` reproduces ``PIL.Image.resize`` with its default filter for
 RGB, antialiased bicubic (a = -0.5, support scaled by the downscale
@@ -20,7 +23,10 @@ import os
 
 import numpy as np
 
-from ..data import native_codec
+from ..data import jpeg
+from ..data.jpeg import CodecUnavailable
+from ..data.jpeg_header import jpeg_dims
+from ..data.native_codec import MAX_DECODE_PIXELS
 from ..data.png import PNG_SIGNATURE, decode_png, encode_png
 
 __all__ = ["CodecUnavailable", "decode_image", "read_image", "resize", "jpeg_or_png",
@@ -30,39 +36,38 @@ _JPEG_EXT = (".jpg", ".jpeg")
 _PRECISION_BITS = 22   # PIL's Resample.c: 32 - 8 bits of a sample - 2 of headroom
 
 
-class CodecUnavailable(RuntimeError):
-    """A JPEG was to be read or written where the native codec is unavailable."""
-
-
 def _to_uint8(arr: np.ndarray) -> np.ndarray:
     return (np.clip(np.asarray(arr, np.float32), 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
 
 
 def decode_image(data: bytes, *, name: str = "image",
-                 max_pixels: int | None = native_codec.MAX_DECODE_PIXELS) -> np.ndarray:
-    """PNG or JPEG bytes -> (H, W, 3) uint8 RGB. Images over ``max_pixels``
-    (the decompression-bomb cap, for untrusted bodies) are refused."""
+                 max_pixels: int | None = MAX_DECODE_PIXELS, device=None) -> np.ndarray:
+    """PNG or JPEG bytes -> (H, W, 3) uint8 RGB on the host, a JPEG decoded
+    by ``device``'s codec. Images over ``max_pixels`` (the
+    decompression-bomb cap, for untrusted bodies) are refused."""
     if data.startswith(PNG_SIGNATURE):
         return decode_png(data, max_pixels=max_pixels)
     if data.startswith(b"\xff\xd8"):
-        if not native_codec.available():
-            raise CodecUnavailable(f"cannot read JPEG {name}: "
-                                   f"{native_codec.unavailable_reason()}")
-        out = native_codec.decode_jpeg(data, max_pixels=max_pixels or 1 << 62)
+        jpeg.require(device, f"read JPEG {name}")
+        out = jpeg.decode_jpeg(data, device, max_pixels=max_pixels or 1 << 62)
         if out is None:
-            dims = native_codec.jpeg_dims(data)
+            dims = jpeg_dims(data)
             why = ("a bad header" if dims is None else
                    f"{dims[0]}x{dims[1]} pixels, over the {max_pixels}-pixel limit"
                    if max_pixels and dims[0] * dims[1] > max_pixels else "corrupt data")
             raise ValueError(f"cannot decode JPEG {name}: {why}")
-        return out
+        if isinstance(out, np.ndarray):
+            return out
+        from .transfer import fetch
+        return fetch(out)
     raise ValueError(f"{name} is neither a PNG nor a JPEG file")
 
 
-def read_image(path: str) -> np.ndarray:
-    """An image file -> (H, W, 3) uint8 RGB."""
+def read_image(path: str, *, device=None) -> np.ndarray:
+    """An image file -> (H, W, 3) uint8 RGB (a JPEG decoded by ``device``'s
+    codec)."""
     with open(path, "rb") as f:
-        return decode_image(f.read(), name=path)
+        return decode_image(f.read(), name=path, device=device)
 
 
 def _bicubic(t: np.ndarray) -> np.ndarray:
@@ -128,26 +133,26 @@ def resize(img: np.ndarray, width: int, height: int, resample: str = "bicubic") 
     return img if (w, h) != (width, height) else img.copy()
 
 
-def jpeg_or_png(path: str) -> tuple[str, str | None]:
-    """``path``, or where it names a JPEG and the codec is unavailable, the
-    same stem as ``.png`` and the codec's reason."""
+def jpeg_or_png(path: str, *, device=None) -> tuple[str, str | None]:
+    """``path``, or where it names a JPEG and ``device``'s codec is
+    unavailable, the same stem as ``.png`` and the codec's reason."""
     stem, ext = os.path.splitext(path)
-    if ext.lower() in _JPEG_EXT and not native_codec.available():
-        return stem + ".png", native_codec.unavailable_reason()
+    if ext.lower() in _JPEG_EXT and not jpeg.available(device):
+        return stem + ".png", jpeg.unavailable_reason(device)
     return path, None
 
 
-def save_image(arr: np.ndarray, path: str, *, quality: int = 95) -> None:
+def save_image(arr: np.ndarray, path: str, *, quality: int = 95, device=None) -> None:
     """(H, W, 3) float [0, 1] or uint8 -> a ``.png``, ``.jpg`` or ``.jpeg``
-    file. A JPEG path where the codec is unavailable raises
-    :class:`CodecUnavailable` (see :func:`jpeg_or_png`)."""
+    file, a JPEG encoded by ``device``'s codec. A JPEG path where that codec
+    is unavailable raises :class:`CodecUnavailable` (see :func:`jpeg_or_png`)."""
     u8 = arr if (isinstance(arr, np.ndarray) and arr.dtype == np.uint8) else _to_uint8(arr)
     ext = os.path.splitext(path)[1].lower()
     if ext in _JPEG_EXT:
-        data = native_codec.encode_jpeg(np.ascontiguousarray(u8), quality=quality)
+        jpeg.require(device, f"write JPEG {path}")
+        data = jpeg.encode_jpeg(np.ascontiguousarray(u8), device, quality=quality)
         if data is None:
-            raise CodecUnavailable(f"cannot write JPEG {path}: "
-                                   f"{native_codec.unavailable_reason() or 'encode failed'}")
+            raise CodecUnavailable(f"cannot write JPEG {path}: encode failed")
     elif ext == ".png":
         data = encode_png(u8)
     else:
@@ -156,9 +161,10 @@ def save_image(arr: np.ndarray, path: str, *, quality: int = 95) -> None:
         fh.write(data)
 
 
-def save_image_grid(batch: np.ndarray, path: str, *, nrow: int = 8, pad: int = 2) -> None:
+def save_image_grid(batch: np.ndarray, path: str, *, nrow: int = 8, pad: int = 2,
+                    device=None) -> None:
     """(N, H, W, 3) -> a tiled grid image, ``nrow`` images a row
-    (torchvision ``make_grid``)."""
+    (torchvision ``make_grid``); a JPEG encoded by ``device``'s codec."""
     batch = _to_uint8(batch)
     n, h, w, c = batch.shape
     ncol = min(nrow, n)
@@ -168,13 +174,14 @@ def save_image_grid(batch: np.ndarray, path: str, *, nrow: int = 8, pad: int = 2
         r, col = divmod(i, ncol)
         y, x = r * (h + pad) + pad, col * (w + pad) + pad
         grid[y: y + h, x: x + w] = batch[i]
-    save_image(grid, path)
+    save_image(grid, path, device=device)
 
 
-def load_image_array(path: str, *, resize_shorter: int = 0) -> np.ndarray:
+def load_image_array(path: str, *, resize_shorter: int = 0, device=None) -> np.ndarray:
     """An image file -> (H, W, 3) float32 in [0, 1], its shorter side
-    resized to ``resize_shorter`` when given."""
-    img = read_image(path)
+    resized to ``resize_shorter`` when given (a JPEG decoded by ``device``'s
+    codec)."""
+    img = read_image(path, device=device)
     if resize_shorter:
         h, w = img.shape[:2]
         if w < h:

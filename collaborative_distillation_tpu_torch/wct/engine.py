@@ -12,7 +12,10 @@ The host boundary: uint8 images cross the link as RGB or as JPEG-native
 YCbCr 4:2:0 planes (``transport``), the planes and JPEG endpoints
 (:meth:`WCTEngine.stylize_planes`, :meth:`WCTEngine.stylize_jpeg`, ...) take
 and give planes or JPEG bytes, and :meth:`WCTEngine.stylize_pairs` overlaps
-one pair's upload and another's readback with the cascade.
+one pair's upload and another's readback with the cascade. A JPEG is coded
+by the engine's device: on the card by nvJPEG (whole images, into and out
+of device planes), on the CPU by libjpeg on the host (in row bands that
+overlap the transfers).
 
 The engine runs on the GPU unless the caller passes ``device="cpu"``, which
 takes every kernel's plain PyTorch version.
@@ -31,7 +34,7 @@ from contextlib import nullcontext
 import numpy as np
 import torch
 
-from ..data import native_codec
+from ..data import jpeg_header, native_codec, nvjpeg_codec
 from ..models.vgg import apply_decoder, apply_decoder_pwct, apply_encoder
 from ..models.zoo import load_pyramid
 from ..ops.pad import reflect_index
@@ -531,65 +534,90 @@ class WCTEngine:
             raise ValueError(f"a Y plane of even height and width is needed, got "
                              f"shape {y.shape}")
 
+    def _planes_img(self, y, cbcr) -> torch.Tensor:
+        """4:2:0 planes, host arrays or tensors, -> the (1, H, W, 3) float
+        image on the engine's device; planes already there are not copied."""
+        def up(p):
+            if isinstance(p, np.ndarray):
+                return push(p[None], self.device)
+            return p[None].to(self.device)
+        return yuv420_to_rgbf_device(up(y), up(cbcr))
+
     @torch.inference_mode()
-    def stylize_planes(self, y: np.ndarray, cbcr: np.ndarray, style, alpha: float = 1.0,
-                       *, num_run: int = 1, style_key=None) -> tuple[np.ndarray, np.ndarray]:
+    def stylize_planes(self, y, cbcr, style, alpha: float = 1.0, *, num_run: int = 1,
+                       style_key=None, on_device: bool = False):
         """JPEG-native endpoint: the content as YCbCr 4:2:0 planes (Y (H, W)
-        uint8, CbCr (H/2, W/2, 2) uint8, what
-        ``native_codec.decode_jpeg_yuv420`` reads out of a JPEG), the
-        stylized planes back (for ``encode_jpeg_yuv420``). The host does no
-        pixel math: the card converts, stylizes and converts back. H and W
-        must be even."""
+        uint8, CbCr (H/2, W/2, 2) uint8, what ``decode_jpeg_yuv420`` reads
+        out of a JPEG), host arrays or tensors (planes already on the
+        engine's device are not copied), the stylized planes back (for
+        ``encode_jpeg_yuv420``): host arrays, or with ``on_device=True`` the
+        device tensors of the whole cascade, for the card's encoder. The host
+        does no pixel math: the card converts, stylizes and converts back. H
+        and W must be even."""
         self._check_planes(y)
-        orig_hw = y.shape
-        img = yuv420_to_rgbf_device(push(y[None], self.device), push(cbcr[None], self.device))
-        img = _pad_to_multiple(img)[0]
+        orig_hw = tuple(y.shape)
+        img = _pad_to_multiple(self._planes_img(y, cbcr))[0]
         out = self._run(img, self._prep(style), alpha, num_run=num_run,
-                        style_key=style_key, emit_planes=True)
+                        style_key=style_key, emit_planes=True, stream_ok=not on_device)
         if isinstance(out, tuple):  # streamed: host planes already
             yo, co = out
             return yo[0, :orig_hw[0], :orig_hw[1]], co[0, :orig_hw[0] // 2, :orig_hw[1] // 2]
         yo, co = rgbf_to_yuv420_device(out[:, :orig_hw[0], :orig_hw[1]])
+        if on_device:
+            return yo[0], co[0]
         return fetch(yo)[0], fetch(co)[0]
 
     @torch.inference_mode()
-    def stylize_planes_jpeg(self, y: np.ndarray, cbcr: np.ndarray, style,
-                            alpha: float = 1.0, *, style_key=None,
+    def stylize_planes_jpeg(self, y, cbcr, style, alpha: float = 1.0, *, style_key=None,
                             quality: int = 95) -> bytes | None:
-        """Stylize 4:2:0 planes and return the encoded JPEG bytes, each
-        streamed band entropy-encoded (native incremental encoder, GIL
-        released) while later bands are still computed and fetched.
+        """Stylize 4:2:0 planes (host arrays or tensors) and return the
+        encoded JPEG bytes. On the CPU each streamed band is entropy-encoded
+        (libjpeg's incremental encoder, GIL released) while later bands are
+        still computed and fetched; on the card the whole output's planes are
+        encoded by nvJPEG there.
 
-        Returns None where this engine or input cannot stream (no fused slab
-        path, below ``stream_min_pix``, the native codec unavailable):
-        callers take :meth:`stylize_planes` + ``encode_jpeg_yuv420`` then,
-        whose bytes are the same.
+        Returns None where this engine or input cannot take this path (no
+        fused slab path, below ``stream_min_pix``, the device's codec
+        unavailable): callers take :meth:`stylize_planes` +
+        ``encode_jpeg_yuv420`` then, whose bytes are the same.
         """
         self._check_planes(y)
         h, w = y.shape
         if not self.fused or h * w < self.stream_min_pix:
             return None
-        img = yuv420_to_rgbf_device(push(y[None], self.device), push(cbcr[None], self.device))
-        return self._run_to_jpeg(img, style, alpha, style_key=style_key, quality=quality,
-                                 orig_hw=(h, w))
+        return self._run_to_jpeg(self._planes_img(y, cbcr), style, alpha,
+                                 style_key=style_key, quality=quality, orig_hw=(h, w))
 
     @torch.inference_mode()
     def stylize_jpeg(self, data: bytes, style, alpha: float = 1.0, *,
                      style_key=None, quality: int = 95) -> bytes | None:
-        """JPEG bytes in, JPEG bytes out, streamed both ways: the content is
-        entropy-decoded in row bands (native incremental decoder, GIL
-        released) while earlier bands already cross the link, stylized, and
-        the streamed output bands are entropy-encoded while later ones
-        fetch. The host never does pixel math and never holds the whole
-        image in either direction.
+        """JPEG bytes in, JPEG bytes out. On the CPU streamed both ways: the
+        content is entropy-decoded in row bands (libjpeg's incremental
+        decoder, GIL released) while earlier bands already cross the link,
+        stylized, and the streamed output bands are entropy-encoded while
+        later ones fetch. On the card nvJPEG decodes the whole file into
+        device planes and encodes the whole output from device planes, the
+        bytes of :meth:`stylize_planes` (``on_device=True``) +
+        ``nvjpeg_codec.encode_jpeg_yuv420``. The host never does pixel math.
 
-        Returns None where the input is not a baseline 4:2:0 JPEG, it is
-        corrupt past its header, or this engine or input cannot stream (see
-        :meth:`stylize_planes_jpeg`): callers take ``decode_jpeg_yuv420`` +
-        :meth:`stylize_planes` (+ encode) then.
+        Returns None where the input is not an even-sized baseline 4:2:0
+        JPEG, it is corrupt past its header, or this engine or input cannot
+        take this path (see :meth:`stylize_planes_jpeg`): callers take
+        ``decode_jpeg_yuv420`` + :meth:`stylize_planes` (+ encode) then.
         """
         if not self.supports_streamed_jpeg():
             return None  # before opening a decoder for nothing
+        if self.device.type == "cuda":
+            hdr = jpeg_header.parse(data)
+            if (hdr is None or not hdr.planes_ok
+                    or hdr.width * hdr.height < self.stream_min_pix):
+                return None
+            planes = nvjpeg_codec.decode_jpeg_yuv420(data, self.device)
+            if planes is None:   # nvJPEG unavailable, over the cap, or corrupt
+                return None
+            return self._run_to_jpeg(self._planes_img(*planes), style, alpha,
+                                     style_key=style_key, quality=quality,
+                                     orig_hw=(hdr.height, hdr.width))
         reader = native_codec.jpeg_yuv420_reader(data)
         if reader is None:
             return None
@@ -618,16 +646,26 @@ class WCTEngine:
                                  orig_hw=(h, w))
 
     def supports_streamed_jpeg(self) -> bool:
-        """Can :meth:`stylize_jpeg` stream on this engine at all? Servers ask
-        before taking an engine lock and opening a decoder for nothing."""
+        """Can :meth:`stylize_jpeg` take its path on this engine at all (the
+        reference's name: on the card nothing streams to the host)? Servers
+        ask before taking an engine lock and opening a decoder for nothing."""
         return self.fused
 
     def _run_to_jpeg(self, img, style, alpha, *, style_key, quality,
                      orig_hw) -> bytes | None:
-        """The JPEG endpoints' shared tail: pad, run the cascade with a
-        streamed plane sink feeding the incremental encoder, or encode
-        assembled planes where the cascade did not stream."""
+        """The JPEG endpoints' shared tail. On the card: the whole cascade,
+        its planes made on the device and encoded there by nvJPEG. On the
+        CPU: pad, run the cascade with a streamed plane sink feeding the
+        incremental encoder, or encode assembled planes where the cascade
+        did not stream."""
         orig_h, orig_w = orig_hw
+        if self.device.type == "cuda":
+            if not nvjpeg_codec.available():
+                return None
+            out = self._run(_pad_to_multiple(img)[0], self._prep(style), alpha, num_run=1,
+                            style_key=style_key, stream_ok=False)
+            yd, cd = rgbf_to_yuv420_device(out[:, :orig_h, :orig_w])
+            return nvjpeg_codec.encode_jpeg_yuv420(yd[0], cd[0], quality=quality)
         writer = native_codec.jpeg_yuv420_writer(orig_w, orig_h, quality)
         if writer is None:
             return None

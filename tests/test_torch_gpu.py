@@ -512,3 +512,140 @@ def test_conv3x3_on_an_unpooled_map(gen, shape):
     torch.cuda.synchronize()
     scale = float(x.abs().max() * wt.abs().sum(dim=(0, 1, 2)).max() + b.abs().max())
     assert float((got - ref).abs().max()) <= 1e-5 * scale
+
+
+# ---- nvJPEG on the card, against libjpeg's decodes in the fixture ---------------------
+# (collaborative_distillation_tpu_torch/data/jpeg_fixture.npz, made on a host with
+# libjpeg by tools/make_jpeg_fixture.py; the card's machine has no libjpeg)
+
+JPEG_FIXTURE_FILES = ["in1", "c444", "prog", "odd", "grey"]
+
+
+@pytest.fixture(scope="module")
+def jfix():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+
+    import numpy as np
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with np.load(os.path.join(root, "collaborative_distillation_tpu_torch", "data",
+                              "jpeg_fixture.npz")) as d:
+        return {k: d[k] for k in d.files}
+
+
+def _psnr_u8(a, b) -> float:
+    import numpy as np
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def test_nvjpeg_loads_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from collaborative_distillation_tpu_torch.data import nvjpeg_codec as nj
+    assert nj.available(), nj.unavailable_reason()
+    assert nj.unavailable_reason() is None and nj.version()
+
+
+def test_nvjpeg_decode_planes_match_libjpeg(jfix):
+    """The file's own 4:2:0 planes: both decoders dequantize the same
+    coefficients, and only their IDCTs' rounding differs (nvJPEG's is not
+    libjpeg's JDCT_ISLOW): at most 1 level, mean under 0.05 (read on an
+    H100: 1 and 0.016 on Y, 1 and 0.014 on CbCr)."""
+    from collaborative_distillation_tpu_torch.data import nvjpeg_codec as nj
+    y, cbcr = nj.decode_jpeg_yuv420(jfix["in1_jpeg"].tobytes())
+    for got, want in ((y, jfix["in1_y"]), (cbcr, jfix["in1_cbcr"])):
+        d = (got.cpu().numpy().astype(int) - want).__abs__()
+        assert got.shape == want.shape and got.dtype == torch.uint8
+        assert d.max() <= 1 and d.mean() <= 0.05, (d.max(), d.mean())
+
+
+@pytest.mark.parametrize("name", JPEG_FIXTURE_FILES)
+def test_nvjpeg_decode_rgb_matches_libjpeg(jfix, name):
+    """RGB of every sampling and kind (4:4:4, progressive, odd-sized, grey):
+    nvJPEG's chroma upsampling is not libjpeg's fancy one, so the bar is
+    40 dB, not a level count."""
+    from collaborative_distillation_tpu_torch.data import nvjpeg_codec as nj
+    got = nj.decode_jpeg(jfix[f"{name}_jpeg"].tobytes())
+    want = jfix[f"{name}_rgb"]
+    assert got is not None and tuple(got.shape) == want.shape
+    assert _psnr_u8(got.cpu().numpy(), want) >= 40.0
+
+
+def test_nvjpeg_encode_tables_and_round_trip(jfix):
+    """nvJPEG's quality-95 stream carries the IJG tables of quality 95, and
+    its round trip is within 40 dB of the planes, as libjpeg's own q95 file
+    of the same planes is when nvJPEG decodes it."""
+    from collaborative_distillation_tpu_torch.data import jpeg_header
+    from collaborative_distillation_tpu_torch.data import nvjpeg_codec as nj
+    y = torch.from_numpy(jfix["content_y"]).cuda()
+    cbcr = torch.from_numpy(jfix["content_cbcr"]).cuda()
+    body = nj.encode_jpeg_yuv420(y, cbcr, quality=95)
+    hdr = jpeg_header.parse(body)
+    assert hdr.planes_ok and (hdr.width, hdr.height) == (512, 512)
+    lum, chrom = jpeg_header.ijg_quant_tables(95)
+    tables = [hdr.quant_tables[c.tq] for c in hdr.components]
+    assert (tables[0] == lum).all() and (tables[1] == chrom).all() and (tables[2] == chrom).all()
+    for data in (body, jfix["content_q95"].tobytes()):
+        yo, co = nj.decode_jpeg_yuv420(data)
+        assert _psnr_u8(yo.cpu().numpy(), jfix["content_y"]) >= 40.0
+        assert _psnr_u8(co.cpu().numpy(), jfix["content_cbcr"]) >= 40.0
+
+
+def test_nvjpeg_encode_rgb_at_odd_sizes(jfix):
+    from collaborative_distillation_tpu_torch.data import nvjpeg_codec as nj
+    rgb = jfix["in1_rgb"][:125, :127]
+    body = nj.encode_jpeg(torch.from_numpy(rgb.copy()).cuda(), quality=95)
+    got = nj.decode_jpeg(body)
+    assert tuple(got.shape) == rgb.shape and _psnr_u8(got.cpu().numpy(), rgb) >= 35.0
+    cut = nj.decode_jpeg(body[:len(body) // 2])   # a cut file: None, or gaps filled
+    assert cut is None or tuple(cut.shape) == rgb.shape
+    assert nj.decode_jpeg(b"\xff\xd8\xff\xdb") is None
+    assert nj.encode_jpeg_yuv420(torch.zeros(3, 4, dtype=torch.uint8, device="cuda"),
+                                 torch.zeros(1, 2, 2, dtype=torch.uint8, device="cuda")) is None
+
+
+def test_nvjpeg_threads_share_no_state(jfix):
+    """Decodes and encodes from four threads at once equal serial ones."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from collaborative_distillation_tpu_torch.data import nvjpeg_codec as nj
+    data = [jfix[f"{n}_jpeg"].tobytes() for n in JPEG_FIXTURE_FILES] * 2
+
+    def work(b):
+        rgb = nj.decode_jpeg(b)
+        return rgb.cpu(), nj.encode_jpeg(rgb)
+
+    serial = [work(b) for b in data]
+    with ThreadPoolExecutor(4) as pool:
+        for (a, ab), (b, bb) in zip(pool.map(work, data), serial):
+            assert torch.equal(a, b) and ab == bb
+    mem = nj.memory()
+    assert mem["device"] > 0 and mem["pinned"] > 0
+
+
+def test_stylize_jpeg_on_card_equals_planes_plus_encode(jfix):
+    """On the card the JPEG endpoints decode and encode with nvJPEG: their
+    bytes equal stylize_planes(on_device=True) + encode_jpeg_yuv420, and the
+    None contract holds for files the planes path does not take."""
+    import numpy as np
+
+    from collaborative_distillation_tpu_torch.data import nvjpeg_codec as nj
+    from collaborative_distillation_tpu_torch.wct.engine import WCTEngine
+    content = np.concatenate([jfix["in1_rgb"], jfix["in1_rgb"][::-1]])[:704, :128]
+    data = nj.encode_jpeg(torch.from_numpy(np.ascontiguousarray(content)).cuda())
+    y, cbcr = nj.decode_jpeg_yuv420(data)
+    style = jfix["in1_rgb"][:64, :64]
+    eng = WCTEngine(mode="16x", slab_rows=288, stream_min_pix=1)
+    body = eng.stylize_jpeg(data, style)
+    whole = nj.encode_jpeg_yuv420(*eng.stylize_planes(y, cbcr, style, on_device=True))
+    assert body is not None and body == whole
+    assert eng.stylize_planes_jpeg(y, cbcr, style) == whole
+    host = eng.stylize_planes(y.cpu().numpy(), cbcr.cpu().numpy(), style)   # streamed
+    dev = eng.stylize_planes(y, cbcr, style, on_device=True)
+    for a, b in zip(host, dev):
+        assert np.abs(a.astype(int) - b.cpu().numpy()).max() <= 1
+    assert eng.stylize_jpeg(jfix["c444_jpeg"].tobytes(), style) is None
+    assert eng.stylize_jpeg(jfix["prog_jpeg"].tobytes(), style) is None
+    assert WCTEngine(mode="16x").stylize_jpeg(data, style) is None

@@ -233,9 +233,9 @@ def test_jpeg_entry_points_match_the_reference_binding(photo):
     assert tnc.decode_jpeg(b"\xff\xd8 not a jpeg") is None and tnc.jpeg_dims(b"xx") is None
     assert tnc.encode_jpeg(c.astype(np.float32)) is None
     with pytest.raises(ValueError, match="over the 100-pixel limit"):
-        timage.decode_image(jpeg, max_pixels=100)
+        timage.decode_image(jpeg, max_pixels=100, device="cpu")
     with pytest.raises(ValueError, match="cannot decode JPEG cut.jpg: a bad header"):
-        timage.decode_image(jpeg[:300], name="cut.jpg")
+        timage.decode_image(jpeg[:300], name="cut.jpg", device="cpu")
 
 
 def test_without_the_codec_jpeg_raises_with_name_and_reason(photo, tmp_path, monkeypatch):
@@ -247,16 +247,17 @@ def test_without_the_codec_jpeg_raises_with_name_and_reason(photo, tmp_path, mon
     for fn in (tnc.jpeg_dims, tnc.decode_jpeg, tnc.encode_jpeg):
         assert fn(jpeg if fn is not tnc.encode_jpeg else c) is None
     with pytest.raises(timage.CodecUnavailable, match="a.jpg: native codec unavailable"):
-        timage.read_image(str(tmp_path / "a.jpg"))
+        timage.read_image(str(tmp_path / "a.jpg"), device="cpu")
     with pytest.raises(timage.CodecUnavailable, match="b.jpg: native codec unavailable"):
-        timage.save_image(c, str(tmp_path / "b.jpg"))
+        timage.save_image(c, str(tmp_path / "b.jpg"), device="cpu")
     assert not (tmp_path / "b.jpg").exists()
     # a caller that chooses PNG there gets the same stem and the reason
-    path, why = timage.jpeg_or_png(str(tmp_path / "b.jpg"))
+    path, why = timage.jpeg_or_png(str(tmp_path / "b.jpg"), device="cpu")
     assert path == str(tmp_path / "b.png") and why == tnc.unavailable_reason()
-    timage.save_image(c, path)
-    np.testing.assert_array_equal(timage.read_image(path), c)
-    assert timage.jpeg_or_png(str(tmp_path / "c.png")) == (str(tmp_path / "c.png"), None)
+    timage.save_image(c, path, device="cpu")
+    np.testing.assert_array_equal(timage.read_image(path, device="cpu"), c)
+    assert timage.jpeg_or_png(str(tmp_path / "c.png"), device="cpu") == (
+        str(tmp_path / "c.png"), None)
 
 
 # ---- files and datasets against the reference ------------------------------------------
@@ -264,13 +265,14 @@ def test_without_the_codec_jpeg_raises_with_name_and_reason(photo, tmp_path, mon
 def test_save_and_load_match_the_reference(photo, tmp_path):
     c = photo[0][:40, :56].astype(np.float32) / 255.0 * 0.9 + 0.03
     for ext in (".png", ".jpg"):
-        timage.save_image(c, str(tmp_path / f"t{ext}"))
+        timage.save_image(c, str(tmp_path / f"t{ext}"), device="cpu")
         jimage.save_image(c, str(tmp_path / f"j{ext}"))
         np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / f"t{ext}")),
                                       np.asarray(Image.open(tmp_path / f"j{ext}")))
         for r in (0, 20, 70):
             np.testing.assert_allclose(
-                timage.load_image_array(str(tmp_path / f"j{ext}"), resize_shorter=r),
+                timage.load_image_array(str(tmp_path / f"j{ext}"), resize_shorter=r,
+                                        device="cpu"),
                 jimage.load_image_array(str(tmp_path / f"j{ext}"), resize_shorter=r),
                 atol=0 if ext == ".png" else JPEG_TOL)
     batch = np.stack([c, c[::-1], c[:, ::-1]])
