@@ -22,9 +22,13 @@ Phases (any failure raises and the script exits non-zero):
      off 16-byte alignment); ``halo_exchange_rows`` exactly, at every (stage,
      shard position) shape of the sharded UHD path and at edge shapes (one
      row, the whole neighbour, N = 2, odd row sizes, offset slices, the
-     shard's own reflection rows as sources) and, exactly, at every shape of
-     the per-conv sharded path at 2000 x 2048 (shards of unequal heights);
-     conv3x3 on every max-unpooled map of the 2048^2 photo-WCT decoders (3
+     shard's own reflection rows as sources); conv3x3 with halo rows (the
+     per-conv sharded path's conv, staging its neighbours' boundary rows) at
+     every shape of that path at 2000 x 2048 (shards of unequal heights),
+     timed against the same conv reflecting its own rows and against
+     ``torch.cat`` of the extended shard, and at edge shapes (one row,
+     ragged tiles of every template, N = 2, rows off 16-byte alignment, a
+     null side); conv3x3 on every max-unpooled map of the 2048^2 photo-WCT decoders (3
      of 4 values 0); a 16x16 image (relu5_1 at 1x1) stylizes to all-NaN
      without raising, as the reference does; the 2048^2 and the UHD
      (slab-summed) stage-1 covariances against float64 centred ones;
@@ -49,8 +53,9 @@ Phases (any failure raises and the script exits non-zero):
      the same slab size (PSNR), and the per-conv sharded cascade (``space=4``
      without ``slab_rows``: whole 16-row blocks per shard, the style's
      statistics taken whole) against the plain one at 2048^2, at a 2000 x
-     2048 content and at a 2000 x 2048 style, with its halo launches held to
-     the plan's;
+     2048 content and at a 2000 x 2048 style, each with the counters zeroed:
+     no ``halo_exchange_rows`` launch and as many conv3x3 halo launches
+     (``conv3x3_reflect.halo_launches``) as the plan's halo convs;
   4d. a height that is no slab multiple (4000 x 10240): the slab cascade
      against the plain one, and the sharded cascade against the slab one
      (PSNR; the last window ends at the image, nothing is mirrored in);
@@ -70,6 +75,9 @@ Phases (any failure raises and the script exits non-zero):
   5c. ``halo_exchange_rows`` at the sharded UHD shapes beside its plain
      version and ``torch.cat`` of ready slices; the warm sharded UHD cascade
      (median of 3), its peak memory and profile;
+  5d. the warm per-conv sharded cascade (``space=4`` on the one card) at
+     2048^2 and at 2000 x 2048: median of 5, device busy and idle share,
+     peak memory and launches;
   6. the host boundary: (a) nvJPEG against libjpeg's decodes in
      ``data/jpeg_fixture.npz`` (4:2:0 planes to NVJPEG_PLANE_MAX levels, RGB
      of 4:2:0, 4:4:4, progressive, odd-sized and grey files at PSNR_MIN_DB),
@@ -129,7 +137,9 @@ Phases (any failure raises and the script exits non-zero):
      checkpoint's keys in the reference's layout, ``--resume`` at the next
      epoch, nonzero gradients into the zero-filled aux adapters, the median
      step time, images/s, peak memory and one profiled step's split into the
-     hand-written kernels, cuDNN's backward and the rest;
+     hand-written kernels, cuDNN's backward and the rest; (d) the first
+     conv3x3 kernel at a wct_se step's teacher-width shapes against cuDNN's
+     FP32 forward;
   9. run before phases 7 and 8: (a) photo-WCT, ``stylize(pwct=True)`` at
      2048^2 with the counters zeroed (the plain path's conv3x3 and sum_gram
      launches, ``max_pool_2x2`` for the style only, no upsample), finite and
@@ -144,9 +154,11 @@ Phases (any failure raises and the script exits non-zero):
      ``apply_mobilenet_encoder`` (stages 1-5, 512^2, a seeded state dict),
      ``gram_matrix`` and ``adain`` card vs CPU.
 
-With ``--cross-card`` (two or more cards) it runs only the halo check and
-the sharded UHD path with neighbouring shards on different cards, against
-the single-card slab cascade, and prints no kernel table.
+With ``--cross-card`` (two or more cards) it runs only the halo check, the
+conv3x3 halo staging with its rows on other cards, the per-conv 2048^2
+cascade with one shard per card against the plain one and timed, and the sharded UHD
+path with neighbouring shards on different cards, against the single-card
+slab cascade, and prints no kernel table.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -182,6 +194,9 @@ KERNEL_META = {
     "halo_exchange_rows": ("halo.cu", "collaborative_distillation_tpu/ops/pallas/halo.py:148"),
 }
 KERNEL_PATH = {"conv1x1_bias": "UHD slab", "halo_exchange_rows": "UHD sharded"}
+# conv3x3_reflect with halo rows (the per-conv sharded path): its own rows in
+# the checks, the kernel's in the table
+KERNEL_OF = {"conv3x3_halo": "conv3x3_reflect"}
 CONV3X3_NAMES = "conv3x3_kernel"   # the profiler's names of csrc/conv3x3.cu's kernels
 # Tolerances, each against the plain version on the same inputs:
 #   conv3x3, conv1x1: |kernel - plain| <= 1e-5 * S, S = max|x| * max_co sum|w|
@@ -331,21 +346,28 @@ def sharded_path_calls(pyramid, stages, margins, slab, space, h, w, sh, sw):
     return calls, layer_of
 
 
-def per_conv_halo_calls(pyramid, stages, rows, w):
-    """Halo exchanges of one per-conv sharded cascade (``space`` without
+def per_conv_calls(pyramid, stages, rows, w):
+    """Halo convs of one per-conv sharded cascade (``space`` without
     ``slab_rows``) on a content cut into shards of ``rows`` rows, ``w``
-    wide: one one-row exchange per shard before each conv of the content's
-    encoder and of the decoder (the style's statistics are taken whole, with
-    no exchange). Every shard reads both neighbours' rows or, at a global
-    edge, its own, so all shapes are "mid" ones."""
+    wide: every conv of the content's encoder and of the decoder, once per
+    shard, each a ``conv3x3_reflect`` launch that stages its neighbours'
+    boundary rows (the style's statistics are taken whole, with plain
+    convs). Keyed ``("conv3x3_halo", (1, h, w, Cin, Cout, relu, sides, 0))``:
+    ``sides`` the rows given, "both" or, at a global edge of a shard of two
+    or more rows, "bot" (first shard) or "top" (last shard)."""
     calls = Counter()
+    last = len(rows) - 1
     for k in stages:
         down = 2 ** (k - 1)
         for spec, scale in ((pyramid[k]["enc_spec"], 1), (pyramid[k]["dec_spec"], down)):
             f = scale
             for l in spec.layers:
-                for h in rows:
-                    calls[("halo_exchange_rows", (1, h // f, w // f, l.in_ch, 1, "mid", 0))] += 1
+                for d, h in enumerate(rows):
+                    hh = h // f
+                    sides = ("bot" if d == 0 and hh > 1 else "top" if d == last and hh > 1
+                             else "both")
+                    calls[("conv3x3_halo", (1, hh, w // f, l.in_ch, l.out_ch, l.relu,
+                                            sides, 0))] += 1
                 if l.pool_after:
                     f *= 2
                 if l.unpool_after:
@@ -383,6 +405,11 @@ def work(kernel, shape):
         # each per row; the column sum and the shift subtraction p*c each
         p, c = shape[:2]
         return 4 * (p * c + c + c * c + c), p * c * (c + 1) + 2 * p * c
+    if kernel == "conv3x3_halo":
+        # what the halo staging adds to the conv: the neighbours' boundary
+        # rows, read once (a null side reads nothing new)
+        n, h, w, ci, _, _, sides = shape[:7]
+        return 4 * n * w * ci * (2 if sides == "both" else 1), 0
     if kernel == "halo_exchange_rows":
         # the extended map written once; the shard and each halo that has a
         # source read once (a global edge's zero fill reads nothing)
@@ -431,7 +458,7 @@ class Bench:
     def _run(self, kernel, shape, layer, timed, reps):
         torch, F = self.torch, self.F
         from collaborative_distillation_tpu_torch.ops import cuda as kc
-        k = getattr(kc, kernel)
+        k = getattr(kc, KERNEL_OF.get(kernel, kernel))
         row = {"kernel": kernel, "shape": list(shape)}
         if kernel == "conv3x3_reflect":
             # (N, H, W, Cin, Cout, relu) or with a float offset: an offset
@@ -460,6 +487,36 @@ class Bench:
                     lib.bias.copy_(b)
                 xn = x.permute(0, 3, 1, 2)  # NHWC memory as a channels-last NCHW view
                 library = lambda: lib(xn)
+        elif kernel == "conv3x3_halo":
+            # conv3x3_reflect with halo rows: (N, H, W, Cin, Cout, relu, sides,
+            # float offset); x and two neighbour maps of other heights start
+            # ``offset`` floats into their buffers, the rows are views of
+            # them (the upper map's last row, the lower one's first). Timed:
+            # ``ms`` is what the rows add, the halo conv's time less that of
+            # the same conv reflecting its own rows; ``library_ms`` is
+            # torch.cat of the extended shard, the exchange that the rows
+            # replace
+            n, h, w, ci, co, relu, sides, offset = shape
+
+            def map_(rows):
+                return self.rand(n * rows * w * ci + offset)[offset:].view(n, rows, w, ci)
+            x, up, down = map_(h), map_(h + 1), map_(max(h - 1, 1))
+            top = up[:, -1:] if sides in ("both", "top") else None
+            bot = down[:, :1] if sides in ("both", "bot") else None
+            wt = (self.rand(3, 3, ci, co) - 0.5) * (2 / (9 * ci) ** 0.5)
+            b = self.rand(co) - 0.5
+            got = k(x, wt, b, relu, top=top, bot=bot)
+            ref = k.plain(x, wt, b, relu, top=top, bot=bot)
+            # the rows' magnitudes are x's (all three are rand)
+            scale = float(x.abs().max() * wt.abs().sum(dim=(0, 1, 2)).max() + b.abs().max())
+            err = float((got - ref).abs().max())
+            tol = CONV_TOL * scale
+            del got, ref
+            call = lambda: k(x, wt, b, relu, top=top, bot=bot)
+            plain = lambda: k.plain(x, wt, b, relu, top=top, bot=bot)
+            parts = [x[:, 1:2] if top is None else top, x, x[:, -2:-1] if bot is None else bot]
+            library = lambda: torch.cat(parts, dim=1)
+            own = lambda: k(x, wt, b, relu)
         elif kernel == "conv1x1_bias":
             # (N, H, W, Cin, Cout, relu, bias, offset): an offset of a few
             # floats leaves a contiguous map that is not 16-byte aligned
@@ -539,6 +596,9 @@ class Bench:
             row.update(ms=cuda_ms(torch, call, reps), plain_ms=cuda_ms(torch, plain, reps),
                        library_ms=cuda_ms(torch, library, reps),
                        bytes_ms=nbytes / PEAK_BYTES * 1e3, flops_ms=flops / PEAK_FP32_FLOPS * 1e3)
+            if kernel == "conv3x3_halo":   # what the rows add to the conv
+                row.update(conv_ms=row["ms"], reflect_ms=cuda_ms(torch, own, reps))
+                row["ms"] = row["conv_ms"] - row["reflect_ms"]
         return row
 
 
@@ -667,13 +727,17 @@ def sharded_main_path(torch, kc, engine, c_uhd, s2k, calls_sh, label) -> dict:
     return {"s": secs, "cold_s": cold, "launches": counts, "mean_change": change}
 
 
-def cross_card(torch, kc, WCTEngine, bench, c_uhd, s2k, calls_sh) -> dict:
+def cross_card(torch, kc, WCTEngine, bench, c_uhd, c2k, s2k, calls_sh) -> dict:
     """Phases 2, 3c, 4c and 5c for shards on different cards (two or more
     visible): the halo kernel reading neighbours' rows on other cards (peer
     pointers, or the copy where the cards have no peer access) against its
-    plain version, exactly; the sharded UHD path with neighbouring shards on
-    different cards, its launch counts, its output against the single-card
-    slab cascade, and its warm time and per-card peak memory."""
+    plain version, exactly; conv3x3's halo staging reading its rows there
+    against its plain version (CONV_TOL); the per-conv 2048^2 cascade with
+    one shard per card against the plain one, with its launches, and timed
+    (:func:`per_conv_timing`: median of 5, peak per card); the sharded
+    UHD path with neighbouring shards on different cards, its launch counts,
+    its output against the single-card slab cascade, and its warm time and
+    per-card peak memory."""
     n_cards = torch.cuda.device_count()
     spread = [f"cuda:{i % n_cards}" for i in range(SHARDS)]
     peer = {f"{a}->{b}": torch.cuda.can_device_access_peer(a, b)
@@ -692,9 +756,48 @@ def cross_card(torch, kc, WCTEngine, bench, c_uhd, s2k, calls_sh) -> dict:
                                  f"neighbours on other cards differs from its plain version")
     log("cross-card: halo_exchange_rows with neighbours on other cards equals its plain "
         "version exactly at 3 shapes")
+    worst = 0.0
+    for n, h, w, ci, co in [(1, 512, 2048, 3, 16), (2, 9, 33, 16, 16), (1, 64, 256, 64, 64),
+                            (1, 32, 128, 128, 128), (1, 17, 40, 256, 24), (1, 1, 64, 32, 24)]:
+        x = bench.rand(n, h, w, ci) - 0.5
+        up = (bench.rand(n, 3, w, ci) - 0.5).to("cuda:1")
+        down = (bench.rand(n, 2, w, ci) - 0.5).to(f"cuda:{n_cards - 1}")
+        wt = (bench.rand(3, 3, ci, co) - 0.5) * (2 / (9 * ci) ** 0.5)
+        b = bench.rand(co) - 0.5
+        got = kc.conv3x3_reflect(x, wt, b, True, top=up[:, -1:], bot=down[:, :1])
+        ref = kc.conv3x3_reflect.plain(x, wt, b, True, top=up[:, -1:], bot=down[:, :1])
+        torch.cuda.synchronize()
+        scale = float(0.5 * wt.abs().sum(dim=(0, 1, 2)).max() + b.abs().max())
+        rel = float((got - ref).abs().max()) / scale
+        worst = max(worst, rel)
+        if not (got.device == x.device and rel <= CONV_TOL):
+            raise AssertionError(f"conv3x3 halo rows{(n, h, w, ci, co)} on other cards: rel "
+                                 f"err {rel} > {CONV_TOL}")
+    per_conv = WCTEngine(mode="16x", space=SHARDS, devices=spread)
+    with torch.inference_mode():
+        img2k, sty2k = per_conv._prep(c2k), per_conv._prep(s2k)
+        pc_out, pc_counts = per_conv_run(kc, per_conv, img2k, sty2k)
+        for d in range(n_cards):
+            torch.cuda.synchronize(d)
+        db_pc = psnr_device(torch, pc_out.to("cuda:0"),
+                            WCTEngine(mode="16x").stylize_device(img2k, sty2k))
+        del pc_out
+    pc_timed = per_conv_timing(torch, kc, per_conv, img2k, sty2k, "cross-card")
+    del img2k, sty2k
+    log(f"cross-card: conv3x3 with halo rows on other cards vs its plain version at 6 shapes, "
+        f"max rel err {worst:.3e} (tol {CONV_TOL}); the per-conv 2048^2 cascade on {spread} vs "
+        f"the plain one {db_pc:.2f} dB (min {PSNR_MIN_DB}), launches {pc_counts}")
+    pc_plan = sum(per_conv_calls(per_conv.pyramid, per_conv.stages, [2048 // SHARDS] * SHARDS,
+                                 2048).values())
+    if not (db_pc >= PSNR_MIN_DB and pc_counts == {"halo_exchange_rows": 0,
+                                                   "conv3x3_halo": pc_plan}):
+        raise AssertionError(f"cross-card per-conv cascade: {db_pc:.2f} dB, launches "
+                             f"{pc_counts}, predicted {pc_plan} halo convs")
     engine = WCTEngine(mode="16x", space=SHARDS, slab_rows=SHARD_SLAB, devices=spread)
     out = {"main": sharded_main_path(torch, kc, engine, c_uhd, s2k, calls_sh,
-                                     "phase 3c (cross-card)"), "peer": peer}
+                                     "phase 3c (cross-card)"), "peer": peer,
+           "halo_conv_max_rel_err": worst, "per_conv_2048_psnr_db": db_pc,
+           "per_conv_launches": pc_counts, "per_conv_2048": pc_timed}
     with torch.inference_mode():
         img, sty = engine._prep(c_uhd), engine._prep(s2k)
         one_card = WCTEngine(mode="16x", slab_rows=SHARD_SLAB).stylize_device(img, sty)
@@ -721,6 +824,54 @@ def cross_card(torch, kc, WCTEngine, bench, c_uhd, s2k, calls_sh) -> dict:
         raise AssertionError(f"cross-card sharded vs single-card PSNR {db:.2f} dB")
     out.update(psnr_db=db, runs_ms=runs, enqueued_ms=enqueued,
                median_ms=statistics.median(runs), peak_gib=peaks)
+    return out
+
+
+def per_conv_timing(torch, kc, engine, img, sty, label) -> dict:
+    """The warm per-conv sharded cascade on device maps: the median of 5
+    (host clock around runs synchronised on every card of the mesh, and when
+    the host had enqueued all work), its launches (counters zeroed around
+    one run), peak memory per card, and, on one card, one profiled run's
+    device busy time and idle share (the profile spans one card)."""
+    cards = sorted({torch.device(d).index for d in engine.mesh.devices[0]})
+
+    def sync():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
+    with torch.inference_mode():
+        engine.stylize_device(img, sty)   # warm
+        _, halo = per_conv_run(kc, engine, img, sty)
+        launches = {**_counts(kc), **halo}
+        sync()
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+        resident = torch.cuda.memory_allocated(cards[0]) / 2**30
+        runs, enqueued = [], []
+        for _ in range(5):
+            sync()
+            t0 = time.perf_counter()
+            engine.stylize_device(img, sty)
+            enqueued.append((time.perf_counter() - t0) * 1e3)
+            sync()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        peaks = [torch.cuda.max_memory_allocated(d) / 2**30 for d in cards]
+    prof = (profile_cascade(torch, engine, img, sty, label) if len(cards) == 1
+            else {"busy_ms": None})
+    out = {"shape": list(img.shape[1:3]), "cards": len(cards), "runs_ms": runs,
+           "median_ms": statistics.median(runs), "enqueued_ms": enqueued,
+           "peak_gib": max(peaks), "peak_gib_per_card": peaks,
+           "resident_before_gib": resident, "launches": launches,
+           "busy_ms": prof["busy_ms"], "idle_share": prof.get("idle_share"),
+           "conv3x3_ms": prof.get("conv3x3_ms"), "profile": prof}
+    busy = "not measured" if prof["busy_ms"] is None else (
+        f"{prof['busy_ms']:.2f} ms, idle share {prof['idle_share']:.3f}")
+    where = "one card" if len(cards) == 1 else f"{len(cards)} cards"
+    log(f"{label}: warm per-conv cascade {img.shape[1]}x{img.shape[2]} (space={SHARDS} on "
+        f"{where}) {out['median_ms']:.2f} ms (runs {', '.join(f'{r:.2f}' for r in runs)}; "
+        f"the host had enqueued all work after {', '.join(f'{r:.2f}' for r in enqueued)} ms), "
+        f"busy {busy}, peak GiB per card {', '.join(f'{p:.2f}' for p in peaks)} ({resident:.2f} "
+        f"GiB held before it on the first); launches {launches}")
     return out
 
 
@@ -979,6 +1130,16 @@ def _totals(kc, calls) -> dict:
 def _zero(kc) -> None:
     for k in kc.KERNELS:
         k.launches = 0
+    kc.conv3x3_reflect.halo_launches = 0
+
+
+def per_conv_run(kc, engine, img, sty):
+    """One per-conv sharded cascade on device maps, the counters zeroed
+    around it: its output, and its exchange launches and halo convs."""
+    _zero(kc)
+    out = engine.stylize_device(img, sty)
+    return out, {"halo_exchange_rows": kc.halo_exchange_rows.launches,
+                 "conv3x3_halo": kc.conv3x3_reflect.halo_launches}
 
 
 def _counts(kc) -> dict:
@@ -1899,12 +2060,38 @@ def train_cli_runs(torch, kc, c512, s512, tmp, teachers) -> dict:
     return out
 
 
+def teacher_conv_times(torch) -> dict:
+    """8d: conv3x3_reflect at every conv shape of a wct_se step (stage 5 x
+    16 x 256^2) that its launch plan gives to the first kernel (the
+    teachers' Cin or Cout 256/512), forward only, against its plain version
+    and cuDNN's FP32 forward (a reflect ``nn.Conv2d``, TF32 off), summed
+    over the step's calls beside the bound."""
+    from collaborative_distillation_tpu_torch.ops.cuda.conv import device_plan
+    calls = Counter()
+    for spec in _train_runs("wct_se"):
+        hh = TRAIN_HW if spec.kind == "encoder" else TRAIN_HW >> (TRAIN_STAGE - 1)
+        for l in spec.layers:
+            shape = (TRAIN_N, hh, hh, l.in_ch, l.out_ch, l.relu)
+            if device_plan(*shape[:5], 0).kernel == "first":
+                calls[shape] += 1
+            hh = hh // 2 if l.pool_after else hh * 2 if l.unpool_after else hh
+    bench = Bench(torch, None)
+    rows = [{**bench.run("conv3x3_reflect", s, timed=True), "calls": n}
+            for s, n in sorted(calls.items())]
+    out = {"launches": sum(calls.values()), **path_times(rows), "shapes": rows}
+    log(f"phase 8d: a wct_se step's {out['launches']} first-kernel convs (teacher widths, "
+        f"N = {TRAIN_N}): {out['ms']:.2f} ms, cuDNN FP32 (TF32 off) {out['library_ms']:.2f}, "
+        f"plain {out['plain_ms']:.2f}, bound {out['bound_ms']:.2f} ({out['bound_by']})")
+    return out
+
+
 def training(torch, kc, c512, s512, tmp, teachers) -> dict:
-    """Phase 8: the training path (8a, 8b, 8c), with its own clock;
+    """Phase 8: the training path (8a, 8b, 8c, 8d), with its own clock;
     ``teachers``: phase 9c's store."""
     t0 = time.perf_counter()
     out = {"autograd": train_autograd_checks(torch), "card_vs_cpu": train_card_vs_cpu(torch),
-           "cli": train_cli_runs(torch, kc, c512, s512, tmp, teachers)}
+           "cli": train_cli_runs(torch, kc, c512, s512, tmp, teachers),
+           "teacher_convs": teacher_conv_times(torch)}
     out["phase8_s"] = time.perf_counter() - t0
     log(f"phase 8: {out['phase8_s']:.1f} s")
     return out
@@ -2340,7 +2527,7 @@ def main() -> int:
         if torch.cuda.device_count() < 2:
             print("chip_smoke --cross-card: needs two or more CUDA devices", file=sys.stderr)
             return 1
-        detail["cross_card"] = cross_card(torch, kc, WCTEngine, bench, c_uhd, s2k, calls_sh)
+        detail["cross_card"] = cross_card(torch, kc, WCTEngine, bench, c_uhd, c2k, s2k, calls_sh)
         os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
         with open(os.path.join(HERE, "chiprun_out", "chip_smoke_cross_card.json"), "w") as f:
             json.dump(detail, f, indent=1)
@@ -2423,25 +2610,41 @@ def main() -> int:
         f"{len(only_sh)} further sharded UHD path shapes ({n_halo} of the halo, exact; "
         f"UHD ones in {time.perf_counter() - t0:.1f} s)")
     # the per-conv sharded path at 2000 rows: shards of unequal heights (whole
-    # 16-row blocks, the remainder on the last), one exchange per conv; and
-    # photo-WCT's decoder convs on max-unpooled maps (3 of 4 values 0)
+    # 16-row blocks, the remainder on the last), every conv staging its
+    # neighbours' rows, timed against the same conv reflecting its own (row
+    # 8a); edge shapes of the halo conv; and photo-WCT's decoder convs on
+    # max-unpooled maps (3 of 4 values 0)
     awk_rows = per_conv._block_rows(PC_AWK_H)
-    pc_calls = per_conv_halo_calls(pyr, eng.stages, awk_rows, 2048)
+    pc_calls = per_conv_calls(pyr, eng.stages, awk_rows, 2048)
     pc_rows = []
     for (kernel, shape), n in sorted(pc_calls.items(), key=str):
-        pc_rows.append({**bench.run(kernel, shape, timed=True), "calls": n})
+        pc_rows.append({**bench.run(kernel, shape, timed=True, reps=20), "calls": n})
+    # (N, H, W, Cin, Cout, relu, sides, float offset): H = 1, ragged tiles of
+    # every template, N = 2, rows off 16-byte alignment, a null side
+    halo_edge = [bench.run("conv3x3_halo", s) for s in
+                 [(1, 1, 1, 128, 128, True, "both", 0), (2, 1, 37, 16, 16, True, "both", 1),
+                  (1, 9, 17, 128, 128, True, "bot", 1), (1, 17, 17, 64, 64, True, "top", 3),
+                  (2, 17, 33, 32, 32, False, "both", 1), (1, 17, 33, 3, 24, True, "bot", 1),
+                  (1, 33, 33, 16, 16, True, "both", 2), (1, 33, 65, 16, 3, False, "top", 1),
+                  (1, 33, 65, 24, 3, True, "both", 0), (2, 2, 13, 16, 16, True, "both", 0),
+                  (1, 37, 45, 64, 128, True, "both", 1), (1, 16, 16, 256, 24, True, "both", 1),
+                  (2, 5, 7, 5, 7, True, "top", 0), (1, 1, 9, 512, 512, True, "both", 0)]]
     unpooled = unpooled_conv_checks(torch, kc, pyr, eng.stages, 2048, 2048)
-    checks += pc_rows + unpooled
+    checks += pc_rows + halo_edge + unpooled
     detail["per_conv_awkward_halo"] = {"shard_rows": awk_rows, "launches": sum(pc_calls.values()),
-                                       **path_times(pc_rows)}
+                                       **path_times(pc_rows),
+                                       "conv_ms": sum(r["conv_ms"] * r["calls"] for r in pc_rows),
+                                       "reflect_ms": sum(r["reflect_ms"] * r["calls"]
+                                                         for r in pc_rows)}
     detail["unpooled_conv3x3"] = {"launches": len(unpooled), **path_times(unpooled)}
+    pc = detail["per_conv_awkward_halo"]
     log(f"phase 2: the per-conv sharded path at {PC_AWK_H}x2048 (shard rows {awk_rows}): "
-        f"{len(pc_rows)} halo shapes, exact; a cascade's "
-        f"{detail['per_conv_awkward_halo']['launches']} exchanges "
-        f"{detail['per_conv_awkward_halo']['ms']:.3f} ms (bound "
-        f"{detail['per_conv_awkward_halo']['bound_ms']:.3f}, plain "
-        f"{detail['per_conv_awkward_halo']['plain_ms']:.3f}, torch.cat "
-        f"{detail['per_conv_awkward_halo']['library_ms']:.3f}); conv3x3 on "
+        f"{len(pc_rows)} halo conv shapes and {len(halo_edge)} edge ones, max rel err "
+        f"{max(r['max_rel_err'] for r in pc_rows + halo_edge):.3e} (tol {CONV_TOL}); a "
+        f"cascade's {pc['launches']} halo convs {pc['conv_ms']:.3f} ms against "
+        f"{pc['reflect_ms']:.3f} reflecting their own rows: the rows add {pc['ms']:.3f} ms "
+        f"(bound {pc['bound_ms']:.4f}, plain {pc['plain_ms']:.3f}, torch.cat of the "
+        f"extended shards {pc['library_ms']:.3f}); conv3x3 on "
         f"{len(unpooled)} max-unpooled 2048^2 decoder maps "
         f"({min(r['zero_share'] for r in unpooled):.3f}+ zeros): max rel err "
         f"{max(r['max_rel_err'] for r in unpooled):.3e} (tol {CONV_TOL}), "
@@ -2574,7 +2777,7 @@ def main() -> int:
                                                "phase 3c")
     launches_sh = detail["sharded_main"]["launches"]
     if torch.cuda.device_count() >= 2:
-        detail["cross_card"] = cross_card(torch, kc, WCTEngine, bench, c_uhd, s2k, calls_sh)
+        detail["cross_card"] = cross_card(torch, kc, WCTEngine, bench, c_uhd, c2k, s2k, calls_sh)
     else:
         log("phase 3c: one card: the four shards shared it; no cross-card run was made "
             "(peer pointers and the event ordering between cards' streams are not "
@@ -2625,32 +2828,40 @@ def main() -> int:
         one_card = WCTEngine(mode="16x", slab_rows=SHARD_SLAB).stylize_device(img_uhd, sty2k)
         db_sh = psnr_device(torch, shard_eng.stylize_device(img_uhd, sty2k), one_card)
         del one_card
-        before = kc.halo_exchange_rows.launches
-        db_pc = psnr_device(torch, per_conv.stylize_device(img2k, sty2k),
-                            eng.stylize_device(img2k, sty2k))
-        pc_halos = kc.halo_exchange_rows.launches - before
-        # rows past a multiple of 16 * space, in the content and in the style:
-        # whole 16-row blocks, the style's statistics taken whole
-        db_awk_c = psnr_device(torch, per_conv.stylize_device(img2k[:, :PC_AWK_H], sty2k),
-                               eng.stylize_device(img2k[:, :PC_AWK_H], sty2k))
-        db_awk_s = psnr_device(torch, per_conv.stylize_device(img2k, sty2k[:, :PC_AWK_H]),
-                               eng.stylize_device(img2k, sty2k[:, :PC_AWK_H]))
-    # one exchange per conv of the content's encoder and the decoder, and shard
-    pc_expect = sum(per_conv_halo_calls(pyr, eng.stages, [2048 // SHARDS] * SHARDS,
-                                        2048).values())
+        # the per-conv path: every conv stages its halo rows itself, so it
+        # launches no exchange; rows past a multiple of 16 * space, in the
+        # content and in the style: whole 16-row blocks, the style's
+        # statistics taken whole
+        pc_out, pc_counts = per_conv_run(kc, per_conv, img2k, sty2k)
+        db_pc = psnr_device(torch, pc_out, eng.stylize_device(img2k, sty2k))
+        pc_out, awk_counts = per_conv_run(kc, per_conv, img2k[:, :PC_AWK_H], sty2k)
+        db_awk_c = psnr_device(torch, pc_out, eng.stylize_device(img2k[:, :PC_AWK_H], sty2k))
+        pc_out, awk_s_counts = per_conv_run(kc, per_conv, img2k, sty2k[:, :PC_AWK_H])
+        db_awk_s = psnr_device(torch, pc_out, eng.stylize_device(img2k, sty2k[:, :PC_AWK_H]))
+        del pc_out
+    # one halo conv per conv of the content's encoder and the decoder, and shard
+    pc_expect = {"halo_exchange_rows": 0, "conv3x3_halo": sum(per_conv_calls(
+        pyr, eng.stages, [2048 // SHARDS] * SHARDS, 2048).values())}
+    awk_expect = {"halo_exchange_rows": 0, "conv3x3_halo": sum(per_conv_calls(
+        pyr, eng.stages, per_conv._block_rows(PC_AWK_H), 2048).values())}
     log(f"phase 4c: UHD sharded (space={SHARDS}, slab_rows={SHARD_SLAB}) vs the single-card "
         f"slab cascade at the same slab size PSNR {db_sh:.2f} dB; 2048^2 per-conv sharded "
         f"vs plain {db_pc:.2f} dB; {PC_AWK_H}x2048 content {db_awk_c:.2f} dB, {PC_AWK_H}x2048 "
-        f"style {db_awk_s:.2f} dB (min {PSNR_MIN_DB}); per-conv halo launches {pc_halos}, "
-        f"predicted {pc_expect}")
+        f"style {db_awk_s:.2f} dB (min {PSNR_MIN_DB}); per-conv launches at 2048^2 "
+        f"{pc_counts}, {PC_AWK_H}x2048 content {awk_counts}, style {awk_s_counts}, "
+        f"predicted {pc_expect}, {awk_expect}, {pc_expect}")
     detail["sharded_vs_single"] = {"uhd_psnr_db": db_sh, "per_conv_2048_psnr_db": db_pc,
-                                   "per_conv_halo_launches": pc_halos,
+                                   "per_conv_launches": pc_counts,
+                                   "per_conv_awkward_content_launches": awk_counts,
+                                   "per_conv_awkward_style_launches": awk_s_counts,
                                    "per_conv_awkward_content_psnr_db": db_awk_c,
                                    "per_conv_awkward_style_psnr_db": db_awk_s}
-    if not (min(db_sh, db_pc, db_awk_c, db_awk_s) >= PSNR_MIN_DB and pc_halos == pc_expect):
+    if not (min(db_sh, db_pc, db_awk_c, db_awk_s) >= PSNR_MIN_DB and pc_counts == pc_expect
+            and awk_counts == awk_expect and awk_s_counts == pc_expect):
         raise AssertionError(f"sharded vs single-card: UHD {db_sh:.2f} dB, per-conv "
-                             f"{db_pc:.2f} / {db_awk_c:.2f} / {db_awk_s:.2f} dB, halo "
-                             f"launches {pc_halos} != {pc_expect}")
+                             f"{db_pc:.2f} / {db_awk_c:.2f} / {db_awk_s:.2f} dB, launches "
+                             f"{pc_counts}, {awk_counts}, {awk_s_counts} != {pc_expect}, "
+                             f"{awk_expect}, {pc_expect}")
 
     # ---- phase 4d: a height that is no slab multiple ----------------------------
     from collaborative_distillation_tpu_torch.parallel.spatial import shard_rows
@@ -2724,8 +2935,9 @@ def main() -> int:
     for k in kc.KERNELS:
         name = k.__name__
         src, rep = KERNEL_META[name]
-        errs = [r["max_abs_err"] for r in checks + rows if r["kernel"] == name]
-        rel = [r["max_rel_err"] for r in checks + rows if r["kernel"] == name]
+        mine = [r for r in checks + rows if KERNEL_OF.get(r["kernel"], r["kernel"]) == name]
+        errs = [r["max_abs_err"] for r in mine]
+        rel = [r["max_rel_err"] for r in mine]
         table.append({
             "name": name, "route": "cuda", "source": REPO_PATH + src, "replaces": rep,
             "launches": path_launches[name], "max_abs_err": max(errs), "max_err": max(errs),
@@ -2888,6 +3100,10 @@ def main() -> int:
         f"enqueued all work after {', '.join(f'{r:.2f}' for r in enqueued_sh)} ms), peak "
         f"{peak_sh:.2f} GiB ({resident_sh:.2f} GiB held before it)")
     detail["profile_sharded"] = profile_cascade(torch, shard_eng, img_uhd, sty2k, "phase 5c")
+    # ---- phase 5d: the warm per-conv sharded cascade -----------------------------
+    detail["per_conv_timed"] = [per_conv_timing(torch, kc, per_conv, img2k[:, :h], sty2k,
+                                                f"phase 5d ({h}x2048)")
+                                for h in (2048, PC_AWK_H)]
     detail["host_boundary"] = host_boundary(torch, kc, slab_eng, eng, c_uhd, c2k, s2k,
                                             expect_uhd)
     import tempfile

@@ -48,15 +48,23 @@ def _records_grad(*tensors) -> bool:
 
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
-            relu: bool = True) -> torch.Tensor:
+            relu: bool = True, top: torch.Tensor | None = None,
+            bot: torch.Tensor | None = None) -> torch.Tensor:
     """Reflect-pad(1) + 3x3 VALID conv (+ optional ReLU): the reference's
-    universal conv block (model_original.py:494 ``relu(conv(pad(x)))``)."""
-    if _records_grad(x, w, b):
+    universal conv block (model_original.py:494 ``relu(conv(pad(x)))``).
+
+    ``top``, ``bot``: the (N, 1, W, Cin) rows above and below a row shard
+    (the per-conv sharded path's halos; ``None`` for the shard's own
+    reflection row). Inference only: refused while autograd records."""
+    halo = top is not None or bot is not None
+    if _records_grad(x, w, b, top, bot):
+        if halo:
+            raise ValueError("conv3x3: halo rows are inference only (the per-conv sharded "
+                             "path); autograd is recording and an input requires grad")
         fwd = _kconv.conv3x3_reflect if on_card(x) else _kconv.conv3x3_plain
         return _grad.Conv3x3.apply(x, w, b, relu, fwd)
-    if on_card(x):
-        return _kconv.conv3x3_reflect(x, w, b, relu)
-    return _kconv.conv3x3_plain(x, w, b, relu)
+    conv = _kconv.conv3x3_reflect if on_card(x) else _kconv.conv3x3_plain
+    return conv(x, w, b, relu, top=top, bot=bot) if halo else conv(x, w, b, relu)
 
 
 def conv1x1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,

@@ -6,6 +6,13 @@ maps. :func:`launch_plan` picks, by shape alone, which of its templates runs:
 a ring template at the cascade's widths, the first port's kernel at others.
 :func:`conv3x3_plain` computes the same function with PyTorch ops; the CPU
 path and the tests use it.
+
+Both take optional halo rows, ``top`` and ``bot``: for a shard of a
+row-sharded map, the rows that stand above and below it (the neighbour
+shards' boundary rows, read in place), as the reference's
+``parallel/spatial.py:conv3x3_halo`` convolves a shard: its rows between
+them, reflect-padded in W only. A row that is ``None`` is the shard's own
+reflection row, as without halos.
 """
 
 from __future__ import annotations
@@ -16,8 +23,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ..pad import reflect_pad
+from ..pad import reflect_index, reflect_pad
 from . import _build
+from .peer import batch_stride, ptr, reachable, release
 
 __all__ = ["conv3x3_plain", "conv3x3_reflect", "launch_plan", "device_plan", "ConvPlan"]
 
@@ -87,48 +95,88 @@ def device_plan(n: int, h: int, w: int, cin: int, cout: int, index: int) -> Conv
                        torch.cuda.get_device_properties(index).multi_processor_count)
 
 
+def _check_halo(name: str, x: torch.Tensor, top, bot) -> None:
+    """What both versions refuse of halo rows: each (N, 1, W, Cin) of x's
+    type, its images' rows contiguous (any batch stride)."""
+    n, _, w, c = x.shape
+    for side, t in (("top", top), ("bot", bot)):
+        if t is None:
+            continue
+        if tuple(t.shape) != (n, 1, w, c):
+            raise ValueError(f"{name}: {side} row {tuple(t.shape)} != {(n, 1, w, c)}")
+        if t.dtype != x.dtype:
+            raise ValueError(f"{name}: {side} row is {t.dtype}, x {x.dtype}")
+        if not t[0].is_contiguous():
+            raise ValueError(f"{name}: {side} row must be contiguous within each image")
+
+
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
-                  relu: bool) -> torch.Tensor:
+                  relu: bool, *, top: torch.Tensor | None = None,
+                  bot: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of the kernel: reflect-pad(1) + 3x3 VALID conv (+ ReLU),
-    NHWC x HWIO -> NHWC."""
-    y = F.conv2d(reflect_pad(x, 1).permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b)
+    NHWC x HWIO -> NHWC. With halo rows, the reference's ``conv3x3_halo``:
+    ``[top, x, bot]`` along H (the shard's own reflection row where one is
+    ``None``), reflect-padded in W only, then the VALID conv."""
+    if top is None and bot is None:
+        xp = reflect_pad(x, 1)
+    else:
+        _check_halo("conv3x3_plain", x, top, bot)
+        h = x.shape[1]
+        edge_top, edge_bot = (x[:, 1:2], x[:, -2:-1]) if h >= 2 else (x, x)
+        rows = torch.cat([edge_top if top is None else top.to(x.device), x,
+                          edge_bot if bot is None else bot.to(x.device)], dim=1)
+        xp = rows.index_select(2, reflect_index(x.shape[2], 1, 1, x.device))
+    y = F.conv2d(xp.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b)
     y = y.permute(0, 2, 3, 1).contiguous()
     return torch.relu(y) if relu else y
 
 
 def conv3x3_reflect(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
-                    relu: bool) -> torch.Tensor:
+                    relu: bool, *, top: torch.Tensor | None = None,
+                    bot: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the kernel: ``x`` (N, H, W, Cin), ``w`` (3, 3, Cin, Cout) HWIO,
     ``b`` (Cout,) or None, all contiguous float32 on one CUDA device ->
-    (N, H, W, Cout), by the template :func:`launch_plan` picks."""
+    (N, H, W, Cout), by the template :func:`launch_plan` picks. ``top``,
+    ``bot``: (N, 1, W, Cin) float32 CUDA rows, each image's row contiguous,
+    on any card, or None; the staging reads them in place (counted in
+    ``conv3x3_reflect.halo_launches`` too)."""
+    name = "conv3x3_reflect"
     if x.dim() != 4 or w.shape[:3] != (3, 3, x.shape[3]):
-        raise ValueError(f"conv3x3_reflect: x {tuple(x.shape)} and HWIO w "
+        raise ValueError(f"{name}: x {tuple(x.shape)} and HWIO w "
                          f"{tuple(w.shape)} do not match")
     n, h, wd, cin = x.shape
     cout = w.shape[3]
     if not 1 <= cin <= 512 or not 1 <= cout <= 512:
-        raise ValueError(f"conv3x3_reflect: Cin {cin}, Cout {cout} outside 1..512")
+        raise ValueError(f"{name}: Cin {cin}, Cout {cout} outside 1..512")
     if b is None:
         b = torch.zeros(cout, device=x.device, dtype=x.dtype)
-    _check_cuda("conv3x3_reflect", x, w, b)
+    rows = [t for t in (top, bot) if t is not None]
+    _check_cuda(name, x, w, b, rows=rows)
     if b.shape != (cout,):
-        raise ValueError(f"conv3x3_reflect: bias {tuple(b.shape)} != ({cout},)")
+        raise ValueError(f"{name}: bias {tuple(b.shape)} != ({cout},)")
+    _check_halo(name, x, top, bot)
     y = torch.empty((n, h, wd, cout), device=x.device, dtype=torch.float32)
     if y.numel() == 0:
         return y
     plan = device_plan(n, h, wd, cin, cout, x.device.index)
     lib = _build.library()
     with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream()
+        top, bot = reachable(top, x.device, stream), reachable(bot, x.device, stream)
         err = lib.cd_conv3x3_reflect(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), n, h, wd,
-            cin, cout, int(relu), plan.template, plan.grid[0],
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "conv3x3_reflect")
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), ptr(top), ptr(bot),
+            batch_stride(top), batch_stride(bot), n, h, wd, cin, cout, int(relu),
+            plan.template, plan.grid[0], stream.cuda_stream)
+        release(top, x.device, stream)
+        release(bot, x.device, stream)
+    _build.check(err, name)
     conv3x3_reflect.launches += 1
+    conv3x3_reflect.halo_launches += bool(rows)
     return y
 
 
 conv3x3_reflect.launches = 0
+conv3x3_reflect.halo_launches = 0
 conv3x3_reflect.plain = conv3x3_plain
 
 
@@ -142,11 +190,15 @@ def _refuse_grad(name: str, *tensors: torch.Tensor | None) -> None:
                          f"call it through ops.conv, whose autograd Function launches it")
 
 
-def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
+def _check_cuda(name: str, *tensors: torch.Tensor, rows=()) -> None:
     """The kernels take contiguous float32 tensors on one CUDA device, and
-    no input that requires grad while autograd records."""
-    _refuse_grad(name, *tensors)
+    no input that requires grad while autograd records; ``rows`` (halo rows
+    of another shard) may lie on any CUDA device."""
+    _refuse_grad(name, *tensors, *rows)
     dev = tensors[0].device
+    for t in rows:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: needs CUDA halo rows, got {t.device}")
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name}: needs CUDA tensors on one device, got "

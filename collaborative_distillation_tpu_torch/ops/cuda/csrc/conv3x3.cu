@@ -52,6 +52,28 @@
 // first_conv3x3_kernel (every other width: the teachers' 256 and 512, odd widths):
 //   the first port's kernel, a 16x16 tile x a Cout tile of 4 * CPT, Cin
 //   chunks of 16 staged by plain loads, 4 pixels x CPT couts a thread.
+//
+// Halo rows (both kernels, template flag HALO): a shard of a row-sharded map
+// is convolved as the reference's conv3x3_halo (parallel/spatial.py:79-88)
+// does it: its rows with one row above and one below, reflect-padded in W
+// only. With HALO the staging reads map row -1 from `top` and row H from `bot`
+// where those are given (one row of W x Cin floats for image 0, image i's
+// `*_stride` elements further on; the neighbour shard's boundary row, read in
+// place, through a peer pointer where it lies on another card), and reflects
+// where one is null (a global edge of a shard of 2+ rows). Columns reflect
+// inside the halo row too, so the corners are those of the reference's W-only
+// pad of the concatenated map. This replaces the per-conv path's exchange
+// through halo.cu (kernel table row 8a), which wrote each shard whole into an
+// extended map for the conv to compute two rows nobody wanted (8.77-10.92 ms
+// timed alone against a 4.06 ms bound over the 248 shard-convs of a
+// 2000 x 2048 cascade). What the rows must move is two of W x Cin floats per
+// shard, a 0.0124 ms bound for that cascade. The staging is the place for
+// them: it already computes a source address for every halo row of its tile
+// (that is where reflection lives), so another source costs no pass and no
+// launch of its own. Image n's two row pointers are taken once a staging
+// step, and only a row outside [0, H) picks between them and reflection, so
+// rows inside the map stage as they do without HALO (whose code is the
+// kernel's without halo rows).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,6 +89,36 @@ __device__ __forceinline__ int reflect1(int i, int n) {
 }
 
 constexpr int kMaxDevices = 64;
+
+// Halo rows of a shard (see the header): null where the shard reflects.
+struct Halo {
+  const float* top;
+  const float* bot;
+  long long top_stride, bot_stride;   // elements from image i's row to i + 1's
+};
+
+// The map that staging reads row gy of image n from, for a row outside
+// [0, H): row -1 from top_n and row H from bot_n (image n's halo rows) where
+// given, gy moved to 0 in it; any other row reflects into x (and is clamped
+// for ragged tiles, so rows past H that are never stored read no further).
+__device__ __forceinline__ const float* edge_row(const float* xn, const float* top_n,
+                                                 const float* bot_n, int& gy, int H) {
+  if (gy == -1 && top_n) {
+    gy = 0;
+    return top_n;
+  }
+  if (gy == H && bot_n) {
+    gy = 0;
+    return bot_n;
+  }
+  gy = reflect1(gy, H);
+  return xn;
+}
+
+// Image n's halo rows, or null.
+__device__ __forceinline__ const float* halo_row(const float* row, long long stride, int n) {
+  return row ? row + n * stride : nullptr;
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -126,12 +178,12 @@ struct Ring {
   static_assert(TW % PX == 0 && NT % 32 == 0 && NT <= 1024, "threads");
 };
 
-template <class R>
+template <class R, bool HALO>
 __global__ void __launch_bounds__(R::NT, 1)
 ring_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ b, float* __restrict__ y, int H, int W,
                     int Cin, int Cout, int relu, int vec_x, int vec_w, int vec_y,
-                    int tiles_h, int tiles_w, int ntiles) {
+                    int tiles_h, int tiles_w, int ntiles, Halo halo) {
   constexpr int CO_T = R::CO_T, CPT = R::CPT, TH = R::TH, TW = R::TW;
   constexpr int CI_T = R::CI_T, NS = R::NS, NT = R::NT, G = R::G;
   constexpr int HR = R::HR, HC = R::HC, TWP = R::TWP, CIS = R::CIS;
@@ -159,6 +211,8 @@ ring_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int ty0 = (r0 / tiles_w) * TH;
       const int tx0 = (r0 % tiles_w) * TW;
       const float* xn = x + (size_t)n * H * W * Cin;
+      const float* top_n = HALO ? halo_row(halo.top, halo.top_stride, n) : nullptr;
+      const float* bot_n = HALO ? halo_row(halo.bot, halo.bot_stride, n) : nullptr;
       float* xs = smem + (k % NS) * R::SLOT;
       float* ws = xs + R::XSLOT;
       if (vec_x) {
@@ -169,12 +223,16 @@ ring_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
           const int c = pix % HC;
           const int r = pix / HC;
           int gy = ty0 + r - 1, gx = tx0 + c - 1;
-          if (static_cast<unsigned>(gy) >= static_cast<unsigned>(H)) gy = reflect1(gy, H);
+          const float* xr = xn;
+          if (static_cast<unsigned>(gy) >= static_cast<unsigned>(H)) {
+            if constexpr (HALO) xr = edge_row(xn, top_n, bot_n, gy, H);
+            else gy = reflect1(gy, H);
+          }
           if (static_cast<unsigned>(gx) >= static_cast<unsigned>(W)) gx = reflect1(gx, W);
           float* dst = xs + (r * TWP + c) * CIS + 4 * q;
           const int ci = ci0 + 4 * q;
           if (ci < Cin)
-            cp_async16(dst, xn + ((size_t)gy * W + gx) * Cin + ci);
+            cp_async16(dst, xr + ((size_t)gy * W + gx) * Cin + ci);
           else
             *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
         }
@@ -185,11 +243,15 @@ ring_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
           const int c = pix % HC;
           const int r = pix / HC;
           int gy = ty0 + r - 1, gx = tx0 + c - 1;
-          if (static_cast<unsigned>(gy) >= static_cast<unsigned>(H)) gy = reflect1(gy, H);
+          const float* xr = xn;
+          if (static_cast<unsigned>(gy) >= static_cast<unsigned>(H)) {
+            if constexpr (HALO) xr = edge_row(xn, top_n, bot_n, gy, H);
+            else gy = reflect1(gy, H);
+          }
           if (static_cast<unsigned>(gx) >= static_cast<unsigned>(W)) gx = reflect1(gx, W);
           float* dst = xs + (r * TWP + c) * CIS + q;
           if (ci0 + q < Cin)
-            cp_async4(dst, xn + ((size_t)gy * W + gx) * Cin + ci0 + q);
+            cp_async4(dst, xr + ((size_t)gy * W + gx) * Cin + ci0 + q);
           else
             *dst = 0.f;
         }
@@ -333,16 +395,22 @@ ring_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-template <class R>
-int launch_ring(const float* x, const float* w, const float* b, float* y, int n,
-                int h, int wd, int cin, int cout, int relu, int nblocks,
-                cudaStream_t s) {
+// 16-byte cp.async of x also needs the halo rows and their strides on 16 bytes
+bool halo_aligned16(const Halo& hl) {
+  return aligned16(hl.top) && aligned16(hl.bot) && hl.top_stride % 4 == 0 &&
+         hl.bot_stride % 4 == 0;
+}
+
+template <class R, bool HALO>
+int launch_ring_as(const float* x, const float* w, const float* b, float* y, const Halo& hl,
+                   int n, int h, int wd, int cin, int cout, int relu, int nblocks,
+                   cudaStream_t s) {
   if (cout > R::CO_T || nblocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int tiles_h = (h + R::TH - 1) / R::TH;
   const int tiles_w = (wd + R::TW - 1) / R::TW;
   const long long ntiles = (long long)n * tiles_h * tiles_w;
   if (ntiles > 0x7fffffffLL || nblocks > ntiles) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = ring_conv3x3_kernel<R>;
+  auto kernel = ring_conv3x3_kernel<R, HALO>;
   // the opt-in above 48 KB of dynamic shared memory, once per device
   static bool opted[kMaxDevices];
   int dev = 0;
@@ -355,10 +423,20 @@ int launch_ring(const float* x, const float* w, const float* b, float* y, int n,
     opted[dev] = true;
   }
   kernel<<<nblocks, R::NT, R::SMEM, s>>>(
-      x, w, b, y, h, wd, cin, cout, relu, cin % 4 == 0 && aligned16(x),
+      x, w, b, y, h, wd, cin, cout, relu, cin % 4 == 0 && aligned16(x) && halo_aligned16(hl),
       cout % 4 == 0 && aligned16(w), cout % 4 == 0 && aligned16(y), tiles_h, tiles_w,
-      static_cast<int>(ntiles));
+      static_cast<int>(ntiles), hl);
   return static_cast<int>(cudaGetLastError());
+}
+
+// HALO only where a halo row is given: without one both compute the same
+template <class R>
+int launch_ring(const float* x, const float* w, const float* b, float* y, const Halo& hl,
+                int n, int h, int wd, int cin, int cout, int relu, int nblocks,
+                cudaStream_t s) {
+  if (hl.top || hl.bot)
+    return launch_ring_as<R, true>(x, w, b, y, hl, n, h, wd, cin, cout, relu, nblocks, s);
+  return launch_ring_as<R, false>(x, w, b, y, hl, n, h, wd, cin, cout, relu, nblocks, s);
 }
 
 // The templates, by the id the launch plan gives (../conv.py _TEMPLATES):
@@ -382,11 +460,11 @@ constexpr int F_HR = F_TH + 2;
 constexpr int F_HC = F_TW + 2;
 constexpr int F_THREADS = 256;    // 64 pixel groups x 4 cout groups
 
-template <int CPT>  // couts per thread; the block's Cout tile is 4 * CPT
+template <int CPT, bool HALO>  // couts per thread; the block's Cout tile is 4 * CPT
 __global__ void __launch_bounds__(F_THREADS)
 first_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      const float* __restrict__ b, float* __restrict__ y,
-                     int H, int W, int Cin, int Cout, int relu, int tiles_w) {
+                     int H, int W, int Cin, int Cout, int relu, int tiles_w, Halo halo) {
   constexpr int CO_T = 4 * CPT;
   __shared__ float xs[F_CI_T][F_HR][F_HC];
   __shared__ __align__(16) float ws[9][F_CI_T][CO_T];
@@ -396,6 +474,8 @@ first_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int co0 = blockIdx.y * CO_T;
   const size_t n = blockIdx.z;
   const float* xn = x + n * H * W * Cin;
+  const float* top_n = HALO ? halo_row(halo.top, halo.top_stride, blockIdx.z) : nullptr;
+  const float* bot_n = HALO ? halo_row(halo.bot, halo.bot_stride, blockIdx.z) : nullptr;
 
   const int t = threadIdx.x;
   const int cg = t & 3;             // cout group: couts cg*CPT .. +CPT
@@ -419,9 +499,17 @@ first_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int gc = ci0 + ci;
       float v = 0.f;
       if (gc < Cin) {
-        const int gy = reflect1(ty0 + r - 1, H);
-        const int gx = reflect1(tx0 + c - 1, W);
-        v = xn[((size_t)gy * W + gx) * Cin + gc];
+        if constexpr (HALO) {
+          int gy = ty0 + r - 1;
+          const float* xr = xn;
+          if (static_cast<unsigned>(gy) >= static_cast<unsigned>(H))
+            xr = edge_row(xn, top_n, bot_n, gy, H);
+          v = xr[((size_t)gy * W + reflect1(tx0 + c - 1, W)) * Cin + gc];
+        } else {
+          const int gy = reflect1(ty0 + r - 1, H);
+          const int gx = reflect1(tx0 + c - 1, W);
+          v = xn[((size_t)gy * W + gx) * Cin + gc];
+        }
       }
       xs[ci][r][c] = v;
     }
@@ -480,43 +568,49 @@ first_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 template <int CPT>
-int launch_first(const float* x, const float* w, const float* b, float* y, int n,
-                 int h, int wd, int cin, int cout, int relu, cudaStream_t s) {
+int launch_first(const float* x, const float* w, const float* b, float* y, const Halo& hl,
+                 int n, int h, int wd, int cin, int cout, int relu, cudaStream_t s) {
   const int tiles_w = (wd + F_TW - 1) / F_TW;
   const int tiles_h = (h + F_TH - 1) / F_TH;
   dim3 grid(tiles_w * tiles_h, (cout + 4 * CPT - 1) / (4 * CPT), n);
-  first_conv3x3_kernel<CPT><<<grid, F_THREADS, 0, s>>>(x, w, b, y, h, wd, cin, cout,
-                                                       relu, tiles_w);
+  auto kernel = hl.top || hl.bot ? first_conv3x3_kernel<CPT, true>
+                                 : first_conv3x3_kernel<CPT, false>;
+  kernel<<<grid, F_THREADS, 0, s>>>(x, w, b, y, h, wd, cin, cout, relu, tiles_w, hl);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // x (N, H, W, Cin), w (3, 3, Cin, Cout), b (Cout,), y (N, H, W, Cout).
+// top, bot: null, or one row (W, Cin) of image 0 that stands for map row -1
+// (row H), image i's row i * {top,bot}_stride elements further on.
 // tmpl: 0 = first_conv3x3_kernel, 1.. = the ring templates above; nblocks: the ring
 // kernel's persistent grid (ignored by first_conv3x3_kernel).
 extern "C" int cd_conv3x3_reflect(const float* x, const float* w,
-                                  const float* b, float* y, int n, int h,
+                                  const float* b, float* y, const float* top,
+                                  const float* bot, long long top_stride,
+                                  long long bot_stride, int n, int h,
                                   int wd, int cin, int cout, int relu, int tmpl,
                                   int nblocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Halo hl{top, bot, top ? top_stride : 0, bot ? bot_stride : 0};
   switch (tmpl) {
     case 0:
-      if (cout > 16) return launch_first<8>(x, w, b, y, n, h, wd, cin, cout, relu, s);
-      if (cout > 8) return launch_first<4>(x, w, b, y, n, h, wd, cin, cout, relu, s);
-      return launch_first<2>(x, w, b, y, n, h, wd, cin, cout, relu, s);
+      if (cout > 16) return launch_first<8>(x, w, b, y, hl, n, h, wd, cin, cout, relu, s);
+      if (cout > 8) return launch_first<4>(x, w, b, y, hl, n, h, wd, cin, cout, relu, s);
+      return launch_first<2>(x, w, b, y, hl, n, h, wd, cin, cout, relu, s);
     case 1:
-      return launch_ring<RingCo128>(x, w, b, y, n, h, wd, cin, cout, relu, nblocks, s);
+      return launch_ring<RingCo128>(x, w, b, y, hl, n, h, wd, cin, cout, relu, nblocks, s);
     case 2:
-      return launch_ring<RingCo64>(x, w, b, y, n, h, wd, cin, cout, relu, nblocks, s);
+      return launch_ring<RingCo64>(x, w, b, y, hl, n, h, wd, cin, cout, relu, nblocks, s);
     case 3:
-      return launch_ring<RingCo32>(x, w, b, y, n, h, wd, cin, cout, relu, nblocks, s);
+      return launch_ring<RingCo32>(x, w, b, y, hl, n, h, wd, cin, cout, relu, nblocks, s);
     case 4:
-      return launch_ring<RingCo32Cin3>(x, w, b, y, n, h, wd, cin, cout, relu, nblocks, s);
+      return launch_ring<RingCo32Cin3>(x, w, b, y, hl, n, h, wd, cin, cout, relu, nblocks, s);
     case 5:
-      return launch_ring<RingCo16>(x, w, b, y, n, h, wd, cin, cout, relu, nblocks, s);
+      return launch_ring<RingCo16>(x, w, b, y, hl, n, h, wd, cin, cout, relu, nblocks, s);
     case 6:
-      return launch_ring<RingCo4>(x, w, b, y, n, h, wd, cin, cout, relu, nblocks, s);
+      return launch_ring<RingCo4>(x, w, b, y, hl, n, h, wd, cin, cout, relu, nblocks, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -12,12 +12,11 @@ is decided in :mod:`...parallel.spatial`.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from . import _build
 from .conv import _refuse_grad
+from .peer import batch_stride, ptr, reachable, release
 
 __all__ = ["halo_exchange_rows_plain", "halo_exchange_rows"]
 
@@ -49,45 +48,6 @@ def halo_exchange_rows_plain(x: torch.Tensor, top: torch.Tensor | None,
                       zeros if bot is None else bot.to(x.device)], dim=1)
 
 
-@functools.cache
-def _peer_access(dev: int, peer: int) -> bool:
-    """Whether a kernel on card ``dev`` may dereference pointers of card
-    ``peer``; switches the access on the first time it is asked.
-
-    PyTorch enables peer access in a CUDA context (and maps its allocator's
-    segments for the peer) when it first copies between a pair, for the card
-    the copy runs on. One element is copied each way, so that ``dev``'s
-    context has the access whichever end PyTorch runs a copy on."""
-    if not torch.cuda.can_device_access_peer(dev, peer):
-        return False
-    here, there = (torch.empty(1, device=f"cuda:{d}") for d in (dev, peer))
-    there.copy_(here)
-    here.copy_(there)
-    return True
-
-
-def _reachable(t: torch.Tensor | None, dev: torch.device,
-               stream: "torch.cuda.Stream") -> torch.Tensor | None:
-    """``t`` as rows the kernel on ``dev``'s ``stream`` can read.
-
-    Rows on ``dev`` are read in place. Rows on another card are read through
-    the peer pointer where the cards have peer access: the consumer's stream
-    waits for an event on the producer's current stream, and the rows'
-    storage is held for the consumer's stream so that the allocator does not
-    hand it out before the kernel has read it. Without peer access the rows
-    are copied to ``dev`` first (``Tensor.to`` orders the copy after the
-    producer's work); the kernel runs either way."""
-    if t is None or t.device == dev:
-        return t
-    if not _peer_access(dev.index, t.device.index):
-        return t.to(dev)
-    ready = torch.cuda.Event()
-    ready.record(torch.cuda.current_stream(t.device))
-    stream.wait_event(ready)
-    t.record_stream(stream)
-    return t
-
-
 def halo_exchange_rows(x: torch.Tensor, top: torch.Tensor | None,
                        bot: torch.Tensor | None, hm: int) -> torch.Tensor:
     """Launch the kernel: ``x`` (N, H, W, C) contiguous on a CUDA device;
@@ -112,22 +72,15 @@ def halo_exchange_rows(x: torch.Tensor, top: torch.Tensor | None,
     size = x.element_size()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream()
-        top, bot = _reachable(top, x.device, stream), _reachable(bot, x.device, stream)
+        top, bot = reachable(top, x.device, stream), reachable(bot, x.device, stream)
         err = lib.cd_halo_exchange_rows(
-            x.data_ptr(), _ptr(top), _ptr(bot), out.data_ptr(), n, h, hm, w * c * size,
-            _batch_stride(top) * size, _batch_stride(bot) * size, stream.cuda_stream)
+            x.data_ptr(), ptr(top), ptr(bot), out.data_ptr(), n, h, hm, w * c * size,
+            batch_stride(top) * size, batch_stride(bot) * size, stream.cuda_stream)
+        release(top, x.device, stream)
+        release(bot, x.device, stream)
     _build.check(err, name)
     halo_exchange_rows.launches += 1
     return out
-
-
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
-
-
-def _batch_stride(t: torch.Tensor | None) -> int:
-    """Elements from one image's rows to the next (0 where there is none)."""
-    return 0 if t is None or t.shape[0] == 1 else t.stride(0)
 
 
 halo_exchange_rows.launches = 0

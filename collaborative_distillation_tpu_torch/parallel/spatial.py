@@ -6,7 +6,7 @@ One process drives all shards, so every function here takes and returns
 lists take the place of its ``axis_name``). Two paths:
 
 * per-conv halos (:func:`build_tiled_stylize_fn`): every reflect-pad 3x3 conv
-  takes one-row halos from its mesh neighbours; at the two *global* edges
+  reads one-row halos from its mesh neighbours; at the two *global* edges
   the halo is the reference's reflection row, so tiled == untiled up to
   float32 reassociation. 2x2 pools and nearest upsamples are shard-local
   (every shard holds a multiple of the deepest stage's downsample factor;
@@ -20,10 +20,12 @@ lists take the place of its ``axis_name``). Two paths:
   through its windows of the single-card slab plan on its own, so its peak
   memory is bounded by the slab size whatever the image's height.
 
-Both exchanges go through one kernel, ``halo_exchange_rows``
-(:mod:`..ops.cuda.halo`): CUDA shards launch it, CPU shards take its plain
-version. Nothing here assumes distinct devices: a mesh may name one card, or
-the CPU, for every shard.
+The per-conv halos go into no map of their own: ``conv3x3_reflect``
+(:mod:`..ops.cuda.conv`) reads the neighbours' boundary rows in place while
+it stages its tiles. The slab path's exchange goes through the
+``halo_exchange_rows`` kernel (:mod:`..ops.cuda.halo`). CUDA shards launch
+the kernels, CPU shards take their plain versions. Nothing here assumes
+distinct devices: a mesh may name one card, or the CPU, for every shard.
 """
 
 from __future__ import annotations
@@ -33,13 +35,14 @@ import torch
 from ..models.specs import StageSpec
 from ..ops.conv import conv1x1, conv3x3, max_pool_2x2, on_card, upsample_nearest_2x
 from ..ops.cuda import halo as _khalo
+from ..ops.cuda import peer as _peer
 from ..ops.wct_transform import (coloring_matrix, gram_shift, shifted_sum_gram,
                                  stats_from_sums, wct_apply_folded)
 from ..wct.slab import SlabCascade
 from .mesh import Mesh
 
 __all__ = [
-    "halo_exchange_rows",
+    "halo_rows",
     "conv3x3_halo",
     "apply_encoder_spatial",
     "apply_decoder_spatial",
@@ -53,8 +56,8 @@ __all__ = [
 
 
 def _extend(x: torch.Tensor, top, bot, hm: int) -> torch.Tensor:
-    """The one dispatcher of both exchanges: the kernel for a CUDA shard, its
-    plain version for a CPU shard, nothing else."""
+    """The slab path's exchange: the kernel for a CUDA shard, its plain
+    version for a CPU shard, nothing else."""
     if on_card(x):
         return _khalo.halo_exchange_rows(x, top, bot, hm)
     return _khalo.halo_exchange_rows_plain(x, top, bot, hm)
@@ -83,41 +86,39 @@ def _per_device(tree, devices):
 
 # ---- per-conv halos ----------------------------------------------------------
 
-def halo_exchange_rows(xs: list[torch.Tensor]) -> list[torch.Tensor]:
-    """Each shard (N, H, W, C) extended by one row above and below:
-    (N, H + 2, W, C), the neighbours' boundary rows at shard borders and the
-    reference's ReflectionPad2d row at the two global edges (row 1 at the
-    top, row H-2 at the bottom). The reference returns the two halo rows
-    (``ext[:, :1]``, ``ext[:, -1:]`` here); the kernel writes them and the
-    shard into one map, which is what the conv reads."""
+def halo_rows(xs: list[torch.Tensor]) -> list[tuple]:
+    """Per shard (N, H, W, C) the ``(top, bot)`` one-row halos (N, 1, W, C)
+    that its reflect-pad 3x3 conv reads above and below it: the neighbours'
+    boundary rows, as views (nothing is copied), and at the two global edges
+    the reference's ReflectionPad2d row (row 1 at the top, row H-2 at the
+    bottom), which the conv takes from the shard itself: ``None`` there.
+    The reference's ``halo_exchange_rows`` returns the same pair, its edge
+    rows filled in."""
     n = len(xs)
     out = []
     for d, x in enumerate(xs):
         top = xs[d - 1][:, -1:] if d > 0 else None
         bot = xs[d + 1][:, :1] if d < n - 1 else None
-        if x.shape[1] >= 2:
-            edge_top, edge_bot = x[:, 1:2], x[:, -2:-1]
-        else:
+        if x.shape[1] == 1:
             # single-row shards (deep pyramid levels): the global reflect row
             # is the *opposite-direction* halo: for the top shard, global
             # row 1 lives on shard 1 and is its bottom halo (and vice versa);
             # a single shard of one row reflects onto itself
-            edge_top, edge_bot = (x if bot is None else bot), (x if top is None else top)
-        out.append(_extend(x, edge_top if top is None else top,
-                           edge_bot if bot is None else bot, 1))
+            top, bot = (bot if top is None else top), (top if bot is None else bot)
+        out.append((top, bot))
     return out
 
 
 def conv3x3_halo(xs, ws, bs, *, relu: bool = True) -> list[torch.Tensor]:
     """Reflect-pad 3x3 conv whose H padding comes from the neighbours' halos;
-    ``ws``, ``bs``: the layer's weight and bias on each shard's device.
-
-    The conv runs on the H + 2 rows of the extended shard and the first and
-    last output rows are dropped: rows 1..H of the output read only rows
-    0..H+1 of the extended map, so the conv's own H reflection touches only
-    the rows dropped, and its W reflection is the full image's."""
-    return [conv3x3(e, w, b, relu=relu)[:, 1:-1].contiguous()
-            for e, w, b in zip(halo_exchange_rows(xs), ws, bs)]
+    ``ws``, ``bs``: the layer's weight and bias on each shard's device. One
+    conv per shard, on its own H rows: the kernel stages the halo rows where
+    it would have reflected (its W reflection is the full image's). The
+    layer's convs are one step across cards (:func:`..ops.cuda.peer.one_step`):
+    each waits for its neighbours' previous layer, not for their convs."""
+    with _peer.one_step([x.device for x in xs]):
+        return [conv3x3(x, w, b, relu=relu, top=top, bot=bot)
+                for x, (top, bot), w, b in zip(xs, halo_rows(xs), ws, bs)]
 
 
 def _layer(params, name: str, kind: str):

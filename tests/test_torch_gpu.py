@@ -87,6 +87,98 @@ def test_conv3x3_templates_at_edge_shapes(gen, pair, hw, offset):
     _conv3x3_check(gen, 2 if hw == "2x37" else 1, h, w, ci, co, ci % 2 == 0, offset)
 
 
+def _halo_conv_check(gen, n, h, w, ci, co, relu, sides, offset, rows_device="cuda"):
+    """The halo conv against its plain version: ``x`` and two neighbour maps
+    of other heights, each ``offset`` floats into its buffer; the halo rows
+    are views (the upper map's last row, the lower one's first: batch
+    strides of their own maps); the error bound of the plain conv check, a
+    second call bit-equal, and one halo launch a call."""
+    def map_(rows):
+        return _rand(gen, n * rows * w * ci + offset)[offset:].view(n, rows, w, ci) - 0.5
+    x, up, down = map_(h), map_(3).to(rows_device), map_(2).to(rows_device)
+    top = up[:, -1:] if sides in ("both", "top") else None
+    bot = down[:, :1] if sides in ("both", "bot") else None
+    wt = (_rand(gen, 3, 3, ci, co) - 0.5) * (2 / (9 * ci) ** 0.5)
+    b = _rand(gen, co) - 0.5
+    before = kc.conv3x3_reflect.halo_launches
+    got = kc.conv3x3_reflect(x, wt, b, relu, top=top, bot=bot)
+    again = kc.conv3x3_reflect(x, wt, b, relu, top=top, bot=bot)
+    ref = kc.conv3x3_reflect.plain(x, wt, b, relu, top=top, bot=bot)
+    torch.cuda.synchronize()
+    assert kc.conv3x3_reflect.halo_launches == before + 2
+    big = max(float(x.abs().max()), float(up.abs().max()), float(down.abs().max()))
+    scale = big * float(wt.abs().sum(dim=(0, 1, 2)).max()) + float(b.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("pair", TEMPLATE_PAIRS, ids=str)
+@pytest.mark.parametrize("hw", ["1x1", "2x37", "tile+1"])
+@pytest.mark.parametrize("sides", ["both", "top", "bot"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_conv3x3_halo_rows_at_edge_shapes(gen, pair, hw, sides, offset):
+    # every ring template and the first kernel; H = 1 (both rows are halo
+    # rows), W = 37 (no multiple of the 8-pixel strip), one past the tile
+    # both ways (ragged tiles read no row past ``bot``); a null side
+    # reflects; rows off 16-byte alignment take the 4-byte staging
+    ci, co = pair
+    plan = kconv.launch_plan(1, 64, 64, ci, co, 132)
+    h, w = (plan.tile[0] + 1, plan.tile[1] + 1) if hw == "tile+1" else map(int, hw.split("x"))
+    _halo_conv_check(gen, 2 if hw == "2x37" else 1, h, w, ci, co, ci % 2 == 0, sides, offset)
+
+
+@pytest.mark.parametrize("pair", TEMPLATE_PAIRS, ids=str)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_conv3x3_own_reflection_rows_as_halos_are_bit_equal(gen, pair, offset):
+    """The shard's own reflection rows (row 1 and H-2) given as halo rows
+    stage the same values in the same order as the kernel without rows: the
+    two outputs are bit-equal, so the rows take nothing from the arithmetic
+    (HALO false computes what it did before the flag)."""
+    ci, co = pair
+    n, h, w = 2, 19, 37
+    x = _rand(gen, n * h * w * ci + offset)[offset:].view(n, h, w, ci) - 0.5
+    wt = (_rand(gen, 3, 3, ci, co) - 0.5) * (2 / (9 * ci) ** 0.5)
+    b = _rand(gen, co) - 0.5
+    plain = kc.conv3x3_reflect(x, wt, b, True)
+    halo = kc.conv3x3_reflect(x, wt, b, True, top=x[:, 1:2], bot=x[:, -2:-1])
+    torch.cuda.synchronize()
+    assert torch.equal(plain, halo)
+
+
+def test_conv3x3_halo_rows_on_other_cards(gen):
+    """Rows on other cards: read through the peer pointer (or copied where
+    the pair has no peer access), ordered after their producer."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    last = f"cuda:{torch.cuda.device_count() - 1}"
+    for ci, co in ((16, 16), (3, 24), (64, 128), (256, 24)):
+        _halo_conv_check(gen, 2, 9, 33, ci, co, True, "both", 0, rows_device=last)
+
+
+def test_per_conv_engine_across_cards_matches_plain():
+    """One shard per card: every conv reads its neighbours' rows in place on
+    other cards. Run after run the cascade equals the plain one at the
+    cascade bar; a producer that reused the rows' memory before the read
+    (a missing release edge) showed as 36 dB in some runs."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    import os
+
+    import numpy as np
+
+    from collaborative_distillation_tpu_torch.wct.engine import WCTEngine
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with np.load(os.path.join(root, "collaborative_distillation_tpu_torch", "data",
+                              "photo_pair_512.npz")) as d:
+        c, s = d["content"], d["style"]
+    n = torch.cuda.device_count()
+    spread = WCTEngine(mode="16x", space=4, devices=[f"cuda:{i % n}" for i in range(4)])
+    want = WCTEngine(mode="16x").stylize(c, s)
+    for _ in range(3):
+        mse = float(np.mean((spread.stylize(c, s).astype(np.float64) - want) ** 2))
+        assert mse == 0 or 10 * np.log10(1.0 / mse) >= 40.0
+
+
 SUM_GRAM_CASES = [  # (P, C, shifted, float offset)
     (1000, 24, True, 0), (4097, 128, True, 0), (777, 64, False, 0), (300, 512, False, 0),
     (1, 3, True, 0), (65, 16, True, 0),
@@ -299,7 +391,10 @@ def test_sharded_engines_on_one_card_match_single_device():
     sharded = WCTEngine(mode="16x", space=4, slab_rows=288, devices=["cuda:0"] * 4).stylize(tall, s)
     assert kc.halo_exchange_rows.launches - before == 5 * 4
     assert psnr(sharded, WCTEngine(mode="16x", slab_rows=288).stylize(tall, s)) >= 40.0
+    before = (kc.halo_exchange_rows.launches, kc.conv3x3_reflect.halo_launches)
     per_conv = WCTEngine(mode="16x", space=4, devices=["cuda:0"] * 4).stylize(c, s)
+    assert kc.halo_exchange_rows.launches == before[0]   # the conv reads its halos itself
+    assert kc.conv3x3_reflect.halo_launches - before[1] == 4 * 62
     assert psnr(per_conv, WCTEngine(mode="16x").stylize(c, s)) >= 40.0
     if torch.cuda.device_count() < 4:
         with pytest.raises(ValueError, match="needs 4 devices"):
@@ -482,15 +577,31 @@ def test_trainer_step_on_card_matches_cpu():
 def test_halo_kernel_at_unequal_shard_heights(gen, rows):
     """The per-conv sharded path deals whole 16-row blocks, the remainder to
     the last shards: shards of unequal heights, one row each at stage 5.
-    Every shard's extended map equals the plain exchange's, exactly."""
+    Every shard's halo pair is its neighbours' rows (its own reflection,
+    None, at a global edge of a shard of 2+ rows; the opposite neighbour's
+    for one row); the halo kernel of the slab path extends each shard with
+    the pair filled in exactly as its plain version; the conv on the pairs
+    joined equals the unsharded conv."""
     from collaborative_distillation_tpu_torch.parallel import spatial as tsp
     shards = [_rand(gen, 1, h, 37, 16) for h in rows]
-    got = tsp.halo_exchange_rows(shards)
-    for d, x in enumerate(shards):
-        top = shards[d - 1][:, -1:] if d else (x[:, 1:2] if x.shape[1] > 1 else shards[1][:, :1])
-        bot = (shards[d + 1][:, :1] if d < len(rows) - 1 else
-               (x[:, -2:-1] if x.shape[1] > 1 else shards[d - 1][:, -1:]))
-        assert torch.equal(got[d], kc.halo_exchange_rows.plain(x, top, bot, 1))
+    pairs = tsp.halo_rows(shards)
+    for d, (x, (top, bot)) in enumerate(zip(shards, pairs)):
+        want_top = shards[d - 1][:, -1:] if d else (None if x.shape[1] > 1 else shards[1][:, :1])
+        want_bot = (shards[d + 1][:, :1] if d < len(rows) - 1 else
+                    (None if x.shape[1] > 1 else shards[d - 1][:, -1:]))
+        for got, want in ((top, want_top), (bot, want_bot)):
+            assert got is None if want is None else torch.equal(got, want)
+        top = x[:, 1:2] if top is None else top
+        bot = x[:, -2:-1] if bot is None else bot
+        assert torch.equal(kc.halo_exchange_rows(x, top, bot, 1),
+                           kc.halo_exchange_rows.plain(x, top, bot, 1))
+    wt = (_rand(gen, 3, 3, 16, 16) - 0.5) * 0.2
+    b = _rand(gen, 16) - 0.5
+    got = torch.cat(tsp.conv3x3_halo(shards, [wt] * len(rows), [b] * len(rows)), dim=1)
+    whole = kc.conv3x3_reflect.plain(torch.cat(shards, dim=1), wt, b, True)
+    torch.cuda.synchronize()
+    assert float((got - whole).abs().max()) <= 1e-5 * float(wt.abs().sum(dim=(0, 1, 2)).max()
+                                                            + b.abs().max())
 
 
 @pytest.mark.parametrize("shape", [(1, 32, 48, 128, 128), (1, 64, 40, 64, 64),

@@ -93,7 +93,10 @@ def test_dispatch_takes_plain_on_cpu_and_refuses_other_devices():
     assert not tconv.on_card(x)
     assert tconv.max_pool_2x2(x).shape == (1, 2, 2, 8)
     assert [e.shape for e in tsp._exchange_row_halos([x, x], 2)] == [(1, 8, 4, 8)] * 2
-    assert [e.shape for e in tsp.halo_exchange_rows([x, x])] == [(1, 6, 4, 8)] * 2
+    pairs = tsp.halo_rows([x, x])
+    assert [(t is None, b is None) for t, b in pairs] == [(True, False), (False, True)]
+    assert [y.shape for y in tsp.conv3x3_halo([x, x], [torch.zeros(3, 3, 8, 2)] * 2,
+                                              [None] * 2)] == [(1, 4, 4, 2)] * 2
     with pytest.raises(ValueError, match="device"):
         tconv.on_card(torch.zeros(1, device="meta"))
     with pytest.raises(ValueError, match="device"):
@@ -107,14 +110,25 @@ def _host_view(ptr, shape):
     return torch.frombuffer((ctypes.c_float * n).from_address(ptr), dtype=torch.float32).view(shape)
 
 
+def _host_rows(ptr, stride, shape):
+    """One row an image, image i's ``i * stride`` floats after image 0's."""
+    n, _, w, c = shape
+    flat = _host_view(ptr, ((n - 1) * stride + w * c,))
+    return flat.as_strided(shape, (stride, w * c, c, 1))
+
+
 class _StubLibrary:
     """The kernels' C entry points computed by their plain versions, on the
     host memory behind the pointers the wrappers pass."""
 
-    def cd_conv3x3_reflect(self, x, w, b, y, n, h, wd, cin, cout, relu, template, grid, stream):
+    def cd_conv3x3_reflect(self, x, w, b, y, top, bot, top_stride, bot_stride, n, h, wd,
+                           cin, cout, relu, template, grid, stream):
+        rows = [None if p is None else _host_rows(p, s, (n, 1, wd, cin))
+                for p, s in ((top, top_stride), (bot, bot_stride))]
         out = kc.conv3x3_reflect.plain(_host_view(x, (n, h, wd, cin)),
                                        _host_view(w, (3, 3, cin, cout)),
-                                       _host_view(b, (cout,)), bool(relu))
+                                       _host_view(b, (cout,)), bool(relu),
+                                       top=rows[0], bot=rows[1])
         _host_view(y, (n, h, wd, cout)).copy_(out)
         return 0
 
@@ -135,7 +149,8 @@ def stub_card(monkeypatch):
     through the wrappers' own ctypes path into a stub library."""
     monkeypatch.setattr(tconv, "on_card", lambda x: True)
     for mod in (kconv, kpool):   # host tensors pass; inputs that require grad do not
-        monkeypatch.setattr(mod, "_check_cuda", kconv._refuse_grad)
+        monkeypatch.setattr(mod, "_check_cuda",
+                            lambda name, *t, rows=(): kconv._refuse_grad(name, *t, *rows))
     monkeypatch.setattr(kconv, "device_plan", lambda *a: kconv.launch_plan(*a[:5], 132))
     monkeypatch.setattr(_build, "library", lambda: _StubLibrary())
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
@@ -143,6 +158,7 @@ def stub_card(monkeypatch):
                         lambda: types.SimpleNamespace(cuda_stream=0))
     for k in kc.KERNELS:
         monkeypatch.setattr(k, "launches", 0)
+    monkeypatch.setattr(kc.conv3x3_reflect, "halo_launches", 0)
 
 
 def test_kernels_leave_tensors_that_require_grad_with_a_grad_fn(stub_card):
@@ -169,6 +185,29 @@ def test_kernels_leave_tensors_that_require_grad_with_a_grad_fn(stub_card):
     with torch.no_grad():
         z = tconv.max_pool_2x2(tconv.conv3x3(x, w, b, relu=True))
     assert z.grad_fn is None and kc.conv3x3_reflect.launches == 2
+
+
+def test_halo_rows_reach_the_launch_as_pointers_and_batch_strides(stub_card):
+    """The per-conv path's halo rows are views of the neighbour shards (a
+    row inside another map, its batch stride that map's image): the wrapper
+    passes their addresses and strides in elements, and the stub's launch
+    (the plain version on the memory behind them) equals the plain version
+    on the views themselves; each launch with a row counts as a halo launch."""
+    g = torch.Generator().manual_seed(0)
+    up, x, down = (torch.rand(2, h, 5, 3, generator=g) for h in (4, 3, 6))
+    w, b = torch.rand(3, 3, 3, 4, generator=g) - 0.5, torch.rand(4, generator=g)
+    for top, bot in ((up[:, -1:], down[:, :1]), (None, down[:, :1]), (up[:, -1:], None)):
+        got = tconv.conv3x3(x, w, b, relu=False, top=top, bot=bot)
+        torch.testing.assert_close(got, kconv.conv3x3_plain(x, w, b, False, top=top, bot=bot),
+                                   rtol=0, atol=0)
+    got = tconv.conv3x3(x, w, b, relu=True)
+    assert (kc.conv3x3_reflect.launches, kc.conv3x3_reflect.halo_launches) == (4, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        kc.conv3x3_reflect(x, w, b, True, top=up.transpose(2, 3).contiguous().transpose(2, 3)[:, :1])
+    with pytest.raises(ValueError, match="row"):
+        kc.conv3x3_reflect(x, w, b, True, top=up[:, -2:])
+    with pytest.raises(ValueError, match="inference only"):
+        tconv.conv3x3(x.clone().requires_grad_(), w, b, top=up[:, -1:])
 
 
 def test_ctypes_signatures_match_c_entry_points():

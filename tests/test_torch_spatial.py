@@ -134,17 +134,27 @@ def test_tiled_decoder_equals_untiled(rng, jax_mesh, stage):
 
 def test_single_row_shards_take_the_opposite_halo(rng):
     """Shards of one row (deep pyramid levels): the global reflection row is
-    the other neighbour's, as the reference's ``halo_exchange_rows`` picks it."""
+    the other neighbour's, as the reference's ``halo_exchange_rows`` picks it.
+    Shards of two rows take their own reflection rows at the global edges:
+    ``None`` in the pair (the conv reads its own row), the reference's rows
+    1 and H-2 once filled in."""
+    jax_pair = shard_map(lambda xs: jsp.halo_exchange_rows(xs, "space"),
+                         mesh=jax_make_mesh(space=4), in_specs=SPEC, out_specs=(SPEC, SPEC))
     x = rng.random((1, 4, 6, 5), np.float32)
-    ext = tsp.halo_exchange_rows(_shards(x, 4))
-    want_top, want_bot = shard_map(lambda xs: jsp.halo_exchange_rows(xs, "space"),
-                                   mesh=jax_make_mesh(space=4), in_specs=SPEC,
-                                   out_specs=(SPEC, SPEC))(jnp.asarray(x))
-    np.testing.assert_array_equal(np.concatenate([e[:, :1] for e in ext], 1), want_top)
-    np.testing.assert_array_equal(np.concatenate([e[:, -1:] for e in ext], 1), want_bot)
-    two = tsp.halo_exchange_rows(_shards(rng.random((1, 8, 6, 5), np.float32), 4))
-    assert all(e.shape == (1, 4, 6, 5) for e in two)
-    assert torch.equal(two[0][:, 0], two[0][:, 2]) and torch.equal(two[3][:, 3], two[3][:, 1])
+    pairs = tsp.halo_rows(_shards(x, 4))
+    want_top, want_bot = jax_pair(jnp.asarray(x))
+    np.testing.assert_array_equal(_join([t for t, _ in pairs]), want_top)
+    np.testing.assert_array_equal(_join([b for _, b in pairs]), want_bot)
+    x2 = rng.random((1, 8, 6, 5), np.float32)
+    xs = _shards(x2, 4)
+    two = tsp.halo_rows(xs)
+    assert [(t is None, b is None) for t, b in two] == [(True, False), (False, False),
+                                                        (False, False), (False, True)]
+    want_top, want_bot = jax_pair(jnp.asarray(x2))
+    np.testing.assert_array_equal(
+        _join([xs[d][:, 1:2] if t is None else t for d, (t, _) in enumerate(two)]), want_top)
+    np.testing.assert_array_equal(
+        _join([xs[d][:, -2:-1] if b is None else b for d, (_, b) in enumerate(two)]), want_bot)
 
 
 def test_summed_stats_match_global(rng, jax_mesh):
