@@ -29,7 +29,12 @@ Phases (any failure raises and the script exits non-zero):
      ``torch.cat`` of the extended shard, and at edge shapes (one row,
      ragged tiles of every template, N = 2, rows off 16-byte alignment, a
      null side); conv3x3 on every max-unpooled map of the 2048^2 photo-WCT decoders (3
-     of 4 values 0); a 16x16 image (relu5_1 at 1x1) stylizes to all-NaN
+     of 4 values 0); conv3x3 at the teachers' widths (Cin or Cout 256/512,
+     the Cout-walking ring template) at every such shape of a wct_se step
+     (phase 8d) and of the original cascade at 512^2 and 1024^2 (phase 7f),
+     and with halo rows at their pairs; the SHA-256 of the conv3x3 outputs
+     at the 2048^2 path's shapes (seeded inputs: equal across checkouts
+     whose kernels compute the same bits there); a 16x16 image (relu5_1 at 1x1) stylizes to all-NaN
      without raising, as the reference does; the 2048^2 and the UHD
      (slab-summed) stage-1 covariances against float64 centred ones;
   3. the main path: ``WCTEngine(mode="16x").stylize`` on a 2048^2 photo pair,
@@ -118,8 +123,10 @@ Phases (any failure raises and the script exits non-zero):
      256^2 crops, on the card against ``--device cpu``; (f) a seeded
      ``original`` pyramid (teacher widths, Cin/Cout to 512): every kernel at
      its 512^2 path shapes against the plain version, each stage's encoder
-     and decoder card vs CPU, and the stylize CLI at its default ``--mode
-     original`` on one 512^2 pair;
+     and decoder card vs CPU, the stylize CLI at its default ``--mode
+     original`` on one 512^2 pair, and the warm original cascade at 1024^2
+     (median of 3, peak memory, one run's launches by conv3x3 template:
+     none on the first kernel);
   8. training (``collaborative_distillation_tpu_torch/train``, ``cli/train.py``),
      TF32 off: (a) the conv3x3, pool and upsample kernels' autograd Functions
      against the plain versions' autograd at every conv, pool and upsample
@@ -137,9 +144,9 @@ Phases (any failure raises and the script exits non-zero):
      checkpoint's keys in the reference's layout, ``--resume`` at the next
      epoch, nonzero gradients into the zero-filled aux adapters, the median
      step time, images/s, peak memory and one profiled step's split into the
-     hand-written kernels, cuDNN's backward and the rest; (d) the first
-     conv3x3 kernel at a wct_se step's teacher-width shapes against cuDNN's
-     FP32 forward;
+     hand-written kernels, cuDNN's backward and the rest; (d) conv3x3 at a
+     wct_se step's 27 teacher-width convs against cuDNN's FP32 forward and
+     the bound; no conv of the step may plan the first kernel;
   9. run before phases 7 and 8: (a) photo-WCT, ``stylize(pwct=True)`` at
      2048^2 with the counters zeroed (the plain path's conv3x3 and sum_gram
      launches, ``max_pool_2x2`` for the style only, no upsample), finite and
@@ -240,6 +247,7 @@ SHARDS = 4                   # row shards of the sharded UHD path
 SHARD_SLAB = 512             # two slabs in each 1024-row shard
 AWK_H = 4000                 # phase 4d: no multiple of either slab size
 PC_AWK_H = 2000              # phases 2, 4c: a multiple of 16, not of 16 * SHARDS
+ORIGINAL_HW = 1024           # phase 7f: the warm mode-original cascade's size
 PUSH_CHUNKS = (4 << 20, 16 << 20, 64 << 20)   # phase 6c: push's staging chunks
 
 
@@ -600,6 +608,26 @@ class Bench:
                 row.update(conv_ms=row["ms"], reflect_ms=cuda_ms(torch, own, reps))
                 row["ms"] = row["conv_ms"] - row["reflect_ms"]
         return row
+
+
+def conv3x3_sha256(torch, kc, calls) -> str:
+    """SHA-256 of the conv3x3 kernel's outputs at every conv shape of
+    ``calls`` (a path's {(kernel, shape): count}), in sorted order, on inputs
+    made from one seed: equal across two checkouts whose kernels compute
+    the same bits at those shapes."""
+    import hashlib
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sha = hashlib.sha256()
+    with torch.no_grad():
+        for kernel, shape in sorted(calls, key=str):
+            if kernel != "conv3x3_reflect":
+                continue
+            n, h, w, ci, co, relu = shape[:6]
+            x = torch.rand((n, h, w, ci), generator=gen, device="cuda")
+            wt = (torch.rand((3, 3, ci, co), generator=gen, device="cuda") - 0.5) * 0.1
+            b = torch.rand((co,), generator=gen, device="cuda") - 0.5
+            sha.update(kc.conv3x3_reflect(x, wt, b, relu).cpu().numpy().tobytes())
+    return sha.hexdigest()
 
 
 def path_times(mine) -> dict:
@@ -1131,6 +1159,7 @@ def _zero(kc) -> None:
     for k in kc.KERNELS:
         k.launches = 0
     kc.conv3x3_reflect.halo_launches = 0
+    kc.conv3x3_reflect.by_template.clear()
 
 
 def per_conv_run(kc, engine, img, sty):
@@ -1579,15 +1608,11 @@ def eval_cli(c512, s512, tmp) -> dict:
     return {"card": card, "cpu": cpu}
 
 
-def teacher_widths(torch, kc, WCTEngine, c512, s512, tmp) -> dict:
-    """7f: a seeded ``original`` pyramid (teacher widths, Cin/Cout to 512)."""
-    from collaborative_distillation_tpu_torch.cli import stylize as cli
-    from collaborative_distillation_tpu_torch.models.vgg import (apply_decoder, apply_encoder,
-                                                                 init_params)
+def write_original_weights(torch, root) -> None:
+    """A seeded mode-original pyramid (stages 5..1, encoder then decoder,
+    ``torch.Generator`` seed 0) as ``root/original/{e,d}<k>.npz``."""
+    from collaborative_distillation_tpu_torch.models.vgg import init_params
     from collaborative_distillation_tpu_torch.models.zoo import stage_specs
-    from collaborative_distillation_tpu_torch.utils.image import (jpeg_or_png, read_image,
-                                                                  save_image)
-    root = os.path.join(tmp, "weights")
     os.makedirs(os.path.join(root, "original"))
     gen = torch.Generator().manual_seed(0)
     for k in (5, 4, 3, 2, 1):
@@ -1596,6 +1621,41 @@ def teacher_widths(torch, kc, WCTEngine, c512, s512, tmp) -> dict:
             np.savez(os.path.join(root, "original", name + ".npz"),
                      **{f"{n}/{kind}": t.numpy() for n, leaf in p.items()
                         for kind, t in leaf.items()})
+
+
+def original_cascade(torch, teng, c512, s512, size=ORIGINAL_HW) -> dict:
+    """7f: the warm mode-original cascade (``teng``) on the photo pair
+    reflect-tiled to size^2 content and style: median of 3 after one
+    warm-up, and its peak memory."""
+    with torch.inference_mode():
+        img = teng._prep(reflect_tile(torch, c512, size))
+        sty = teng._prep(reflect_tile(torch, s512, size))
+        out = teng.stylize_device(img, sty)
+        finite = bool(torch.isfinite(out).all())
+        del out
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2**30
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            teng.stylize_device(img, sty)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    return {"size": size, "runs": runs, "median": statistics.median(runs), "peak_gib": peak,
+            "resident_before_gib": resident, "finite": finite}
+
+
+def teacher_widths(torch, kc, WCTEngine, c512, s512, tmp) -> dict:
+    """7f: a seeded ``original`` pyramid (teacher widths, Cin/Cout to 512)."""
+    from collaborative_distillation_tpu_torch.cli import stylize as cli
+    from collaborative_distillation_tpu_torch.models.vgg import apply_decoder, apply_encoder
+    from collaborative_distillation_tpu_torch.utils.image import (jpeg_or_png, read_image,
+                                                                  save_image)
+    root = os.path.join(tmp, "weights")
+    write_original_weights(torch, root)
     teng = WCTEngine(mode="original", weights_root=root)
     tpyr = teng.pyramid
     calls, layers = path_calls(tpyr, teng.stages, 512, 512)
@@ -1643,8 +1703,31 @@ def teacher_widths(torch, kc, WCTEngine, c512, s512, tmp) -> dict:
         f"{card_f.max():.3f}]; card vs cpu PSNR {db:.2f} dB (random weights: not gated)")
     if not np.isfinite(card_f).all():
         raise AssertionError("teacher-width cascade output is not finite")
+    # the warm cascade at ORIGINAL_HW^2, and one run's launches by template
+    casc = original_cascade(torch, teng, c512, s512)
+    calls_big, _ = path_calls(tpyr, teng.stages, ORIGINAL_HW, ORIGINAL_HW)
+    with torch.inference_mode():
+        img = teng._prep(reflect_tile(torch, c512, ORIGINAL_HW))
+        sty = teng._prep(reflect_tile(torch, s512, ORIGINAL_HW))
+        _zero(kc)
+        teng.stylize_device(img, sty)
+        torch.cuda.synchronize()
+        del img, sty
+    _check_counts(f"phase 7f: original cascade {ORIGINAL_HW}^2", _counts(kc),
+                  _totals(kc, calls_big))
+    casc["conv3x3_by_template"] = dict(kc.conv3x3_reflect.by_template)
+    casc["teacher_width_launches"] = sum(n for s, n in original_conv_calls(ORIGINAL_HW).items()
+                                         if teacher_width(s))
+    if "first" in casc["conv3x3_by_template"] or not casc["finite"]:
+        raise AssertionError(f"phase 7f: original cascade {casc}")
+    log(f"phase 7f: original cascade {ORIGINAL_HW}^2 warm {casc['median']:.2f} ms (runs "
+        f"{', '.join(f'{r:.2f}' for r in casc['runs'])}), peak {casc['peak_gib']:.2f} GiB "
+        f"({casc['resident_before_gib']:.2f} held before it), output finite; conv3x3 launches "
+        f"by template {casc['conv3x3_by_template']} ({casc['teacher_width_launches']} at "
+        f"Cin or Cout 256/512)")
     return {"checks": len(checks), "widest_cin": widest, "conv_max_rel_err": worst_conv,
-            "chain_rel_err": chain, "cli_s": cli_s, "card_vs_cpu_db": db}
+            "chain_rel_err": chain, "cli_s": cli_s, "card_vs_cpu_db": db,
+            "cascade": casc}
 
 
 # ---- phase 8: training ----------------------------------------------------------
@@ -1847,6 +1930,33 @@ def _train_runs(mode: str) -> list:
     se, sd = encoder_spec("16x", k, aux=True), decoder_spec("16x", k)   # aux: 1x1, no kernel
     return {"wct_se": [se, bd, be, be], "wct_sd": [se, sd],
             "wct_sd_kd2sd": [be, se, bd, sd, be]}[mode]
+
+
+def train_conv_calls(mode: str) -> Counter:
+    """{(N, H, W, Cin, Cout, relu): calls} of the conv3x3 launches of one
+    training step at stage 5 x 16 x 256^2."""
+    calls = Counter()
+    for spec in _train_runs(mode):
+        hh = TRAIN_HW if spec.kind == "encoder" else TRAIN_HW >> (TRAIN_STAGE - 1)
+        for l in spec.layers:
+            calls[(TRAIN_N, hh, hh, l.in_ch, l.out_ch, l.relu)] += 1
+            hh = hh // 2 if l.pool_after else hh * 2 if l.unpool_after else hh
+    return calls
+
+
+def teacher_width(shape) -> bool:
+    """A conv at the teachers' widths: Cin or Cout 256 or 512."""
+    return max(shape[3], shape[4]) >= 256
+
+
+def original_conv_calls(size: int) -> Counter:
+    """{(1, H, W, Cin, Cout, relu): calls} of the conv3x3 launches of one
+    mode-original cascade (stages 5..1) on a size^2 content and style."""
+    from collaborative_distillation_tpu_torch.models.zoo import stage_specs
+    stages = (5, 4, 3, 2, 1)
+    pyr = {k: dict(zip(("enc_spec", "dec_spec"), stage_specs("original", k))) for k in stages}
+    calls, _ = path_calls(pyr, stages, size, size)
+    return Counter({s: n for (k, s), n in calls.items() if k == "conv3x3_reflect"})
 
 
 def _train_launches(mode: str) -> dict:
@@ -2062,26 +2172,30 @@ def train_cli_runs(torch, kc, c512, s512, tmp, teachers) -> dict:
 
 def teacher_conv_times(torch) -> dict:
     """8d: conv3x3_reflect at every conv shape of a wct_se step (stage 5 x
-    16 x 256^2) that its launch plan gives to the first kernel (the
-    teachers' Cin or Cout 256/512), forward only, against its plain version
-    and cuDNN's FP32 forward (a reflect ``nn.Conv2d``, TF32 off), summed
-    over the step's calls beside the bound."""
+    16 x 256^2) at the teachers' widths (Cin or Cout 256/512), forward only,
+    against its plain version and cuDNN's FP32 forward (a reflect
+    ``nn.Conv2d``, TF32 off), summed over the step's calls beside the bound;
+    ``first_launches``: the step's convs, of every width, that plan the
+    first kernel."""
     from collaborative_distillation_tpu_torch.ops.cuda.conv import device_plan
-    calls = Counter()
-    for spec in _train_runs("wct_se"):
-        hh = TRAIN_HW if spec.kind == "encoder" else TRAIN_HW >> (TRAIN_STAGE - 1)
-        for l in spec.layers:
-            shape = (TRAIN_N, hh, hh, l.in_ch, l.out_ch, l.relu)
-            if device_plan(*shape[:5], 0).kernel == "first":
-                calls[shape] += 1
-            hh = hh // 2 if l.pool_after else hh * 2 if l.unpool_after else hh
+    step = train_conv_calls("wct_se")
     bench = Bench(torch, None)
-    rows = [{**bench.run("conv3x3_reflect", s, timed=True), "calls": n}
-            for s, n in sorted(calls.items())]
-    out = {"launches": sum(calls.values()), **path_times(rows), "shapes": rows}
-    log(f"phase 8d: a wct_se step's {out['launches']} first-kernel convs (teacher widths, "
-        f"N = {TRAIN_N}): {out['ms']:.2f} ms, cuDNN FP32 (TF32 off) {out['library_ms']:.2f}, "
-        f"plain {out['plain_ms']:.2f}, bound {out['bound_ms']:.2f} ({out['bound_by']})")
+    rows = []
+    for s, n in sorted(step.items()):
+        if teacher_width(s):
+            rows.append({**bench.run("conv3x3_reflect", s, timed=True), "calls": n,
+                         "plan": device_plan(*s[:5], 0).kernel})
+    out = {"launches": sum(r["calls"] for r in rows), **path_times(rows), "shapes": rows,
+           "first_launches": sum(n for s, n in step.items()
+                                 if device_plan(*s[:5], 0).kernel == "first")}
+    by_plan = Counter()
+    for r in rows:
+        by_plan[r["plan"]] += r["calls"]
+    log(f"phase 8d: a wct_se step's {out['launches']} teacher-width convs (N = {TRAIN_N}; "
+        f"plans {dict(by_plan)}): {out['ms']:.2f} ms, {out['bound_ms'] / out['ms']:.1%} of "
+        f"the bound {out['bound_ms']:.2f} ({out['bound_by']}); cuDNN FP32 (TF32 off) "
+        f"{out['library_ms']:.2f}, plain {out['plain_ms']:.2f}; the step's convs on the "
+        f"first kernel: {out['first_launches']}")
     return out
 
 
@@ -2092,6 +2206,9 @@ def training(torch, kc, c512, s512, tmp, teachers) -> dict:
     out = {"autograd": train_autograd_checks(torch), "card_vs_cpu": train_card_vs_cpu(torch),
            "cli": train_cli_runs(torch, kc, c512, s512, tmp, teachers),
            "teacher_convs": teacher_conv_times(torch)}
+    if out["teacher_convs"]["first_launches"]:
+        raise AssertionError(f"phase 8d: {out['teacher_convs']['first_launches']} convs of a "
+                             f"wct_se step plan the first kernel")
     out["phase8_s"] = time.perf_counter() - t0
     log(f"phase 8: {out['phase8_s']:.1f} s")
     return out
@@ -2631,6 +2748,35 @@ def main() -> int:
                   (2, 5, 7, 5, 7, True, "top", 0), (1, 1, 9, 512, 512, True, "both", 0)]]
     unpooled = unpooled_conv_checks(torch, kc, pyr, eng.stages, 2048, 2048)
     checks += pc_rows + halo_edge + unpooled
+    # the teachers' widths (Cin or Cout 256/512), the Cout-walking ring: every
+    # such conv shape of a wct_se step at stage 5 x 16 x 256^2 (phase 8d) and
+    # of the mode-original cascade at 512^2 and ORIGINAL_HW^2 (phase 7f); halo
+    # rows at their pairs (ragged tiles, rows off 16-byte alignment)
+    from collaborative_distillation_tpu_torch.ops.cuda.conv import device_plan
+    wide = sorted({s for s in [*train_conv_calls("wct_se"), *original_conv_calls(512),
+                               *original_conv_calls(ORIGINAL_HW)] if teacher_width(s)})
+    t_rows = [{**bench.run("conv3x3_reflect", s), "plan": device_plan(*s[:5], 0).kernel}
+              for s in wide]
+    t_halo = [bench.run("conv3x3_halo", s) for s in
+              [(2, 9, 17, 256, 512, True, "both", 1), (1, 17, 33, 512, 512, True, "top", 0),
+               (16, 16, 16, 512, 256, True, "both", 0), (1, 33, 17, 256, 128, True, "bot", 3),
+               (2, 16, 16, 128, 256, True, "both", 0), (1, 1, 5, 256, 256, True, "both", 1)]]
+    checks += t_rows + t_halo
+    detail["teacher_width_checks"] = {
+        "shapes": len(t_rows), "halo_shapes": len(t_halo),
+        "plans": dict(Counter(r["plan"] for r in t_rows)),
+        "max_rel_err": max(r["max_rel_err"] for r in t_rows + t_halo)}
+    tw = detail["teacher_width_checks"]
+    log(f"phase 2: conv3x3 at the teachers' widths: {tw['shapes']} shapes of the wct_se step "
+        f"and the original 512^2 and {ORIGINAL_HW}^2 cascades (plans {tw['plans']}) and "
+        f"{tw['halo_shapes']} with halo rows, max rel err {tw['max_rel_err']:.3e} (tol "
+        f"{CONV_TOL})")
+    if "first" in tw["plans"]:
+        raise AssertionError(f"phase 2: a teacher-width conv plans the first kernel: {tw}")
+    detail["conv3x3_sha256_2048"] = conv3x3_sha256(torch, kc, calls2k)
+    log(f"phase 2: SHA-256 of the conv3x3 outputs at the 2048^2 path's "
+        f"{sum(k == 'conv3x3_reflect' for k, _ in calls2k)} shapes (seeded inputs): "
+        f"{detail['conv3x3_sha256_2048']}")
     detail["per_conv_awkward_halo"] = {"shard_rows": awk_rows, "launches": sum(pc_calls.values()),
                                        **path_times(pc_rows),
                                        "conv_ms": sum(r["conv_ms"] * r["calls"] for r in pc_rows),
@@ -3129,6 +3275,14 @@ def main() -> int:
         # ---- phase 8: training ---------------------------------------------------------
         detail["training"] = training(torch, kc, c512, s512, tmp,
                                       detail["teacher_store"]["root"])
+    # conv3x3's row also carries the teachers' widths: 8d's sums over a
+    # wct_se step, and the launches of one warm original cascade (7f)
+    tc = detail["training"]["teacher_convs"]
+    next(r for r in table if r["name"] == "conv3x3_reflect")["teacher_widths"] = {
+        **{k: tc[k] for k in ("launches", "ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")},
+        "path": f"wct_se step, stage {TRAIN_STAGE} x {TRAIN_N} x {TRAIN_HW}^2",
+        "original_cascade_launches": detail["teacher_widths"]["cascade"]["conv3x3_by_template"]}
     detail["total_s"] = time.perf_counter() - t_start
     log(f"phase 9: {detail['phase9_s']:.1f} s; phase 7: {detail['phase7_s']:.1f} s; phase 8: "
         f"{detail['training']['phase8_s']:.1f} s; chip_smoke.py {detail['total_s']:.1f} s "

@@ -3,7 +3,9 @@
 The kernel (``csrc/conv3x3.cu``) replaces the reference's Pallas
 ``conv3x3_tiled``, ``conv3x3_subin`` and ``conv3x3_lane128`` for plain NHWC
 maps. :func:`launch_plan` picks, by shape alone, which of its templates runs:
-a ring template at the cascade's widths, the first port's kernel at others.
+a ring template where Cin and Cout are widths of the cascade or of the
+VGG-19 teachers (3 to 512; at the teachers' 256 and 512 one that walks the
+Cout in tiles of 64), the first port's kernel at any other width.
 :func:`conv3x3_plain` computes the same function with PyTorch ops; the CPU
 path and the tests use it.
 
@@ -18,6 +20,7 @@ reflection row, as without halos.
 from __future__ import annotations
 
 import functools
+from collections import Counter
 from typing import NamedTuple
 
 import torch
@@ -31,7 +34,8 @@ __all__ = ["conv3x3_plain", "conv3x3_reflect", "launch_plan", "device_plan", "Co
 
 # The ring templates, by the id csrc/conv3x3.cu takes: (name, Cout tile, tile
 # rows, tile cols), as it instantiates them. One persistent block an SM
-# computes whole tiles for all of Cout.
+# computes whole tiles for all of Cout, or (ring_walk*) for one Cout tile of
+# a wider Cout at a time.
 _TEMPLATES = {
     1: ("ring_co128", 128, 8, 16),
     2: ("ring_co64", 64, 16, 16),
@@ -39,8 +43,9 @@ _TEMPLATES = {
     4: ("ring_co32_cin4", 32, 16, 32),
     5: ("ring_co16", 16, 32, 32),
     6: ("ring_co4", 4, 32, 64),
+    7: ("ring_walk64", 64, 16, 16),
 }
-RING_WIDTHS = (3, 16, 24, 32, 64, 128)   # Cin and Cout the ring templates take
+RING_WIDTHS = (3, 16, 24, 32, 64, 128, 256, 512)   # Cin and Cout the ring templates take
 _FIRST_TILE = 16                         # the first kernel's square pixel tile
 MAX_GRID_Z = 65535                       # CUDA's limit on gridDim.z
 
@@ -48,10 +53,12 @@ MAX_GRID_Z = 65535                       # CUDA's limit on gridDim.z
 class ConvPlan(NamedTuple):
     """One launch: ``kernel`` (a template name or ``"first"``), ``template``
     (the id the C entry takes, 0 = first), the pixel ``tile`` (rows, cols),
-    the Cout tile, the ``tiles`` of the whole batch and the ``grid``. The
-    ring kernel's block ``b`` computes tiles ``b, b + grid[0], ...``; tile
-    ``t`` is image ``t // per_image``, tile row and column ``divmod(t %
-    per_image, tiles_w)``."""
+    the Cout tile, the ``tiles`` of the whole batch (the ring kernel's work
+    items: pixel tiles x Cout tiles) and the ``grid``. The ring kernel's
+    block ``b`` computes items ``b, b + grid[0], ...``; item ``i`` is pixel
+    tile ``i // cout_tiles``, Cout tile ``i % cout_tiles``; pixel tile ``t``
+    is image ``t // per_image``, tile row and column ``divmod(t % per_image,
+    tiles_w)``. For the first kernel ``tiles`` counts pixel tiles."""
     kernel: str
     template: int
     tile: tuple
@@ -63,6 +70,8 @@ class ConvPlan(NamedTuple):
 def _template(cin: int, cout: int) -> int:
     if cin not in RING_WIDTHS or cout not in RING_WIDTHS:
         return 0
+    if max(cin, cout) > 128 and cout >= 64:
+        return 7
     if cout in (24, 32):
         return 4 if cin == 3 else 3
     return {128: 1, 64: 2, 16: 5, 3: 6}[cout]
@@ -71,9 +80,9 @@ def _template(cin: int, cout: int) -> int:
 def launch_plan(n: int, h: int, w: int, cin: int, cout: int, n_sm: int) -> ConvPlan:
     """The launch for an (n, h, w, cin) -> cout conv on a card of ``n_sm``
     SMs: a ring template where Cin and Cout are both widths of the cascade
-    (one persistent block an SM, at most ``n_sm`` blocks), else the first
-    kernel (a block per 16x16 tile and Cout tile). Fixed by shape; raises
-    for a batch past the first kernel's grid limit."""
+    or the teachers (one persistent block an SM, at most ``n_sm`` blocks),
+    else the first kernel (a block per 16x16 tile and Cout tile). Fixed by
+    shape; raises for a batch past the first kernel's grid limit."""
     t = _template(cin, cout)
     if t == 0:
         co_t = 32 if cout > 16 else 16 if cout > 8 else 8
@@ -83,9 +92,15 @@ def launch_plan(n: int, h: int, w: int, cin: int, cout: int, n_sm: int) -> ConvP
                              f"Cout {cout}")
         return ConvPlan("first", 0, (_FIRST_TILE, _FIRST_TILE), co_t, n * per_image,
                         (per_image, -(-cout // co_t), n))
+    return ring_plan(t, n, h, w, cout, n_sm)
+
+
+def ring_plan(t: int, n: int, h: int, w: int, cout: int, n_sm: int) -> ConvPlan:
+    """Ring template ``t``'s launch: one work item per pixel tile and Cout
+    tile, one persistent block an SM."""
     name, co_t, th, tw = _TEMPLATES[t]
-    tiles = n * -(-h // th) * -(-w // tw)
-    return ConvPlan(name, t, (th, tw), co_t, tiles, (min(tiles, n_sm), 1, 1))
+    items = n * -(-h // th) * -(-w // tw) * -(-cout // co_t)
+    return ConvPlan(name, t, (th, tw), co_t, items, (min(items, n_sm), 1, 1))
 
 
 @functools.lru_cache(maxsize=1024)
@@ -139,7 +154,8 @@ def conv3x3_reflect(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
     (N, H, W, Cout), by the template :func:`launch_plan` picks. ``top``,
     ``bot``: (N, 1, W, Cin) float32 CUDA rows, each image's row contiguous,
     on any card, or None; the staging reads them in place (counted in
-    ``conv3x3_reflect.halo_launches`` too)."""
+    ``conv3x3_reflect.halo_launches`` too). ``conv3x3_reflect.by_template``
+    counts the launches by the plan's template name."""
     name = "conv3x3_reflect"
     if x.dim() != 4 or w.shape[:3] != (3, 3, x.shape[3]):
         raise ValueError(f"{name}: x {tuple(x.shape)} and HWIO w "
@@ -172,11 +188,13 @@ def conv3x3_reflect(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
     _build.check(err, name)
     conv3x3_reflect.launches += 1
     conv3x3_reflect.halo_launches += bool(rows)
+    conv3x3_reflect.by_template[plan.kernel] += 1
     return y
 
 
 conv3x3_reflect.launches = 0
 conv3x3_reflect.halo_launches = 0
+conv3x3_reflect.by_template = Counter()
 conv3x3_reflect.plain = conv3x3_plain
 
 

@@ -20,11 +20,19 @@
 // Two kernels, chosen per shape by the launch plan in ../conv.py
 // (launch_plan), never as a fallback:
 //
-// ring_conv3x3_kernel (the path's widths: Cin and Cout in {3, 16, 24, 32, 64, 128}):
+// ring_conv3x3_kernel (the path's and the teachers' widths: Cin and Cout in
+// {3, 16, 24, 32, 64, 128, 256, 512}):
 //   * a persistent block walks over TH x TW pixel tiles (grid stride) and
 //     computes each for ALL of Cout (a Cout tile CO_T up to 128), so the
-//     input halo is staged once per tile;
-//   * the work is one sequence of steps (tile, Cin chunk of CI_T); each step's
+//     input halo is staged once per tile. Templates with WALK (the
+//     teachers' widths) walk work items (pixel tile, Cout tile of CO_T)
+//     instead, the Cout tile innermost, as the reference's conv3x3_tiled
+//     orders its grid: the 2..8 Cout tiles of one pixel tile run on
+//     neighbouring blocks of one wave and read its halo from L2 (a 64^2 x 256
+//     x 16 map is 67 MB, more than the 50 MB L2); the epilogue and the bias
+//     index from the Cout tile's first cout. WALK is a template flag, so the
+//     templates without it compile to what they did before it;
+//   * the work is one sequence of steps (work item, Cin chunk of CI_T); each step's
 //     (TH+2) x (TW+2) x CI_T halo and 9 x CI_T x CO_T weights are copied into
 //     a ring of NS shared-memory slots by cp.async, 16 bytes at a time where
 //     Cin (Cout) % 4 == 0 and x (w) is 16-byte aligned, 4 bytes otherwise, so
@@ -47,9 +55,14 @@
 //   Cout 16, ~30 % of the byte bound at Cout 3 and Cin 3. Two output rows a
 //   thread (0.53 shared bytes per FMA), 16-pixel strips, all 16 couts a
 //   thread at Cout 16 and two blocks an SM each measured slower or no faster
-//   (tools/bench_kernels.py), so the shared pipe alone does not hold it.
+//   (tools/bench_kernels.py), so the shared pipe alone does not hold it. At
+//   the teachers' widths the walking 16x16 x 64-cout template reaches ~63 %
+//   of FFMA peak over a training step's 27 convs at 256/512 (the first kernel
+//   took them at ~40 %). Over those convs the other walking templates
+//   measured were slower: two slots 1 %, 8x32 tiles 4 %, 8x16 tiles x 128
+//   couts 5 %, Cin chunks of 8 with 3 to 6 slots 6-11 %.
 //
-// first_conv3x3_kernel (every other width: the teachers' 256 and 512, odd widths):
+// first_conv3x3_kernel (widths outside the ring's set, such as 129):
 //   the first port's kernel, a 16x16 tile x a Cout tile of 4 * CPT, Cin
 //   chunks of 16 staged by plain loads, 4 pixels x CPT couts a thread.
 //
@@ -157,11 +170,13 @@ constexpr int PX = 8;   // pixels of a thread strip, one row
 // keeps ~250 registers a thread, most for shared loads it starts early; at
 // two blocks an SM (128 registers) it spilled and took 1.22x as long on an
 // H100.
-template <int CO_T_, int CPT_, int TH_, int TW_, int CI_T_, int NS_, bool X4_>
+template <int CO_T_, int CPT_, int TH_, int TW_, int CI_T_, int NS_, bool X4_,
+          bool WALK_ = false>
 struct Ring {
   static constexpr int CO_T = CO_T_, CPT = CPT_, TH = TH_, TW = TW_, CI_T = CI_T_;
   static constexpr int NS = NS_;
   static constexpr bool X4 = X4_;                 // read x as float4, 4 channels at once
+  static constexpr bool WALK = WALK_;             // walk the Cout tiles of a wider Cout
   static constexpr int G = CO_T / CPT;            // cout groups
   static constexpr int S = TH * TW / PX;          // pixel strips
   static constexpr int NT = G * S;                // threads
@@ -183,7 +198,7 @@ __global__ void __launch_bounds__(R::NT, 1)
 ring_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ b, float* __restrict__ y, int H, int W,
                     int Cin, int Cout, int relu, int vec_x, int vec_w, int vec_y,
-                    int tiles_h, int tiles_w, int ntiles, Halo halo) {
+                    int tiles_h, int tiles_w, int nitems, Halo halo) {
   constexpr int CO_T = R::CO_T, CPT = R::CPT, TH = R::TH, TW = R::TW;
   constexpr int CI_T = R::CI_T, NS = R::NS, NT = R::NT, G = R::G;
   constexpr int HR = R::HR, HC = R::HC, TWP = R::TWP, CIS = R::CIS;
@@ -197,14 +212,19 @@ ring_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
   const int nchunks = (Cin + CI_T - 1) / CI_T;
   const int per_img = tiles_h * tiles_w;
-  const int nt = (ntiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  const int nco = R::WALK ? (Cout + CO_T - 1) / CO_T : 1;   // Cout tiles of a pixel tile
+  const int nt = (nitems - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
   const int nsteps = nt * nchunks;
 
-  // step k = (this block's tile k / nchunks, Cin chunk k % nchunks) into slot
-  // k % NS: one commit group per step, empty past the last
+  // step k = (this block's work item k / nchunks, Cin chunk k % nchunks) into
+  // slot k % NS: one commit group per step, empty past the last. Work item i
+  // is pixel tile i / nco, Cout tile i % nco (Cout tile innermost, so that a
+  // tile's Cout tiles run on neighbouring blocks and share its halo in L2)
   auto prefetch = [&](int k) {
     if (k < nsteps) {
-      const int tile = blockIdx.x + (k / nchunks) * gridDim.x;
+      const int item = blockIdx.x + (k / nchunks) * gridDim.x;
+      const int tile = R::WALK ? item / nco : item;
+      const int co0 = R::WALK ? (item - tile * nco) * CO_T : 0;
       const int ci0 = (k % nchunks) * CI_T;
       const int n = tile / per_img;
       const int r0 = tile - n * per_img;
@@ -265,8 +285,8 @@ ring_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
           const int ci = row % CI_T;
           const int tap = row / CI_T;
           float* dst = ws + row * CO_T + 4 * q;
-          if (ci0 + ci < Cin && 4 * q < Cout)
-            cp_async16(dst, w + ((size_t)tap * Cin + ci0 + ci) * Cout + 4 * q);
+          if (ci0 + ci < Cin && co0 + 4 * q < Cout)
+            cp_async16(dst, w + ((size_t)tap * Cin + ci0 + ci) * Cout + co0 + 4 * q);
           else
             *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
         }
@@ -276,8 +296,8 @@ ring_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
           const int row = e / CO_T;
           const int ci = row % CI_T;
           const int tap = row / CI_T;
-          if (ci0 + ci < Cin && co < Cout)
-            cp_async4(ws + e, w + ((size_t)tap * Cin + ci0 + ci) * Cout + co);
+          if (ci0 + ci < Cin && co0 + co < Cout)
+            cp_async4(ws + e, w + ((size_t)tap * Cin + ci0 + ci) * Cout + co0 + co);
           else
             ws[e] = 0.f;
         }
@@ -352,8 +372,17 @@ ring_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
       }
     }
 
-    if (k % nchunks == nchunks - 1) {   // the tile's last chunk: epilogue
-      const int tile = blockIdx.x + (k / nchunks) * gridDim.x;
+    if (k % nchunks == nchunks - 1) {   // the work item's last chunk: epilogue
+      const int item = blockIdx.x + (k / nchunks) * gridDim.x;
+      const int tile = R::WALK ? item / nco : item;
+      const int co0 = R::WALK ? (item - tile * nco) * CO_T : 0;
+      if constexpr (R::WALK) {   // this Cout tile's bias (the first tile's is loaded above)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          const int co = co0 + (j / 4) * R::GSTRIDE + cg * 4 + j % 4;
+          bias[j] = co < Cout ? b[co] : 0.f;
+        }
+      }
       const int n = tile / per_img;
       const int r0 = tile - n * per_img;
       const int gy = (r0 / tiles_w) * TH + sr;
@@ -366,7 +395,7 @@ ring_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
           float* yp = yrow + (size_t)(gx0 + p) * Cout;
 #pragma unroll
           for (int g = 0; g < R::NGRP; ++g) {
-            const int co = g * R::GSTRIDE + cg * 4;
+            const int co = co0 + g * R::GSTRIDE + cg * 4;
             float o[4];
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
@@ -405,11 +434,11 @@ template <class R, bool HALO>
 int launch_ring_as(const float* x, const float* w, const float* b, float* y, const Halo& hl,
                    int n, int h, int wd, int cin, int cout, int relu, int nblocks,
                    cudaStream_t s) {
-  if (cout > R::CO_T || nblocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if ((!R::WALK && cout > R::CO_T) || nblocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int tiles_h = (h + R::TH - 1) / R::TH;
   const int tiles_w = (wd + R::TW - 1) / R::TW;
-  const long long ntiles = (long long)n * tiles_h * tiles_w;
-  if (ntiles > 0x7fffffffLL || nblocks > ntiles) return static_cast<int>(cudaErrorInvalidValue);
+  const long long nitems = (long long)n * tiles_h * tiles_w * ((cout + R::CO_T - 1) / R::CO_T);
+  if (nitems > 0x7fffffffLL || nblocks > nitems) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = ring_conv3x3_kernel<R, HALO>;
   // the opt-in above 48 KB of dynamic shared memory, once per device
   static bool opted[kMaxDevices];
@@ -425,7 +454,7 @@ int launch_ring_as(const float* x, const float* w, const float* b, float* y, con
   kernel<<<nblocks, R::NT, R::SMEM, s>>>(
       x, w, b, y, h, wd, cin, cout, relu, cin % 4 == 0 && aligned16(x) && halo_aligned16(hl),
       cout % 4 == 0 && aligned16(w), cout % 4 == 0 && aligned16(y), tiles_h, tiles_w,
-      static_cast<int>(ntiles), hl);
+      static_cast<int>(nitems), hl);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -441,15 +470,19 @@ int launch_ring(const float* x, const float* w, const float* b, float* y, const 
 
 // The templates, by the id the launch plan gives (../conv.py _TEMPLATES):
 // (Cout tile, couts a thread, tile rows, tile cols, Cin chunk, slots, x read
-// as float4). Chosen step by step on the card (tools/bench_kernels.py): Cin
-// chunks of 16 at the wide Couts, 4 where a warp holds 16+ strips (Cout 16)
-// and for Cin = 3, 8 at Cout = 3.
+// as float4, Cout walk). Chosen step by step on the card
+// (tools/bench_kernels.py, --template at the teachers' widths): Cin chunks
+// of 16 at the wide Couts, 4 where a warp holds 16+ strips (Cout 16) and for
+// Cin = 3, 8 at Cout = 3.
 using RingCo128 = Ring<128, 8, 8, 16, 16, 2, false>;    // 256 threads, 178 KB
 using RingCo64 = Ring<64, 8, 16, 16, 16, 3, false>;     // 256 threads, 193 KB
 using RingCo32 = Ring<32, 8, 16, 32, 16, 2, false>;     // 256 threads, 138 KB
 using RingCo32Cin3 = Ring<32, 8, 16, 32, 4, 3, false>;  // 256 threads, 44 KB
 using RingCo16 = Ring<16, 8, 32, 32, 4, 3, true>;       // 256 threads, 64 KB
 using RingCo4 = Ring<4, 4, 32, 64, 8, 2, true>;         // 256 threads, 219 KB
+// The teachers' widths (Cin or Cout 256, 512; Cout 64 and up): RingCo64's
+// geometry, walking the Cout tiles of a Cout up to 512 (WALK).
+using RingW64 = Ring<64, 8, 16, 16, 16, 3, false, true>;  // 256 threads, 193 KB
 
 // ---- first_conv3x3_kernel -----------------------------------------------------
 
@@ -611,6 +644,8 @@ extern "C" int cd_conv3x3_reflect(const float* x, const float* w,
       return launch_ring<RingCo16>(x, w, b, y, hl, n, h, wd, cin, cout, relu, nblocks, s);
     case 6:
       return launch_ring<RingCo4>(x, w, b, y, hl, n, h, wd, cin, cout, relu, nblocks, s);
+    case 7:
+      return launch_ring<RingW64>(x, w, b, y, hl, n, h, wd, cin, cout, relu, nblocks, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

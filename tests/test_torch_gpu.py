@@ -53,9 +53,13 @@ def test_conv3x3_kernel_matches_plain(gen, case):
 
 
 # (Cin, Cout) for each template of the launch plan: every ring template at
-# the cascade's widths, and two of the first kernel's
+# the cascade's and the teachers' widths (Cin 256 and Cout 24: a cascade
+# template past its Cin), and two of the first kernel's
 TEMPLATE_PAIRS = [(128, 128), (64, 128), (128, 64), (32, 64), (16, 32), (32, 32), (24, 24),
-                  (3, 24), (16, 16), (3, 16), (32, 16), (16, 3), (24, 3), (256, 24), (5, 7)]
+                  (3, 24), (16, 16), (3, 16), (32, 16), (16, 3), (24, 3), (256, 24), (5, 7),
+                  (256, 512), (129, 64)]
+# the teachers' (VGG-19) Cin/Cout pairs at 256 and 512
+TEACHER_PAIRS = [(128, 256), (256, 256), (256, 512), (512, 512), (512, 256), (256, 128)]
 
 
 def _conv3x3_check(gen, n, h, w, ci, co, relu, offset=0):
@@ -85,6 +89,21 @@ def test_conv3x3_templates_at_edge_shapes(gen, pair, hw, offset):
     assert (plan.kernel == "first") == (ci not in kconv.RING_WIDTHS or co not in kconv.RING_WIDTHS)
     h, w = (plan.tile[0] + 1, plan.tile[1] + 1) if hw == "tile+1" else map(int, hw.split("x"))
     _conv3x3_check(gen, 2 if hw == "2x37" else 1, h, w, ci, co, ci % 2 == 0, offset)
+
+
+@pytest.mark.parametrize("pair", TEACHER_PAIRS, ids=str)
+@pytest.mark.parametrize("nhw", [(1, 17, 33), (2, 1, 5), (16, 16, 16), (1, 9, 17)], ids=str)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_conv3x3_teacher_widths_match_plain(gen, pair, nhw, offset):
+    """The Cout-walking ring template at the teachers' widths: ragged maps,
+    a map of one row, N = 16 at 16^2 (one wave of work items on 132 SMs) and
+    one past the 8 x 16 tile both ways; a ring template plans every pair."""
+    ci, co = pair
+    n, h, w = nhw
+    plan = kconv.launch_plan(n, h, w, ci, co, 132)
+    assert plan.kernel != "first" and plan.tiles == (
+        n * -(-h // plan.tile[0]) * -(-w // plan.tile[1]) * -(-co // plan.cout_tile))
+    _conv3x3_check(gen, n, h, w, ci, co, True, offset)
 
 
 def _halo_conv_check(gen, n, h, w, ci, co, relu, sides, offset, rows_device="cuda"):
@@ -143,6 +162,13 @@ def test_conv3x3_own_reflection_rows_as_halos_are_bit_equal(gen, pair, offset):
     halo = kc.conv3x3_reflect(x, wt, b, True, top=x[:, 1:2], bot=x[:, -2:-1])
     torch.cuda.synchronize()
     assert torch.equal(plain, halo)
+
+
+@pytest.mark.parametrize("pair", TEACHER_PAIRS, ids=str)
+@pytest.mark.parametrize("sides", ["both", "top", "bot"])
+def test_conv3x3_halo_rows_at_teacher_widths(gen, pair, sides):
+    ci, co = pair
+    _halo_conv_check(gen, 2, 9, 17, ci, co, True, sides, 1 if ci == 256 else 0)
 
 
 def test_conv3x3_halo_rows_on_other_cards(gen):
@@ -285,7 +311,7 @@ def test_kernels_keep_nan_as_torch_does(gen):
         assert torch.equal(got.isnan(), ref.isnan()) and bool(got.isnan().any())
 
 
-@pytest.mark.parametrize("pair", TEMPLATE_PAIRS, ids=str)
+@pytest.mark.parametrize("pair", TEMPLATE_PAIRS + TEACHER_PAIRS, ids=str)
 def test_conv3x3_templates_keep_nan(gen, pair):
     # one NaN input pixel in the middle of a tile and one on the map's edge
     # (read again by the reflection): NaN where the plain version has it
@@ -523,6 +549,39 @@ def test_autograd_functions_match_plain_on_card(gen, case):
     up = torch.autograd.grad(y, x, torch.ones(n, 2 * h, 2 * w, ci, device="cuda"))[0]
     assert torch.equal(up, torch.full_like(x, 4.0))
     assert torch.equal(y, kc.upsample_nearest_2x.plain(x.detach()))
+
+
+@pytest.mark.parametrize("case", [(2, 16, 16, 512, 512), (1, 9, 17, 256, 512),
+                                  (2, 8, 8, 512, 256)], ids=str)
+def test_conv3x3_function_gradients_at_teacher_widths(gen, case):
+    """The ``Conv3x3`` Function with ReLU at the teachers' widths against the
+    plain version's autograd under the kernel's own ReLU decisions (as
+    chip_smoke.py phase 8a holds them): a pre-activation within rounding of
+    0 may take the other side in the plain forward, so the plain gradient
+    takes the kernel's mask; each gradient to 1e-5 of its largest partial sum."""
+    from collaborative_distillation_tpu_torch.ops import conv as tconv
+    from collaborative_distillation_tpu_torch.train.trainer import full_float32
+    n, h, w, ci, co = case
+    x = _rand(gen, n, h, w, ci).requires_grad_()
+    wt = ((_rand(gen, 3, 3, ci, co) - 0.5) * (2 / (9 * ci) ** 0.5)).requires_grad_()
+    b = (_rand(gen, co) - 0.5).requires_grad_()
+    g = _rand(gen, n, h, w, co) - 0.5
+    with full_float32():
+        y = tconv.conv3x3(x, wt, b, relu=True)
+        got = torch.autograd.grad(y, (x, wt, b), g)
+        with torch.no_grad():
+            pre = kc.conv3x3_reflect(x, wt, b, False)
+            plain = kc.conv3x3_reflect.plain(x, wt, b, False)
+            fscale = float(x.abs().max() * wt.abs().sum(dim=(0, 1, 2)).max() + b.abs().max())
+            assert float((y - plain.clamp_min(0)).abs().max()) <= 1e-5 * fscale
+            assert float((pre - plain).abs().max()) <= 1e-5 * fscale
+            assert int(((pre > 0) != (plain > 0)).sum()) <= max(2, 1e-5 * pre.numel())
+            gp = g * torch.where(pre > 0, 1.0, torch.where(pre == 0, 0.5, 0.0))
+        want = torch.autograd.grad(kc.conv3x3_reflect.plain(x, wt, b, False), (x, wt, b), gp)
+        ab = [t.detach().abs().requires_grad_() for t in (x, wt, b)]
+        scale = torch.autograd.grad(kc.conv3x3_reflect.plain(*ab, False), ab, g.abs())
+    for a, r, sc in zip(got, want, scale):
+        assert float((a - r).abs().max()) <= 1e-5 * float(sc.abs().max())
 
 
 def test_relu_tie_on_card_is_half_the_gradient(gen):

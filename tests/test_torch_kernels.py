@@ -158,42 +158,75 @@ TEACHER_SHAPES = [(1, 512, 512, ci, co) for ci, co in
                    (512, 512), (512, 256), (256, 128), (128, 64), (64, 3)]]
 EDGE_SHAPES = [(1, 1, 1, 128, 128), (2, 3, 5, 24, 3), (1, 17, 33, 3, 16), (1, 2, 1, 16, 16),
                (3, 9, 65, 16, 3), (1, 33, 17, 32, 24), (1, 4, 4, 5, 7), (65535, 1, 1, 8, 8),
-               (70000, 1, 1, 16, 16)]
+               (70000, 1, 1, 16, 16), (1, 1, 1, 512, 512), (2, 9, 17, 256, 512),
+               (1, 17, 33, 512, 3), (1, 5, 5, 129, 256), (1, 5, 5, 256, 129)]
 
 
-@pytest.mark.parametrize("shape", _path_conv_shapes() + TEACHER_SHAPES + EDGE_SHAPES, ids=str)
+def _wct_se_conv_shapes():
+    """{(N, H, W, Cin, Cout): calls} of the conv3x3 launches of a wct_se
+    training step at stage 5 x 16 x 256^2 (chip_smoke.py phases 8c, 8d)."""
+    from collections import Counter
+    calls = Counter()
+    for s, n in chip_smoke.train_conv_calls("wct_se").items():
+        calls[s[:5]] += n
+    return calls
+
+
+@pytest.mark.parametrize("shape", _path_conv_shapes() + TEACHER_SHAPES + EDGE_SHAPES
+                         + sorted(_wct_se_conv_shapes()), ids=str)
 @pytest.mark.parametrize("n_sm", [132, 1])
 def test_conv3x3_launch_plan_covers_the_output_once(shape, n_sm):
     n, h, w, cin, cout = shape
     plan = kconv.launch_plan(n, h, w, cin, cout, n_sm)
     ring = cin in kconv.RING_WIDTHS and cout in kconv.RING_WIDTHS
     assert (plan.kernel != "first") == ring and (plan.template > 0) == ring
-    assert plan.cout_tile >= (cout if ring else 1)
     th, tw = plan.tile
     tiles_h, tiles_w = -(-h // th), -(-w // tw)
-    assert plan.tiles == n * tiles_h * tiles_w < 2 ** 31
     if not ring:   # a block per (tile, Cout tile, image)
+        assert plan.tiles == n * tiles_h * tiles_w < 2 ** 31
         assert plan.grid == (tiles_h * tiles_w, -(-cout // plan.cout_tile), n)
         assert plan.grid[1] <= 65535 and plan.grid[2] <= kconv.MAX_GRID_Z
         return
-    # one persistent wave; block b takes tiles b, b + grid, ...: every block
-    # has a tile and every tile one block
+    # a Cout wider than the template's tile only on the Cout-walking ones
+    nco = -(-cout // plan.cout_tile)
+    assert nco == 1 or plan.kernel.startswith("ring_walk")
+    assert plan.tiles == n * tiles_h * tiles_w * nco < 2 ** 31
+    # one persistent wave; block b takes work items b, b + grid, ...: every
+    # block has an item and every item one block
     assert plan.grid[1:] == (1, 1) and 1 <= plan.grid[0] <= min(plan.tiles, n_sm)
-    # tile t's image and first row and column, as the kernel computes them
-    img, r = np.divmod(np.arange(plan.tiles), tiles_h * tiles_w)
-    y0, x0 = (r // tiles_w) * th, (r % tiles_w) * tw
-    assert len(set(zip(img.tolist(), y0.tolist(), x0.tolist()))) == plan.tiles
+    items = np.concatenate([np.arange(b, plan.tiles, plan.grid[0]) for b in range(plan.grid[0])])
+    assert np.array_equal(np.sort(items), np.arange(plan.tiles))
+    # item i's pixel tile and Cout tile, the tile's image and first row and
+    # column, as the kernel computes them (Cout tile innermost)
+    tile, cot = np.divmod(items, nco)
+    img, r = np.divmod(tile, tiles_h * tiles_w)
+    y0, x0, co0 = (r // tiles_w) * th, (r % tiles_w) * tw, cot * plan.cout_tile
+    assert len(set(zip(img.tolist(), y0.tolist(), x0.tolist(), co0.tolist()))) == plan.tiles
     assert img.min() == 0 and img.max() == n - 1
     assert (y0 % th == 0).all() and (x0 % tw == 0).all() and (y0 < h).all() and (x0 < w).all()
+    assert (co0 < cout).all()
+    # every output pixel and cout once: the clipped boxes' volumes add up
     area = (np.minimum(y0 + th, h) - y0) * (np.minimum(x0 + tw, w) - x0)
-    assert int(area.sum()) == n * h * w
+    couts = np.minimum(co0 + plan.cout_tile, cout) - co0
+    assert int((area * couts).sum()) == n * h * w * cout
 
 
 def test_conv3x3_launch_plan_takes_the_ring_at_every_path_width():
     shapes = _path_conv_shapes()
     kinds = {kconv.launch_plan(*s, 132).kernel for s in shapes}
     assert "first" not in kinds and len(shapes) > 40
-    assert {kconv.launch_plan(*s, 132).kernel for s in TEACHER_SHAPES} >= {"first", "ring_co64"}
+    # the teachers' widths take the ring too, the 27 teacher-width convs of a
+    # wct_se step the Cout-walking template; an odd width still plans the
+    # first kernel
+    step = _wct_se_conv_shapes()
+    assert sum(n for s, n in step.items() if chip_smoke.teacher_width(s)) == 27
+    assert sum(n for s, n in chip_smoke.original_conv_calls(1024).items()
+               if chip_smoke.teacher_width(s)) == 45
+    assert "first" not in {kconv.launch_plan(*s, 132).kernel for s in TEACHER_SHAPES + list(step)}
+    assert {kconv.launch_plan(*s, 132).kernel for s in step
+            if chip_smoke.teacher_width(s)} == {"ring_walk64"}
+    for ci, co in ((129, 64), (256, 129), (3, 129), (600 // 5, 512)):
+        assert kconv.launch_plan(1, 64, 64, ci, co, 132).kernel == "first"
     with pytest.raises(ValueError, match="batch"):   # past gridDim.z: refused, not launched
         kconv.launch_plan(70000, 1, 1, 8, 8, 132)
 

@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""Time one of the port's kernels per shape of the mode-16x paths on one card.
+"""Time one of the port's kernels per shape of the port's paths on one card.
 
 At every shape that the 2048^2 plain cascade and the 4096 x 10240
-``slab_rows=1024`` slab cascade give the kernel, it holds the kernel against
+``slab_rows=1024`` slab cascade of mode 16x give the kernel (and, for
+conv3x3, the teacher-width convs, Cin or Cout 256/512, of a wct_se training
+step at stage 5 x 16 x 256^2 and of a mode-original 1024^2 cascade), it
+holds the kernel against
 its plain version (``chip_smoke.py``'s check and tolerance) and times it with
 CUDA events (mean of 10 calls after two warm-ups) and with torch.profiler
 (the kernel's own device time per call), beside the least time the card
@@ -16,25 +19,35 @@ has one), one per path (sums weighted by the calls per cascade), and the
 card's name and power limit.
 
     python3 tools/bench_kernels.py --kernel {sum_gram,conv1x1_bias,conv3x3_reflect}
-        [--root CHECKOUT] [--reference] [--paths "2048^2 plain" "UHD slab"]
+        [--root CHECKOUT] [--reference] [--paths "2048^2 plain" "UHD slab"
+        "wct_se step" "original 1024^2"] [--template ID ...]
 
-``--root`` imports ``chip_smoke.py`` and the port from another checkout, for
-example the parent commit unpacked with ``git archive`` under the ignored
-``build/checkouts/``, so that two versions are timed on one card in turns:
-run parent, change, change, parent in one command.
+``--template`` (conv3x3 only) times the listed ring templates of
+``ops/cuda/conv.py:_TEMPLATES`` at every shape as well, launched through the
+C entry with their own work items, beside the plan's: a tuning aid that
+compares templates at shapes the plan gives to another one.
+
+``--root`` imports the port from another checkout, for example the parent
+commit unpacked with ``git archive`` under the ignored ``build/checkouts/``,
+so that two versions are timed on one card in turns: run parent, change,
+change, parent in one command. The shapes, checks and timers are this
+checkout's ``chip_smoke.py``.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import subprocess
 import sys
 
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPS = 10                    # calls timed per shape, after two warm-ups
 STAGES = (5, 4, 3, 2, 1)
 PATHS = ("2048^2 plain", "UHD slab")
+TEACHER_PATHS = ("wct_se step", "original 1024^2")   # conv3x3 at Cin or Cout 256/512
 
 
 def device_ms(torch, fn, reps) -> dict:
@@ -68,7 +81,19 @@ def path_shapes(chip_smoke, kernel) -> dict:
                                                chip_smoke.UHD_H, chip_smoke.UHD_W, 2048, 2048,
                                                FEATURE_CACHE_BYTES)[0],
     }
-    return {p: {s: n for (k, s), n in calls.items() if k == kernel} for p, calls in plans.items()}
+    out = {p: {s: n for (k, s), n in calls.items() if k == kernel} for p, calls in plans.items()}
+    if kernel == "conv3x3_reflect":
+        out.update(teacher_shapes(chip_smoke))
+    return out
+
+
+def teacher_shapes(chip_smoke) -> dict:
+    """{path: {shape: calls}} of the conv3x3 launches at Cin or Cout 256/512:
+    a wct_se training step (chip_smoke.py phase 8d) and one mode-original
+    1024^2 cascade (phase 7f)."""
+    pick = lambda calls: {s: n for s, n in calls.items() if chip_smoke.teacher_width(s)}
+    return {"wct_se step": pick(chip_smoke.train_conv_calls("wct_se")),
+            "original 1024^2": pick(chip_smoke.original_conv_calls(1024))}
 
 
 def make_call(torch, kc, kernel, shape):
@@ -92,6 +117,37 @@ def make_call(torch, kc, kernel, shape):
     return lambda: k(x, shift)
 
 
+def template_call(torch, chip_smoke, kc, t, shape):
+    """conv3x3 ring template ``t`` at ``shape``, through the C entry with
+    the template's own plan: (call, max error over the largest partial sum
+    against the plain version), or None where the template cannot take Cout."""
+    from collaborative_distillation_tpu_torch.ops.cuda import _build
+    from collaborative_distillation_tpu_torch.ops.cuda.conv import _TEMPLATES, ring_plan
+    n, h, w, ci, co, relu = shape[:6]
+    name, co_t = _TEMPLATES[t][:2]
+    if co > co_t and not name.startswith("ring_walk"):
+        return None
+    x = torch.rand(n, h, w, ci, device="cuda")
+    wt = (torch.rand(3, 3, ci, co, device="cuda") - 0.5) * (2 / (9 * ci) ** 0.5)
+    b = torch.rand(co, device="cuda") - 0.5
+    y = torch.empty(n, h, w, co, device="cuda")
+    plan = ring_plan(t, n, h, w, co, torch.cuda.get_device_properties(0).multi_processor_count)
+    lib = _build.library()
+
+    def call():
+        _build.check(lib.cd_conv3x3_reflect(
+            x.data_ptr(), wt.data_ptr(), b.data_ptr(), y.data_ptr(), None, None, 0, 0,
+            n, h, w, ci, co, int(relu), t, plan.grid[0],
+            torch.cuda.current_stream().cuda_stream), f"template {t}")
+    call()
+    ref = kc.conv3x3_reflect.plain(x, wt, b, relu)
+    scale = float(x.abs().max() * wt.abs().sum(dim=(0, 1, 2)).max() + b.abs().max())
+    err = float((y - ref).abs().max()) / scale
+    if not err <= chip_smoke.CONV_TOL:
+        raise AssertionError(f"template {t} at {shape}: error {err} > {chip_smoke.CONV_TOL}")
+    return call, err
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", required=True,
@@ -99,7 +155,9 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--reference", action="store_true",
                     help="also time the plain version and the library call")
-    ap.add_argument("--paths", nargs="+", default=list(PATHS), choices=PATHS)
+    ap.add_argument("--paths", nargs="+", default=list(PATHS), choices=PATHS + TEACHER_PATHS)
+    ap.add_argument("--template", type=int, nargs="+", default=[],
+                    help="conv3x3: also time these ring template ids at every shape")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -107,8 +165,13 @@ def main() -> int:
         return 1
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
-    import chip_smoke
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = chip_smoke
+    spec.loader.exec_module(chip_smoke)
     from collaborative_distillation_tpu_torch.ops import cuda as kc
+    from collaborative_distillation_tpu_torch.utils.flops import card_peak_flops
+    chip_smoke.PEAK_FP32_FLOPS = card_peak_flops(0, "float32")[0]   # as chip_smoke.main sets it
     try:   # the conv3x3 launch plan, where the checkout has one
         from collaborative_distillation_tpu_torch.ops.cuda.conv import device_plan
     except ImportError:
@@ -120,7 +183,8 @@ def main() -> int:
     rows = {}
     for path in args.paths:
         keys = ("ms", "device_ms", "bound_ms") + (
-            ("plain_ms", "library_ms", "copy_ms") if args.reference else ())
+            ("plain_ms", "library_ms", "copy_ms") if args.reference else ()) + tuple(
+            f"t{t}_ms" for t in args.template)
         tot = dict.fromkeys(keys, 0.0)
         tot["launches"] = 0
         for shape, n in sorted(shapes[path].items(), key=str):
@@ -145,6 +209,15 @@ def main() -> int:
                     del src, dst
                 if args.kernel == "conv3x3_reflect":
                     r["plan"] = device_plan(*shape[:5], 0).kernel if device_plan else "first"
+                for t in args.template:
+                    with torch.no_grad():
+                        got = template_call(torch, chip_smoke, kc, t, shape)
+                        if got is None:
+                            r[f"t{t}_ms"] = float("nan")
+                            continue
+                        r[f"t{t}_ms"] = chip_smoke.cuda_ms(torch, got[0], REPS)
+                        r[f"t{t}_max_rel_err"] = got[1]
+                        del got
                 rows[shape] = r
                 print(json.dumps({"shape": list(shape), **r}), flush=True)
             r = rows[shape]

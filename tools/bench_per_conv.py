@@ -10,10 +10,10 @@ For the checkout at ``--root`` (default: this one) it prints one JSON line:
   card, launches, and on one card device busy, idle share and the
   profiler's top device time by kernel;
 * ``conv3x3``: the conv3x3 kernel without halo rows at every conv shape of
-  the 2048^2 plain cascade, on inputs made from one seed: the time summed
-  over a cascade's calls (CUDA events, mean of 10 after two warm-ups) and a
-  SHA-256 of all the outputs' bytes, which is equal across two checkouts
-  whose kernels compute the same bits;
+  the 2048^2 plain cascade: the time summed over a cascade's calls (CUDA
+  events, mean of 10 after two warm-ups) and ``chip_smoke.conv3x3_sha256``,
+  a SHA-256 of its outputs on inputs made from one seed, which is equal
+  across two checkouts whose kernels compute the same bits;
 * ``ptxas``: the register and spill lines of the conv3x3 kernels from the
   build log.
 
@@ -28,7 +28,6 @@ under the ignored ``build/checkouts/`` (``git archive``):
 from __future__ import annotations
 
 import argparse
-import hashlib
 import importlib.util
 import json
 import os
@@ -78,20 +77,19 @@ def main() -> int:
              for h in (2048, cs.PC_AWK_H)]
     # the conv kernel without halo rows at the 2048^2 plain path's shapes
     calls, _ = cs.path_calls(per_conv.pyramid, per_conv.stages, 2048, 2048)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    sha, conv_ms = hashlib.sha256(), 0.0
+    conv_ms = 0.0
     with torch.no_grad():
         for (kernel, shape), n in sorted(calls.items(), key=str):
             if kernel != "conv3x3_reflect":
                 continue
             b_, h, w, ci, co, relu = shape[:6]
-            x = torch.rand((b_, h, w, ci), generator=gen, device="cuda")
-            wt = (torch.rand((3, 3, ci, co), generator=gen, device="cuda") - 0.5) * 0.1
-            b = torch.rand((co,), generator=gen, device="cuda") - 0.5
-            sha.update(kc.conv3x3_reflect(x, wt, b, relu).cpu().numpy().tobytes())
+            x = torch.rand((b_, h, w, ci), device="cuda")
+            wt = (torch.rand((3, 3, ci, co), device="cuda") - 0.5) * 0.1
+            b = torch.rand((co,), device="cuda") - 0.5
             conv_ms += cs.cuda_ms(torch, lambda: kc.conv3x3_reflect(x, wt, b, relu), 10) * n
     print(json.dumps({"root": root, "card": card, "cards": args.cards, "per_conv": timed,
-                      "conv3x3": {"ms_2048_cascade": conv_ms, "sha256": sha.hexdigest()},
+                      "conv3x3": {"ms_2048_cascade": conv_ms,
+                                  "sha256": cs.conv3x3_sha256(torch, kc, calls)},
                       "ptxas": ptxas}), flush=True)
     return 0
 
