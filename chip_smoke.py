@@ -160,6 +160,22 @@ Phases (any failure raises and the script exits non-zero):
      activation 1), a stage-2 ``normalize_encoder`` card vs CPU; (d)
      ``apply_mobilenet_encoder`` (stages 1-5, 512^2, a seeded state dict),
      ``gram_matrix`` and ``adain`` card vs CPU.
+  10. bfloat16 inference, run after phase 5d and before phase 9: (a) each
+     bf16 kernel (``conv3x3_reflect_bf16``, ``conv1x1_bias_bf16``,
+     ``max_pool_2x2_bf16``, ``upsample_nearest_2x_bf16``) against its plain
+     version at every shape of the bf16 2048^2 plain and UHD slab paths and
+     at edge shapes, within one bf16 ulp (pool and upsample exact), timed
+     beside the plain version, the library call (cuDNN's bf16 reflect conv,
+     ``torch.addmm``, ``F.max_pool2d``, ``F.interpolate``) and the bound at
+     the bf16 peak; (b) ``WCTEngine(dtype=torch.bfloat16)`` at 2048^2 and
+     on the UHD slab path with every count zeroed before and read after
+     (the float32 plan's launches on the bf16 kernels, ``sum_gram`` on the
+     float32 copy), the warm cascades (medians of 5 and 3), peaks and
+     profiles beside phase 5's and 5b's float32 medians; (c) the bf16
+     output against the float32 one on the card (2048^2 above 12 dB, UHD
+     printed beside JAX's 15.7 dB) and encoder e5 at 2048^2 card vs CPU in
+     bf16; (d) ``cli.stylize --bf16`` on one 2048^2 pair writes the bf16
+     engine's pixels.
 
 With ``--cross-card`` (two or more cards) it runs only the halo check, the
 conv3x3 halo staging with its rows on other cards, the per-conv 2048^2
@@ -190,6 +206,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # set by main() from utils/flops.py:card_peak_flops; the H100 SXM's HBM3 rate
 # (NVIDIA data sheet, at the 700 W limit)
 PEAK_FP32_FLOPS = 0.0
+PEAK_BF16_FLOPS = 0.0   # the tensor cores' dense bf16 peak, the bf16 kernels' bound
 PEAK_BYTES = 3.35e12
 REPO_PATH = "collaborative_distillation_tpu_torch/ops/cuda/csrc/"
 KERNEL_META = {
@@ -199,12 +216,24 @@ KERNEL_META = {
     "max_pool_2x2": ("pool.cu", "collaborative_distillation_tpu/ops/pallas/pool.py:96"),
     "upsample_nearest_2x": ("pool.cu", "collaborative_distillation_tpu/ops/pallas/pool.py:141"),
     "halo_exchange_rows": ("halo.cu", "collaborative_distillation_tpu/ops/pallas/halo.py:148"),
+    "conv3x3_reflect_bf16": ("conv3x3_bf16.cu",
+                             "collaborative_distillation_tpu/ops/pallas/conv.py:754"),
+    "conv1x1_bias_bf16": ("conv1x1.cu", "collaborative_distillation_tpu/ops/pallas/conv.py:437"),
+    "max_pool_2x2_bf16": ("pool.cu", "collaborative_distillation_tpu/ops/pallas/pool.py:96"),
+    "upsample_nearest_2x_bf16": ("pool.cu",
+                                 "collaborative_distillation_tpu/ops/pallas/pool.py:141"),
 }
+# the bf16 engine's kernel for each float32 one (sum_gram runs on a float32
+# copy of the features, as the reference upcasts before its kernel)
+BF16_OF = {"conv3x3_reflect": "conv3x3_reflect_bf16", "conv1x1_bias": "conv1x1_bias_bf16",
+           "max_pool_2x2": "max_pool_2x2_bf16", "upsample_nearest_2x": "upsample_nearest_2x_bf16"}
 KERNEL_PATH = {"conv1x1_bias": "UHD slab", "halo_exchange_rows": "UHD sharded"}
 # conv3x3_reflect with halo rows (the per-conv sharded path): its own rows in
 # the checks, the kernel's in the table
 KERNEL_OF = {"conv3x3_halo": "conv3x3_reflect"}
 CONV3X3_NAMES = "conv3x3_kernel"   # the profiler's names of csrc/conv3x3.cu's kernels
+# the profiler's names of the bf16 tile code's conv3x3 and 1x1 instantiations
+BF16_CONV_NAMES = {"conv3x3_reflect_bf16": "Conv3x3Geom", "conv1x1_bias_bf16": "PointGeom"}
 # Tolerances, each against the plain version on the same inputs:
 #   conv3x3, conv1x1: |kernel - plain| <= 1e-5 * S, S = max|x| * max_co sum|w|
 #     + max|b|, the largest magnitude any partial sum can take; both sum up
@@ -222,7 +251,21 @@ CONV3X3_NAMES = "conv3x3_kernel"   # the profiler's names of csrc/conv3x3.cu's k
 #   phase 8a, a conv3x3 with a ReLU: the kernel's and the plain version's
 #     pre-activations may take opposite sides of 0 where they lie within
 #     rounding of it, at most RELU_FLIP_SHARE of a shape's outputs (and 2).
+#   bf16 conv3x3 and conv1x1 (phase 10): one bf16 ulp elementwise, |kernel -
+#     plain| <= 2^-7 |plain| with a floor of 1e-3 max|plain| (both round f32
+#     sums of exact products once; a sum near a rounding boundary may round
+#     the other way); bf16 pool and upsample exact. A bf16 encoder, card vs
+#     CPU: BF16_STAGE_TOL of the output's largest magnitude (the reference's
+#     bf16 kernel against its XLA path, tests/test_pallas_conv.py:303).
+#   bf16 cascade vs float32 on the card: BF16_PSNR_MIN_DB (the reference's
+#     bf16 floor, tests/test_engine.py:44; its UHD photo reading, 15.7 dB,
+#     BENCH_r05.json uhd_bf16_photo_psnr_db, is JAX_BF16_PHOTO_DB).
 CONV_TOL = 1e-5
+BF16_ULP = 2.0 ** -7
+BF16_FLOOR = 1e-3
+BF16_STAGE_TOL = 2e-2
+BF16_PSNR_MIN_DB = 12.0
+JAX_BF16_PHOTO_DB = 15.7
 STAGE_TOL = 1e-4
 RELU_FLIP_SHARE = 1e-5
 GRAM_TOL = 2e-5
@@ -397,17 +440,19 @@ def pwct_path_calls(pyramid, stages, h, w) -> dict:
     return counts
 
 
-def work(kernel, shape):
+def work(kernel, shape, itemsize=4):
     """(bytes, flops) the function must move and compute: each input read
-    once, each output written once, float32."""
+    once, each output written once, ``itemsize`` bytes an element (4 in
+    float32, 2 in bf16; a bf16 1x1's bias is float32)."""
+    e = itemsize
     if kernel == "conv3x3_reflect":
         n, h, w, ci, co = shape[:5]
         px = n * h * w
-        return 4 * (px * ci + 9 * ci * co + co + px * co), 2 * 9 * ci * co * px
+        return e * (px * ci + 9 * ci * co + co + px * co), 2 * 9 * ci * co * px
     if kernel == "conv1x1_bias":
         n, h, w, ci, co, _, bias, _ = shape
         px = n * h * w
-        return 4 * (px * ci + ci * co + (co if bias else 0) + px * co), 2 * ci * co * px
+        return e * (px * ci + ci * co + px * co) + (4 * co if bias else 0), 2 * ci * co * px
     if kernel == "sum_gram":
         # X^T X is symmetric: c(c+1)/2 distinct entries, a multiply and an add
         # each per row; the column sum and the shift subtraction p*c each
@@ -427,8 +472,8 @@ def work(kernel, shape):
     n, h, w, c = shape
     if kernel == "max_pool_2x2":
         out = n * (h // 2) * (w // 2) * c
-        return 4 * (n * h * w * c + out), 3 * out
-    return 4 * (n * h * w * c * 5), 0
+        return e * (n * h * w * c + out), 3 * out
+    return e * (n * h * w * c * 5), 0
 
 
 def cuda_ms(torch, fn, reps):
@@ -461,7 +506,80 @@ class Bench:
 
     def run(self, kernel, shape, layer=None, timed=False, reps=10):
         with self.torch.no_grad():
+            if kernel in BF16_OF.values():
+                return self._run_bf16(kernel, shape, layer, timed, reps)
             return self._run(kernel, shape, layer, timed, reps)
+
+    def _run_bf16(self, kernel, shape, layer, timed, reps):
+        """A bf16 kernel at a float32 plan's shape: bf16 inputs (a layer's
+        params rounded to bf16), one-ulp agreement with the plain version
+        (pool and upsample exact), times against cuDNN's bf16 reflect conv,
+        ``torch.addmm`` in bf16, ``F.max_pool2d``, ``F.interpolate``."""
+        torch, F = self.torch, self.F
+        from collaborative_distillation_tpu_torch.ops import cuda as kc
+        bf = torch.bfloat16
+        k = getattr(kc, kernel)
+        row = {"kernel": kernel, "shape": list(shape)}
+        if kernel == "conv3x3_reflect_bf16":
+            n, h, w, ci, co, relu, *rest = shape
+            offset = rest[0] if rest else 0
+            x = self.rand(n * h * w * ci + offset).to(bf)[offset:].view(n, h, w, ci)
+            if layer is not None:
+                stage, part, name = layer
+                p = self.pyramid[stage][part][name]
+                wt, b = p["w"].to(bf).contiguous(), p["b"].to(bf).contiguous()
+            else:
+                wt = ((self.rand(3, 3, ci, co) - 0.5) * (2 / (9 * ci) ** 0.5)).to(bf)
+                b = (self.rand(co) - 0.5).to(bf)
+            args = (x, wt, b, relu)
+            if timed:
+                lib = torch.nn.Conv2d(ci, co, 3, padding=1, padding_mode="reflect",
+                                      device="cuda", dtype=bf)
+                lib.weight.copy_(wt.permute(3, 2, 0, 1))
+                lib.bias.copy_(b)
+                xn = x.permute(0, 3, 1, 2)   # NHWC memory as a channels-last NCHW view
+                library = lambda: lib(xn)
+        elif kernel == "conv1x1_bias_bf16":
+            n, h, w, ci, co, relu, bias, offset = shape
+            x = (self.rand(n * h * w * ci + offset) - 0.5).to(bf)[offset:].view(n, h, w, ci)
+            wt = ((self.rand(ci, co) - 0.5) * (2 / ci ** 0.5)).to(bf)
+            b = self.rand(co) - 0.5 if bias else None
+            args = (x, wt, b, relu)
+            x2, b16 = x.view(-1, ci), None if b is None else b.to(bf)
+            library = ((lambda: torch.addmm(b16, x2, wt)) if bias else (lambda: torch.mm(x2, wt)))
+        else:
+            n, h, w, c = shape
+            x = self.rand(n, h, w, c).to(bf)
+            args = (x,)
+            xn = x.permute(0, 3, 1, 2)
+            library = ((lambda: F.max_pool2d(xn, 2)) if kernel == "max_pool_2x2_bf16"
+                       else (lambda: F.interpolate(xn, scale_factor=2, mode="nearest")))
+        got, ref = k(*args), k.plain(*args)
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or got.dtype != bf:
+            raise AssertionError(f"{kernel}{shape}: {tuple(got.shape)} {got.dtype} != "
+                                 f"{tuple(ref.shape)} bfloat16")
+        g, r = got.float(), ref.float()
+        err = float((g - r).abs().max()) if ref.numel() else 0.0
+        scale = float(r.abs().max()) if ref.numel() else 1.0
+        if kernel.startswith("conv"):
+            bound = torch.clamp(r.abs() * BF16_ULP, min=BF16_FLOOR * scale)
+            misses = int(((g - r).abs() > bound).sum())
+        else:
+            misses = int((g != r).sum())
+        del got, ref, g, r
+        row.update(max_abs_err=err, max_rel_err=err / max(scale, 1e-30), ulp_misses=misses,
+                   ok=misses == 0)
+        if misses:
+            raise AssertionError(f"{kernel}{shape}: {misses} outputs more than one bf16 ulp "
+                                 f"from the plain version (max abs err {err})")
+        if timed:
+            nbytes, flops = work(next(f for f, b_ in BF16_OF.items() if b_ == kernel), shape, 2)
+            row.update(ms=cuda_ms(torch, lambda: k(*args), reps),
+                       plain_ms=cuda_ms(torch, lambda: k.plain(*args), reps),
+                       library_ms=cuda_ms(torch, library, reps),
+                       bytes_ms=nbytes / PEAK_BYTES * 1e3, flops_ms=flops / PEAK_BF16_FLOPS * 1e3)
+        return row
 
     def _run(self, kernel, shape, layer, timed, reps):
         torch, F = self.torch, self.F
@@ -663,12 +781,17 @@ def profile_cascade(torch, eng, img, sty, label="phase 5", **kw) -> dict:
     span_ms = a.elapsed_time(b)
     kernels = Counter()
     calls = Counter()
+    bf16 = Counter()   # the bf16 tile code's conv3x3 and 1x1, by their full names
     for e in prof.key_averages():
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
             ms = getattr(e, "self_device_time_total", 0.0) / 1e3
             if ms > 0:
                 kernels[e.key[:90]] += ms
                 calls[e.key[:90]] += e.count
+                for name, geom in BF16_CONV_NAMES.items():
+                    if "igemm_bf16_kernel" in e.key and geom in e.key:
+                        bf16[name] += ms
+                        bf16[name + "_calls"] += e.count
     busy = sum(kernels.values())
     if busy == 0:
         log(f"{label}: profiler saw no device time: breakdown not measured")
@@ -683,11 +806,15 @@ def profile_cascade(torch, eng, img, sty, label="phase 5", **kw) -> dict:
     log(f"{label}: profiled cascade wall {wall_ms:.2f} ms, event span {span_ms:.2f} ms, "
         f"device busy {busy:.2f} ms, idle share {1 - busy / span_ms:.3f}; sum_gram "
         f"{sg:.3f} ms over {sg_calls} CUDA launches; conv3x3_reflect {c3:.3f} ms over "
-        f"{c3_calls}; top device time:")
+        f"{c3_calls}"
+        + "".join(f"; {name} {bf16[name]:.3f} ms over {bf16[name + '_calls']}"
+                  for name in BF16_CONV_NAMES if bf16[name + "_calls"])
+        + "; top device time:")
     for name, ms in top:
         log(f"    {ms:8.3f} ms  x{calls[name]:<4d} {name}")
     return {"wall_ms": wall_ms, "span_ms": span_ms, "busy_ms": busy,
             "idle_share": 1 - busy / span_ms, "sum_gram_ms": sg, "conv3x3_ms": c3,
+            "bf16_conv_ms": dict(bf16),
             "by_kernel_ms": dict(top), "calls": {n: calls[n] for n, _ in top}}
 
 
@@ -2568,8 +2695,203 @@ def small_modules(torch, eng, c512) -> dict:
     return out
 
 
+# ---- phase 10: bfloat16 inference -----------------------------------------------
+
+def _bf16_plan(calls) -> Counter:
+    """A float32 plan's {(kernel, shape): count} on the bf16 engine: the same
+    shapes on the bf16 kernels (``BF16_OF``); sum_gram stays float32."""
+    out = Counter()
+    for (kernel, shape), n in calls.items():
+        out[(BF16_OF.get(kernel, kernel), shape)] += n
+    return out
+
+
+def bf16_phase(torch, kc, WCTEngine, bench, eng, slab_eng, c2k, s2k, c_uhd, calls2k, layers2k,
+               calls_uhd, layers_uhd, f32_ms) -> tuple[dict, list]:
+    """Phase 10 (see the module docstring): the bf16 kernels against their
+    plain versions at every shape of the bf16 2048^2 plain and UHD slab
+    paths, timed; both paths driven with every count zeroed before and read
+    after; the warm cascades beside the float32 ones of phases 5 and 5b
+    (``f32_ms``); the card's bf16 output against its float32 output and a
+    bf16 encoder card vs CPU; ``cli.stylize --bf16``. Returns the phase's
+    details and the kernel table's bf16 rows."""
+    import tempfile
+
+    from collaborative_distillation_tpu_torch.cli import stylize as cli
+    from collaborative_distillation_tpu_torch.models.vgg import apply_encoder
+    from collaborative_distillation_tpu_torch.utils.image import jpeg_or_png, save_image
+    t10 = time.perf_counter()
+    bf = torch.bfloat16
+    out: dict = {}
+    calls16, calls16_uhd = _bf16_plan(calls2k), _bf16_plan(calls_uhd)
+    names16 = set(BF16_OF.values())
+    # (a) kernel vs plain: every shape of both paths (timed), and edge shapes
+    rows = [{**bench.run(kernel, shape, layers2k.get(shape), timed=True), "calls": n}
+            for (kernel, shape), n in sorted(calls16.items(), key=str) if kernel in names16]
+    rows_uhd = [{**bench.run(kernel, shape, layers_uhd.get(shape), timed=True, reps=3), "calls": n}
+                for (kernel, shape), n in sorted(calls16_uhd.items(), key=str)
+                if kernel in names16]
+    # (N, H, W, Cin, Cout, relu[, offset]): one pixel, Cin 3 off alignment,
+    # W = 2, the teachers' 512, ragged tiles; the 1x1 off alignment, a
+    # 100001-wide row, no bias; pool and upsample at odd sizes and C = 3
+    edge = [bench.run("conv3x3_reflect_bf16", sh) for sh in
+            [(1, 1, 1, 128, 128, True), (1, 17, 33, 3, 24, True, 1), (2, 9, 2, 24, 3, False),
+             (1, 16, 16, 512, 512, True), (1, 13, 45, 16, 16, True, 3),
+             (1, 33, 65, 64, 128, False, 1)]]
+    edge += [bench.run("conv1x1_bias_bf16", sh) for sh in
+             [(1, 1, 1, 8, 8, False, True, 0), (1, 3, 100001, 24, 24, False, True, 1),
+              (1, 5, 31, 128, 128, False, True, 3), (1, 7, 13, 96, 96, True, False, 0)]]
+    edge += [bench.run(kernel, sh) for kernel in ("max_pool_2x2_bf16", "upsample_nearest_2x_bf16")
+             for sh in [(1, 7, 9, 16), (2, 5, 4, 3), (1, 1, 5, 8)]]
+    checks = rows + rows_uhd + edge
+    out["checks"] = len(checks)
+    log(f"phase 10a: {len(checks)} bf16 kernel-vs-plain checks passed ({len(rows)} shapes of "
+        f"the bf16 2048^2 path, {len(rows_uhd)} of the UHD slab path, {len(edge)} edge): no "
+        f"output past one bf16 ulp (2^-7 |plain|, floor {BF16_FLOOR} max|plain|); max rel err "
+        f"{max(r['max_rel_err'] for r in checks):.3e}")
+
+    # (b) the main paths in bf16, every count zeroed before and read after
+    every = kc.KERNELS + kc.BF16_KERNELS
+
+    def counted(fn):
+        for k in every:
+            k.launches = 0
+        r = fn()
+        return r, {k.__name__: k.launches for k in every}
+
+    def expected(calls):
+        return {k.__name__: sum(c for (kernel, _), c in calls.items() if kernel == k.__name__)
+                for k in every}
+
+    eng16 = WCTEngine(mode="16x", dtype=bf)
+    slab16 = WCTEngine(mode="16x", dtype=bf, slab_rows=UHD_SLAB)
+    for label, e, c, calls, must in (
+            ("2048^2 plain", eng16, c2k, calls16, names16 - {"conv1x1_bias_bf16"}),
+            (f"{UHD_H}x{UHD_W} slab_rows={UHD_SLAB}", slab16, c_uhd, calls16_uhd, names16)):
+        t0 = time.perf_counter()
+        img, launches = counted(lambda: e.stylize(c, s2k))
+        wall = time.perf_counter() - t0
+        _check_counts(f"phase 10b: bf16 stylize {label}", launches, expected(calls))
+        if any(launches[n] <= 0 for n in must):
+            raise AssertionError(f"phase 10b: a bf16 kernel of the {label} path never ran")
+        change = float(np.abs(img - c.astype(np.float32) / 255.0).mean())
+        if not (img.shape == c.shape and img.dtype == np.float32 and np.isfinite(img).all()
+                and img.min() >= 0.0 and img.max() <= 1.0 and change > 0.02):
+            raise AssertionError(f"phase 10b: bad bf16 {label} output: {img.shape} {img.dtype}, "
+                                 f"range [{img.min()}, {img.max()}], mean change {change}")
+        out[label] = {"launches": launches, "first_s": wall, "mean_change": change}
+        log(f"phase 10b: bf16 {label}: {wall:.3f} s (first call, host transfer included), "
+            f"float32 output finite, in [0, 1], mean |out - content| {change:.4f}")
+        del img
+    launches16 = out["2048^2 plain"]["launches"]
+    launches16_uhd = out[f"{UHD_H}x{UHD_W} slab_rows={UHD_SLAB}"]["launches"]
+
+    # (b) warm cascades: 2048^2 median of 5, UHD slab median of 3, peaks, splits
+    warm = {}
+    with torch.inference_mode():
+        sty16 = eng16._prep(s2k)
+        for label, e, c, n in (("2048", eng16, c2k, 5), ("uhd", slab16, c_uhd, 3)):
+            img = e._prep(c)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated() / 2**30
+            runs = []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e.stylize_device(img, sty16)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) * 1e3)
+            warm[label] = {"runs": runs, "median": statistics.median(runs),
+                           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                           "resident_before_gib": resident, "f32_median": f32_ms[label]}
+            warm[label]["profile"] = profile_cascade(torch, e, img, sty16, f"phase 10b ({label})")
+            del img
+    out["warm"] = warm
+    for label, w in warm.items():
+        log(f"phase 10b: bf16 {label} cascade warm {w['median']:.2f} ms (runs "
+            f"{', '.join(f'{r:.2f}' for r in w['runs'])}; style statistics included), float32 "
+            f"{w['f32_median']:.2f} ms in this run (phase 5/5b); peak {w['peak_gib']:.2f} GiB "
+            f"({w['resident_before_gib']:.2f} GiB held before it)")
+
+    # (c) quality: bf16 against float32 on the card; a bf16 encoder card vs CPU
+    with torch.inference_mode():
+        o32 = eng.stylize_device(eng._prep(c2k), eng._prep(s2k))
+        o16 = eng16.stylize_device(eng16._prep(c2k), sty16)
+        db = psnr_device(torch, o16, o32)
+        del o32, o16
+        u32 = slab_eng.stylize_device(slab_eng._prep(c_uhd), eng._prep(s2k))
+        u16 = slab16.stylize_device(slab16._prep(c_uhd), sty16)
+        db_uhd = psnr_device(torch, u16, u32)
+        del u32, u16
+        p5 = eng16.pyramid[5]
+        cpu_enc = {n: {k: t.cpu() for k, t in leaf.items()} for n, leaf in p5["enc"].items()}
+        img16 = eng16._prep(c2k)
+        card = apply_encoder(p5["enc"], img16, p5["enc_spec"], aux=False)["out"].float().cpu()
+        cpu = apply_encoder(cpu_enc, img16.cpu(), p5["enc_spec"], aux=False)["out"].float()
+        enc_err = float((card - cpu).abs().max()) / float(cpu.abs().max())
+        del img16, card, cpu
+    out.update(psnr_bf16_vs_f32_2048_db=db, psnr_bf16_vs_f32_uhd_db=db_uhd,
+               e5_2048_card_vs_cpu_rel_err=enc_err)
+    log(f"phase 10c: bf16 vs float32 on the card, reflect-tiled photo pair: 2048^2 PSNR "
+        f"{db:.2f} dB (min {BF16_PSNR_MIN_DB}), UHD slab {db_uhd:.2f} dB (JAX's bf16 UHD photo "
+        f"reading {JAX_BF16_PHOTO_DB} dB); encoder e5 at 2048^2 card vs CPU in bf16 max err / "
+        f"max|cpu| {enc_err:.3e} (tol {BF16_STAGE_TOL})")
+    if not (db > BF16_PSNR_MIN_DB and enc_err < BF16_STAGE_TOL):
+        raise AssertionError(f"phase 10c: bf16 vs f32 {db:.2f} dB, e5 card vs cpu {enc_err}")
+
+    # (d) cli.stylize --bf16 on the card: the bf16 engine's pixels
+    with tempfile.TemporaryDirectory() as tmp:
+        for sub, img in (("content", c2k), ("style", s2k)):
+            os.makedirs(os.path.join(tmp, sub))
+            save_image(img, os.path.join(tmp, sub, "p.png"))
+        t0 = time.perf_counter()
+        _, launches_cli = counted(lambda: cli.main(
+            ["--mode", "16x", "--contentPath", os.path.join(tmp, "content"), "--stylePath",
+             os.path.join(tmp, "style"), "--outf", os.path.join(tmp, "out"), "--log_mark", "b",
+             "--bf16"]))
+        out["cli_s"] = time.perf_counter() - t0
+        _check_counts("phase 10d: cli.stylize --bf16, one 2048^2 pair", launches_cli,
+                      expected(calls16))
+        path, _ = jpeg_or_png(os.path.join(tmp, "out", "b_mode=16x_alpha=1.0_p+p.jpg"))
+        with open(path, "rb") as f:
+            _same_as(f.read(), "image/png" if path.endswith(".png") else "image/jpeg",
+                     eng16.stylize(c2k, s2k, as_uint8=True), "phase 10d: cli.stylize --bf16")
+    log(f"phase 10d: cli.stylize --bf16 wrote {os.path.basename(path)} in {out['cli_s']:.2f} s: "
+        f"the bf16 engine's uint8 pixels")
+
+    table = []
+    for k in kc.BF16_KERNELS:
+        name = k.__name__
+        src, replaces = KERNEL_META[name]
+        uhd_only = name == "conv1x1_bias_bf16"
+        mine = [r for r in checks if r["kernel"] == name]
+        row = {"name": name, "route": "cuda", "source": REPO_PATH + src, "replaces": replaces,
+               "launches": (launches16_uhd if uhd_only else launches16)[name],
+               "max_abs_err": max(r["max_abs_err"] for r in mine),
+               "max_err": max(r["max_abs_err"] for r in mine),
+               "max_rel_err": max(r["max_rel_err"] for r in mine),
+               "path": "bf16 UHD slab" if uhd_only else "bf16 2048^2 plain",
+               **path_times([r for r in (rows_uhd if uhd_only else rows) if r["kernel"] == name])}
+        if not uhd_only:
+            row["uhd_slab"] = {"launches": launches16_uhd[name],
+                               **path_times([r for r in rows_uhd if r["kernel"] == name])}
+        table.append(row)
+        log(f"phase 10: {name}: {row['ms']:.3f} ms a {row['path']} cascade over "
+            f"{row['launches']} launches, plain {row['plain_ms']:.3f}, library "
+            f"{row['library_ms']:.3f}, bound {row['bound_ms']:.3f} ({row['bound_by']})"
+            + ("" if uhd_only else
+               f"; UHD slab {row['uhd_slab']['ms']:.3f} ms over {row['uhd_slab']['launches']}, "
+               f"plain {row['uhd_slab']['plain_ms']:.3f}, library "
+               f"{row['uhd_slab']['library_ms']:.3f}, bound {row['uhd_slab']['bound_ms']:.3f}"))
+    out["shapes_timed"] = rows + rows_uhd
+    out["phase10_s"] = time.perf_counter() - t10
+    log(f"phase 10: {out['phase10_s']:.1f} s")
+    return out, table
+
+
 def main() -> int:
-    global PEAK_FP32_FLOPS
+    global PEAK_FP32_FLOPS, PEAK_BF16_FLOPS
     t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
@@ -2579,7 +2901,8 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from collaborative_distillation_tpu_torch.utils.flops import card_peak_flops, cascade_flops
     PEAK_FP32_FLOPS, peak_label = card_peak_flops(0, "float32")
-    if not PEAK_FP32_FLOPS:
+    PEAK_BF16_FLOPS = card_peak_flops(0, "bfloat16")[0]
+    if not (PEAK_FP32_FLOPS and PEAK_BF16_FLOPS):
         print(f"chip_smoke: no FP32 peak for {peak_label} in utils/flops.py:CARD_PEAKS; "
               f"the bounds need one", file=sys.stderr)
         return 1
@@ -3252,6 +3575,12 @@ def main() -> int:
                                 for h in (2048, PC_AWK_H)]
     detail["host_boundary"] = host_boundary(torch, kc, slab_eng, eng, c_uhd, c2k, s2k,
                                             expect_uhd)
+    # ---- phase 10: bf16 inference ------------------------------------------------
+    detail["bf16"], table_bf16 = bf16_phase(
+        torch, kc, WCTEngine, bench, eng, slab_eng, c2k, s2k, c_uhd, calls2k, layers2k,
+        calls_uhd, layers_uhd, {"2048": detail["cascade_2048_ms"]["median"],
+                                "uhd": detail["cascade_uhd_ms"]["median"]})
+    table += table_bf16
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         # ---- phase 9: photo-WCT, the cascade function, the teacher store ---------

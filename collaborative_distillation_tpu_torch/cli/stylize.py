@@ -13,8 +13,10 @@ pair's upload and another's readback with the cascade. Outputs are named
 ``<log_mark>_mode=<mode>_alpha=<alpha>_<content>+<style>.jpg``. JPEG files
 are read and written by the codec of ``--device`` (nvJPEG on the card,
 libjpeg on the CPU); where it cannot load the same stem is written as
-``.png`` and the log says why. ``--bf16``, ``--packed`` and ``--halo pallas`` have no
-counterpart in the port and are refused.
+``.png`` and the log says why. ``--bf16`` runs the engine in bfloat16
+(``WCTEngine(dtype=torch.bfloat16)``; with ``--space`` it is refused, as the
+engine refuses it); ``--packed`` and ``--halo pallas`` have no counterpart in
+the port and are refused.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import sys
 import time
 from collections import deque
 
-NO_COUNTERPART = ("has no counterpart in the PyTorch port (float32 NHWC kernels; the "
+NO_COUNTERPART = ("has no counterpart in the PyTorch port (unpacked NHWC kernels; the "
                   "row halos are the hand-written CUDA kernel)")
 
 
@@ -56,7 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cut each image's rows over N cards, one shard per visible card "
                          "(0 = one card); raises with fewer cards")
     ap.add_argument("--bf16", action="store_true",
-                    help="refused: bfloat16 activations " + NO_COUNTERPART)
+                    help="bfloat16 params and activations (the WCT statistics stay float32); "
+                         "plain and --slab_rows paths only")
     ap.add_argument("--weights_root", type=str, default="")
     ap.add_argument("--slab_rows", type=int, default=0,
                     help="stream in row slabs of N rows (single-card UHD)")
@@ -79,8 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
-    for flag, refused in (("--bf16", args.bf16), ("--packed", args.packed),
-                          ("--halo pallas", args.halo == "pallas")):
+    for flag, refused in (("--packed", args.packed), ("--halo pallas", args.halo == "pallas")):
         if refused:
             ap.error(f"{flag} {NO_COUNTERPART}")
 
@@ -109,9 +111,11 @@ def main(argv=None) -> int:
         picked_style_mark=args.picked_style_mark, synthesis=args.synthesis, device=device)
     log(f"Number of content-style pairs: {len(dataset)}")
 
+    import torch
     engine = WCTEngine(mode=args.mode, weights_root=args.weights_root or None,
                        method=args.method, space=args.space, slab_rows=args.slab_rows,
-                       transport=args.transport, device=device)
+                       transport=args.transport, device=device,
+                       dtype=torch.bfloat16 if args.bf16 else torch.float32)
     tp = Throughput()
     total_t = 0.0
     # pipelined across pairs: pair i+1's decode and upload and pair i-1's

@@ -76,9 +76,10 @@ def stage_specs(mode: str, stage: int) -> tuple[StageSpec, StageSpec]:
     return enc, dec
 
 
-def load_stage_params(path: str, spec: StageSpec, device="cpu"):
-    """Load one stage's params as float32 tensors on ``device``; validates
-    shapes against the spec.
+def load_stage_params(path: str, spec: StageSpec, device="cpu", dtype=torch.float32):
+    """Load one stage's params as ``dtype`` tensors (float32, or bfloat16 for
+    the bf16 engine: rounded once from the store's float32, bias included)
+    on ``device``; validates shapes against the spec.
 
     Missing aux layers (the pruned-init base checkpoints carry no decoder aux)
     are zero-initialized. A missing conv0 falls back to the hardcoded
@@ -105,8 +106,8 @@ def load_stage_params(path: str, spec: StageSpec, device="cpu"):
         if w.shape != wshape or b.shape != bshape:
             raise ValueError(
                 f"{path}: layer {name!r} shape {w.shape}/{b.shape} != spec {wshape}/{bshape}")
-        params[name] = {"w": torch.from_numpy(np.ascontiguousarray(w)).to(device),
-                        "b": torch.from_numpy(np.ascontiguousarray(b)).to(device)}
+        params[name] = {"w": torch.from_numpy(np.ascontiguousarray(w)).to(device, dtype),
+                        "b": torch.from_numpy(np.ascontiguousarray(b)).to(device, dtype)}
     extra = set(tree) - set(expected)
     if extra:
         raise ValueError(f"{path}: unexpected layers {sorted(extra)}")
@@ -114,8 +115,9 @@ def load_stage_params(path: str, spec: StageSpec, device="cpu"):
 
 
 def load_pyramid(mode: str, weights_root: str | None = None, *,
-                 stages=(5, 4, 3, 2, 1), device="cpu"):
-    """Load the 5-level encoder/decoder pyramid for a mode.
+                 stages=(5, 4, 3, 2, 1), device="cpu", dtype=torch.float32):
+    """Load the 5-level encoder/decoder pyramid for a mode, its params in
+    ``dtype``.
 
     Returns ``{stage: {"enc_spec", "dec_spec", "enc", "dec"}}``.
     """
@@ -127,7 +129,9 @@ def load_pyramid(mode: str, weights_root: str | None = None, *,
         pyramid[k] = {
             "enc_spec": enc_spec,
             "dec_spec": dec_spec_,
-            "enc": load_stage_params(os.path.join(root, enc_dir, f"e{k}.npz"), enc_spec, device),
-            "dec": load_stage_params(os.path.join(root, dec_dir, f"d{k}.npz"), dec_spec_, device),
+            "enc": load_stage_params(os.path.join(root, enc_dir, f"e{k}.npz"), enc_spec, device,
+                                     dtype),
+            "dec": load_stage_params(os.path.join(root, dec_dir, f"d{k}.npz"), dec_spec_, device,
+                                     dtype),
         }
     return pyramid

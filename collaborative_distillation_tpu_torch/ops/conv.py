@@ -1,4 +1,5 @@
-"""Core image-network ops, NHWC activations and HWIO weights, float32.
+"""Core image-network ops, NHWC activations and HWIO weights, float32 or
+bfloat16 (the bf16 engine: f32 sums, one rounding a conv).
 
 Each op that the reference ran through a Pallas kernel dispatches on the
 device of its input: a CPU tensor takes the kernel's plain PyTorch version, a
@@ -21,6 +22,7 @@ from .cuda import autograd as _grad
 from .cuda import conv as _kconv
 from .cuda import pool as _kpool
 from .pad import reflect_pad
+from .precision import bf16_full_reduction
 
 __all__ = ["reflect_pad", "conv2d", "conv3x3", "conv1x1", "max_pool_2x2",
            "max_pool_2x2_with_argmax", "max_unpool_2x2", "upsample_nearest_2x", "on_card"]
@@ -70,8 +72,16 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
 def conv1x1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
             relu: bool = False) -> torch.Tensor:
     """1x1 conv as one product over the pixels (``conv0`` and the aux
-    adapters; the reference leaves these to XLA outside any Pallas kernel)."""
-    y = x @ w.reshape(w.shape[-2], w.shape[-1])
+    adapters; the reference leaves these to XLA outside any Pallas kernel).
+    In bfloat16 as the reference's XLA conv: the product summed in float32
+    and rounded to bf16 (cuBLAS held to a float32 reduction), then + b in
+    bf16."""
+    w = w.reshape(w.shape[-2], w.shape[-1])
+    if x.dtype == torch.bfloat16:
+        with bf16_full_reduction():
+            y = x @ w
+    else:
+        y = x @ w
     if b is not None:
         y = y + b
     if not relu:

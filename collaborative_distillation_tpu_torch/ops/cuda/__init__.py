@@ -6,16 +6,24 @@ Nothing here builds or loads the kernels at import: the library is built at
 the first launch (see :mod:`._build`). :mod:`.autograd` holds the
 ``torch.autograd.Function``s that carry gradients through the conv, pool and
 upsample kernels.
+
+``KERNELS`` are the float32 kernels; ``BF16_KERNELS`` the bfloat16
+instantiations of the conv, 1x1, pool and upsample, each with its own launch
+count (the float32 wrappers hand a bf16 map to them and count nothing).
 """
 
-from .conv import conv3x3_reflect
-from .conv1x1 import conv1x1_bias
+from .conv import conv3x3_reflect, conv3x3_reflect_bf16
+from .conv1x1 import conv1x1_bias, conv1x1_bias_bf16
 from .halo import halo_exchange_rows
-from .pool import max_pool_2x2, upsample_nearest_2x
+from .pool import max_pool_2x2, max_pool_2x2_bf16, upsample_nearest_2x, upsample_nearest_2x_bf16
 from .stats import sum_gram
 
 KERNELS = (conv3x3_reflect, conv1x1_bias, sum_gram, max_pool_2x2,
            upsample_nearest_2x, halo_exchange_rows)
+BF16_KERNELS = (conv3x3_reflect_bf16, conv1x1_bias_bf16, max_pool_2x2_bf16,
+                upsample_nearest_2x_bf16)
 
-__all__ = ["KERNELS", "conv3x3_reflect", "conv1x1_bias", "sum_gram",
-           "max_pool_2x2", "upsample_nearest_2x", "halo_exchange_rows"]
+__all__ = ["KERNELS", "BF16_KERNELS", "conv3x3_reflect", "conv1x1_bias", "sum_gram",
+           "max_pool_2x2", "upsample_nearest_2x", "halo_exchange_rows",
+           "conv3x3_reflect_bf16", "conv1x1_bias_bf16", "max_pool_2x2_bf16",
+           "upsample_nearest_2x_bf16"]

@@ -15,6 +15,12 @@ shards' boundary rows, read in place), as the reference's
 ``parallel/spatial.py:conv3x3_halo`` convolves a shard: its rows between
 them, reflect-padded in W only. A row that is ``None`` is the shard's own
 reflection row, as without halos.
+
+bfloat16 maps take :func:`conv3x3_reflect_bf16` (``csrc/conv3x3_bf16.cu``,
+tensor cores, f32 sums rounded once to bf16), the reference's bf16
+instantiation of the same Pallas kernels; :func:`conv3x3_plain` computes it
+in float32 and rounds once. Halo rows in bf16 are refused: the sharded paths
+run float32.
 """
 
 from __future__ import annotations
@@ -27,10 +33,12 @@ import torch
 import torch.nn.functional as F
 
 from ..pad import reflect_index, reflect_pad
+from ..precision import BF16_REFUSED, full_float32
 from . import _build
 from .peer import batch_stride, ptr, reachable, release
 
-__all__ = ["conv3x3_plain", "conv3x3_reflect", "launch_plan", "device_plan", "ConvPlan"]
+__all__ = ["conv3x3_plain", "conv3x3_reflect", "conv3x3_reflect_bf16", "launch_plan",
+           "device_plan", "ConvPlan"]
 
 # The ring templates, by the id csrc/conv3x3.cu takes: (name, Cout tile, tile
 # rows, tile cols), as it instantiates them. One persistent block an SM
@@ -131,7 +139,18 @@ def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
     """Plain version of the kernel: reflect-pad(1) + 3x3 VALID conv (+ ReLU),
     NHWC x HWIO -> NHWC. With halo rows, the reference's ``conv3x3_halo``:
     ``[top, x, bot]`` along H (the shard's own reflection row where one is
-    ``None``), reflect-padded in W only, then the VALID conv."""
+    ``None``), reflect-padded in W only, then the VALID conv.
+
+    A bfloat16 ``x`` (and ``w``; ``b`` bf16 or f32): the conv of the values
+    upcast to float32 in full float32 (the products are exact), bias and
+    ReLU in float32, then one rounding to bf16, as the bf16 kernel rounds.
+    ``F.conv2d`` is never called on bf16 CPU tensors, which round elsewhere."""
+    if x.dtype == torch.bfloat16:
+        if top is not None or bot is not None:
+            raise ValueError(f"conv3x3_plain: bfloat16 halo rows; {BF16_REFUSED}")
+        with full_float32():
+            y = conv3x3_plain(x.float(), w.float(), None if b is None else b.float(), relu)
+        return y.to(torch.bfloat16)
     if top is None and bot is None:
         xp = reflect_pad(x, 1)
     else:
@@ -155,8 +174,13 @@ def conv3x3_reflect(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
     ``bot``: (N, 1, W, Cin) float32 CUDA rows, each image's row contiguous,
     on any card, or None; the staging reads them in place (counted in
     ``conv3x3_reflect.halo_launches`` too). ``conv3x3_reflect.by_template``
-    counts the launches by the plan's template name."""
+    counts the launches by the plan's template name. A bfloat16 ``x`` goes
+    to :func:`conv3x3_reflect_bf16` (no halo rows)."""
     name = "conv3x3_reflect"
+    if x.dtype == torch.bfloat16:
+        if top is not None or bot is not None:
+            raise ValueError(f"{name}: bfloat16 halo rows; {BF16_REFUSED}")
+        return conv3x3_reflect_bf16(x, w, b, relu)
     if x.dim() != 4 or w.shape[:3] != (3, 3, x.shape[3]):
         raise ValueError(f"{name}: x {tuple(x.shape)} and HWIO w "
                          f"{tuple(w.shape)} do not match")
@@ -198,6 +222,47 @@ conv3x3_reflect.by_template = Counter()
 conv3x3_reflect.plain = conv3x3_plain
 
 
+def conv3x3_reflect_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+                         relu: bool) -> torch.Tensor:
+    """Launch the bf16 kernel (``csrc/conv3x3_bf16.cu``): ``x`` (N, H, W,
+    Cin) and ``w`` (3, 3, Cin, Cout) HWIO bfloat16, ``b`` (Cout,) bfloat16
+    or float32 or None, all contiguous on one CUDA device, Cin and Cout in
+    1..512 -> (N, H, W, Cout) bfloat16: f32 sums of the exact products, the
+    bias and ReLU in f32, one rounding."""
+    name = "conv3x3_reflect_bf16"
+    if x.dim() != 4 or w.dim() != 4 or w.shape[:3] != (3, 3, x.shape[3]):
+        raise ValueError(f"{name}: x {tuple(x.shape)} and HWIO w {tuple(w.shape)} do not match")
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
+    if not 1 <= cin <= 512 or not 1 <= cout <= 512:
+        raise ValueError(f"{name}: Cin {cin}, Cout {cout} outside 1..512")
+    if n > MAX_GRID_Z:
+        raise ValueError(f"{name}: batch {n} > {MAX_GRID_Z}")
+    bias = () if b is None else (b,)
+    if b is not None and b.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: bias must be bfloat16 or float32, got {b.dtype}")
+    _check_cuda(name, x, w, *bias, dtype=(torch.bfloat16, torch.bfloat16,
+                                          *(t.dtype for t in bias)))
+    if b is not None and b.shape != (cout,):
+        raise ValueError(f"{name}: bias {tuple(b.shape)} != ({cout},)")
+    y = torch.empty((n, h, wd, cout), device=x.device, dtype=torch.bfloat16)
+    if y.numel() == 0:
+        return y
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.cd_conv3x3_reflect_bf16(
+            x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
+            n, h, wd, cin, cout, int(relu), int(b is not None and b.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, name)
+    conv3x3_reflect_bf16.launches += 1
+    return y
+
+
+conv3x3_reflect_bf16.launches = 0
+conv3x3_reflect_bf16.plain = conv3x3_plain
+
+
 def _refuse_grad(name: str, *tensors: torch.Tensor | None) -> None:
     """A launch records no gradient: while autograd records, an input that
     requires grad is refused (``ops.conv`` launches the kernel inside its
@@ -208,20 +273,23 @@ def _refuse_grad(name: str, *tensors: torch.Tensor | None) -> None:
                          f"call it through ops.conv, whose autograd Function launches it")
 
 
-def _check_cuda(name: str, *tensors: torch.Tensor, rows=()) -> None:
-    """The kernels take contiguous float32 tensors on one CUDA device, and
-    no input that requires grad while autograd records; ``rows`` (halo rows
-    of another shard) may lie on any CUDA device."""
+def _check_cuda(name: str, *tensors: torch.Tensor, rows=(), dtype=torch.float32) -> None:
+    """The kernels take contiguous tensors on one CUDA device, of ``dtype``
+    (float32 unless a bf16 kernel says otherwise; a tuple gives one per
+    tensor), and no input that requires grad while autograd records;
+    ``rows`` (halo rows of another shard) may lie on any CUDA device."""
     _refuse_grad(name, *tensors, *rows)
     dev = tensors[0].device
     for t in rows:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: needs CUDA halo rows, got {t.device}")
-    for t in tensors:
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,) * len(tensors)
+    for t, want in zip(tensors, dtypes):
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name}: needs CUDA tensors on one device, got "
                              f"{[str(u.device) for u in tensors]}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: needs float32, got {t.dtype}")
+        if t.dtype != want:
+            raise ValueError(f"{name}: needs {str(want).removeprefix('torch.')}, "
+                             f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: needs contiguous tensors")

@@ -32,9 +32,19 @@
 // Where it stands on an H100: C = 24 and 32 at 85-92 % of the time a device
 // copy of the same bytes takes, C = 64 and 128 at ~55 % of FFMA peak (one
 // block of 8 warps an SM: W alone takes 64 KB of shared memory at C = 128).
+//
+// cd_conv1x1_bias_bf16 is the bf16 instantiation (conv1x1_lane128's "bf16
+// inputs keep the bf16 pass", :382-386; the bf16 engine's folded WCT, M in
+// bf16 and beta in f32, reference models/packed_vgg.py:246-252): x and W in
+// bf16, f32 sums, + f32 beta, one rounding to bf16. It is the conv3x3_bf16
+// tile code (bf16_igemm.cuh) with one tap, K = Cin: 128 consecutive pixels a
+// block. At C = 128 the bf16 product is 128 FLOP/B, which FFMA (20 FLOP/B)
+// could not keep up with; on the tensor cores it is bound by bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bf16_igemm.cuh"
 
 namespace {
 
@@ -335,4 +345,29 @@ extern "C" int cd_conv1x1_bias(const float* x, const float* w, const float* b,
   if (cin % 4 == 0)
     return dispatch<true>(x, w, b, y, P, cin, cout, relu, aligned16(x), vec_w, vec_out, s);
   return dispatch<false>(x, w, b, y, P, cin, cout, relu, 0, vec_w, vec_out, s);
+}
+
+// x (P, Cin) bf16, w (Cin, Cout) bf16, b (Cout,) f32 or null, y (P, Cout)
+// bf16; Cin, Cout <= 128.
+extern "C" int cd_conv1x1_bias_bf16(const void* x, const void* w, const float* b, void* y,
+                                    long long P, int cin, int cout, int relu, void* stream) {
+  if (P <= 0) return static_cast<int>(cudaGetLastError());
+  cd_bf16::Args a;
+  a.x = static_cast<const unsigned short*>(x);
+  a.w = static_cast<const unsigned short*>(w);
+  a.b = b;
+  a.y = static_cast<__nv_bfloat16*>(y);
+  a.P = P;
+  a.H = 1;
+  a.W = 1;
+  a.Cin = cin;
+  a.Cout = cout;
+  a.relu = relu;
+  a.bias_bf16 = 0;
+  a.vec_x = cin % 8 == 0 && cd_bf16::aligned(x, 16);
+  a.vec_w = cout % 8 == 0 && cd_bf16::aligned(w, 16);
+  a.vec_y = cout % 2 == 0 && cd_bf16::aligned(y, 4);
+  constexpr int tile = cd_bf16::kTileH * cd_bf16::kTileW;
+  return cd_bf16::dispatch<cd_bf16::PointGeom>(a, (unsigned)((P + tile - 1) / tile), 1u,
+                                               static_cast<cudaStream_t>(stream));
 }

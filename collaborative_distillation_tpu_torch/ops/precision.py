@@ -1,4 +1,5 @@
-"""Full float32 on the card, whatever the caller has set."""
+"""Full float32 on the card, whatever the caller has set; bf16 products
+that reduce in float32."""
 
 from __future__ import annotations
 
@@ -6,7 +7,11 @@ import contextlib
 
 import torch
 
-__all__ = ["full_float32"]
+__all__ = ["full_float32", "bf16_full_reduction", "BF16_REFUSED"]
+
+# what the paths that still run only float32 cite when given bfloat16
+BF16_REFUSED = ("bfloat16 runs the plain and UHD slab paths only; the sharded paths "
+                "and photo-WCT are ROADMAP.md Queue 1 item 9")
 
 
 @contextlib.contextmanager
@@ -26,3 +31,18 @@ def full_float32():
             yield
     finally:
         torch.set_float32_matmul_precision(prec)
+
+
+@contextlib.contextmanager
+def bf16_full_reduction():
+    """bf16 matmuls reduce in float32 inside the block, restored after it.
+    cuBLAS may otherwise reduce a bf16 product in bf16
+    (``allow_bf16_reduced_precision_reduction`` is True by default); the
+    reference's bf16 ``conv0`` accumulates in float32 and rounds once."""
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = prev

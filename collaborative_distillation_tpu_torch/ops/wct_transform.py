@@ -1,5 +1,8 @@
 """Whitening & Coloring Transform (WCT) in float32.
 
+A bfloat16 feature map keeps its statistics, ``eigh`` and T in float32 and
+gets its result back in bf16, as the reference's bf16 engine does.
+
 The channel covariance comes from the ``sum_gram`` kernel on the card (its
 plain version on the CPU); the matrix inverse square root and square root
 from ``torch.linalg.eigh`` (a library eigensolver, as ``jnp.linalg.eigh`` is
@@ -156,6 +159,7 @@ def coloring_matrix(c_cov: torch.Tensor, s_cov: torch.Tensor, *, method: str = "
 
 def _wct_single(content_feat, style_mean, style_cov, alpha, *, method, eps,
                 newton_iters):
+    """The WCT of one image in float32, returned in the content's dtype."""
     shape = content_feat.shape
     c = shape[-1]
     x = content_feat.reshape(-1, c).float()
@@ -166,7 +170,7 @@ def _wct_single(content_feat, style_mean, style_cov, alpha, *, method, eps,
     target = (x - c_mean) @ t.T + style_mean.float()
     alpha = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
     out = alpha * target + (1.0 - alpha) * x
-    return out.reshape(shape)
+    return out.reshape(shape).to(content_feat.dtype)
 
 
 def wct_transform(content_feat: torch.Tensor, style_mean: torch.Tensor,
@@ -201,13 +205,19 @@ def wct_apply_folded(x: torch.Tensor, t: torch.Tensor, c_mean: torch.Tensor,
         M = alpha T^T + (1 - alpha) I,  beta = alpha (s_mean - c_mean T^T)
 
     ``M`` and ``beta`` are formed in float32 and applied by the
-    ``conv1x1_bias`` kernel on the card, its plain version on the CPU."""
+    ``conv1x1_bias`` kernel on the card, its plain version on the CPU. A
+    bfloat16 ``x`` takes ``M`` in bf16 and ``beta`` in float32 and gives
+    bf16 (the reference's ``packed_wct_apply`` in its bf16 engine)."""
     c = t.shape[0]
     a = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
     tt = t.float().T
     m = (a * tt + (1.0 - a) * torch.eye(c, dtype=torch.float32, device=x.device)).contiguous()
     beta = (a * (s_mean.float() - c_mean.float() @ tt)).contiguous()
-    x = x.float().contiguous()
+    if x.dtype == torch.bfloat16:
+        m = m.to(torch.bfloat16)
+    else:
+        x = x.float()
+    x = x.contiguous()
     if on_card(x):
         return _k1x1.conv1x1_bias(x, m, beta, False)
     return _k1x1.conv1x1_plain(x, m, beta, False)

@@ -3,8 +3,9 @@
 The reference keeps a stage's parameters as ``{layer: {"w": HWIO, "b": (out,)}}``
 and a pyramid as ``{stage: {"enc_spec", "dec_spec", "enc", "dec"}}``. These
 functions take such trees with numpy leaves (any array that ``np.asarray``
-reads, so the caller converts) and return the port's: float32 torch tensors
-on one device, with the specs rebuilt as the port's own dataclasses.
+reads, so the caller converts) and return the port's: torch tensors on one
+device (float32, a bfloat16 leaf bfloat16, or a ``dtype`` the caller names),
+with the specs rebuilt as the port's own dataclasses.
 
 :func:`adam_state_to_jax` and :func:`adam_state_from_jax` carry an Adam
 state between ``torch.optim.Adam.state_dict()`` (``step``, ``exp_avg``,
@@ -26,10 +27,21 @@ __all__ = ["params_from_jax", "pyramid_from_jax", "spec_from_jax", "adam_state_t
            "adam_state_from_jax"]
 
 
-def params_from_jax(tree, device="cpu") -> dict[str, dict[str, torch.Tensor]]:
-    """``{name: {"w": HWIO, "b": (out,)}}`` arrays -> float32 tensors on ``device``."""
-    return {name: {kind: torch.tensor(np.asarray(a, np.float32), device=device)
-                   for kind, a in leaf.items()}
+def _leaf(a, device, dtype) -> torch.Tensor:
+    """One array as a tensor: a bfloat16 array (``ml_dtypes.bfloat16``, what
+    numpy makes of a JAX bf16 array) goes through float32 and back, both
+    exact, so both packages hold the same bits; ``dtype`` None keeps bf16
+    and makes everything else float32."""
+    arr = np.asarray(a)
+    bf16 = arr.dtype.name == "bfloat16"
+    t = torch.tensor(arr.astype(np.float32), device=device)
+    return t.to(dtype or (torch.bfloat16 if bf16 else torch.float32))
+
+
+def params_from_jax(tree, device="cpu", dtype=None) -> dict[str, dict[str, torch.Tensor]]:
+    """``{name: {"w": HWIO, "b": (out,)}}`` arrays -> tensors on ``device``:
+    float32, bfloat16 leaves bfloat16, or all ``dtype``."""
+    return {name: {kind: _leaf(a, device, dtype) for kind, a in leaf.items()}
             for name, leaf in tree.items()}
 
 
@@ -44,12 +56,13 @@ def spec_from_jax(spec) -> StageSpec:
                      has_conv0=d["has_conv0"])
 
 
-def pyramid_from_jax(pyramid_np, device="cpu"):
-    """A whole reference pyramid -> the port's, on ``device``."""
+def pyramid_from_jax(pyramid_np, device="cpu", dtype=None):
+    """A whole reference pyramid -> the port's, on ``device`` (``dtype`` as
+    :func:`params_from_jax`)."""
     return {k: {"enc_spec": spec_from_jax(v["enc_spec"]),
                 "dec_spec": spec_from_jax(v["dec_spec"]),
-                "enc": params_from_jax(v["enc"], device),
-                "dec": params_from_jax(v["dec"], device)}
+                "enc": params_from_jax(v["enc"], device, dtype),
+                "dec": params_from_jax(v["dec"], device, dtype)}
             for k, v in pyramid_np.items()}
 
 

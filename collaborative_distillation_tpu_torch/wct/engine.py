@@ -18,7 +18,10 @@ of device planes), on the CPU by libjpeg on the host (in row bands that
 overlap the transfers).
 
 The engine runs on the GPU unless the caller passes ``device="cpu"``, which
-takes every kernel's plain PyTorch version.
+takes every kernel's plain PyTorch version. ``dtype=torch.bfloat16`` runs the
+plain and UHD slab paths with bf16 params and activations (each conv sums in
+float32 and rounds once; the WCT statistics, ``eigh`` and T stay float32;
+outputs are clipped in float32); float32 is the default.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from ..data import jpeg_header, native_codec, nvjpeg_codec
 from ..models.vgg import apply_decoder, apply_decoder_pwct, apply_encoder
 from ..models.zoo import load_pyramid
 from ..ops.pad import reflect_index
+from ..ops.precision import BF16_REFUSED
 from ..ops.wct_transform import feature_stats, wct_transform
 from ..utils.colorspace import (rgb_to_yuv420_host, rgbf_to_yuv420_device,
                                 yuv420_to_rgb_host, yuv420_to_rgbf_device)
@@ -121,7 +125,8 @@ def stage_style_stats(enc_params, enc_spec, style: torch.Tensor):
 
 def stylize_stage(enc_params, dec_params, enc_spec, dec_spec, img, s_mean, s_cov,
                   alpha, method: str, newton_iters: int = 24) -> torch.Tensor:
-    """encode -> WCT -> decode for one pyramid level (WCT.py styleTransfer)."""
+    """encode -> WCT -> decode for one pyramid level (WCT.py styleTransfer),
+    in the dtype of ``img`` and the params (the WCT's statistics in float32)."""
     cf = apply_encoder(enc_params, img, enc_spec, aux=False)["out"]
     csf = wct_transform(cf, s_mean, s_cov, alpha, method=method,
                         newton_iters=newton_iters)
@@ -146,7 +151,8 @@ def stylize_cascade_fn(pyramid, *, stages=(5, 4, 3, 2, 1), method: str = "eigh",
     content, style, alpha)``, ``params`` as ``{stage: {"enc", "dec"}}`` (a
     pyramid serves), content and style padded NHWC maps on one device. Each
     stage takes the style's statistics afresh: no cache, no padding, no
-    crop, no clip. The oracle the engine's paths are held to."""
+    crop, no clip. The oracle the engine's paths are held to. bfloat16
+    params and maps run the cascade in bf16, its statistics in float32."""
     specs = {k: (pyramid[k]["enc_spec"], pyramid[k]["dec_spec"]) for k in stages}
 
     def f(params, content, style, alpha):
@@ -207,6 +213,14 @@ class WCTEngine:
     the result differs from RGB transport by chroma-box rounding. ``"auto"``
     (default): ``"yuv420"`` for uint8 images of at least ``_YUV_AUTO_PIX``
     pixels, else ``"rgb"``; float input always goes as it is.
+
+    ``dtype``: ``torch.float32`` (default) or ``torch.bfloat16``. In bf16 the
+    pyramid (loaded or given) is cast to bf16, bias included; inputs are
+    converted to float and then to bf16 on the device; every conv sums in
+    float32 and rounds once; the style-statistics cache holds float32
+    statistics; uint8 and float outputs are clipped in float32 (the host's
+    float output is float32). The sharded paths (``space``) and photo-WCT
+    refuse bf16 (``BF16_REFUSED``).
     """
 
     def __init__(self, mode: str = "16x", weights_root: str | None = None, *,
@@ -214,13 +228,18 @@ class WCTEngine:
                  stages=(5, 4, 3, 2, 1), pyramid=None, device=None,
                  slab_rows: int = 0, fused: bool = True,
                  stream_min_pix: int = 8 * 1024 * 1024, space: int = 0, devices=None,
-                 transport: str = "auto"):
+                 transport: str = "auto", dtype=torch.float32):
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
+        if dtype == torch.bfloat16 and space and space > 1:
+            raise ValueError(f"space={space} with dtype=torch.bfloat16: {BF16_REFUSED}")
         if method not in ("eigh", "newton"):
             raise ValueError(f"unknown WCT method {method!r}")
         if transport not in ("auto", "rgb", "yuv420"):
             raise ValueError(
                 f"transport must be 'auto', 'rgb' or 'yuv420', got {transport!r}")
         self.device = resolve_device(device)
+        self.dtype = dtype
         self.mode = mode
         self.method = method
         self.newton_iters = newton_iters
@@ -229,13 +248,13 @@ class WCTEngine:
         self.stages = tuple(stages)
         if pyramid is not None:
             def to_dev(tree):
-                return {n: {k: torch.as_tensor(a).to(self.device, torch.float32)
+                return {n: {k: torch.as_tensor(a).to(self.device, dtype)
                             for k, a in leaf.items()} for n, leaf in tree.items()}
             self.pyramid = {k: {**v, "enc": to_dev(v["enc"]), "dec": to_dev(v["dec"])}
                             for k, v in pyramid.items()}
         else:
             self.pyramid = load_pyramid(mode, weights_root, stages=self.stages,
-                                        device=self.device)
+                                        device=self.device, dtype=dtype)
         self._style_cache: OrderedDict = OrderedDict()  # LRU, STYLE_CACHE_MAX
         # guards _style_cache only: a server touches the cache from
         # registration threads (invalidate_style) while stylize threads
@@ -369,14 +388,15 @@ class WCTEngine:
 
     def _prep(self, image) -> torch.Tensor:
         """Host or device image, (H, W, 3) or (N, H, W, 3), uint8 or float ->
-        padded float32 NHWC batch on the engine's device (a host array
-        crosses the link through :func:`..utils.transfer.push`)."""
+        padded NHWC batch of the engine's dtype on its device (a host array
+        crosses the link through :func:`..utils.transfer.push`; uint8 is
+        scaled in float32, then cast)."""
         x = (push(image, self.device) if isinstance(image, np.ndarray)
              else torch.as_tensor(image).to(self.device))
         if x.dim() == 3:
             x = x[None]
         x = self._u8_to_float(x) if x.dtype == torch.uint8 else x.float()
-        return _pad_to_multiple(x)[0]
+        return _pad_to_multiple(x.to(self.dtype))[0]
 
     def _to_device(self, content, style, transport: str | None = None):
         """Upload one pair: ``(img, sty, squeeze, orig_hw, transport)``, the
@@ -402,7 +422,7 @@ class WCTEngine:
             if ph or pw:
                 content = np.pad(content, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="edge")
             img = yuv420_to_rgbf_device(*self._upload_yuv420(content))
-            img = _pad_to_multiple(img)[0]
+            img = _pad_to_multiple(img.to(self.dtype))[0]
         else:
             # float (or device) content cannot take the 4:2:0 path, and the
             # two legs must agree: lossless input never gets a lossy output
@@ -464,7 +484,7 @@ class WCTEngine:
             img = yuv420_to_rgb_host(fetch(y), fetch(cbcr))
         img = img[:, :orig_hw[0], :orig_hw[1]]
         if not isinstance(img, np.ndarray):
-            img = fetch(_to_u8(img) if as_uint8 else torch.clamp(img, 0.0, 1.0))
+            img = fetch(_to_u8(img) if as_uint8 else torch.clamp(img.float(), 0.0, 1.0))
         return img[0] if squeeze else img
 
     def _sync(self) -> None:
@@ -519,8 +539,8 @@ class WCTEngine:
                        style_key=None, pwct: bool = False) -> torch.Tensor:
         """Device-resident stylization: float (N, H, W, 3) or (H, W, 3)
         tensors in, a float (N, H, W, 3) tensor on the engine's device out,
-        cropped to the input's H, W and clipped to [0, 1]; no host transfer.
-        ``pwct`` as in :meth:`stylize`."""
+        cropped to the input's H, W and clipped to [0, 1], in the engine's
+        dtype; no host transfer. ``pwct`` as in :meth:`stylize`."""
         h, w = content.shape[-3:-1]
         out = self._run(self._prep(content), self._prep(style), alpha,
                         num_run=num_run, style_key=style_key, pwct=pwct)
@@ -535,13 +555,14 @@ class WCTEngine:
                              f"shape {y.shape}")
 
     def _planes_img(self, y, cbcr) -> torch.Tensor:
-        """4:2:0 planes, host arrays or tensors, -> the (1, H, W, 3) float
-        image on the engine's device; planes already there are not copied."""
+        """4:2:0 planes, host arrays or tensors, -> the (1, H, W, 3) image of
+        the engine's dtype on its device; planes already there are not
+        copied."""
         def up(p):
             if isinstance(p, np.ndarray):
                 return push(p[None], self.device)
             return p[None].to(self.device)
-        return yuv420_to_rgbf_device(up(y), up(cbcr))
+        return yuv420_to_rgbf_device(up(y), up(cbcr)).to(self.dtype)
 
     @torch.inference_mode()
     def stylize_planes(self, y, cbcr, style, alpha: float = 1.0, *, num_run: int = 1,
@@ -641,7 +662,7 @@ class WCTEngine:
             y_dev, c_dev = self._upload_plane_bands(bands())
         except _CorruptJpeg:
             return None  # the caller takes the whole path
-        img = yuv420_to_rgbf_device(y_dev, c_dev)
+        img = yuv420_to_rgbf_device(y_dev, c_dev).to(self.dtype)
         return self._run_to_jpeg(img, style, alpha, style_key=style_key, quality=quality,
                                  orig_hw=(h, w))
 
@@ -811,6 +832,8 @@ class WCTEngine:
             raise ValueError(
                 "pwct=True is only supported on the plain per-stage path; "
                 "construct the engine without slab_rows/space for photo-WCT")
+        if pwct and self.dtype == torch.bfloat16:
+            raise ValueError(f"pwct=True with dtype=torch.bfloat16: {BF16_REFUSED}")
         alpha = torch.as_tensor(alpha, dtype=torch.float32, device=self.device)
         if ((self.slab is not None or self._tiled_fn is not None)
                 and (img.shape[0] > 1 or sty.shape[0] > 1)):

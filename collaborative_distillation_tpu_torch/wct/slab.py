@@ -31,6 +31,11 @@ uint8 while the next one computes. Both share one stage loop,
 :meth:`SlabCascade.run`. PyTorch runs eagerly, so nothing here is
 compiled; the reference's fusion into one program has no counterpart beyond
 what changes the work and the results.
+
+A bfloat16 pyramid and image run in bf16: bf16 slabs and feature cache (half
+the bytes), the folded WCT in bf16 (``M`` bf16, ``beta`` float32); the sums
+and Grams of pass 1 are taken in float32 over a float32 copy of each slab's
+interior features, and the uint8 tail converts from float32.
 """
 
 from __future__ import annotations
@@ -186,7 +191,7 @@ class SlabCascade:
         kept, s_sum, g_sum, count = [], 0.0, 0.0, 0
         for start, rows, off, n in slabs:
             feats = _encode(p["enc"], spec, img[:, start:start + rows])
-            x = feats[:, off // down:(off + n) // down].reshape(-1, c)
+            x = feats[:, off // down:(off + n) // down].reshape(-1, c).float()
             if shift is None:
                 shift = gram_shift(x)
             s, g = shifted_sum_gram(x, shift)
@@ -208,11 +213,12 @@ class SlabCascade:
         mean, cov = stats_from_sums(shift, s_sum, g_sum, count)
         return mean, cov, kept
 
-    def feature_bytes(self, k, h: int, w: int) -> int:
-        """Bytes of stage ``k``'s stacked slab features for an (h, w) image."""
+    def feature_bytes(self, k, h: int, w: int, itemsize: int = 4) -> int:
+        """Bytes of stage ``k``'s stacked slab features for an (h, w) image,
+        ``itemsize`` bytes an element (2 in bfloat16)."""
         down = 2 ** (k - 1)
         return (sum(rows // down for _, rows, _, _ in self._slabs(h, k)) * (w // down)
-                * self.pyramid[k]["enc_spec"].out_channels * 4)
+                * self.pyramid[k]["enc_spec"].out_channels * itemsize)
 
     def run(self, img: torch.Tensor, stats_of, alpha, *, feature_cache_bytes: int = 0,
             tail: bool = False):
@@ -225,7 +231,8 @@ class SlabCascade:
         alpha = torch.as_tensor(alpha, dtype=torch.float32, device=img.device)
         for k in self.stages:
             s_mean, s_cov = stats_of(k)
-            keep = self.feature_bytes(k, *img.shape[1:3]) <= feature_cache_bytes
+            keep = (self.feature_bytes(k, *img.shape[1:3], img.element_size())
+                    <= feature_cache_bytes)
             c_mean, c_cov, kept = self.content_stats(k, img, keep=keep)
             t = coloring_matrix(c_cov, s_cov.float(), method=self.method, eps=self.eps,
                                 newton_iters=self.newton_iters)

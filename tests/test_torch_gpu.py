@@ -819,3 +819,106 @@ def test_stylize_jpeg_on_card_equals_planes_plus_encode(jfix):
     assert eng.stylize_jpeg(jfix["c444_jpeg"].tobytes(), style) is None
     assert eng.stylize_jpeg(jfix["prog_jpeg"].tobytes(), style) is None
     assert WCTEngine(mode="16x").stylize_jpeg(data, style) is None
+
+
+# ---- bfloat16: the tensor-core conv3x3, the bf16 1x1, pool and upsample ----------
+# Each against its plain version (float32 sums rounded once) within one bf16
+# ulp elementwise: |kernel - plain| <= 2^-7 |plain|, with a floor of 1e-3
+# max|plain| (both sum exact products in float32 in another order; a sum
+# within that of a rounding boundary may round the other way).
+
+BF16_CINS = [3, 16, 24, 32, 64, 128, 256]
+BF16_COUTS = [3, 16, 64, 128, 512]
+# (N, H, W): ragged 16x8 tiles both ways, W = 2, N = 2, one pixel
+BF16_NHW = [(1, 17, 33), (1, 9, 2), (2, 5, 7), (1, 1, 1)]
+
+
+def _bf16_rand(gen, *shape, offset=0, scale=1.0):
+    n = 1
+    for d in shape:
+        n *= d
+    x = ((_rand(gen, n + offset) - 0.5) * (2 * scale)).to(torch.bfloat16)
+    return x[offset:].view(shape)
+
+
+def _bf16_misses(got, ref) -> int:
+    """Elements of ``got`` more than one bf16 ulp (2^-7 |ref|, floor 1e-3
+    max|ref|) from ``ref``."""
+    g, r = got.float(), ref.float()
+    bound = torch.clamp(r.abs() * 2 ** -7, min=1e-3 * float(r.abs().max()))
+    return int(((g - r).abs() > bound).sum())
+
+
+def _conv3x3_bf16_check(gen, n, h, w, ci, co, relu=True, offset=0, bias=torch.bfloat16):
+    x = _bf16_rand(gen, n, h, w, ci, offset=offset)
+    wt = _bf16_rand(gen, 3, 3, ci, co, scale=(3 / (9 * ci)) ** 0.5)
+    b = None if bias is None else _bf16_rand(gen, co).to(bias)
+    got = kc.conv3x3_reflect(x, wt, b, relu)
+    ref = kc.conv3x3_reflect_bf16.plain(x, wt, b, relu)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert _bf16_misses(got, ref) == 0
+
+
+@pytest.mark.parametrize("cin", BF16_CINS)
+@pytest.mark.parametrize("cout", BF16_COUTS)
+@pytest.mark.parametrize("nhw", BF16_NHW, ids=str)
+def test_conv3x3_bf16_matches_plain(gen, cin, cout, nhw):
+    _conv3x3_bf16_check(gen, *nhw, cin, cout)
+
+
+@pytest.mark.parametrize("case", [  # (N, H, W, Cin, Cout, relu, offset, bias dtype)
+    (1, 33, 65, 24, 3, False, 1, torch.float32), (1, 16, 16, 5, 7, True, 3, None),
+    (1, 9, 17, 512, 512, True, 0, torch.float32), (3, 8, 16, 129, 24, False, 1, None),
+    (1, 40, 40, 16, 32, True, 2, torch.bfloat16), (1, 64, 48, 128, 128, True, 0, None)],
+    ids=str)
+def test_conv3x3_bf16_offsets_and_bias_types(gen, case):
+    n, h, w, ci, co, relu, offset, bias = case
+    before = (kc.conv3x3_reflect.launches, kc.conv3x3_reflect_bf16.launches)
+    _conv3x3_bf16_check(gen, n, h, w, ci, co, relu, offset, bias)
+    assert (kc.conv3x3_reflect.launches, kc.conv3x3_reflect_bf16.launches) == (
+        before[0], before[1] + 1)
+
+
+@pytest.mark.parametrize("case", [  # (P, Cin, Cout, relu, bias, offset)
+    (1000, 24, 24, False, True, 0), (1000, 32, 32, False, True, 1), (777, 64, 64, False, True, 0),
+    (129, 128, 128, False, True, 3), (4097, 128, 128, True, False, 0), (1, 8, 8, False, True, 0),
+    (300, 3, 24, False, True, 1), (300, 24, 3, True, True, 0), (257, 96, 96, False, True, 2)],
+    ids=str)
+def test_conv1x1_bf16_matches_plain(gen, case):
+    p, ci, co, relu, bias, offset = case
+    x = _bf16_rand(gen, p, ci, offset=offset)
+    wt = _bf16_rand(gen, ci, co, scale=(3 / ci) ** 0.5)
+    b = _rand(gen, co) - 0.5 if bias else None
+    got = kc.conv1x1_bias(x, wt, b, relu)
+    ref = kc.conv1x1_bias_bf16.plain(x, wt, b, relu)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (p, co)
+    assert _bf16_misses(got, ref) == 0
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 8, 16), (1, 7, 9, 16), (2, 5, 4, 3), (1, 1, 5, 8),
+                                   (1, 64, 33, 24), (1, 6, 6, 128)], ids=str)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_pool_and_upsample_bf16_are_exact(gen, shape, offset):
+    x = _bf16_rand(gen, *shape, offset=offset)
+    for k in (kc.max_pool_2x2, kc.upsample_nearest_2x):
+        got = k(x)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, k.plain(x))
+
+
+def test_bf16_kernels_keep_nan_and_refuse_what_they_do_not_take(gen):
+    x = _bf16_rand(gen, 1, 9, 17, 16)
+    x[0, 4, 8, 3] = float("nan")
+    w = _bf16_rand(gen, 3, 3, 16, 16, scale=0.1)
+    y = kc.conv3x3_reflect(x, w, None, True)
+    ref = kc.conv3x3_reflect.plain(x, w, None, True)
+    assert torch.equal(torch.isnan(y), torch.isnan(ref)) and bool(torch.isnan(y).any())
+    assert bool(torch.isnan(kc.max_pool_2x2(x)).any())
+    with pytest.raises(ValueError, match="halo"):
+        kc.conv3x3_reflect(x, w, None, True, top=x[:, :1])
+    with pytest.raises(ValueError, match="bfloat16"):
+        kc.conv3x3_reflect_bf16(x, w.float(), None, True)
+    with pytest.raises(ValueError, match="float32"):
+        kc.conv1x1_bias(x.reshape(-1, 16), w[0, 0], w[0, 0, 0], False)   # bias must be f32

@@ -150,7 +150,8 @@ def stub_card(monkeypatch):
     monkeypatch.setattr(tconv, "on_card", lambda x: True)
     for mod in (kconv, kpool):   # host tensors pass; inputs that require grad do not
         monkeypatch.setattr(mod, "_check_cuda",
-                            lambda name, *t, rows=(): kconv._refuse_grad(name, *t, *rows))
+                            lambda name, *t, rows=(), dtype=None: kconv._refuse_grad(
+                                name, *t, *rows))
     monkeypatch.setattr(kconv, "device_plan", lambda *a: kconv.launch_plan(*a[:5], 132))
     monkeypatch.setattr(_build, "library", lambda: _StubLibrary())
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
