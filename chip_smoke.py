@@ -166,11 +166,13 @@ Phases (any failure raises and the script exits non-zero):
      version at every shape of the bf16 2048^2 plain and UHD slab paths and
      at edge shapes, within one bf16 ulp (pool and upsample exact), timed
      beside the plain version, the library call (cuDNN's bf16 reflect conv,
+     and for the conv also cuDNN's bf16 conv alone on a map padded and made
+     channels-last outside the timed call, ``library_conv_ms``;
      ``torch.addmm``, ``F.max_pool2d``, ``F.interpolate``) and the bound at
      the bf16 peak; (b) ``WCTEngine(dtype=torch.bfloat16)`` at 2048^2 and
      on the UHD slab path with every count zeroed before and read after
      (the float32 plan's launches on the bf16 kernels, ``sum_gram`` on the
-     float32 copy), the warm cascades (medians of 5 and 3), peaks and
+     float32 copy; the bf16 conv's launches by template), the warm cascades (medians of 5 and 3), peaks and
      profiles beside phase 5's and 5b's float32 medians; (c) the bf16
      output against the float32 one on the card (2048^2 above 12 dB, UHD
      printed beside JAX's 15.7 dB) and encoder e5 at 2048^2 card vs CPU in
@@ -232,8 +234,10 @@ KERNEL_PATH = {"conv1x1_bias": "UHD slab", "halo_exchange_rows": "UHD sharded"}
 # the checks, the kernel's in the table
 KERNEL_OF = {"conv3x3_halo": "conv3x3_reflect"}
 CONV3X3_NAMES = "conv3x3_kernel"   # the profiler's names of csrc/conv3x3.cu's kernels
-# the profiler's names of the bf16 tile code's conv3x3 and 1x1 instantiations
-BF16_CONV_NAMES = {"conv3x3_reflect_bf16": "Conv3x3Geom", "conv1x1_bias_bf16": "PointGeom"}
+# the profiler's names of the bf16 ring kernel's conv3x3 and 1x1 instantiations
+# (bf16_igemm.cuh's ``bf16_ring_kernel<Ring<TAPS, ...>>``)
+BF16_RING_KERNEL = "bf16_ring_kernel"
+BF16_CONV_NAMES = {"conv3x3_reflect_bf16": "Ring<9,", "conv1x1_bias_bf16": "Ring<1,"}
 # Tolerances, each against the plain version on the same inputs:
 #   conv3x3, conv1x1: |kernel - plain| <= 1e-5 * S, S = max|x| * max_co sum|w|
 #     + max|b|, the largest magnitude any partial sum can take; both sum up
@@ -539,6 +543,12 @@ class Bench:
                 lib.bias.copy_(b)
                 xn = x.permute(0, 3, 1, 2)   # NHWC memory as a channels-last NCHW view
                 library = lambda: lib(xn)
+                # cuDNN's bf16 conv alone: the reflect pad and the
+                # channels-last layout made outside the timed call
+                xp = F.pad(xn, (1, 1, 1, 1), mode="reflect").contiguous(
+                    memory_format=torch.channels_last)
+                wn = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                library_conv = lambda: F.conv2d(xp, wn, b)
         elif kernel == "conv1x1_bias_bf16":
             n, h, w, ci, co, relu, bias, offset = shape
             x = (self.rand(n * h * w * ci + offset) - 0.5).to(bf)[offset:].view(n, h, w, ci)
@@ -579,6 +589,8 @@ class Bench:
                        plain_ms=cuda_ms(torch, lambda: k.plain(*args), reps),
                        library_ms=cuda_ms(torch, library, reps),
                        bytes_ms=nbytes / PEAK_BYTES * 1e3, flops_ms=flops / PEAK_BF16_FLOPS * 1e3)
+            if kernel == "conv3x3_reflect_bf16":
+                row["library_conv_ms"] = cuda_ms(torch, library_conv, reps)
         return row
 
     def _run(self, kernel, shape, layer, timed, reps):
@@ -756,10 +768,13 @@ def path_times(mine) -> dict:
     tot = lambda key: sum(r[key] * r["calls"] for r in mine)
     by_bytes = sum(r["bytes_ms"] * r["calls"] for r in mine if r["bytes_ms"] >= r["flops_ms"])
     by_ops = sum(r["flops_ms"] * r["calls"] for r in mine if r["bytes_ms"] < r["flops_ms"])
-    return {"ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": by_bytes + by_ops,
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "bound_bytes_ms": by_bytes, "bound_ops_ms": by_ops,
-            "library_ms": tot("library_ms")}
+    out = {"ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": by_bytes + by_ops,
+           "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+           "bound_bytes_ms": by_bytes, "bound_ops_ms": by_ops,
+           "library_ms": tot("library_ms")}
+    if mine and all("library_conv_ms" in r for r in mine):
+        out["library_conv_ms"] = tot("library_conv_ms")
+    return out
 
 
 def profile_cascade(torch, eng, img, sty, label="phase 5", **kw) -> dict:
@@ -789,7 +804,7 @@ def profile_cascade(torch, eng, img, sty, label="phase 5", **kw) -> dict:
                 kernels[e.key[:90]] += ms
                 calls[e.key[:90]] += e.count
                 for name, geom in BF16_CONV_NAMES.items():
-                    if "igemm_bf16_kernel" in e.key and geom in e.key:
+                    if BF16_RING_KERNEL in e.key and geom in e.key.replace(" ", ""):
                         bf16[name] += ms
                         bf16[name + "_calls"] += e.count
     busy = sum(kernels.values())
@@ -2756,6 +2771,7 @@ def bf16_phase(torch, kc, WCTEngine, bench, eng, slab_eng, c2k, s2k, c_uhd, call
     def counted(fn):
         for k in every:
             k.launches = 0
+        kc.conv3x3_reflect_bf16.by_template.clear()
         r = fn()
         return r, {k.__name__: k.launches for k in every}
 
@@ -2779,9 +2795,12 @@ def bf16_phase(torch, kc, WCTEngine, bench, eng, slab_eng, c2k, s2k, c_uhd, call
                 and img.min() >= 0.0 and img.max() <= 1.0 and change > 0.02):
             raise AssertionError(f"phase 10b: bad bf16 {label} output: {img.shape} {img.dtype}, "
                                  f"range [{img.min()}, {img.max()}], mean change {change}")
-        out[label] = {"launches": launches, "first_s": wall, "mean_change": change}
+        by_template = dict(kc.conv3x3_reflect_bf16.by_template)
+        out[label] = {"launches": launches, "first_s": wall, "mean_change": change,
+                      "conv3x3_bf16_by_template": by_template}
         log(f"phase 10b: bf16 {label}: {wall:.3f} s (first call, host transfer included), "
-            f"float32 output finite, in [0, 1], mean |out - content| {change:.4f}")
+            f"float32 output finite, in [0, 1], mean |out - content| {change:.4f}; "
+            f"conv3x3_reflect_bf16 launches by template {by_template}")
         del img
     launches16 = out["2048^2 plain"]["launches"]
     launches16_uhd = out[f"{UHD_H}x{UHD_W} slab_rows={UHD_SLAB}"]["launches"]
@@ -2877,13 +2896,17 @@ def bf16_phase(torch, kc, WCTEngine, bench, eng, slab_eng, c2k, s2k, c_uhd, call
             row["uhd_slab"] = {"launches": launches16_uhd[name],
                                **path_times([r for r in rows_uhd if r["kernel"] == name])}
         table.append(row)
+        conv_alone = lambda r: (f", cuDNN bf16 conv alone {r['library_conv_ms']:.3f}"
+                                if "library_conv_ms" in r else "")
         log(f"phase 10: {name}: {row['ms']:.3f} ms a {row['path']} cascade over "
             f"{row['launches']} launches, plain {row['plain_ms']:.3f}, library "
-            f"{row['library_ms']:.3f}, bound {row['bound_ms']:.3f} ({row['bound_by']})"
+            f"{row['library_ms']:.3f}{conv_alone(row)}, bound {row['bound_ms']:.3f} "
+            f"({row['bound_by']})"
             + ("" if uhd_only else
                f"; UHD slab {row['uhd_slab']['ms']:.3f} ms over {row['uhd_slab']['launches']}, "
                f"plain {row['uhd_slab']['plain_ms']:.3f}, library "
-               f"{row['uhd_slab']['library_ms']:.3f}, bound {row['uhd_slab']['bound_ms']:.3f}"))
+               f"{row['uhd_slab']['library_ms']:.3f}{conv_alone(row['uhd_slab'])}, bound "
+               f"{row['uhd_slab']['bound_ms']:.3f}"))
     out["shapes_timed"] = rows + rows_uhd
     out["phase10_s"] = time.perf_counter() - t10
     log(f"phase 10: {out['phase10_s']:.1f} s")

@@ -20,7 +20,8 @@ bfloat16 maps take :func:`conv3x3_reflect_bf16` (``csrc/conv3x3_bf16.cu``,
 tensor cores, f32 sums rounded once to bf16), the reference's bf16
 instantiation of the same Pallas kernels; :func:`conv3x3_plain` computes it
 in float32 and rounds once. Halo rows in bf16 are refused: the sharded paths
-run float32.
+run float32. :func:`launch_plan_bf16` picks the template of its persistent
+ring kernel (``csrc/bf16_igemm.cuh``), and that of the bf16 1x1's.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from . import _build
 from .peer import batch_stride, ptr, reachable, release
 
 __all__ = ["conv3x3_plain", "conv3x3_reflect", "conv3x3_reflect_bf16", "launch_plan",
-           "device_plan", "ConvPlan"]
+           "device_plan", "ConvPlan", "launch_plan_bf16", "device_plan_bf16", "BF16Plan"]
 
 # The ring templates, by the id csrc/conv3x3.cu takes: (name, Cout tile, tile
 # rows, tile cols), as it instantiates them. One persistent block an SM
@@ -116,6 +117,108 @@ def device_plan(n: int, h: int, w: int, cin: int, cout: int, index: int) -> Conv
     """:func:`launch_plan` on CUDA device ``index``."""
     return launch_plan(n, h, w, cin, cout,
                        torch.cuda.get_device_properties(index).multi_processor_count)
+
+
+# The bf16 ring templates, by the id the C entries take: (name, taps, CK, NT,
+# TH, TW, S, warps, wgmma) as csrc/conv3x3_bf16.cu (taps 9) and
+# csrc/conv1x1.cu (taps 1) instantiate them: CK input channels a step
+# stages (the 1x1: at most), NT couts a block, a TH x TW pixel tile (the
+# 1x1: TH * TW consecutive pixels), S ring slots, the warps of a block,
+# whether the products are wgmma (1) or mma.sync (0).
+BF16_TEMPLATES = {
+    1: ("bf16_ck8_co16", 9, 8, 16, 32, 32, 3, 16, 0),
+    2: ("bf16_ck8_co32", 9, 8, 32, 16, 32, 3, 16, 0),
+    3: ("bf16_ck16_co8", 9, 16, 8, 32, 32, 3, 16, 0),
+    4: ("bf16_ck16_co16", 9, 16, 16, 32, 32, 3, 16, 0),
+    5: ("bf16_ck16_co32", 9, 16, 32, 16, 32, 3, 16, 0),
+    6: ("bf16_ck24_co8", 9, 24, 8, 32, 32, 3, 16, 0),
+    7: ("bf16_ck32_co16", 9, 32, 16, 16, 32, 3, 16, 0),
+    8: ("bf16_ck32_co32", 9, 32, 32, 16, 32, 3, 16, 0),
+    9: ("bf16_ck32_co64", 9, 32, 64, 16, 16, 3, 8, 1),
+    10: ("bf16_ck32_co64_s2", 9, 32, 64, 16, 16, 2, 8, 1),
+    11: ("bf16_1x1_c32", 1, 32, 32, 32, 16, 4, 16, 0),
+    12: ("bf16_1x1_c64", 1, 64, 64, 16, 16, 3, 8, 0),
+    13: ("bf16_1x1_c128", 1, 128, 128, 8, 16, 3, 8, 0),
+}
+MAX_SMEM = 232448   # an H100 block's opt-in dynamic shared memory, bytes
+
+
+class BF16Plan(NamedTuple):
+    """One launch of the bf16 ring kernel: ``kernel`` (the template's name),
+    ``template`` (its id), the pixel ``tile`` (rows, cols), the Cout tile,
+    the Cin ``chunks`` a tile takes, whether the weights are ``resident``
+    (else streamed a chunk a step), its dynamic shared memory ``smem`` in
+    bytes, the pixel ``tiles`` of the whole batch and the ``grid`` (whole
+    Cout tiles of blocks: block ``b`` keeps Cout tile ``b % cout_tiles`` and
+    walks pixel tiles ``b // cout_tiles``, + ``grid // cout_tiles``, ...)."""
+    kernel: str
+    template: int
+    tile: tuple
+    cout_tile: int
+    chunks: int
+    resident: bool
+    smem: int
+    tiles: int
+    grid: tuple
+
+
+def bf16_smem(t: int, cin: int, resident: bool) -> int:
+    """Template ``t``'s dynamic shared memory at ``cin`` (bf16_igemm.cuh's
+    ``smem_bytes``): S pixel slots of SP staged pixels at a stride of an odd
+    number of 16-byte units, the weights (every chunk, or one a slot), the
+    warps' output staging, 16 zero bytes."""
+    _, taps, ck, nt, th, tw, s, _, _ = BF16_TEMPLATES[t]
+    xs = ck + 8 if (ck // 8) % 2 == 0 else ck
+    sp = (th + 2) * (tw + 2) if taps == 9 else th * tw
+    groups = ck // 8 if taps == 9 else -(-cin // 8)
+    k_rows = -(-taps * groups * 8 // 16) * 16
+    chunks = -(-cin // ck) if taps == 9 else 1
+    return 2 * (s * sp * xs + (chunks if resident else s) * k_rows * nt + th * tw * nt) + 16
+
+
+def _bf16_template(cin: int, cout: int, taps: int) -> tuple[int, bool]:
+    """(template, resident) for a conv: the smallest staged width and Cout
+    tile that hold Cin (up to a 32-channel chunk) and Cout (up to 64; wider
+    Cout walks tiles of 64); resident weights where they fit beside the
+    ring, else the two-slot template, streamed where even that one cannot
+    hold them. The 1x1 by the wider of Cin and Cout, all of Cout a block."""
+    if taps == 1:
+        wide = max(-(-cin // 8) * 8, cout)
+        return (11 if wide <= 32 else 12 if wide <= 64 else 13), True
+    ck = min(32, -(-cin // 8) * 8)
+    nt = 8 if cout <= 8 else 16 if cout <= 16 else 32 if cout <= 32 else 64
+    fits = [t for t, (_, tp, c, n, *_rest) in sorted(BF16_TEMPLATES.items(),
+                                                     key=lambda kv: kv[1][2:4])
+            if tp == 9 and c >= ck and n >= nt and bf16_smem(t, cin, True) <= MAX_SMEM]
+    return (fits[0], True) if fits else (10, False)
+
+
+def launch_plan_bf16(n: int, h: int, w: int, cin: int, cout: int, n_sm: int,
+                     taps: int = 9) -> BF16Plan:
+    """The bf16 ring kernel's launch for an (n, h, w, cin) -> cout conv
+    (``taps=9``, the 3x3) or a 1x1 over n * h * w pixels (``taps=1``) on a
+    card of ``n_sm`` SMs: the template by width (:func:`_bf16_template`),
+    one persistent block an SM in whole Cout tiles, no more blocks on a Cout
+    tile than there are pixel tiles. Fixed by shape."""
+    t, resident = _bf16_template(cin, cout, taps)
+    name, _, ck, nt, th, tw, _, _, _ = BF16_TEMPLATES[t]
+    if taps == 1:
+        tiles = -(-(n * h * w) // (th * tw))
+        cout_tiles, chunks = 1, 1
+    else:
+        tiles = n * -(-h // th) * -(-w // tw)
+        cout_tiles, chunks = -(-cout // nt), -(-cin // ck)
+    walkers = max(1, min(tiles, n_sm // cout_tiles))   # blocks on each Cout tile
+    return BF16Plan(name, t, (th, tw), nt, chunks, resident, bf16_smem(t, cin, resident),
+                    tiles, (walkers * cout_tiles, 1, 1))
+
+
+@functools.lru_cache(maxsize=1024)
+def device_plan_bf16(n: int, h: int, w: int, cin: int, cout: int, index: int,
+                     taps: int = 9) -> BF16Plan:
+    """:func:`launch_plan_bf16` on CUDA device ``index``."""
+    return launch_plan_bf16(n, h, w, cin, cout,
+                            torch.cuda.get_device_properties(index).multi_processor_count, taps)
 
 
 def _check_halo(name: str, x: torch.Tensor, top, bot) -> None:
@@ -228,7 +331,9 @@ def conv3x3_reflect_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | Non
     Cin) and ``w`` (3, 3, Cin, Cout) HWIO bfloat16, ``b`` (Cout,) bfloat16
     or float32 or None, all contiguous on one CUDA device, Cin and Cout in
     1..512 -> (N, H, W, Cout) bfloat16: f32 sums of the exact products, the
-    bias and ReLU in f32, one rounding."""
+    bias and ReLU in f32, one rounding; by the template
+    :func:`launch_plan_bf16` picks (``conv3x3_reflect_bf16.by_template``
+    counts the launches by its name)."""
     name = "conv3x3_reflect_bf16"
     if x.dim() != 4 or w.dim() != 4 or w.shape[:3] != (3, 3, x.shape[3]):
         raise ValueError(f"{name}: x {tuple(x.shape)} and HWIO w {tuple(w.shape)} do not match")
@@ -248,18 +353,22 @@ def conv3x3_reflect_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | Non
     y = torch.empty((n, h, wd, cout), device=x.device, dtype=torch.bfloat16)
     if y.numel() == 0:
         return y
+    plan = device_plan_bf16(n, h, wd, cin, cout, x.device.index)
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.cd_conv3x3_reflect_bf16(
             x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
             n, h, wd, cin, cout, int(relu), int(b is not None and b.dtype == torch.bfloat16),
+            plan.template, plan.grid[0], int(plan.resident),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, name)
     conv3x3_reflect_bf16.launches += 1
+    conv3x3_reflect_bf16.by_template[plan.kernel] += 1
     return y
 
 
 conv3x3_reflect_bf16.launches = 0
+conv3x3_reflect_bf16.by_template = Counter()
 conv3x3_reflect_bf16.plain = conv3x3_plain
 
 

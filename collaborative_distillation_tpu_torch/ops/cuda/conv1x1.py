@@ -3,7 +3,7 @@
 The kernel (``csrc/conv1x1.cu``) replaces the reference's Pallas
 ``conv1x1_lane128``. The slab cascade applies the folded WCT through it
 (:func:`..wct_transform.wct_apply_folded`). Its bfloat16 instantiation,
-:func:`conv1x1_bias_bf16` (the tensor-core tile code of the bf16 conv3x3),
+:func:`conv1x1_bias_bf16` (the bf16 conv3x3's persistent ring kernel with one tap),
 takes a bf16 map and matrix and a float32 bias, as the reference's bf16
 engine applies its folded WCT.
 """
@@ -14,7 +14,7 @@ import torch
 
 from ..precision import full_float32
 from . import _build
-from .conv import _check_cuda
+from .conv import _check_cuda, device_plan_bf16
 
 __all__ = ["conv1x1_plain", "conv1x1_bias", "conv1x1_bias_bf16"]
 
@@ -94,11 +94,13 @@ def conv1x1_bias_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
     y = torch.empty((*x.shape[:-1], cout), device=x.device, dtype=torch.bfloat16)
     if y.numel() == 0:
         return y
+    p = x.numel() // cin
+    plan = device_plan_bf16(1, 1, p, cin, cout, x.device.index, taps=1)
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.cd_conv1x1_bias_bf16(
             x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-            y.data_ptr(), x.numel() // cin, cin, cout, int(relu),
+            y.data_ptr(), p, cin, cout, int(relu), plan.template, plan.grid[0],
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, name)
     conv1x1_bias_bf16.launches += 1

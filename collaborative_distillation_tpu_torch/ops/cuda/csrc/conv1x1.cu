@@ -36,10 +36,19 @@
 // cd_conv1x1_bias_bf16 is the bf16 instantiation (conv1x1_lane128's "bf16
 // inputs keep the bf16 pass", :382-386; the bf16 engine's folded WCT, M in
 // bf16 and beta in f32, reference models/packed_vgg.py:246-252): x and W in
-// bf16, f32 sums, + f32 beta, one rounding to bf16. It is the conv3x3_bf16
-// tile code (bf16_igemm.cuh) with one tap, K = Cin: 128 consecutive pixels a
-// block. At C = 128 the bf16 product is 128 FLOP/B, which FFMA (20 FLOP/B)
-// could not keep up with; on the tensor cores it is bound by bytes.
+// bf16, f32 sums, + f32 beta, one rounding to bf16. At C = 128 the bf16
+// product is 128 FLOP/B, under the tensor cores' 295 FLOP/B ridge: bound by
+// bytes at every width. It is the persistent ring kernel of bf16_igemm.cuh
+// with one tap, the f32 kernel's shape on the tensor cores: one block an SM
+// keeps W (at most 128 x 128 x 2 B = 32 KB, the whole Cout in one block, so
+// every pixel is read once) resident, runs of 512 / 256 / 128 consecutive
+// pixels (Cin and Cout up to 32 / 64 / 128) stream through a cp.async ring
+// of 4 / 3 / 3 slots, mma.sync from ldmatrix, and each warp stores its
+// 16-pixel fragments as 16-byte vectors from shared memory. The first bf16 kernel, the 3x3
+// tile code with one tap, re-staged W for every 128 pixels, split Cout at
+// 64 and kept nothing in flight: 21-68 % of the byte bound. This one: 70 %
+// at C 24 and 32, 75 % at 64, 36 % at 128 (one fragment a warp, each
+// re-reading all of W), 66 % over the UHD slab path's 20 launches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -347,27 +356,43 @@ extern "C" int cd_conv1x1_bias(const float* x, const float* w, const float* b,
   return dispatch<false>(x, w, b, y, P, cin, cout, relu, 0, vec_w, vec_out, s);
 }
 
+namespace {
+
+//                          TAPS CK   NT  TH TW  S  WARPS WG
+using Point32 = cd_bf16::Ring<1, 32, 32, 32, 16, 4, 16, 0>;    // 512 pixels, 199 KB
+using Point64 = cd_bf16::Ring<1, 64, 64, 16, 16, 3, 8, 0>;     // 256 pixels, 152 KB
+using Point128 = cd_bf16::Ring<1, 128, 128, 8, 16, 3, 8, 0>;   // 128 pixels, 170 KB
+
+template <class R>
+int run_point(cd_bf16::Args a, int grid, cudaStream_t s) {
+  constexpr int tile = R::TH * R::TW;
+  const long long tiles = (a.P + tile - 1) / tile;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  a.tiles = (int)tiles;
+  a.cout_tiles = 1;
+  a.chunks = 1;
+  a.resident = 1;
+  if (a.Cin > R::CK || a.Cout > R::NT) return static_cast<int>(cudaErrorInvalidValue);
+  return cd_bf16::launch<R>(a, grid, s);
+}
+
+}  // namespace
+
 // x (P, Cin) bf16, w (Cin, Cout) bf16, b (Cout,) f32 or null, y (P, Cout)
-// bf16; Cin, Cout <= 128.
+// bf16; Cin, Cout <= 128. ``tmpl`` and ``grid`` are the launch plan's
+// (ops/cuda/conv.py:launch_plan_bf16 with taps=1).
 extern "C" int cd_conv1x1_bias_bf16(const void* x, const void* w, const float* b, void* y,
-                                    long long P, int cin, int cout, int relu, void* stream) {
+                                    long long P, int cin, int cout, int relu, int tmpl,
+                                    int grid, void* stream) {
   if (P <= 0) return static_cast<int>(cudaGetLastError());
-  cd_bf16::Args a;
-  a.x = static_cast<const unsigned short*>(x);
-  a.w = static_cast<const unsigned short*>(w);
-  a.b = b;
-  a.y = static_cast<__nv_bfloat16*>(y);
+  cd_bf16::Args a = cd_bf16::make_args(x, w, b, y, cin, cout, relu);
   a.P = P;
-  a.H = 1;
-  a.W = 1;
-  a.Cin = cin;
-  a.Cout = cout;
-  a.relu = relu;
   a.bias_bf16 = 0;
-  a.vec_x = cin % 8 == 0 && cd_bf16::aligned(x, 16);
-  a.vec_w = cout % 8 == 0 && cd_bf16::aligned(w, 16);
-  a.vec_y = cout % 2 == 0 && cd_bf16::aligned(y, 4);
-  constexpr int tile = cd_bf16::kTileH * cd_bf16::kTileW;
-  return cd_bf16::dispatch<cd_bf16::PointGeom>(a, (unsigned)((P + tile - 1) / tile), 1u,
-                                               static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (tmpl) {
+    case 11: return run_point<Point32>(a, grid, s);
+    case 12: return run_point<Point64>(a, grid, s);
+    case 13: return run_point<Point128>(a, grid, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -897,6 +897,75 @@ def test_conv1x1_bf16_matches_plain(gen, case):
     assert _bf16_misses(got, ref) == 0
 
 
+# The persistent ring kernel (csrc/bf16_igemm.cuh): more pixel tiles than
+# blocks (every block walks its queue), Cout past a whole Cout tile (24, 3,
+# 96), Cin 3, offset views, 128 -> 128 (two resident 64-wide Cout halves on
+# different blocks), 512 -> 512 (streamed weights); (N, H, W, Cin, Cout, offset)
+BF16_RING_CASES = [(1, 1024, 1024, 16, 16, 0), (3, 257, 255, 16, 16, 0), (3, 257, 255, 64, 64, 1),
+                   (1, 200, 300, 3, 24, 0), (1, 130, 70, 16, 3, 1), (2, 67, 99, 24, 3, 0),
+                   (1, 60, 90, 64, 96, 0), (1, 41, 50, 32, 24, 3), (1, 100, 120, 128, 128, 0),
+                   (2, 33, 47, 128, 64, 1), (1, 20, 36, 512, 512, 0), (1, 300, 200, 3, 16, 1)]
+
+
+@pytest.mark.parametrize("case", BF16_RING_CASES, ids=str)
+def test_conv3x3_bf16_ring_walks_and_widths(gen, case):
+    n, h, w, ci, co, offset = case
+    plan = kconv.device_plan_bf16(n, h, w, ci, co, 0)
+    before = kc.conv3x3_reflect_bf16.by_template[plan.kernel]
+    _conv3x3_bf16_check(gen, n, h, w, ci, co, True, offset)
+    assert kc.conv3x3_reflect_bf16.by_template[plan.kernel] == before + 1
+    assert plan.resident == (ci <= 128)
+
+
+def test_conv3x3_bf16_every_template_runs(gen):
+    """One shape on each 3x3 template id, the plan's choice checked."""
+    seen = set()
+    for ci, co in [(3, 16), (3, 24), (16, 3), (16, 16), (16, 32), (24, 3), (32, 16), (32, 32),
+                   (64, 64), (128, 128)]:
+        plan = kconv.device_plan_bf16(1, 37, 45, ci, co, 0)
+        seen.add(plan.template)
+        _conv3x3_bf16_check(gen, 1, 37, 45, ci, co, True)
+    assert seen == {t for t, v in kconv.BF16_TEMPLATES.items() if v[1] == 9}
+
+
+def test_bf16_launches_back_to_back_keep_their_own_weights(gen):
+    """Two shapes (and two weight sets at one shape) queued on one stream
+    with no synchronisation between them: no launch sees another's
+    weights, bias or tiles."""
+    args = []
+    for n, h, w, ci, co in [(1, 64, 96, 64, 64), (1, 64, 96, 64, 64), (1, 90, 70, 16, 32),
+                            (1, 30, 40, 128, 128), (1, 90, 70, 16, 32)]:
+        x = _bf16_rand(gen, n, h, w, ci)
+        wt = _bf16_rand(gen, 3, 3, ci, co, scale=(3 / (9 * ci)) ** 0.5)
+        args.append((x, wt, _bf16_rand(gen, co), True))
+    x1 = _bf16_rand(gen, 5000, 64)
+    w1 = _bf16_rand(gen, 64, 64, scale=(3 / 64) ** 0.5)
+    outs = [kc.conv3x3_reflect_bf16(*a) for a in args]
+    y1 = kc.conv1x1_bias_bf16(x1, w1, None, False)
+    outs2 = [kc.conv3x3_reflect_bf16(*a) for a in args[::-1]][::-1]
+    torch.cuda.synchronize()
+    for a, got, again in zip(args, outs, outs2):
+        assert _bf16_misses(got, kc.conv3x3_reflect_bf16.plain(*a)) == 0
+        assert torch.equal(got, again)
+    assert _bf16_misses(y1, kc.conv1x1_bias_bf16.plain(x1, w1, None, False)) == 0
+
+
+@pytest.mark.parametrize("case", [  # (P, Cin, Cout, relu, bias, offset)
+    (100001, 24, 24, False, True, 0), (100001, 32, 32, True, True, 1), (100001, 128, 128, False, True, 0),
+    (100001, 128, 128, False, False, 0), (70001, 64, 64, False, False, 2), (9999, 16, 128, True, True, 0),
+    (5000, 128, 8, False, True, 0)], ids=str)
+def test_conv1x1_bf16_ring_matches_plain(gen, case):
+    p, ci, co, relu, bias, offset = case
+    x = _bf16_rand(gen, p, ci, offset=offset)
+    wt = _bf16_rand(gen, ci, co, scale=(3 / ci) ** 0.5)
+    b = _rand(gen, co) - 0.5 if bias else None
+    got = kc.conv1x1_bias_bf16(x, wt, b, relu)
+    ref = kc.conv1x1_bias_bf16.plain(x, wt, b, relu)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (p, co)
+    assert _bf16_misses(got, ref) == 0
+
+
 @pytest.mark.parametrize("shape", [(1, 8, 8, 16), (1, 7, 9, 16), (2, 5, 4, 3), (1, 1, 5, 8),
                                    (1, 64, 33, 24), (1, 6, 6, 128)], ids=str)
 @pytest.mark.parametrize("offset", [0, 1])

@@ -18,9 +18,17 @@ line per shape (with the conv3x3 launch plan's template where the checkout
 has one), one per path (sums weighted by the calls per cascade), and the
 card's name and power limit.
 
-    python3 tools/bench_kernels.py --kernel {sum_gram,conv1x1_bias,conv3x3_reflect}
-        [--root CHECKOUT] [--reference] [--paths "2048^2 plain" "UHD slab"
-        "wct_se step" "original 1024^2"] [--template ID ...]
+    python3 tools/bench_kernels.py --kernel {sum_gram,conv1x1_bias,conv3x3_reflect,
+        conv3x3_reflect_bf16,conv1x1_bias_bf16} [--root CHECKOUT] [--reference]
+        [--paths "2048^2 plain" "UHD slab" "wct_se step" "original 1024^2"]
+        [--template ID ...]
+
+The bf16 kernels run at the same shapes as their float32 kernels on the
+bf16 engine's paths (``chip_smoke.BF16_OF``), on bf16 inputs, against the
+bound with 2-byte elements at the card's bf16 tensor-core peak; their rows
+name the bf16 launch plan's template where the checkout has one, and with
+``--reference`` the conv3x3 adds cuDNN's bf16 conv alone on a map padded
+and made channels-last outside the timed call (``library_conv_ms``).
 
 ``--template`` (conv3x3 only) times the listed ring templates of
 ``ops/cuda/conv.py:_TEMPLATES`` at every shape as well, launched through the
@@ -70,7 +78,11 @@ def device_ms(torch, fn, reps) -> dict:
 
 def path_shapes(chip_smoke, kernel) -> dict:
     """{path: {shape: calls per cascade}} of ``kernel`` on the two paths,
-    from the checkout's own plans and the mode-16x specs."""
+    from the checkout's own plans and the mode-16x specs (a bf16 kernel:
+    its float32 kernel's shapes, as the bf16 engine runs them)."""
+    f32 = {b: f for f, b in chip_smoke.BF16_OF.items()}
+    if kernel in f32:
+        return {p: s for p, s in path_shapes(chip_smoke, f32[kernel]).items() if p in PATHS}
     from collaborative_distillation_tpu_torch.models.zoo import stage_specs
     from collaborative_distillation_tpu_torch.wct.slab import FEATURE_CACHE_BYTES, SlabCascade
     pyr = {k: dict(zip(("enc_spec", "dec_spec"), stage_specs("16x", k))) for k in STAGES}
@@ -97,18 +109,20 @@ def teacher_shapes(chip_smoke) -> dict:
 
 
 def make_call(torch, kc, kernel, shape):
-    """The kernel on fresh inputs at ``shape`` (the path's own key)."""
+    """The kernel on fresh inputs at ``shape`` (the path's own key); a bf16
+    kernel on the same values rounded to bf16 (the 1x1's bias float32)."""
     k = getattr(kc, kernel)
-    if kernel == "conv3x3_reflect":
+    bf = (lambda t: t.to(torch.bfloat16)) if kernel.endswith("_bf16") else (lambda t: t)
+    if kernel.startswith("conv3x3_reflect"):
         n, h, w, ci, co, relu = shape[:6]
-        x = torch.rand(n, h, w, ci, device="cuda")
-        wt = (torch.rand(3, 3, ci, co, device="cuda") - 0.5) * (2 / (9 * ci) ** 0.5)
-        b = torch.rand(co, device="cuda") - 0.5
+        x = bf(torch.rand(n, h, w, ci, device="cuda"))
+        wt = bf((torch.rand(3, 3, ci, co, device="cuda") - 0.5) * (2 / (9 * ci) ** 0.5))
+        b = bf(torch.rand(co, device="cuda") - 0.5)
         return lambda: k(x, wt, b, relu)
-    if kernel == "conv1x1_bias":
+    if kernel.startswith("conv1x1_bias"):
         n, h, w, ci, co, relu, bias = shape[:7]
-        x = torch.rand(n, h, w, ci, device="cuda") - 0.5
-        wt = (torch.rand(ci, co, device="cuda") - 0.5) * (2 / ci ** 0.5)
+        x = bf(torch.rand(n, h, w, ci, device="cuda") - 0.5)
+        wt = bf((torch.rand(ci, co, device="cuda") - 0.5) * (2 / ci ** 0.5))
         b = torch.rand(co, device="cuda") - 0.5 if bias else None
         return lambda: k(x, wt, b, relu)
     p, c = shape[:2]
@@ -148,10 +162,26 @@ def template_call(torch, chip_smoke, kc, t, shape):
     return call, err
 
 
+def launch_plans(kernel):
+    """shape -> the name of the template the checkout's launch plan picks
+    for ``kernel`` (None where the kernel has no plan; "first" for a
+    checkout whose plan predates the kernel's)."""
+    from collaborative_distillation_tpu_torch.ops.cuda import conv
+    if kernel == "conv3x3_reflect":
+        return lambda s: conv.device_plan(*s[:5], 0).kernel if hasattr(conv, "device_plan") \
+            else "first"
+    plan = getattr(conv, "device_plan_bf16", None)
+    if kernel in ("conv3x3_reflect_bf16", "conv1x1_bias_bf16"):
+        taps = 9 if kernel.startswith("conv3x3") else 1
+        return lambda s: plan(*s[:5], 0, taps=taps).kernel if plan else "first"
+    return None
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", required=True,
-                    choices=("sum_gram", "conv1x1_bias", "conv3x3_reflect"))
+                    choices=("sum_gram", "conv1x1_bias", "conv3x3_reflect",
+                             "conv3x3_reflect_bf16", "conv1x1_bias_bf16"))
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--reference", action="store_true",
                     help="also time the plain version and the library call")
@@ -172,10 +202,11 @@ def main() -> int:
     from collaborative_distillation_tpu_torch.ops import cuda as kc
     from collaborative_distillation_tpu_torch.utils.flops import card_peak_flops
     chip_smoke.PEAK_FP32_FLOPS = card_peak_flops(0, "float32")[0]   # as chip_smoke.main sets it
-    try:   # the conv3x3 launch plan, where the checkout has one
-        from collaborative_distillation_tpu_torch.ops.cuda.conv import device_plan
-    except ImportError:
-        device_plan = None
+    chip_smoke.PEAK_BF16_FLOPS = card_peak_flops(0, "bfloat16")[0]
+    bf16 = args.kernel.endswith("_bf16")
+    peak = chip_smoke.PEAK_BF16_FLOPS if bf16 else chip_smoke.PEAK_FP32_FLOPS
+    f32_name = args.kernel.removesuffix("_bf16")
+    plan_of = launch_plans(args.kernel)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     bench = chip_smoke.Bench(torch, None)
@@ -183,8 +214,9 @@ def main() -> int:
     rows = {}
     for path in args.paths:
         keys = ("ms", "device_ms", "bound_ms") + (
-            ("plain_ms", "library_ms", "copy_ms") if args.reference else ()) + tuple(
-            f"t{t}_ms" for t in args.template)
+            ("plain_ms", "library_ms", "copy_ms") if args.reference else ()) + (
+            ("library_conv_ms",) if args.reference and args.kernel == "conv3x3_reflect_bf16"
+            else ()) + tuple(f"t{t}_ms" for t in args.template)
         tot = dict.fromkeys(keys, 0.0)
         tot["launches"] = 0
         for shape, n in sorted(shapes[path].items(), key=str):
@@ -195,20 +227,21 @@ def main() -> int:
                     r = {"ms": chip_smoke.cuda_ms(torch, call, REPS)}
                     by = device_ms(torch, call, REPS)
                     del call
-                nbytes, flops = chip_smoke.work(args.kernel, shape)
+                nbytes, flops = chip_smoke.work(f32_name, shape, 2 if bf16 else 4)
                 bytes_ms = nbytes / chip_smoke.PEAK_BYTES * 1e3
-                flops_ms = flops / chip_smoke.PEAK_FP32_FLOPS * 1e3
+                flops_ms = flops / peak * 1e3
                 r.update(device_ms=sum(by.values()), bound_ms=max(bytes_ms, flops_ms),
                          bound_by="bytes" if bytes_ms >= flops_ms else "operations",
                          max_rel_err=chk["max_rel_err"], by_kernel_ms=by)
                 if args.reference:
-                    r.update(plain_ms=chk["plain_ms"], library_ms=chk["library_ms"])
+                    r.update({k: chk[k] for k in ("plain_ms", "library_ms", "library_conv_ms")
+                              if k in chk})
                     src = torch.empty(nbytes // 8, device="cuda")
                     dst = torch.empty_like(src)
                     r["copy_ms"] = chip_smoke.cuda_ms(torch, lambda: dst.copy_(src), REPS)
                     del src, dst
-                if args.kernel == "conv3x3_reflect":
-                    r["plan"] = device_plan(*shape[:5], 0).kernel if device_plan else "first"
+                if plan_of is not None:
+                    r["plan"] = plan_of(shape)
                 for t in args.template:
                     with torch.no_grad():
                         got = template_call(torch, chip_smoke, kc, t, shape)

@@ -96,6 +96,9 @@ def main() -> int:
         else:
             differ += 1
             print(f"DIFFERENT  {name} ({len(old[name])} -> {len(new[name])} instructions)")
+            pairs = [(i, a, b) for i, (a, b) in enumerate(zip(old[name], new[name])) if a != b]
+            for i, a, b in pairs[:3]:
+                print(f"    {i}: {a}\n    {i}: {b}")
     print(f"sass_diff {args.source}: {differ} kernel(s) of both checkouts differ")
     return 1 if differ else 0
 
