@@ -142,11 +142,26 @@ Phases (any failure raises and the script exits non-zero):
      ``16x_base`` students) and ``wct_sd --lw_perc 0`` (the shipped weights
      alone): launches per step held to the specs', finite losses, the
      checkpoint's keys in the reference's layout, ``--resume`` at the next
-     epoch, nonzero gradients into the zero-filled aux adapters, the median
-     step time, images/s, peak memory and one profiled step's split into the
-     hand-written kernels, cuDNN's backward and the rest; (d) conv3x3 at a
+     epoch, the first batch's loss falling over 1 + 8 steps from the run's
+     initial masters, nonzero gradients into the zero-filled aux adapters,
+     the median step time, images/s, peak memory and one profiled step's
+     split into the hand-written kernels, cuDNN's backward and the rest;
+     (d) conv3x3 at a
      wct_se step's 27 teacher-width convs against cuDNN's FP32 forward and
-     the bound; no conv of the step may plan the first kernel;
+     the bound; no conv of the step may plan the first kernel; (e) bf16
+     mixed-precision training (``TrainConfig(compute_dtype="bfloat16")``,
+     ``cli.train --bf16``), with its own clock: (a) the three Functions in
+     bf16 against the plain versions' autograd at every conv, pool and
+     upsample shape of the three bf16 steps (N = 16, teacher widths
+     included): forwards within one bf16 ulp, gradients within
+     ``BF16_GRAD`` (below), pool and upsample exact; (b) one bf16 step of
+     each mode card vs CPU; (c) ``cli.train --bf16`` for the three modes
+     as in (c), launches per step on the bf16 kernels only, float32
+     masters and Adam state, the f32 run's checkpoint keys, ``--resume``,
+     and the falling loss; (d) each mode's bf16 median step, images/s, peak
+     and profiled split beside (c)'s float32 ones, and the bf16 kernels'
+     time per step at the steps' shapes against the bound at 2-byte
+     elements and the bf16 peak;
   9. run before phases 7 and 8: (a) photo-WCT, ``stylize(pwct=True)`` at
      2048^2 with the counters zeroed (the plain path's conv3x3 and sum_gram
      launches, ``max_pool_2x2`` for the style only, no upsample), finite and
@@ -261,6 +276,19 @@ BF16_CONV_NAMES = {"conv3x3_reflect_bf16": "Ring<9,", "conv1x1_bias_bf16": "Ring
 #     the other way); bf16 pool and upsample exact. A bf16 encoder, card vs
 #     CPU: BF16_STAGE_TOL of the output's largest magnitude (the reference's
 #     bf16 kernel against its XLA path, tests/test_pallas_conv.py:303).
+#   bf16 training (phase 8e): a Function's bf16 gradients against the plain
+#     version's autograd (float32 sums of exact products, one rounding),
+#     under the Function's ReLU decisions: dw and db within one bf16 ulp
+#     (2^-7 |ref|) plus CONV_TOL of the largest partial sum (float32 sums
+#     in another order; a bf16 accumulation over the 1M pixels of a wgrad
+#     would miss it by orders of magnitude); dx within one ulp of itself
+#     and of its elementwise partial sum (the pad's gradient folds onto the
+#     border in bf16 after the data gradient rounds). One bf16 step card vs
+#     CPU: losses within BF16_LOSS_REL (2^-6), each student leaf's gradient
+#     within BF16_STEP_REL (2^-4) in relative L2 norm: the two round in
+#     other orders, so they differ by about one bf16 step's own error,
+#     which tests/test_torch_train_bf16.py holds to twice that of rounding
+#     the step's inputs to bf16 (against float64).
 #   bf16 cascade vs float32 on the card: BF16_PSNR_MIN_DB (the reference's
 #     bf16 floor, tests/test_engine.py:44; its UHD photo reading, 15.7 dB,
 #     BENCH_r05.json uhd_bf16_photo_psnr_db, is JAX_BF16_PHOTO_DB).
@@ -268,6 +296,8 @@ CONV_TOL = 1e-5
 BF16_ULP = 2.0 ** -7
 BF16_FLOOR = 1e-3
 BF16_STAGE_TOL = 2e-2
+BF16_LOSS_REL = 2.0 ** -6
+BF16_STEP_REL = 2.0 ** -4
 BF16_PSNR_MIN_DB = 12.0
 JAX_BF16_PHOTO_DB = 15.7
 STAGE_TOL = 1e-4
@@ -1298,10 +1328,11 @@ def _totals(kc, calls) -> dict:
 
 
 def _zero(kc) -> None:
-    for k in kc.KERNELS:
+    for k in kc.KERNELS + kc.BF16_KERNELS:
         k.launches = 0
     kc.conv3x3_reflect.halo_launches = 0
     kc.conv3x3_reflect.by_template.clear()
+    kc.conv3x3_reflect_bf16.by_template.clear()
 
 
 def per_conv_run(kc, engine, img, sty):
@@ -1881,7 +1912,8 @@ TRAIN_IMAGES = 48
 # by theirs (every forward conv3x3 of the step is ours, so these are the
 # backward's; "cf32" is the complex GEMM of its FFT convolutions); cuBLAS's
 # GEMMs (conv0's and the aux adapters' x @ w, forward and backward) on their own
-OUR_KERNEL_NAMES = (CONV3X3_NAMES, "max_pool_2x2_kernel", "upsample_nearest_2x_kernel")
+OUR_KERNEL_NAMES = (CONV3X3_NAMES, BF16_RING_KERNEL, "max_pool_2x2_kernel",
+                    "upsample_nearest_2x_kernel")
 CUDNN_CONV_NAMES = ("dgrad", "wgrad", "fprop", "cudnn", "convolve", "implicit_gemm", "fft",
                     "cf32")
 GEMM_NAMES = ("gemm", "cutlass")
@@ -2020,23 +2052,29 @@ def train_autograd_checks(torch) -> dict:
     return out
 
 
-def train_card_vs_cpu(torch) -> dict:
-    """8b: one step of each mode on the card against the same step on the
-    CPU: stage 2, N = 2, 64^2, the same seeded weights and batch."""
+def _card_and_cpu(torch, mode: str, dtype: str):
+    """(cfg, card trainer, CPU trainer, batch) of one mode at stage 2 with
+    the same seeded weights, and a seeded N = 2 64^2 batch."""
     from collaborative_distillation_tpu_torch.models.specs import decoder_spec, encoder_spec
     from collaborative_distillation_tpu_torch.models.vgg import init_params
     from collaborative_distillation_tpu_torch.train.trainer import (TrainConfig, Trainer,
                                                                     student_spec)
-    out = {}
+    gen = torch.Generator().manual_seed(0)
+    frozen = {"be": init_params(encoder_spec("original", 2), gen),
+              "bd": init_params(decoder_spec("original", 2), gen),
+              "se": init_params(encoder_spec("16x", 2, aux=True), gen)}
+    cfg = TrainConfig(mode=mode, stage=2, compute_dtype=dtype)
+    student = init_params(student_spec(cfg), gen)
     batch = np.random.default_rng(0).random((2, 64, 64, 3), dtype=np.float32)
+    return (cfg, *(Trainer(cfg, student, frozen, device=d) for d in ("cuda", "cpu")), batch)
+
+
+def train_card_vs_cpu(torch) -> dict:
+    """8b: one step of each mode on the card against the same step on the
+    CPU: stage 2, N = 2, 64^2, the same seeded weights and batch."""
+    out = {}
     for mode in ("wct_se", "wct_sd", "wct_sd_kd2sd"):
-        gen = torch.Generator().manual_seed(0)
-        frozen = {"be": init_params(encoder_spec("original", 2), gen),
-                  "bd": init_params(decoder_spec("original", 2), gen),
-                  "se": init_params(encoder_spec("16x", 2, aux=True), gen)}
-        cfg = TrainConfig(mode=mode, stage=2)
-        student = init_params(student_spec(cfg), gen)
-        card, cpu = (Trainer(cfg, student, frozen, device=d) for d in ("cuda", "cpu"))
+        cfg, card, cpu, batch = _card_and_cpu(torch, mode, "float32")
         lc, _ = card.train_step(batch)
         lp, _ = cpu.train_step(batch)
         loss_err = max(abs(float(lc[k]) - float(lp[k])) / abs(float(lp[k])) for k in lp)
@@ -2101,53 +2139,75 @@ def original_conv_calls(size: int) -> Counter:
     return Counter({s: n for (k, s), n in calls.items() if k == "conv3x3_reflect"})
 
 
-def _train_launches(mode: str) -> dict:
+def _train_launches(mode: str, bf16: bool = False) -> dict:
     """Kernel launches of one training step at stage 5, from the specs: every
-    forward conv3x3, pool and upsample (the backward launches none)."""
+    forward conv3x3, pool and upsample (the backward launches none); in
+    bf16 on the bf16 kernels."""
     runs = _train_runs(mode)
-    return {"conv3x3_reflect": sum(len(s.layers) for s in runs),
-            "max_pool_2x2": sum(sum(l.pool_after for l in s.layers) for s in runs),
-            "upsample_nearest_2x": sum(sum(l.unpool_after for l in s.layers) for s in runs)}
+    name = (lambda k: BF16_OF[k]) if bf16 else (lambda k: k)
+    return {name("conv3x3_reflect"): sum(len(s.layers) for s in runs),
+            name("max_pool_2x2"): sum(sum(l.pool_after for l in s.layers) for s in runs),
+            name("upsample_nearest_2x"): sum(sum(l.unpool_after for l in s.layers)
+                                             for s in runs)}
 
 
-def _train_kernel_bound_ms(mode: str) -> float:
-    """The least time the card could take for one step's hand-written kernels:
-    each conv3x3's FLOPs at the FP32 peak or its bytes at the HBM rate, the
-    larger, summed, plus the pools' and upsamples' bytes."""
-    total = 0.0
+def train_pool_calls(mode: str) -> dict:
+    """{kernel: {(N, H, W, C): calls}} of one training step's pools and
+    upsamples at stage 5 x 16 x 256^2 (the float32 kernels' names)."""
+    calls = {"max_pool_2x2": Counter(), "upsample_nearest_2x": Counter()}
     for spec in _train_runs(mode):
         hh = TRAIN_HW if spec.kind == "encoder" else TRAIN_HW >> (TRAIN_STAGE - 1)
         for l in spec.layers:
-            nbytes, flops = work("conv3x3_reflect", (TRAIN_N, hh, hh, l.in_ch, l.out_ch))
-            total += max(nbytes / PEAK_BYTES, flops / PEAK_FP32_FLOPS)
             if l.pool_after or l.unpool_after:
                 kernel = "max_pool_2x2" if l.pool_after else "upsample_nearest_2x"
-                total += work(kernel, (TRAIN_N, hh, hh, l.out_ch))[0] / PEAK_BYTES
+                calls[kernel][(TRAIN_N, hh, hh, l.out_ch)] += 1
                 hh = hh // 2 if l.pool_after else hh * 2
+    return calls
+
+
+def _train_kernel_bound_ms(mode: str, bf16: bool = False) -> float:
+    """The least time the card could take for one step's hand-written kernels:
+    each conv3x3's FLOPs at the FP32 peak (bf16: the tensor cores' bf16
+    peak) or its bytes at the HBM rate (4 or 2 bytes an element), the
+    larger, summed, plus the pools' and upsamples' bytes."""
+    e, peak = (2, PEAK_BF16_FLOPS) if bf16 else (4, PEAK_FP32_FLOPS)
+    total = 0.0
+    for s, n in train_conv_calls(mode).items():
+        nbytes, flops = work("conv3x3_reflect", s[:5], e)
+        total += n * max(nbytes / PEAK_BYTES, flops / peak)
+    for kernel, calls in train_pool_calls(mode).items():
+        total += sum(n * work(kernel, s, e)[0] / PEAK_BYTES for s, n in calls.items())
     return total * 1e3
 
 
 class _StepProbe:
     """Wraps ``Trainer.train_step`` for a CLI run in process: per step its
     wall time (synchronised), its kernel launches (counters zeroed around
-    it), its losses; keeps the trainer and the last batch."""
+    it), its losses; keeps the trainer, the last batch, and the first batch
+    with the masters as they were before the first step."""
 
     def __init__(self, torch, kc, trainer_cls):
         self.torch, self.kc, self.cls = torch, kc, trainer_cls
+        self.kernels = kc.KERNELS + kc.BF16_KERNELS
         self.orig = trainer_cls.train_step
         self.steps, self.trainer, self.batch, self.aux_grad = [], None, None, None
+        self.first = None
 
     def __enter__(self):
         probe = self
 
         def step(trainer, batch):
             torch = probe.torch
+            if probe.first is None:
+                probe.first = (batch, {n: {k: t.detach().clone() for k, t in leaf.items()}
+                                       for n, leaf in trainer.params.items()})
             torch.cuda.synchronize()
             _zero(probe.kc)
             t0 = time.perf_counter()
             losses, rec = probe.orig(trainer, batch)
             torch.cuda.synchronize()
-            probe.steps.append({"s": time.perf_counter() - t0, "launches": _counts(probe.kc),
+            probe.steps.append({"s": time.perf_counter() - t0,
+                                "launches": {k.__name__: k.launches for k in probe.kernels},
                                 "losses": {k: float(v) for k, v in losses.items()}})
             if probe.aux_grad is None:
                 probe.aux_grad = {n: float(leaf["w"].grad.abs().max())
@@ -2163,13 +2223,16 @@ class _StepProbe:
 
 
 def _profile_step(torch, trainer, batch) -> dict:
-    """One more step of ``trainer`` under torch.profiler: its busy device
-    time split into the hand-written kernels, cuDNN's backward and the rest,
-    and the device time under each backward node (``Conv3x3Backward``, ...)."""
+    """Two more steps of ``trainer`` on ``batch``, the second under
+    torch.profiler: its busy device time split into the hand-written
+    kernels, cuDNN's backward and the rest, and the device time under each
+    backward node (``Conv3x3Backward``, ...); ``totals``: each step's
+    weighted loss."""
     from torch.profiler import ProfilerActivity, profile
-    trainer.train_step(batch)
+    total = lambda losses: sum(trainer.loss_weights[k] * float(v) for k, v in losses.items())
+    totals = [total(trainer.train_step(batch)[0])]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.train_step(batch)
+        totals.append(total(trainer.train_step(batch)[0]))
         torch.cuda.synchronize()
     split, top, nodes = Counter(), Counter(), Counter()
     node = "autograd::engine::evaluate_function: "
@@ -2189,7 +2252,26 @@ def _profile_step(torch, trainer, batch) -> dict:
     busy = sum(split.values())
     return {"busy_ms": busy, **{f"{k}_ms": split[k] for k in ("kernels", "cudnn_backward",
                                                                 "gemm", "rest")},
-            "top_ms": dict(top.most_common(8)), "backward_nodes_ms": dict(nodes.most_common(8))}
+            "top_ms": dict(top.most_common(8)), "backward_nodes_ms": dict(nodes.most_common(8)),
+            "totals": totals}
+
+
+def _loss_falls(torch, trainer, first, steps=8) -> list:
+    """The CLI's first batch again from the CLI's own initial masters and a
+    fresh Adam state: the weighted loss of ``steps + 1`` steps on it (the
+    reference's mixed-precision test takes 1 + 8). The loss falls where the
+    lowest of the later ones is below the first: in bf16 the perceptual
+    loss moves in steps (the teacher's ``conv0`` maps [0, 1] to about
+    +-128, where a bf16 ulp is 0.5, so small changes of the reconstruction
+    round away), holding for a few steps, then jumping."""
+    batch, params0 = first
+    with torch.no_grad():
+        for name, leaf in trainer.params.items():
+            for kind, t in leaf.items():
+                t.copy_(params0[name][kind])
+    trainer.opt.state.clear()
+    total = lambda losses: sum(trainer.loss_weights[k] * float(v) for k, v in losses.items())
+    return [total(trainer.train_step(batch)[0]) for _ in range(steps + 1)]
 
 
 def _write_training_pngs(torch, c512, s512, folder) -> None:
@@ -2206,24 +2288,31 @@ def _write_training_pngs(torch, c512, s512, folder) -> None:
                    os.path.join(folder, f"{i:02d}.png"))
 
 
-def train_cli_runs(torch, kc, c512, s512, tmp, teachers) -> dict:
+def train_cli_runs(torch, kc, c512, s512, tmp, teachers, f32=None) -> dict:
     """8c: ``cli.train`` in process at stage 5 x 16 x 256^2, f32: wct_se and
     wct_sd_kd2sd against phase 9c's teacher store (``teachers``, written by
     ``cli.make_teacher`` on the card), wct_sd --lw_perc 0 on the shipped
     weights alone; each with its launches per step, checkpoint keys, a
-    resume, step times, peak memory and one profiled step."""
+    resume, step times, peak memory, one profiled step, and the weighted
+    loss falling over 1 + 8 steps on the first batch from the initial
+    masters (``_loss_falls``). With ``f32`` (8c's results) the same runs with
+    ``--bf16`` (8e): launches on the bf16 kernels only, float32 masters and
+    Adam state, and 8c's checkpoint keys."""
     import shutil
 
     from collaborative_distillation_tpu_torch.cli import train as cli
     from collaborative_distillation_tpu_torch.models.zoo import default_weights_root
     from collaborative_distillation_tpu_torch.train.trainer import Trainer
+    bf16 = f32 is not None
+    label = "phase 8e" if bf16 else "phase 8c"
     k = TRAIN_STAGE
     shipped = default_weights_root()
     root = os.path.join(tmp, "train_weights")
-    shutil.copytree(os.path.join(teachers, "original"), os.path.join(root, "original"))
-    shutil.copytree(os.path.join(shipped, "16x_base"), os.path.join(root, "16x_base"))
     data = os.path.join(tmp, "train_images")
-    _write_training_pngs(torch, c512, s512, data)
+    if not bf16:
+        shutil.copytree(os.path.join(teachers, "original"), os.path.join(root, "original"))
+        shutil.copytree(os.path.join(shipped, "16x_base"), os.path.join(root, "16x_base"))
+        _write_training_pngs(torch, c512, s512, data)
     runs = {
         "wct_se": ["--mode", "wct_se", "--pretrained_init", "--weights_root", root],
         "wct_sd": ["--mode", "wct_sd", "--lw_perc", "0", "--pretrained_init"],
@@ -2233,69 +2322,99 @@ def train_cli_runs(torch, kc, c512, s512, tmp, teachers) -> dict:
     }
     common = ["--stage", str(k), "-b", str(TRAIN_N), "--content_train", data, "--cache_data",
               "--device", "cuda",
-              "--print_interval", "1", "--save_interval", "100"]
+              "--print_interval", "1", "--save_interval", "100"] + (["--bf16"] if bf16 else [])
     out = {}
     cwd = os.getcwd()
     os.chdir(tmp)   # the CLI writes Experiments/ in its working directory
     try:
         for mode, argv in runs.items():
+            tag = mode + ("_bf16" if bf16 else "")
             torch.cuda.reset_peak_memory_stats()
             with _StepProbe(torch, kc, Trainer) as probe:
                 t0 = time.perf_counter()
-                cli.main(argv + common + ["--max_steps", str(TRAIN_STEPS), "-p", mode])
+                cli.main(argv + common + ["--max_steps", str(TRAIN_STEPS), "-p", tag])
                 wall = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             steps = probe.steps
-            want = {**{kk.__name__: 0 for kk in kc.KERNELS}, **_train_launches(mode)}
-            _check_counts(f"phase 8c: {mode}, one step", steps[0]["launches"], want)
+            want = {**{kk.__name__: 0 for kk in probe.kernels}, **_train_launches(mode, bf16)}
+            _check_counts(f"{label}: {tag}, one step", steps[0]["launches"], want)
             for i, st in enumerate(steps):
                 if st["launches"] != want:
-                    raise AssertionError(f"phase 8c: {mode} step {i + 1} launches "
+                    raise AssertionError(f"{label}: {tag} step {i + 1} launches "
                                          f"{st['launches']} != {want}")
                 if not all(np.isfinite(v) for v in st["losses"].values()):
-                    raise AssertionError(f"phase 8c: {mode} step {i + 1} losses {st['losses']}")
-            (run_dir,) = [d for d in os.listdir("Experiments") if d.endswith("_" + mode)]
+                    raise AssertionError(f"{label}: {tag} step {i + 1} losses {st['losses']}")
+            (run_dir,) = [d for d in os.listdir("Experiments") if d.endswith("_" + tag)]
             wdir = os.path.join("Experiments", run_dir, "weights")
             (ckpt,) = [os.path.join(wdir, f) for f in os.listdir(wdir) if f.endswith(".npz")]
             with np.load(ckpt) as z:
                 keys = set(z.files)
-            layers = probe.trainer.params
+                ckpt_f32 = all(z[kk].dtype == np.float32 for kk in keys
+                               if kk.startswith(("params/", "opt_state/0/1", "opt_state/0/2")))
+            tr = probe.trainer
+            layers = tr.params
             want_keys = ({f"params/{n}/{kk}" for n in layers for kk in ("w", "b")}
                          | {f"opt_state/0/{i}/{n}/{kk}" for i in (1, 2) for n in layers
                             for kk in ("w", "b")}
                          | {"opt_state/0/0", "meta/epoch", "meta/step", "meta/mode",
                             "meta/stage"})
             if keys != want_keys:
-                raise AssertionError(f"phase 8c: {mode} checkpoint keys {sorted(keys ^ want_keys)}")
-            prof = _profile_step(torch, probe.trainer, probe.batch)
+                raise AssertionError(f"{label}: {tag} checkpoint keys {sorted(keys ^ want_keys)}")
+            if bf16:
+                masters = [t for leaf in layers.values() for t in leaf.values()]
+                adam = [v for t in masters for v in tr.opt.state[t].values() if v.dim()]
+                if not (all(t.dtype == torch.float32 for t in masters + adam) and ckpt_f32
+                        and tr.dtype == torch.bfloat16):
+                    raise AssertionError(f"{label}: {tag} masters, Adam state or checkpoint "
+                                         f"not float32")
+                if sorted(keys) != f32[mode]["checkpoint_keys"]:
+                    raise AssertionError(f"{label}: {tag} checkpoint keys differ from the "
+                                         f"float32 run's")
+            prof = _profile_step(torch, tr, probe.batch)
             times = [st["s"] for st in steps[1:]]
             med = statistics.median(times)
             # resume: 48 images at batch 16 are 3 steps an epoch, so the run
             # ended after epoch 2 and the resumed one starts epoch 3
             with _StepProbe(torch, kc, Trainer) as again:
                 cli.main(argv + common + ["--max_steps", "1", "--epoch", "3", "--resume", ckpt,
-                                          "-p", mode + "_resumed"])
-            (rdir,) = [d for d in os.listdir("Experiments") if d.endswith(mode + "_resumed")]
+                                          "-p", tag + "_resumed"])
+            (rdir,) = [d for d in os.listdir("Experiments") if d.endswith(tag + "_resumed")]
             rlog = open(os.path.join("Experiments", rdir, "weights", [
                 f for f in os.listdir(os.path.join("Experiments", rdir, "weights"))
                 if f.startswith("log_")][0])).read()
             if "at epoch 2" not in rlog or "E3S0" not in rlog or len(again.steps) != 1:
-                raise AssertionError(f"phase 8c: {mode} --resume did not continue at epoch 3")
-            prof["kernels_bound_ms"] = _train_kernel_bound_ms(mode)
+                raise AssertionError(f"{label}: {tag} --resume did not continue at epoch 3")
+            if bf16 and ("compute bfloat16" not in rlog
+                         or again.steps[0]["launches"] != want):
+                raise AssertionError(f"{label}: {tag} --resume did not train in bf16")
+            prof["kernels_bound_ms"] = _train_kernel_bound_ms(mode, bf16)
+            totals = _loss_falls(torch, tr, probe.first)
+            if not (all(np.isfinite(totals)) and min(totals[1:]) < totals[0]):
+                raise AssertionError(f"{label}: {tag}: the loss on the first batch did not fall "
+                                     f"over 1 + 8 steps from the initial masters: {totals}")
             out[mode] = {"steps_s": [st["s"] for st in steps], "median_s": med,
                          "images_per_s": TRAIN_N / med, "peak_gib": peak, "wall_s": wall,
                          "launches_per_step": want, "losses_first": steps[0]["losses"],
                          "losses_last": steps[-1]["losses"], "aux_grad_max": probe.aux_grad,
-                         "profile": prof, "resumed_losses": again.steps[0]["losses"]}
-            log(f"phase 8c: cli.train {mode} stage {k} x {TRAIN_N} x {TRAIN_HW}^2: "
+                         "profile": prof, "resumed_losses": again.steps[0]["losses"],
+                         "checkpoint_keys": sorted(keys), "first_batch_totals": totals}
+            vs = ""
+            if bf16:
+                r32 = f32[mode]
+                vs = (f" (float32 {r32['median_s'] * 1e3:.1f} ms, {r32['images_per_s']:.2f} "
+                      f"images/s, peak {r32['peak_gib']:.2f} GiB: bf16 {r32['median_s'] / med:.2f}x "
+                      f"the step rate)")
+            log(f"{label}: cli.train {tag} stage {k} x {TRAIN_N} x {TRAIN_HW}^2: "
                 f"{len(steps)} steps, median step {med * 1e3:.1f} ms over steps 2-{len(steps)} "
                 f"({TRAIN_N / med:.2f} images/s; steps {', '.join(f'{t * 1e3:.0f}' for t in times)} "
-                f"ms), peak {peak:.2f} GiB, wall {wall:.1f} s; losses first "
-                f"{steps[0]['losses']}, last {steps[-1]['losses']}; checkpoint keys in the "
-                f"reference's layout ({len(keys)}); --resume continued at epoch 3")
+                f"ms), peak {peak:.2f} GiB{vs}, wall {wall:.1f} s; losses first "
+                f"{steps[0]['losses']}, last {steps[-1]['losses']}; the first batch's weighted "
+                f"loss over 1 + 8 steps from the initial masters "
+                f"{', '.join(f'{t:.6g}' for t in totals)}; checkpoint keys in the reference's "
+                f"layout ({len(keys)}); --resume continued at epoch 3")
             if not prof["busy_ms"]:
-                log(f"phase 8c: {mode}: the profiler saw no device time: split not measured")
-            log(f"phase 8c: {mode} profiled step: busy {prof['busy_ms']:.1f} ms = hand-written "
+                log(f"{label}: {tag}: the profiler saw no device time: split not measured")
+            log(f"{label}: {tag} profiled step: busy {prof['busy_ms']:.1f} ms = hand-written "
                 f"kernels {prof['kernels_ms']:.1f} (bound {prof['kernels_bound_ms']:.1f}) + cuDNN "
                 f"backward convs {prof['cudnn_backward_ms']:.1f} + cuBLAS GEMMs "
                 f"{prof['gemm_ms']:.1f} + rest {prof['rest_ms']:.1f}; backward nodes: " + "; ".join(
@@ -2303,10 +2422,10 @@ def train_cli_runs(torch, kc, c512, s512, tmp, teachers) -> dict:
                 + "; top kernels: " + "; ".join(
                     f"{n} {ms:.1f}" for n, ms in prof["top_ms"].items()))
         aux = out["wct_sd_kd2sd"]["aux_grad_max"]
-        log(f"phase 8c: wct_sd_kd2sd --updim_relu from zero-filled aux adapters: first-step "
+        log(f"{label}: wct_sd_kd2sd --updim_relu from zero-filled aux adapters: first-step "
             f"max|grad w| {aux}")
         if not aux or not all(v > 0 for v in aux.values()):
-            raise AssertionError(f"phase 8c: zero aux adapters got no gradient {aux}")
+            raise AssertionError(f"{label}: zero aux adapters got no gradient {aux}")
     finally:
         os.chdir(cwd)
     return out
@@ -2341,8 +2460,189 @@ def teacher_conv_times(torch) -> dict:
     return out
 
 
+def _bf16_grad_bounds(torch, got, want, scale) -> list:
+    """The largest ratio of |got - want| to its bound (BF16_GRAD in the
+    tolerances above) for each of a bf16 conv's dx, dw, db."""
+    worst = []
+    for i, (a, r, sc) in enumerate(zip(got, want, scale)):
+        if a.dtype != torch.bfloat16:
+            raise AssertionError(f"conv3x3 bf16 gradient {'xwb'[i]} is {a.dtype}")
+        a, r = a.float(), r.float()
+        bound = ((r.abs() + sc) * BF16_ULP if i == 0
+                 else r.abs() * BF16_ULP + CONV_TOL * float(sc.abs().max()))
+        worst.append(float(((a - r).abs() / bound.clamp_min(1e-30)).max()))
+    return worst
+
+
+def train_bf16_autograd_checks(torch) -> dict:
+    """8e(a): the Functions in bf16 against the plain versions' autograd on
+    the card at every conv, pool and upsample shape of the three bf16 steps
+    (stage 5, N = 16, 256^2 -> 16^2, teacher widths included): the forward
+    within one bf16 ulp (phase 10a's rule), the conv's gradients within
+    BF16_GRAD under the Function's ReLU decisions, the pool's (ties: the
+    first maximum) and the upsample's (2x2 sums rounded once) exact."""
+    from collaborative_distillation_tpu_torch.ops import conv as tconv
+    from collaborative_distillation_tpu_torch.ops.cuda import conv as kconv
+    from collaborative_distillation_tpu_torch.ops.cuda import pool as kpool
+    from collaborative_distillation_tpu_torch.ops.precision import full_float32
+    F = torch.nn.functional
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rand = lambda *s: torch.rand(s, generator=gen, device="cuda")
+    convs, pools, ups = set(), set(), set()
+    for mode in ("wct_se", "wct_sd", "wct_sd_kd2sd"):
+        convs |= set(train_conv_calls(mode))
+        calls = train_pool_calls(mode)
+        pools |= set(calls["max_pool_2x2"])
+        ups |= set(calls["upsample_nearest_2x"])
+    worst_fwd, worst = 0.0, [0.0, 0.0, 0.0]
+    with full_float32():
+        for n, h, w, ci, co, relu in sorted(convs):
+            x = rand(n, h, w, ci).to(bf).requires_grad_()
+            wt = ((rand(3, 3, ci, co) - 0.5) * (2 / (9 * ci) ** 0.5)).to(bf).requires_grad_()
+            b = (rand(co) - 0.5).to(bf).requires_grad_()
+            g = (rand(n, h, w, co) - 0.5).to(bf)
+            y = tconv.conv3x3(x, wt, b, relu=relu)
+            got = torch.autograd.grad(y, (x, wt, b), g)
+            with torch.no_grad():
+                pre = kconv.conv3x3_reflect(x, wt, b, False)
+                plain = kconv.conv3x3_plain(x, wt, b, False)
+                for a, r in ((y, plain.clamp_min(0) if relu else plain), (pre, plain)):
+                    r32 = r.float()
+                    bound = torch.clamp(r32.abs() * BF16_ULP,
+                                        min=BF16_FLOOR * float(r32.abs().max()))
+                    err = (a.float() - r32).abs()
+                    if a.dtype != bf or bool((err > bound).any()):
+                        raise AssertionError(f"conv3x3 bf16 forward at {(n, h, w, ci, co, relu)}:"
+                                             f" {int((err > bound).sum())} outputs past one ulp")
+                    worst_fwd = max(worst_fwd, float((err / bound).max()))
+                gp = (g * (pre > 0).to(bf).masked_fill_(pre == 0, 0.5)) if relu else g
+                del pre, plain
+            want = torch.autograd.grad(kconv.conv3x3_plain(x, wt, b, False), (x, wt, b), gp)
+            ab = [t.detach().float().abs().requires_grad_() for t in (x, wt, b)]
+            scale = torch.autograd.grad(kconv.conv3x3_plain(*ab, False), ab, gp.float().abs())
+            ratio = _bf16_grad_bounds(torch, got, want, scale)
+            if not max(ratio) <= 1:
+                raise AssertionError(f"conv3x3 bf16 gradients at {(n, h, w, ci, co, relu)}: "
+                                     f"dx, dw, db at {ratio} of the bound")
+            worst = [max(a, r) for a, r in zip(worst, ratio)]
+            del x, wt, b, g, gp, y, got, want, ab, scale
+        for shape in sorted(pools):
+            x = torch.floor(rand(*shape) * 3).to(bf).requires_grad_()
+            y = tconv.max_pool_2x2(x)
+            g = (rand(*y.shape) - 0.5).to(bf)
+            got = torch.autograd.grad(y, x, g)[0]
+            want = torch.autograd.grad(F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(
+                0, 2, 3, 1), x, g)[0]
+            if not (got.dtype == bf and torch.equal(got, want)
+                    and torch.equal(y, kpool.max_pool_2x2_plain(x.detach()))):
+                raise AssertionError(f"max_pool_2x2 bf16 at {shape}: forward or gradient")
+        for shape in sorted(ups):
+            n, h, w, c = shape
+            x = (rand(*shape) - 0.5).to(bf).requires_grad_()
+            g = (rand(n, 2 * h, 2 * w, c) - 0.5).to(bf)
+            y = tconv.upsample_nearest_2x(x)
+            got = torch.autograd.grad(y, x, g)[0]
+            want = g.float().reshape(n, h, 2, w, 2, c).sum(dim=(2, 4)).to(bf)
+            if not (got.dtype == bf and torch.equal(got, want)
+                    and torch.equal(y, kpool.upsample_nearest_2x_plain(x.detach()))):
+                raise AssertionError(f"upsample_nearest_2x bf16 at {shape}: forward or gradient")
+    out = {"conv_shapes": len(convs), "pool_shapes": len(pools), "upsample_shapes": len(ups),
+           "forward_worst_of_ulp": worst_fwd, "grad_worst_of_bound": worst}
+    log(f"phase 8e(a): bf16 Functions vs the plain versions' autograd at the three bf16 "
+        f"steps' {len(convs)} conv3x3 shapes (N = {TRAIN_N}, Cin/Cout 3-512): forward at most "
+        f"{worst_fwd:.3f} of one bf16 ulp, gradients dx / dw / db at most "
+        f"{' / '.join(f'{r:.3f}' for r in worst)} of BF16_GRAD (dw, db: "
+        f"2^-7 |ref| + {CONV_TOL} x largest partial sum; dx: 2^-7 (|ref| + partial sum)); "
+        f"{len(pools)} pool and {len(ups)} upsample shapes exact, forward and gradient")
+    return out
+
+
+def train_bf16_card_vs_cpu(torch) -> dict:
+    """8e(b): one bf16 step of each mode on the card against the same step on
+    the CPU (stage 2, N = 2, 64^2, seeded weights and batch): losses within
+    BF16_LOSS_REL, each student leaf's gradient within BF16_STEP_REL in
+    relative L2 norm, masters and gradients float32."""
+    out = {}
+    for mode in ("wct_se", "wct_sd", "wct_sd_kd2sd"):
+        _, card, cpu, batch = _card_and_cpu(torch, mode, "bfloat16")
+        lc, rc = card.train_step(batch)
+        lp, _ = cpu.train_step(batch)
+        loss_err = max(abs(float(lc[k]) - float(lp[k])) / abs(float(lp[k])) for k in lp)
+        grad_err = 0.0
+        f32 = rc.dtype == torch.float32
+        for name, leaf in cpu.params.items():
+            for kind, t in leaf.items():
+                gc = card.params[name][kind].grad
+                f32 &= gc.dtype == card.params[name][kind].dtype == torch.float32
+                gc = gc.cpu().double()
+                grad_err = max(grad_err, float((gc - t.grad.double()).norm())
+                               / max(float(t.grad.double().norm()), 1e-300))
+        out[mode] = {"loss_rel_err": loss_err, "grad_rel_l2": grad_err, "float32": f32}
+        if not (loss_err <= BF16_LOSS_REL and grad_err <= BF16_STEP_REL and f32):
+            raise AssertionError(f"phase 8e(b) {mode}: card vs cpu {out[mode]}")
+    log(f"phase 8e(b): one bf16 step card vs cpu (stage 2, N=2, 64^2): " + "; ".join(
+        f"{m} losses {r['loss_rel_err']:.2e} rel, student grads {r['grad_rel_l2']:.2e} "
+        f"(relative L2, worst leaf)" for m, r in out.items())
+        + f" (tol {BF16_LOSS_REL}, {BF16_STEP_REL}); masters, gradients and rec float32")
+    return out
+
+
+def train_bf16_kernel_times(torch) -> dict:
+    """8e(d): the bf16 kernels at every conv, pool and upsample shape of the
+    three bf16 steps, each checked against its plain version (phase 10a's
+    rule) and timed beside it, the library call and the bound at 2-byte
+    elements and the bf16 peak; summed per mode over a step's calls
+    (``path_times``). Returns {kernel: {mode: sums}}."""
+    bench = Bench(torch, None)
+    rows = {}
+    out = {k: {} for k in ("conv3x3_reflect_bf16", "max_pool_2x2_bf16",
+                           "upsample_nearest_2x_bf16")}
+    for mode in ("wct_se", "wct_sd", "wct_sd_kd2sd"):
+        calls = {"conv3x3_reflect": train_conv_calls(mode), **train_pool_calls(mode)}
+        for kernel, shapes in calls.items():
+            mine = []
+            for shape, n in sorted(shapes.items()):
+                key = (kernel, shape)
+                if key not in rows:
+                    rows[key] = bench.run(BF16_OF[kernel], shape, timed=True)
+                mine.append({**rows[key], "calls": n})
+            out[BF16_OF[kernel]][mode] = {"launches": sum(r["calls"] for r in mine),
+                                          **path_times(mine)}
+    out["shapes"] = [{**r, "kernel": k[0]} for k, r in rows.items()]
+    for name in ("conv3x3_reflect_bf16", "max_pool_2x2_bf16", "upsample_nearest_2x_bf16"):
+        log(f"phase 8e(d): {name} per bf16 step: " + "; ".join(
+            f"{m} {r['ms']:.3f} ms over {r['launches']} launches (plain {r['plain_ms']:.3f}, "
+            f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} {r['bound_by']}, "
+            f"{r['bound_ms'] / r['ms']:.1%} of it)" for m, r in out[name].items()))
+    return out
+
+
+def training_bf16(torch, kc, c512, s512, tmp, teachers, f32) -> dict:
+    """Phase 8e: bf16 mixed-precision training, with its own clock; ``f32``:
+    phase 8c's runs, printed beside the bf16 ones."""
+    t0 = time.perf_counter()
+    out = {"autograd": train_bf16_autograd_checks(torch),
+           "card_vs_cpu": train_bf16_card_vs_cpu(torch),
+           "cli": train_cli_runs(torch, kc, c512, s512, tmp, teachers, f32=f32),
+           "kernel_times": train_bf16_kernel_times(torch)}
+    for mode, r in out["cli"].items():
+        p, p32 = r["profile"], f32[mode]["profile"]
+        log(f"phase 8e: {mode} bf16 vs float32 step: median {r['median_s'] * 1e3:.1f} vs "
+            f"{f32[mode]['median_s'] * 1e3:.1f} ms, {r['images_per_s']:.2f} vs "
+            f"{f32[mode]['images_per_s']:.2f} images/s, peak {r['peak_gib']:.2f} vs "
+            f"{f32[mode]['peak_gib']:.2f} GiB; profiled busy {p['busy_ms']:.1f} vs "
+            f"{p32['busy_ms']:.1f} ms: hand-written kernels {p['kernels_ms']:.1f} vs "
+            f"{p32['kernels_ms']:.1f}, cuDNN backward {p['cudnn_backward_ms']:.1f} vs "
+            f"{p32['cudnn_backward_ms']:.1f}, cuBLAS {p['gemm_ms']:.1f} vs {p32['gemm_ms']:.1f}, "
+            f"rest {p['rest_ms']:.1f} vs {p32['rest_ms']:.1f}")
+    out["phase8e_s"] = time.perf_counter() - t0
+    log(f"phase 8e: {out['phase8e_s']:.1f} s")
+    return out
+
+
 def training(torch, kc, c512, s512, tmp, teachers) -> dict:
-    """Phase 8: the training path (8a, 8b, 8c, 8d), with its own clock;
+    """Phase 8: the training path (8a, 8b, 8c, 8d, 8e), with its own clock;
     ``teachers``: phase 9c's store."""
     t0 = time.perf_counter()
     out = {"autograd": train_autograd_checks(torch), "card_vs_cpu": train_card_vs_cpu(torch),
@@ -2351,6 +2651,7 @@ def training(torch, kc, c512, s512, tmp, teachers) -> dict:
     if out["teacher_convs"]["first_launches"]:
         raise AssertionError(f"phase 8d: {out['teacher_convs']['first_launches']} convs of a "
                              f"wct_se step plan the first kernel")
+    out["bf16"] = training_bf16(torch, kc, c512, s512, tmp, teachers, out["cli"])
     out["phase8_s"] = time.perf_counter() - t0
     log(f"phase 8: {out['phase8_s']:.1f} s")
     return out
@@ -3627,6 +3928,11 @@ def main() -> int:
         # ---- phase 8: training ---------------------------------------------------------
         detail["training"] = training(torch, kc, c512, s512, tmp,
                                       detail["teacher_store"]["root"])
+    # the bf16 rows also carry the bf16 training steps: 8e(d)'s sums per mode
+    for name, by_mode in detail["training"]["bf16"]["kernel_times"].items():
+        if name != "shapes":
+            next(r for r in table if r["name"] == name)["bf16_training"] = {
+                "path": f"bf16 step, stage {TRAIN_STAGE} x {TRAIN_N} x {TRAIN_HW}^2", **by_mode}
     # conv3x3's row also carries the teachers' widths: 8d's sums over a
     # wct_se step, and the launches of one warm original cascade (7f)
     tc = detail["training"]["teacher_convs"]

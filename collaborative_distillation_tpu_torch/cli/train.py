@@ -8,8 +8,10 @@ The reference package's training CLI (the original ``main.py`` flag surface
 and the ``wct_sd_kd2sd`` mode) on PyTorch, plus ``--device`` (``cuda``
 unless ``--device cpu`` is given; without CUDA it raises before any work).
 Checkpoints are in the reference's layout, so ``--resume`` takes one
-written by either package. ``--bf16`` and ``--data_parallel`` above 1 are
-refused: they are open items of ROADMAP.md Queue 1 item 3.
+written by either package, float32 or ``--bf16``. ``--bf16`` is the
+reference's mixed precision: the step in bfloat16 (the bf16 kernels on the
+card), float32 master weights, Adam state and losses. ``--data_parallel``
+above 1 is refused: it is ROADMAP.md Queue 1 item 3.2.
 """
 
 from __future__ import annotations
@@ -25,12 +27,12 @@ from ..data.pipeline import ImageFolderDataset, Loader
 from ..models.specs import decoder_spec, encoder_spec
 from ..models.vgg import init_params
 from ..models.zoo import default_weights_root, load_stage_params
-from ..train.trainer import BF16_ITEM, TrainConfig, Trainer
+from ..train.trainer import TrainConfig, Trainer
 from ..utils.image import jpeg_or_png, save_image_grid
 from ..utils.logging import Experiment, LossMeter, Throughput, resolve_path
 from ..wct.engine import resolve_device
 
-DP_ITEM = ("ROADMAP.md Queue 1 item 3 (training): data parallelism over "
+DP_ITEM = ("ROADMAP.md Queue 1 item 3.2 (training): data parallelism over "
            "torch.distributed/NCCL, one process per card")
 
 
@@ -83,10 +85,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max_steps", type=int, default=0,
                     help="stop after N steps (0 = run all epochs)")
     ap.add_argument("--bf16", action="store_true",
-                    help="refused: the port trains in float32 (ROADMAP.md Queue 1 item 3)")
+                    help="mixed precision: bf16 forward/backward, f32 master "
+                         "weights + Adam state (losses accumulate in f32)")
     ap.add_argument("--data_parallel", type=int, default=0,
                     help="cards for data parallelism; above 1 is refused (ROADMAP.md "
-                         "Queue 1 item 3)")
+                         "Queue 1 item 3.2)")
     ap.add_argument("--weights_root", type=str, default="")
     ap.add_argument("--device", type=str, default="cuda",
                     help="cuda (default) or cpu (the plain PyTorch path)")
@@ -95,8 +98,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.bf16:
-        raise SystemExit(f"--bf16: the port trains in float32; see {BF16_ITEM}")
     if args.data_parallel > 1:
         raise SystemExit(f"--data_parallel {args.data_parallel}: the port trains on one "
                          f"card; see {DP_ITEM}")
@@ -169,7 +170,8 @@ def _train(args, k: int, root: str, exp: Experiment) -> int:
                       if args.lr_final > 0 else 0,
                       batch_size=args.batch_size, epochs=args.epoch,
                       lw_feat=args.lw_feat, lw_pixl=args.lw_pixl, lw_perc=args.lw_perc,
-                      lw_kd=args.lw_kd, aux_relu=args.updim_relu, speedup=args.speedup)
+                      lw_kd=args.lw_kd, aux_relu=args.updim_relu, speedup=args.speedup,
+                      compute_dtype="bfloat16" if args.bf16 else "float32")
     trainer = Trainer(cfg, student, frozen, device=args.device)
     start_epoch = 1
     if args.resume:
@@ -184,7 +186,8 @@ def _train(args, k: int, root: str, exp: Experiment) -> int:
     if len(loader) == 0:
         raise SystemExit(f"dataset has {len(dataset)} images < batch_size {args.batch_size}: "
                          f"no full batch can be formed (reduce --batch_size)")
-    log(f"dataset: {len(dataset)} images, {len(loader)} steps/epoch, device {trainer.device}")
+    log(f"dataset: {len(dataset)} images, {len(loader)} steps/epoch, device {trainer.device}, "
+        f"compute {cfg.compute_dtype}")
 
     meter = LossMeter()
     tp = Throughput()

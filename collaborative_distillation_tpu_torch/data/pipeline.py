@@ -10,6 +10,8 @@ for the CLIs that run on the card):
 * :class:`ImageFolderDataset` — training content: shorter-side resize,
   random crop, random hflip (or ``aug="strong"``);
 * :class:`NpyFolderDataset` — pre-decoded ``.npy`` folders;
+* :class:`ContentStylePairDataset` — a content and a style folder zipped,
+  each with the training recipe;
 * :class:`CenterCropDataset` — shorter-side resize, deterministic centre
   crop (the evaluation images);
 * :class:`PairGridDataset` — the content x style cross product with
@@ -37,7 +39,8 @@ from . import native_codec
 IMG_EXTENSIONS = (".png", ".jpg", ".jpeg")
 
 __all__ = ["is_img", "load_image", "resize_shorter_side", "ImageFolderDataset",
-           "NpyFolderDataset", "CenterCropDataset", "PairGridDataset", "Loader"]
+           "NpyFolderDataset", "ContentStylePairDataset", "CenterCropDataset",
+           "PairGridDataset", "Loader"]
 
 
 def is_img(name: str) -> bool:
@@ -226,6 +229,26 @@ class NpyFolderDataset:
         if rng.random() < 0.5:
             arr = arr[:, ::-1].copy()
         return arr, self.paths[idx]
+
+
+class ContentStylePairDataset:
+    """Zipped content/style folders with training augmentation: two
+    :class:`ImageFolderDataset`s, seeded ``seed`` and ``seed + 1``, as long
+    as the longer one; item ``i`` takes each folder's ``i`` modulo its
+    length, as (content, style) float32 arrays."""
+
+    def __init__(self, content_dir: str, style_dir: str, shorter_side: int = 300,
+                 crop: int = 256, seed: int = 0):
+        self.content = ImageFolderDataset(content_dir, shorter_side, crop, seed)
+        self.style = ImageFolderDataset(style_dir, shorter_side, crop, seed + 1)
+
+    def __len__(self) -> int:
+        return max(len(self.content), len(self.style))
+
+    def __getitem__(self, idx: int) -> tuple[np.ndarray, np.ndarray]:
+        c, _ = self.content[idx % len(self.content)]
+        s, _ = self.style[idx % len(self.style)]
+        return c, s
 
 
 class CenterCropDataset:

@@ -17,6 +17,13 @@ The subgradients are JAX's, on both devices:
 * A 2x2 max pool gives each window's gradient to its first maximum in
   row-major order, as the transpose of ``lax.reduce_window`` and the indices
   of ``F.max_pool2d`` do (the plain ``amax`` would split it between ties).
+
+The backward keeps the dtype it is given. In bfloat16 (the mixed-precision
+trainer) the conv's data and weight gradients are cuDNN's bf16 ones (the
+CPU's on a CPU tensor): float32 sums of exact products, rounded once; the
+pad's gradient folds onto the border in bf16, as XLA's transpose of the pad
+adds; the bias gradient sums in float32 and rounds once. The ReLU and pool
+masks are exact in bf16; the upsample's 2x2 sum rounds once.
 """
 
 from __future__ import annotations
@@ -24,14 +31,15 @@ from __future__ import annotations
 import torch
 from torch.nn.grad import conv2d_input, conv2d_weight
 
-from ..pad import reflect_index, reflect_pad
+from ..pad import reflect_pad
 
 __all__ = ["Conv3x3", "MaxPool2x2", "UpsampleNearest2x", "JaxRelu"]
 
 
 def _relu_grad(g: torch.Tensor, y: torch.Tensor, zero: torch.Tensor) -> torch.Tensor:
-    """``g`` through ``jnp.maximum(pre, 0)``: 1 above 0, 0.5 at 0, 0 below."""
-    return g * torch.where(y > 0, 1.0, torch.where(zero, 0.5, 0.0))
+    """``g`` through ``jnp.maximum(pre, 0)``: 1 above 0, 0.5 at 0, 0 below,
+    a mask in ``g``'s dtype (all three are exact in bf16)."""
+    return g * (y > 0).to(g.dtype).masked_fill_(zero, 0.5)
 
 
 class JaxRelu(torch.autograd.Function):
@@ -52,10 +60,19 @@ class JaxRelu(torch.autograd.Function):
 
 def _fold_reflect(gp: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """The gradient of an NHWC map from that of its reflect-pad(1): each
-    padded row and column adds onto the row or column it copies."""
-    n, _, _, c = gp.shape
-    rows = gp.new_zeros(n, h, w + 2, c).index_add_(1, reflect_index(h, 1, 1, gp.device), gp)
-    return gp.new_zeros(n, h, w, c).index_add_(2, reflect_index(w, 1, 1, gp.device), rows)
+    padded row and column adds onto the row or column it copies (row 0 onto
+    row 1, row h + 1 onto row h - 2; a length-1 axis folds both onto
+    itself), in ``gp``'s dtype. By slices: the interior copied once and the
+    four borders added in place, each sum in the order of the pad's index."""
+    rows = gp[:, 1:h + 1].clone()
+    top, bot = (1, h - 2) if h > 1 else (0, 0)
+    rows[:, top] += gp[:, 0]
+    rows[:, bot] += gp[:, h + 1]
+    out = rows[:, :, 1:w + 1].clone()
+    left, right = (1, w - 2) if w > 1 else (0, 0)
+    out[:, :, left] += rows[:, :, 0]
+    out[:, :, right] += rows[:, :, w + 1]
+    return out
 
 
 class Conv3x3(torch.autograd.Function):
@@ -101,7 +118,7 @@ class Conv3x3(torch.autograd.Function):
             xp = reflect_pad(x, 1).permute(0, 3, 1, 2)
             gw = conv2d_weight(xp, (cout, cin, 3, 3), gn).permute(2, 3, 1, 0).contiguous()
         if need_b:
-            gb = g.sum(dim=(0, 1, 2))
+            gb = g.sum(dim=(0, 1, 2), dtype=torch.float32).to(g.dtype)
         return gx, gw, gb, None, None
 
 

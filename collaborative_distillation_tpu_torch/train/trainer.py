@@ -7,6 +7,13 @@ reference's key layout, so a run moves between the two packages either way.
 The step runs eagerly on one device: the forward convs, pools and
 upsamples launch the hand-written kernels under ``torch.autograd.Function``s
 (``ops/cuda/autograd.py``), their backward is PyTorch's.
+
+``compute_dtype="bfloat16"`` is the reference's mixed precision: the step
+runs in bf16 (the bf16 kernels on the card) on bf16 copies of the float32
+masters, cast inside the differentiated graph, so the gradients reach the
+masters in float32 and Adam's state stays float32; the losses are float32
+sums and the reconstruction comes back in float32. Checkpoints hold the
+float32 masters either way.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import torch
 
 from ..models.specs import StageSpec, decoder_spec, encoder_spec
 from ..models.vgg import Decoder, Encoder
-from ..ops.precision import full_float32
+from ..ops.precision import bf16_full_reduction, full_float32
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.params import adam_state_from_jax, adam_state_to_jax
 from ..wct.engine import resolve_device
@@ -29,7 +36,9 @@ from .losses import kd2sd_losses, sd_reconstruct_losses, se_distill_losses
 
 __all__ = ["TrainConfig", "make_loss_fn", "student_spec", "cosine_lr", "Trainer"]
 
-BF16_ITEM = "ROADMAP.md Queue 1 item 3 (training): bf16 compute with f32 masters"
+# the compute dtypes the port trains in; float16 has no kernels in the port
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+FP16_ITEM = "ROADMAP.md, 'Not ported': compute_dtype='float16'"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +59,7 @@ class TrainConfig:
     lw_kd: float = 1.0
     aux_relu: bool = False        # --updim_relu
     speedup: int = 16
-    compute_dtype: str = "float32"
+    compute_dtype: str = "float32"   # or "bfloat16": bf16 compute, float32 masters
 
 
 def make_loss_fn(cfg: TrainConfig) -> tuple[Callable, dict[str, float]]:
@@ -102,10 +111,18 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.float32), device=device)
 
 
-def _tensors(tree, device) -> dict:
-    """A parameter dict of tensors or arrays -> float32 tensors on ``device``."""
-    return {name: {kind: _tensor(a, device) for kind, a in leaf.items()}
+def _tensors(tree, device, dtype=torch.float32) -> dict:
+    """A parameter dict of tensors or arrays -> float32 tensors on ``device``,
+    then cast to ``dtype``."""
+    return {name: {kind: _tensor(a, device).to(dtype) for kind, a in leaf.items()}
             for name, leaf in tree.items()}
+
+
+def _cast(params, dtype) -> dict:
+    """The masters as ``dtype``, differentiably: their gradients come back
+    through the cast in float32 (in float32 the masters themselves)."""
+    return {name: {kind: t.to(dtype) for kind, t in leaf.items()}
+            for name, leaf in params.items()}
 
 
 class Trainer:
@@ -114,14 +131,17 @@ class Trainer:
 
     ``student`` and ``frozen`` are parameter dicts (``{layer: {"w", "b"}}``,
     tensors or arrays); ``frozen`` maps ``"be"``, ``"bd"``, ``"se"`` to them
-    as the mode needs. ``params`` is the student's dict of leaves.
+    as the mode needs. ``params`` is the student's dict of float32 leaves
+    (the masters); in bf16 the frozen teachers are cast once, here: they are
+    constants, so this is the reference's cast at every step.
     """
 
     def __init__(self, cfg: TrainConfig, student, frozen, *, device="cuda"):
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r}: the port trains in float32; see "
-                f"{BF16_ITEM}")
+        if cfg.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(
+                f"compute_dtype={cfg.compute_dtype!r}: the port trains in "
+                f"{' or '.join(COMPUTE_DTYPES)}; see {FP16_ITEM}")
+        self.dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         self.device = resolve_device(device)
         self.cfg = cfg
         self.loss_graph, self.loss_weights = make_loss_fn(cfg)
@@ -129,8 +149,11 @@ class Trainer:
         cls = Encoder if spec.kind == "encoder" else Decoder
         self.student = cls(spec, _tensors(student, self.device), trainable=True)
         self.params = self.student.params()
-        self.frozen = {k: _tensors(v, self.device) for k, v in frozen.items()
+        self.frozen = {k: _tensors(v, self.device, self.dtype) for k, v in frozen.items()
                        if v is not None}
+        # float32: no TF32 anywhere; bf16: every bf16 product, forward and
+        # backward, reduces in float32 (cuBLAS's conv0 and aux adapters)
+        self._precision = full_float32 if self.dtype == torch.float32 else bf16_full_reduction
         self.opt = torch.optim.Adam([t for leaf in self.params.values() for t in leaf.values()],
                                     lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
         self.sched_count = 0     # the schedule's own count, as optax keeps it
@@ -143,12 +166,14 @@ class Trainer:
 
     def train_step(self, batch) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
         """One optimization step on an (N, H, W, 3) batch (float in [0, 1],
-        or uint8, normalized on the device); returns (losses, rec), detached."""
+        or uint8, normalized on the device in float32); returns (losses,
+        rec), detached, both float32."""
         x = (batch if isinstance(batch, torch.Tensor)
              else torch.from_numpy(np.ascontiguousarray(batch))).to(self.device)
         x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
-        with full_float32():
-            losses, rec = self.loss_graph(self.params, self.frozen, x)
+        with self._precision():
+            losses, rec = self.loss_graph(_cast(self.params, self.dtype), self.frozen,
+                                          x.to(self.dtype))
             total = sum(self.loss_weights[name] * val for name, val in losses.items())
             self.opt.zero_grad(set_to_none=True)
             total.backward()
@@ -157,7 +182,7 @@ class Trainer:
             self.opt.step()
         if self.cfg.lr_decay_steps:
             self.sched_count += 1
-        return {k: v.detach() for k, v in losses.items()}, rec.detach()
+        return {k: v.detach() for k, v in losses.items()}, rec.detach().float()
 
     # --- checkpoints, in the reference's layout ---
 

@@ -991,3 +991,115 @@ def test_bf16_kernels_keep_nan_and_refuse_what_they_do_not_take(gen):
         kc.conv3x3_reflect_bf16(x, w.float(), None, True)
     with pytest.raises(ValueError, match="float32"):
         kc.conv1x1_bias(x.reshape(-1, 16), w[0, 0], w[0, 0, 0], False)   # bias must be f32
+
+
+# bf16 training (phase 8e of chip_smoke.py): (N, H, W, Cin, Cout) of the
+# stage-5 N = 16 steps' convs (the SE's first conv, the teachers' widths,
+# a decoder's last) and an odd edge shape
+BF16_TRAIN_CASES = [(16, 256, 256, 3, 16), (16, 128, 128, 64, 128), (16, 32, 32, 256, 512),
+                    (16, 16, 16, 512, 512), (16, 256, 256, 64, 3), (2, 7, 9, 24, 32)]
+
+
+@pytest.mark.parametrize("case", BF16_TRAIN_CASES, ids=str)
+@pytest.mark.parametrize("relu", [True, False])
+def test_conv3x3_bf16_function_at_training_shapes(gen, case, relu):
+    """The ``Conv3x3`` Function in bf16 (the bf16 kernel forward, cuDNN's
+    bf16 backward) against autograd through the bf16 plain version (float32
+    sums, one rounding), under the kernel's ReLU decisions: the forward
+    within one bf16 ulp (2^-7 |ref|, floor 1e-3 max|ref|); dw and db within
+    one ulp plus 1e-5 of their largest partial sum (a bf16 accumulation
+    over the 1M pixels of a wgrad would miss it); dx within one ulp of
+    itself and of its elementwise partial sum (the pad's gradient folds in
+    bf16)."""
+    from collaborative_distillation_tpu_torch.ops import conv as tconv
+    from collaborative_distillation_tpu_torch.train.trainer import full_float32
+    n, h, w, ci, co = case
+    bf = torch.bfloat16
+    x = _bf16_rand(gen, n, h, w, ci).requires_grad_()
+    wt = _bf16_rand(gen, 3, 3, ci, co, scale=(3 / (9 * ci)) ** 0.5).requires_grad_()
+    b = _bf16_rand(gen, co).requires_grad_()
+    g = _bf16_rand(gen, n, h, w, co)
+    with full_float32():
+        y = tconv.conv3x3(x, wt, b, relu=relu)
+        got = torch.autograd.grad(y, (x, wt, b), g)
+        with torch.no_grad():
+            pre = kc.conv3x3_reflect(x, wt, b, False)
+            plain = kc.conv3x3_reflect_bf16.plain(x, wt, b, False)
+            assert _bf16_misses(pre, plain) == 0
+            assert _bf16_misses(y, plain.clamp_min(0) if relu else plain) == 0
+            gp = g * (pre > 0).to(bf).masked_fill_(pre == 0, 0.5) if relu else g
+        want = torch.autograd.grad(kc.conv3x3_reflect_bf16.plain(x, wt, b, False),
+                                   (x, wt, b), gp)
+        ab = [t.detach().float().abs().requires_grad_() for t in (x, wt, b)]
+        scale = torch.autograd.grad(kc.conv3x3_reflect.plain(*ab, False), ab, gp.float().abs())
+    for i, (a, r, s) in enumerate(zip(got, want, scale)):
+        assert a.dtype == bf
+        a, r = a.float(), r.float()
+        bound = (r.abs() + s) * 2 ** -7 if i == 0 else r.abs() * 2 ** -7 + 1e-5 * s.max()
+        assert bool(((a - r).abs() <= bound).all()), (i, float((a - r).abs().max()))
+
+
+@pytest.mark.parametrize("shape", [(16, 256, 256, 64), (16, 32, 32, 256), (16, 16, 16, 512),
+                                   (2, 7, 9, 16)], ids=str)
+def test_pool_and_upsample_bf16_functions_at_training_shapes(gen, shape):
+    """In bf16 on the card: the pool's gradient at each first maximum as
+    ``F.max_pool2d``'s, the upsample's 2x2 sums rounded once; forwards
+    equal to the plain versions."""
+    from collaborative_distillation_tpu_torch.ops import conv as tconv
+    bf = torch.bfloat16
+    x = torch.floor(_rand(gen, *shape) * 3).to(bf).requires_grad_()
+    y = tconv.max_pool_2x2(x)
+    g = _bf16_rand(gen, *y.shape)
+    got = torch.autograd.grad(y, x, g)[0]
+    want = torch.autograd.grad(torch.nn.functional.max_pool2d(
+        x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1), x, g)[0]
+    assert got.dtype == bf and torch.equal(got, want)
+    assert torch.equal(y, kc.max_pool_2x2.plain(x.detach()))
+    n, h, w, c = shape
+    u = _bf16_rand(gen, *shape).requires_grad_()
+    gu = _bf16_rand(gen, n, 2 * h, 2 * w, c)
+    up = tconv.upsample_nearest_2x(u)
+    got = torch.autograd.grad(up, u, gu)[0]
+    assert got.dtype == bf
+    assert torch.equal(got, gu.float().reshape(n, h, 2, w, 2, c).sum(dim=(2, 4)).to(bf))
+    assert torch.equal(up, kc.upsample_nearest_2x.plain(u.detach()))
+
+
+@pytest.mark.parametrize("mode", ["wct_se", "wct_sd", "wct_sd_kd2sd"])
+def test_trainer_bf16_step_on_card_matches_cpu(mode):
+    """One bf16 step card vs CPU (stage 2, N = 2, 64^2): losses within 2^-6
+    relative, each student leaf's gradient within 2^-4 of its norm (two
+    bf16 steps that round in other orders), masters, gradients and rec
+    float32, and only bf16 kernels launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from collaborative_distillation_tpu_torch.models.specs import decoder_spec, encoder_spec
+    from collaborative_distillation_tpu_torch.models.vgg import init_params
+    from collaborative_distillation_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                                                    student_spec)
+    gen = torch.Generator().manual_seed(0)
+    frozen = {"be": init_params(encoder_spec("original", 2), gen),
+              "bd": init_params(decoder_spec("original", 2), gen),
+              "se": init_params(encoder_spec("16x", 2, aux=True), gen)}
+    cfg = TrainConfig(mode=mode, stage=2, compute_dtype="bfloat16")
+    student = init_params(student_spec(cfg), gen)
+    batch = np.random.default_rng(0).random((2, 64, 64, 3), dtype=np.float32)
+    card, cpu = (Trainer(cfg, student, frozen, device=d) for d in ("cuda", "cpu"))
+    for k in kc.KERNELS + kc.BF16_KERNELS:
+        k.launches = 0
+    lc, rec = card.train_step(batch)
+    torch.cuda.synchronize()
+    assert all(k.launches == 0 for k in kc.KERNELS)
+    assert kc.conv3x3_reflect_bf16.launches > 0 and kc.max_pool_2x2_bf16.launches > 0
+    lp, _ = cpu.train_step(batch)
+    assert rec.dtype == torch.float32
+    for name in lp:
+        assert abs(float(lc[name]) - float(lp[name])) <= 2 ** -6 * abs(float(lp[name]))
+    for name, leaf in cpu.params.items():
+        for kind, t in leaf.items():
+            gc = card.params[name][kind].grad
+            assert gc.dtype == card.params[name][kind].dtype == torch.float32
+            err = float((gc.cpu().double() - t.grad.double()).norm())
+            assert err <= 2 ** -4 * float(t.grad.double().norm()), (name, kind)

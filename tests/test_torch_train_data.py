@@ -123,7 +123,8 @@ def test_train_cli_writes_log_grid_and_checkpoint_and_resumes(png_dir, teacher_r
 
 
 def test_train_cli_without_teachers_and_refusals(png_dir, tmp_path, monkeypatch):
-    """wct_sd with --lw_perc 0 on the shipped 16x_base weights alone."""
+    """wct_sd with --lw_perc 0 on the shipped 16x_base weights alone, in
+    float32 and with --bf16; --data_parallel above 1 stays refused."""
     monkeypatch.chdir(tmp_path)
     argv = ["--mode", "wct_sd", "--stage", "1", "--lw_perc", "0", "--pretrained_init",
             "--content_train", png_dir, "-b", "3", "--shorter_side", "72", "--max_steps", "1",
@@ -134,8 +135,12 @@ def test_train_cli_without_teachers_and_refusals(png_dir, tmp_path, monkeypatch)
     assert cli.main(argv + ["--device", "cpu", "-p", "sd"]) == 0
     text = open(glob.glob("Experiments/*_sd/weights/log_*.txt")[0]).read()
     assert "pixl (*1)" in text and "perc" not in text.split("args:")[1].split("\n", 1)[1]
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        cli.main(argv + ["--device", "cpu", "--bf16"])
+    # --bf16 trains one step in bfloat16 and says so in the log
+    assert cli.main(argv + ["--device", "cpu", "--bf16", "-p", "sd16"]) == 0
+    text = open(glob.glob("Experiments/*_sd16/weights/log_*.txt")[0]).read()
+    assert "'bf16': True" in text and "compute bfloat16" in text and "max_steps 1 reached" in text
+    with np.load(glob.glob("Experiments/*_sd16/weights/*.npz")[0]) as z:
+        assert all(z[k].dtype == np.float32 for k in z.files if k.startswith("params/"))
     with pytest.raises(SystemExit, match="ROADMAP"):
         cli.main(argv + ["--device", "cpu", "--data_parallel", "2"])
     if not torch.cuda.is_available():

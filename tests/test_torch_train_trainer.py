@@ -1,7 +1,7 @@
 """The PyTorch port's trainer, checkpoints and pruning against the reference
 package, on the CPU: optimizer steps at constant and cosine lr, checkpoints
 resumed across the two packages both ways, L1 pruning, and the trainer's
-refusals."""
+compute dtypes and refusals."""
 
 import numpy as np
 import pytest
@@ -167,9 +167,17 @@ def test_prune_equals_reference(kind, k):
 
 
 def test_trainer_refusals():
+    """bfloat16 builds a trainer (float32 masters, bf16 teachers); float16,
+    which the port has no kernels for, raises naming ROADMAP."""
     student, frozen = jax_setup("wct_sd", 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(TrainConfig(mode="wct_sd", stage=1, compute_dtype="bfloat16"),
+    tr = Trainer(TrainConfig(mode="wct_sd", stage=1, compute_dtype="bfloat16"),
+                 to_np(student), to_np(frozen), device="cpu")
+    assert tr.dtype == torch.bfloat16
+    assert all(t.dtype == torch.float32 for leaf in tr.params.values() for t in leaf.values())
+    assert all(t.dtype == torch.bfloat16 for f in tr.frozen.values() for leaf in f.values()
+               for t in leaf.values())
+    with pytest.raises(ValueError, match="ROADMAP"):
+        Trainer(TrainConfig(mode="wct_sd", stage=1, compute_dtype="float16"),
                 to_np(student), to_np(frozen), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
