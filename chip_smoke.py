@@ -192,13 +192,33 @@ Phases (any failure raises and the script exits non-zero):
      output against the float32 one on the card (2048^2 above 12 dB, UHD
      printed beside JAX's 15.7 dB) and encoder e5 at 2048^2 card vs CPU in
      bf16; (d) ``cli.stylize --bf16`` on one 2048^2 pair writes the bf16
-     engine's pixels.
+     engine's pixels; (e) ``conv3x3_reflect_bf16`` with halo rows against
+     its plain version within one bf16 ulp at every shape of the bf16
+     per-conv path at 2000 x 2048 (shards of unequal heights), timed against
+     the same convs reflecting their own rows and ``torch.cat`` of the
+     extended shards, and at edge shapes (``BF16_HALO_EDGE``: one row,
+     ragged tiles of every bf16 template, N = 2, rows off 16-byte alignment,
+     Cin 3, the ``wgmma`` widths); the bf16 conv on photo-WCT's unpooled
+     2048^2 decoder maps; ``halo_exchange_rows`` on bf16 shards exactly at
+     every (stage, shard) shape of the sharded UHD path, timed; (f) the bf16
+     engines with every count zeroed before and read after (the per-conv
+     plan ``per_conv_path_calls``, ``sharded_path_calls`` and
+     ``pwct_path_calls`` on the bf16 kernels, ``bf16_totals``): per-conv
+     (``space=4`` on ``cuda:0``) at 2048^2 and 2000 x 2048 against the bf16
+     plain cascade, slab-in-shard UHD (``slab_rows=512``) against the bf16
+     slab cascade, photo-WCT 2048^2 against float32 photo-WCT, and 512^2
+     bf16 photo-WCT card vs CPU with the card's pool indices; each warm
+     (median, peak, profile) beside the float32 median of this run; (g)
+     ``cli.stylize --bf16 --space 4 --slab_rows 512 --devices
+     cuda:0,cuda:0,cuda:0,cuda:0`` on one 2048^2 pair writes the bf16
+     sharded engine's pixels.
 
 With ``--cross-card`` (two or more cards) it runs only the halo check, the
-conv3x3 halo staging with its rows on other cards, the per-conv 2048^2
-cascade with one shard per card against the plain one and timed, and the sharded UHD
-path with neighbouring shards on different cards, against the single-card
-slab cascade, and prints no kernel table.
+conv3x3 halo staging with its rows on other cards (float32 and bf16), the
+per-conv 2048^2 cascade with one shard per card against the plain one and
+timed (float32 and bf16), and the sharded UHD path with neighbouring shards
+on different cards, against the single-card slab cascade, and prints no
+kernel table.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -246,8 +266,13 @@ BF16_OF = {"conv3x3_reflect": "conv3x3_reflect_bf16", "conv1x1_bias": "conv1x1_b
            "max_pool_2x2": "max_pool_2x2_bf16", "upsample_nearest_2x": "upsample_nearest_2x_bf16"}
 KERNEL_PATH = {"conv1x1_bias": "UHD slab", "halo_exchange_rows": "UHD sharded"}
 # conv3x3_reflect with halo rows (the per-conv sharded path): its own rows in
-# the checks, the kernel's in the table
-KERNEL_OF = {"conv3x3_halo": "conv3x3_reflect"}
+# the checks, the kernel's in the table; the same in bf16, and the halo
+# exchange on bf16 shards (phase 10e)
+KERNEL_OF = {"conv3x3_halo": "conv3x3_reflect", "conv3x3_halo_bf16": "conv3x3_reflect_bf16",
+             "halo_exchange_rows_bf16": "halo_exchange_rows"}
+# the float32 check of each check that Bench runs on bf16 inputs
+F32_OF = {**{b: f for f, b in BF16_OF.items()}, "conv3x3_halo_bf16": "conv3x3_halo",
+          "halo_exchange_rows_bf16": "halo_exchange_rows"}
 CONV3X3_NAMES = "conv3x3_kernel"   # the profiler's names of csrc/conv3x3.cu's kernels
 # the profiler's names of the bf16 ring kernel's conv3x3 and 1x1 instantiations
 # (bf16_igemm.cuh's ``bf16_ring_kernel<Ring<TAPS, ...>>``)
@@ -291,7 +316,21 @@ BF16_CONV_NAMES = {"conv3x3_reflect_bf16": "Ring<9,", "conv1x1_bias_bf16": "Ring
 #     the step's inputs to bf16 (against float64).
 #   bf16 cascade vs float32 on the card: BF16_PSNR_MIN_DB (the reference's
 #     bf16 floor, tests/test_engine.py:44; its UHD photo reading, 15.7 dB,
-#     BENCH_r05.json uhd_bf16_photo_psnr_db, is JAX_BF16_PHOTO_DB).
+#     BENCH_r05.json uhd_bf16_photo_psnr_db, is JAX_BF16_PHOTO_DB); two bf16
+#     cascades that differ by the order of float32 sums alone: a sharded one
+#     against its single-card one, on one card or across cards,
+#     BF16_SHARD_MIN_DB (42.3-43.3 dB read: an order 104-107 dB apart in
+#     float32 moves a bf16 rounding of M and so the later stages; a kernel
+#     that ignored the halo rows read 35.96 dB at per-conv 2048^2, so the
+#     floor sits between), bf16 photo-WCT card vs CPU with shared pool
+#     indices BF16_ORDER_MIN_DB (38.8 dB read); bf16
+#     photo-WCT against float32 photo-WCT BF16_PWCT_MIN_DB (bf16
+#     ties move the unpool's maxima: 12.5 dB read at 512^2 on the card, and
+#     the reference's own bf16 photo-WCT reads 12.1 dB from its float32 on
+#     the CPU at 256^2). That floor only refuses an output unlike any
+#     stylization of the pair; it checks no bf16 arithmetic. bf16 photo-WCT
+#     is held by the 512^2 card-vs-CPU comparison with shared pool indices
+#     (each stage within BF16_STAGE_TOL, the cascade BF16_ORDER_MIN_DB).
 CONV_TOL = 1e-5
 BF16_ULP = 2.0 ** -7
 BF16_FLOOR = 1e-3
@@ -300,6 +339,9 @@ BF16_LOSS_REL = 2.0 ** -6
 BF16_STEP_REL = 2.0 ** -4
 BF16_PSNR_MIN_DB = 12.0
 JAX_BF16_PHOTO_DB = 15.7
+BF16_PWCT_MIN_DB = 9.0
+BF16_ORDER_MIN_DB = 30.0
+BF16_SHARD_MIN_DB = 39.0
 STAGE_TOL = 1e-4
 RELU_FLIP_SHARE = 1e-5
 GRAM_TOL = 2e-5
@@ -460,6 +502,46 @@ def per_conv_calls(pyramid, stages, rows, w):
     return calls
 
 
+def per_conv_path_calls(pyramid, stages, rows, w, sh, sw) -> Counter:
+    """Kernel calls of one whole per-conv sharded cascade (no style key) on a
+    content cut into shards of ``rows`` rows, ``w`` wide, and an (sh, sw)
+    style: per stage the style's encode and statistics whole on the engine's
+    device; per shard the content's halo convs (:func:`per_conv_calls`), its
+    pools, one ``sum_gram`` (the shard's sums), one ``conv1x1_bias`` (the
+    folded WCT), the decoder's halo convs and upsamples."""
+    calls = per_conv_calls(pyramid, stages, rows, w)
+    for k in stages:
+        es, ds = pyramid[k]["enc_spec"], pyramid[k]["dec_spec"]
+        c, down = es.out_channels, 2 ** (k - 1)
+        hh, ww = _encoder_calls(calls, {}, k, es, sh, sw)
+        calls[("sum_gram", (hh * ww, c))] += 1
+        for h in rows:
+            f = 1
+            for l in es.layers:
+                if l.pool_after:
+                    calls[("max_pool_2x2", (1, h // f, w // f, l.out_ch))] += 1
+                    f *= 2
+            calls[("sum_gram", (h // down * (w // down), c))] += 1
+            calls[("conv1x1_bias", (1, h // down, w // down, c, c, False, True, 0))] += 1
+            for l in ds.layers:
+                if l.unpool_after:
+                    calls[("upsample_nearest_2x", (1, h // f, w // f, l.out_ch))] += 1
+                    f //= 2
+    return calls
+
+
+def bf16_totals(kc, calls) -> dict:
+    """{kernel name: launches} of a float32 plan's {(kernel, shape): count}
+    on the bf16 engine, for every float32 and bf16 kernel: the plan's
+    kernels on their bf16 entries (``BF16_OF``; a halo conv is a
+    ``conv3x3_reflect_bf16`` launch), ``sum_gram`` on float32 copies and
+    ``halo_exchange_rows`` (byte-generic) under their own names."""
+    out = {k.__name__: 0 for k in kc.KERNELS + kc.BF16_KERNELS}
+    for (kernel, _), n in calls.items():
+        out[BF16_OF.get(KERNEL_OF.get(kernel, kernel), kernel)] += n
+    return out
+
+
 def pwct_path_calls(pyramid, stages, h, w) -> dict:
     """Launches per kernel of one photo-WCT cascade (no style key) on an (h,
     w) content and style: the plain path's conv3x3 and sum_gram launches;
@@ -496,18 +578,34 @@ def work(kernel, shape, itemsize=4):
         # what the halo staging adds to the conv: the neighbours' boundary
         # rows, read once (a null side reads nothing new)
         n, h, w, ci, _, _, sides = shape[:7]
-        return 4 * n * w * ci * (2 if sides == "both" else 1), 0
+        return e * n * w * ci * (2 if sides == "both" else 1), 0
     if kernel == "halo_exchange_rows":
         # the extended map written once; the shard and each halo that has a
         # source read once (a global edge's zero fill reads nothing)
         n, h, w, c, hm, pos, _ = shape
         sources = (pos != "first") + (pos != "last")
-        return 4 * n * w * c * ((h + 2 * hm) + (h + sources * hm)), 0
+        return e * n * w * c * ((h + 2 * hm) + (h + sources * hm)), 0
     n, h, w, c = shape
     if kernel == "max_pool_2x2":
         out = n * (h // 2) * (w // 2) * c
         return e * (n * h * w * c + out), 3 * out
     return e * (n * h * w * c * 5), 0
+
+
+def device_ms(torch, fn, reps):
+    """Milliseconds of device time per call: the profiler's CUDA kernel time
+    over ``reps`` calls after one warm-up, divided by ``reps``. Unlike
+    :func:`cuda_ms`, what the card spends whatever the host's pace: short
+    kernels queued by a slower host leave gaps that events would count."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e3 / reps
 
 
 def cuda_ms(torch, fn, reps):
@@ -540,7 +638,7 @@ class Bench:
 
     def run(self, kernel, shape, layer=None, timed=False, reps=10):
         with self.torch.no_grad():
-            if kernel in BF16_OF.values():
+            if kernel in F32_OF:
                 return self._run_bf16(kernel, shape, layer, timed, reps)
             return self._run(kernel, shape, layer, timed, reps)
 
@@ -548,13 +646,52 @@ class Bench:
         """A bf16 kernel at a float32 plan's shape: bf16 inputs (a layer's
         params rounded to bf16), one-ulp agreement with the plain version
         (pool and upsample exact), times against cuDNN's bf16 reflect conv,
-        ``torch.addmm`` in bf16, ``F.max_pool2d``, ``F.interpolate``."""
+        ``torch.addmm`` in bf16, ``F.max_pool2d``, ``F.interpolate``. The
+        halo conv and the halo exchange on bf16 maps as ``_run`` takes them
+        in float32 (the conv within one ulp, the exchange exactly)."""
         torch, F = self.torch, self.F
         from collaborative_distillation_tpu_torch.ops import cuda as kc
         bf = torch.bfloat16
-        k = getattr(kc, kernel)
+        k = getattr(kc, KERNEL_OF.get(kernel, kernel))
         row = {"kernel": kernel, "shape": list(shape)}
-        if kernel == "conv3x3_reflect_bf16":
+        own, kw = None, {}
+        if kernel == "conv3x3_halo_bf16":
+            # (N, H, W, Cin, Cout, relu, sides, offset[, row offset, row
+            # pad]): x and two neighbour maps of other heights ``offset``
+            # elements into their buffers (the neighbours ``row offset``
+            # where given, with ``row pad`` elements after each image: a
+            # batch stride of the rows off 16 bytes), the rows views of
+            # them; timed as the float32 halo conv
+            n, h, w, ci, co, relu, sides, offset, *rows_at = shape
+            row_offset, row_pad = rows_at or (offset, 0)
+
+            def map_(rows, at=offset, pad=0):
+                per = rows * w * ci
+                buf = (self.rand(n * (per + pad) + at) - 0.5).to(bf)[at:].view(n, per + pad)
+                return buf[:, :per].view(n, rows, w, ci)
+            x = map_(h)
+            up, down = map_(h + 1, row_offset, row_pad), map_(max(h - 1, 1), row_offset, row_pad)
+            top = up[:, -1:] if sides in ("both", "top") else None
+            bot = down[:, :1] if sides in ("both", "bot") else None
+            wt = ((self.rand(3, 3, ci, co) - 0.5) * (2 / (9 * ci) ** 0.5)).to(bf)
+            b = (self.rand(co) - 0.5).to(bf)
+            args = (x, wt, b, relu)
+            kw = {"top": top, "bot": bot}
+            parts = [x[:, 1:2] if top is None else top, x, x[:, -2:-1] if bot is None else bot]
+            library = lambda: torch.cat(parts, dim=1)
+            own = lambda: k(x, wt, b, relu)
+        elif kernel == "halo_exchange_rows_bf16":
+            # (N, H, W, C, hm, shard position, offset), as in float32
+            n, h, w, c, hm, pos, offset = shape
+            x, up, down = (self.rand(n * h * w * c + offset).to(bf)[offset:].view(n, h, w, c)
+                           for _ in range(3))
+            args = (x, up[:, -hm:] if pos != "first" else None,
+                    down[:, :hm] if pos != "last" else None, hm)
+            zeros = torch.zeros((n, hm, w, c), device="cuda", dtype=bf)
+            parts = [zeros if args[1] is None else args[1], x,
+                     zeros if args[2] is None else args[2]]
+            library = lambda: torch.cat(parts, dim=1)
+        elif kernel == "conv3x3_reflect_bf16":
             n, h, w, ci, co, relu, *rest = shape
             offset = rest[0] if rest else 0
             x = self.rand(n * h * w * ci + offset).to(bf)[offset:].view(n, h, w, ci)
@@ -594,7 +731,7 @@ class Bench:
             xn = x.permute(0, 3, 1, 2)
             library = ((lambda: F.max_pool2d(xn, 2)) if kernel == "max_pool_2x2_bf16"
                        else (lambda: F.interpolate(xn, scale_factor=2, mode="nearest")))
-        got, ref = k(*args), k.plain(*args)
+        got, ref = k(*args, **kw), k.plain(*args, **kw)
         torch.cuda.synchronize()
         if got.shape != ref.shape or got.dtype != bf:
             raise AssertionError(f"{kernel}{shape}: {tuple(got.shape)} {got.dtype} != "
@@ -614,13 +751,23 @@ class Bench:
             raise AssertionError(f"{kernel}{shape}: {misses} outputs more than one bf16 ulp "
                                  f"from the plain version (max abs err {err})")
         if timed:
-            nbytes, flops = work(next(f for f, b_ in BF16_OF.items() if b_ == kernel), shape, 2)
-            row.update(ms=cuda_ms(torch, lambda: k(*args), reps),
-                       plain_ms=cuda_ms(torch, lambda: k.plain(*args), reps),
+            nbytes, flops = work(F32_OF[kernel], shape, 2)
+            row.update(ms=cuda_ms(torch, lambda: k(*args, **kw), reps),
+                       plain_ms=cuda_ms(torch, lambda: k.plain(*args, **kw), reps),
                        library_ms=cuda_ms(torch, library, reps),
                        bytes_ms=nbytes / PEAK_BYTES * 1e3, flops_ms=flops / PEAK_BF16_FLOPS * 1e3)
             if kernel == "conv3x3_reflect_bf16":
                 row["library_conv_ms"] = cuda_ms(torch, library_conv, reps)
+            if own is not None:
+                # what the rows add to the conv, on the device (the profiler:
+                # a bf16 shard-conv at the deep levels is shorter than its
+                # wrapper's host time, which events would count) and by events
+                row.update(conv_ms=device_ms(torch, lambda: k(*args, **kw), reps),
+                           reflect_ms=device_ms(torch, own, reps),
+                           event_conv_ms=row["ms"], event_reflect_ms=cuda_ms(torch, own, reps),
+                           library_device_ms=device_ms(torch, library, reps))
+                row["ms"] = row["conv_ms"] - row["reflect_ms"]
+                row["event_ms"] = row["event_conv_ms"] - row["event_reflect_ms"]
         return row
 
     def _run(self, kernel, shape, layer, timed, reps):
@@ -973,6 +1120,37 @@ def cross_card(torch, kc, WCTEngine, bench, c_uhd, c2k, s2k, calls_sh) -> dict:
         if not (got.device == x.device and rel <= CONV_TOL):
             raise AssertionError(f"conv3x3 halo rows{(n, h, w, ci, co)} on other cards: rel "
                                  f"err {rel} > {CONV_TOL}")
+    # the same in bf16: the bf16 kernel's staging reads its rows on other
+    # cards, within one bf16 ulp of the plain version
+    bf = torch.bfloat16
+    misses16 = 0
+    for n, h, w, ci, co in [(1, 512, 2048, 3, 16), (2, 9, 33, 16, 16), (1, 64, 256, 64, 64),
+                            (1, 32, 128, 128, 128), (1, 17, 40, 32, 3), (1, 1, 64, 32, 24)]:
+        x = (bench.rand(n, h, w, ci) - 0.5).to(bf)
+        up = (bench.rand(n, 3, w, ci) - 0.5).to(bf).to("cuda:1")
+        down = (bench.rand(n, 2, w, ci) - 0.5).to(bf).to(f"cuda:{n_cards - 1}")
+        wt = ((bench.rand(3, 3, ci, co) - 0.5) * (2 / (9 * ci) ** 0.5)).to(bf)
+        b = (bench.rand(co) - 0.5).to(bf)
+        got = kc.conv3x3_reflect(x, wt, b, True, top=up[:, -1:], bot=down[:, :1]).float()
+        ref = kc.conv3x3_reflect.plain(x, wt, b, True, top=up[:, -1:], bot=down[:, :1]).float()
+        torch.cuda.synchronize()
+        bound = torch.clamp(ref.abs() * BF16_ULP, min=BF16_FLOOR * float(ref.abs().max()))
+        misses = int(((got - ref).abs() > bound).sum())
+        misses16 += misses
+        if misses:
+            raise AssertionError(f"bf16 conv3x3 halo rows{(n, h, w, ci, co)} on other cards: "
+                                 f"{misses} outputs past one bf16 ulp")
+    pc16 = WCTEngine(mode="16x", space=SHARDS, devices=spread, dtype=bf)
+    with torch.inference_mode():
+        img16, sty16 = pc16._prep(c2k), pc16._prep(s2k)
+        pc16_out, pc16_counts = per_conv_run(kc, pc16, img16, sty16)
+        for d in range(n_cards):
+            torch.cuda.synchronize(d)
+        db_pc16 = psnr_device(torch, pc16_out.to("cuda:0"),
+                              WCTEngine(mode="16x", dtype=bf).stylize_device(img16, sty16))
+        del pc16_out
+    pc16_timed = per_conv_timing(torch, kc, pc16, img16, sty16, "cross-card (bf16)")
+    del img16, sty16
     per_conv = WCTEngine(mode="16x", space=SHARDS, devices=spread)
     with torch.inference_mode():
         img2k, sty2k = per_conv._prep(c2k), per_conv._prep(s2k)
@@ -993,11 +1171,20 @@ def cross_card(torch, kc, WCTEngine, bench, c_uhd, c2k, s2k, calls_sh) -> dict:
                                                    "conv3x3_halo": pc_plan}):
         raise AssertionError(f"cross-card per-conv cascade: {db_pc:.2f} dB, launches "
                              f"{pc_counts}, predicted {pc_plan} halo convs")
+    log(f"cross-card: bf16 conv3x3 with halo rows on other cards vs its plain version at 6 "
+        f"shapes, none past one bf16 ulp; the bf16 per-conv 2048^2 cascade on {spread} vs the "
+        f"bf16 plain one {db_pc16:.2f} dB (min {BF16_SHARD_MIN_DB}), launches {pc16_counts}")
+    if not (db_pc16 >= BF16_SHARD_MIN_DB and pc16_counts == {"halo_exchange_rows": 0,
+                                                            "conv3x3_halo": pc_plan}):
+        raise AssertionError(f"cross-card bf16 per-conv cascade: {db_pc16:.2f} dB, launches "
+                             f"{pc16_counts}, predicted {pc_plan} halo convs")
     engine = WCTEngine(mode="16x", space=SHARDS, slab_rows=SHARD_SLAB, devices=spread)
     out = {"main": sharded_main_path(torch, kc, engine, c_uhd, s2k, calls_sh,
                                      "phase 3c (cross-card)"), "peer": peer,
            "halo_conv_max_rel_err": worst, "per_conv_2048_psnr_db": db_pc,
-           "per_conv_launches": pc_counts, "per_conv_2048": pc_timed}
+           "per_conv_launches": pc_counts, "per_conv_2048": pc_timed,
+           "bf16_halo_conv_ulp_misses": misses16, "bf16_per_conv_2048_psnr_db": db_pc16,
+           "bf16_per_conv_launches": pc16_counts, "bf16_per_conv_2048": pc16_timed}
     with torch.inference_mode():
         img, sty = engine._prep(c_uhd), engine._prep(s2k)
         one_card = WCTEngine(mode="16x", slab_rows=SHARD_SLAB).stylize_device(img, sty)
@@ -1042,7 +1229,8 @@ def per_conv_timing(torch, kc, engine, img, sty, label) -> dict:
     with torch.inference_mode():
         engine.stylize_device(img, sty)   # warm
         _, halo = per_conv_run(kc, engine, img, sty)
-        launches = {**_counts(kc), **halo}
+        launches = {**_counts(kc), **{k.__name__: k.launches for k in kc.BF16_KERNELS
+                                      if k.launches}, **halo}
         sync()
         for d in cards:
             torch.cuda.reset_peak_memory_stats(d)
@@ -1331,17 +1519,20 @@ def _zero(kc) -> None:
     for k in kc.KERNELS + kc.BF16_KERNELS:
         k.launches = 0
     kc.conv3x3_reflect.halo_launches = 0
+    kc.conv3x3_reflect_bf16.halo_launches = 0
     kc.conv3x3_reflect.by_template.clear()
     kc.conv3x3_reflect_bf16.by_template.clear()
 
 
 def per_conv_run(kc, engine, img, sty):
     """One per-conv sharded cascade on device maps, the counters zeroed
-    around it: its output, and its exchange launches and halo convs."""
+    around it: its output, and its exchange launches and halo convs (float32
+    or bf16)."""
     _zero(kc)
     out = engine.stylize_device(img, sty)
     return out, {"halo_exchange_rows": kc.halo_exchange_rows.launches,
-                 "conv3x3_halo": kc.conv3x3_reflect.halo_launches}
+                 "conv3x3_halo": (kc.conv3x3_reflect.halo_launches
+                                  + kc.conv3x3_reflect_bf16.halo_launches)}
 
 
 def _counts(kc) -> dict:
@@ -2694,11 +2885,12 @@ def nvjpeg_load(nj, seconds: float) -> dict:
 
 
 def unpooled_conv_checks(torch, kc, pyr, stages, h, w) -> list:
-    """Phase 2: conv3x3 against its plain version at every decoder conv of
-    the photo-WCT cascade that reads a max-unpooled map (three of every four
-    values exactly 0), with the decoder's weights, at an (h, w) cascade;
-    each timed beside its plain version and cuDNN's reflect conv (one call a
-    cascade each)."""
+    """Phase 2 (and 10e on a bf16 pyramid): conv3x3 against its plain
+    version at every decoder conv of the photo-WCT cascade that reads a
+    max-unpooled map (three of every four values exactly 0), with the
+    decoder's weights, at an (h, w) cascade, in the pyramid's dtype (float32
+    to CONV_TOL, bf16 within one bf16 ulp); each timed beside its plain
+    version and cuDNN's reflect conv (one call a cascade each)."""
     from collaborative_distillation_tpu_torch.ops.conv import (max_pool_2x2_with_argmax,
                                                                 max_unpool_2x2)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -2710,35 +2902,45 @@ def unpooled_conv_checks(torch, kc, pyr, stages, h, w) -> list:
             after_unpool = False
             for l in spec.layers:
                 if after_unpool:
-                    src = torch.rand((1, hh, ww, l.in_ch), generator=gen, device="cuda")
-                    x = max_unpool_2x2(*max_pool_2x2_with_argmax(src), (hh, ww))
                     wt, b = params[l.name]["w"].contiguous(), params[l.name]["b"].contiguous()
+                    src = torch.rand((1, hh, ww, l.in_ch), generator=gen, device="cuda")
+                    x = max_unpool_2x2(*max_pool_2x2_with_argmax(src.to(wt.dtype)), (hh, ww))
                     got = kc.conv3x3_reflect(x, wt, b, l.relu)
                     ref = kc.conv3x3_reflect.plain(x, wt, b, l.relu)
-                    scale = float(x.abs().max() * wt.abs().sum(dim=(0, 1, 2)).max()
-                                  + b.abs().max())
-                    err = float((got - ref).abs().max())
+                    err = float((got.float() - ref.float()).abs().max())
                     zeros = float((x == 0).float().mean())
-                    rows.append({"kernel": "conv3x3_reflect", "unpooled": True,
-                                 "shape": [1, hh, ww, l.in_ch, l.out_ch, l.relu],
-                                 "zero_share": zeros, "max_abs_err": err,
-                                 "max_rel_err": err / scale, "tol": CONV_TOL * scale,
-                                 "ok": err <= CONV_TOL * scale})
-                    if not err <= CONV_TOL * scale:
-                        raise AssertionError(f"conv3x3 on an unpooled map {rows[-1]['shape']}: "
-                                             f"error {err} > {CONV_TOL * scale}")
+                    shape = [1, hh, ww, l.in_ch, l.out_ch, l.relu]
+                    if wt.dtype == torch.bfloat16:
+                        r = ref.float()
+                        bound = torch.clamp(r.abs() * BF16_ULP, min=BF16_FLOOR * float(
+                            r.abs().max()))
+                        misses = int(((got.float() - r).abs() > bound).sum())
+                        scale, tol, ok = float(r.abs().max()), None, misses == 0
+                        peak, itemsize = PEAK_BF16_FLOPS, 2
+                    else:
+                        scale = float(x.abs().max() * wt.abs().sum(dim=(0, 1, 2)).max()
+                                      + b.abs().max())
+                        tol = CONV_TOL * scale
+                        ok, peak, itemsize = err <= tol, PEAK_FP32_FLOPS, 4
+                    rows.append({"kernel": "conv3x3_reflect" if itemsize == 4
+                                 else "conv3x3_reflect_bf16", "unpooled": True,
+                                 "shape": shape, "zero_share": zeros, "max_abs_err": err,
+                                 "max_rel_err": err / max(scale, 1e-30), "tol": tol, "ok": ok})
+                    if not ok:
+                        raise AssertionError(f"conv3x3 on an unpooled {wt.dtype} map {shape}: "
+                                             f"error {err} past the tolerance")
                     lib = torch.nn.Conv2d(l.in_ch, l.out_ch, 3, padding=1,
-                                          padding_mode="reflect", device="cuda")
+                                          padding_mode="reflect", device="cuda", dtype=wt.dtype)
                     lib.weight.copy_(wt.permute(3, 2, 0, 1))
                     lib.bias.copy_(b)
                     xn = x.permute(0, 3, 1, 2)
-                    nbytes, flops = work("conv3x3_reflect", rows[-1]["shape"])
+                    nbytes, flops = work("conv3x3_reflect", shape, itemsize)
                     rows[-1].update(
                         calls=1, ms=cuda_ms(torch, lambda: kc.conv3x3_reflect(x, wt, b, l.relu), 10),
                         plain_ms=cuda_ms(torch, lambda: kc.conv3x3_reflect.plain(x, wt, b, l.relu),
                                          10),
                         library_ms=cuda_ms(torch, lambda: lib(xn), 10),
-                        bytes_ms=nbytes / PEAK_BYTES * 1e3, flops_ms=flops / PEAK_FP32_FLOPS * 1e3)
+                        bytes_ms=nbytes / PEAK_BYTES * 1e3, flops_ms=flops / peak * 1e3)
                 after_unpool = l.unpool_after
                 if l.unpool_after:
                     hh, ww = hh * 2, ww * 2
@@ -2783,8 +2985,8 @@ def pwct_shared_indices(torch, eng, eng_cpu, c, s) -> dict:
             img_cpu = apply_decoder_pwct(q["dec"], wct_transform(
                 g, sm, sc, a_cpu, method=eng_cpu.method, newton_iters=eng_cpu.newton_iters),
                 ds, idx)
-        card = torch.clamp(img[0, :h, :w], 0.0, 1.0).cpu().numpy()
-        cpu = torch.clamp(img_cpu[0, :h, :w], 0.0, 1.0).numpy()
+        card = torch.clamp(img[0, :h, :w], 0.0, 1.0).float().cpu().numpy()
+        cpu = torch.clamp(img_cpu[0, :h, :w], 0.0, 1.0).float().numpy()
     engine_err = float(np.abs(card - eng.stylize(c, s, pwct=True)).max())
     return {"encoder_max_rel_err": enc_err, "decoder_max_rel_err": dec_err,
             "psnr_db": psnr(card, cpu), "engine_max_abs": engine_err}
@@ -3212,6 +3414,259 @@ def bf16_phase(torch, kc, WCTEngine, bench, eng, slab_eng, c2k, s2k, c_uhd, call
     out["phase10_s"] = time.perf_counter() - t10
     log(f"phase 10: {out['phase10_s']:.1f} s")
     return out, table
+
+# (N, H, W, Cin, Cout, relu, sides, offset[, row offset, row pad]) of the
+# bf16 halo conv's edge checks (phase 10e): one pixel, one row (N = 2), one
+# past the pixel tile of every bf16 template both ways (Cin 3 through
+# registers, the wgmma widths 64 and 128), maps off 16-byte alignment (the
+# 2-byte staging), a null side, the teachers' streamed weights; and x
+# 16-byte aligned with Cin % 8 == 0 (the 16-byte copies' case) where only
+# the rows are off: their start (row offset) or, at N = 2, their batch
+# stride (row pad)
+BF16_HALO_EDGE = [(1, 1, 1, 128, 128, True, "both", 0), (2, 1, 37, 16, 16, True, "both", 1),
+                  (1, 33, 33, 3, 16, True, "bot", 1), (1, 17, 33, 3, 24, True, "both", 0),
+                  (1, 33, 33, 16, 3, False, "top", 1), (2, 33, 33, 16, 16, True, "both", 0),
+                  (1, 17, 33, 16, 32, True, "both", 3), (1, 33, 33, 24, 3, True, "bot", 0),
+                  (1, 17, 33, 32, 16, True, "both", 1), (1, 17, 33, 32, 32, False, "top", 0),
+                  (1, 17, 17, 64, 64, True, "both", 1), (2, 17, 17, 128, 128, True, "both", 0),
+                  (1, 17, 17, 64, 128, True, "bot", 3), (1, 1, 9, 256, 256, True, "both", 1),
+                  (1, 17, 33, 16, 16, True, "both", 0, 1, 0),
+                  (1, 17, 33, 32, 32, True, "top", 0, 4, 0),
+                  (1, 17, 17, 64, 64, True, "bot", 0, 3, 0),
+                  (1, 1, 17, 128, 128, True, "both", 0, 1, 0),
+                  (2, 17, 33, 24, 24, True, "both", 0, 0, 1),
+                  (2, 9, 17, 128, 64, True, "both", 0, 0, 4)]
+
+
+def bf16_sharded_phase(torch, kc, WCTEngine, bench, eng, eng16, c2k, s2k, c_uhd, c512, s512,
+                       calls_sh, layers_sh, margins, f32) -> tuple[dict, dict]:
+    """Phases 10e-g (see the module docstring): the bf16 halo conv and the
+    halo exchange on bf16 shards against their plain versions, timed; the
+    bf16 per-conv, slab-in-shard and photo-WCT engines with every count
+    zeroed before and read after, against the bf16 (or float32) cascades
+    they stand for, warm beside the float32 medians of this run (``f32``);
+    ``cli.stylize --bf16 --space``. Returns the phases' details and the
+    sub-rows of the kernel table, ``{kernel name: {key: row}}``."""
+    import tempfile
+
+    from collaborative_distillation_tpu_torch.cli import stylize as cli
+    from collaborative_distillation_tpu_torch.utils.image import jpeg_or_png, save_image
+    t_e = time.perf_counter()
+    bf = torch.bfloat16
+    pyr, stages = eng.pyramid, eng.stages
+    devs = ["cuda:0"] * SHARDS
+    pc16 = WCTEngine(mode="16x", dtype=bf, space=SHARDS, devices=devs)
+    sh16 = WCTEngine(mode="16x", dtype=bf, space=SHARDS, slab_rows=SHARD_SLAB, devices=devs)
+    out: dict = {}
+
+    # (e) the bf16 halo conv at every shape of the per-conv path at
+    # PC_AWK_H x 2048 (shards of unequal heights), timed against the same
+    # convs reflecting their own rows and torch.cat of the extended shards;
+    # edge shapes; photo-WCT's bf16 decoder convs on unpooled maps; the halo
+    # exchange on bf16 shards at every (stage, shard) shape of the sharded
+    # UHD path, exactly
+    awk_rows = pc16._block_rows(PC_AWK_H)
+    pc_calls = per_conv_calls(pyr, stages, awk_rows, 2048)
+    halo = [{**bench.run("conv3x3_halo_bf16", shape, timed=True, reps=20), "calls": n}
+            for (_, shape), n in sorted(pc_calls.items(), key=str)]
+    edge = [bench.run("conv3x3_halo_bf16", shape) for shape in BF16_HALO_EDGE]
+    # the other bf16 kernels at their own shapes on both sharded paths: the
+    # slab-in-shard windows of SHARD_SLAB + 2 * margin rows (conv3x3, pool,
+    # upsample, the folded WCT's 1x1), and the per-conv 2048^2 path's
+    # shards (pool, upsample, 1x1, the halo convs of shard heights that
+    # PC_AWK_H lacks), each within one ulp or exactly
+    pc2k = per_conv_path_calls(pyr, stages, pc16._block_rows(2048), 2048, 2048, 2048)
+    shard_shapes = {}
+    for calls, layers in ((calls_sh, layers_sh), (pc2k, {})):
+        for kernel, shape in calls:
+            if kernel in BF16_OF:
+                shard_shapes.setdefault((BF16_OF[kernel], shape), layers.get(shape))
+            elif kernel == "conv3x3_halo" and (kernel, shape) not in pc_calls:
+                shard_shapes.setdefault(("conv3x3_halo_bf16", shape), None)
+    shard_checks = [bench.run(kernel, shape, layer)
+                    for (kernel, shape), layer in sorted(shard_shapes.items(), key=str)]
+    unpooled = unpooled_conv_checks(torch, kc, eng16.pyramid, stages, 2048, 2048)
+    xch = [{**bench.run("halo_exchange_rows_bf16", shape, timed=True), "calls": n}
+           for (kernel, shape), n in sorted(calls_sh.items(), key=str)
+           if kernel == "halo_exchange_rows"]
+    per_cascade = lambda key: sum(r[key] * r["calls"] for r in halo)
+    halo_t = {"shard_rows": awk_rows, "launches": sum(pc_calls.values()), **path_times(halo),
+              **{key: per_cascade(key) for key in ("conv_ms", "reflect_ms", "event_ms",
+                                                   "event_conv_ms", "event_reflect_ms",
+                                                   "library_device_ms")},
+              "max_abs_err": max(r["max_abs_err"] for r in halo + edge)}
+    by_kernel = Counter(r["kernel"] for r in shard_checks)
+    unpooled_t = {"launches": len(unpooled), **path_times(unpooled),
+                  "max_abs_err": max(r["max_abs_err"] for r in unpooled)}
+    xch_t = {"launches": sum(r["calls"] for r in xch), **path_times(xch),
+             "max_abs_err": max(r["max_abs_err"] for r in xch)}
+    out.update(halo_conv=halo_t, unpooled=unpooled_t, halo_exchange=xch_t,
+               halo_edge_shapes=len(edge), halo_conv_shapes=halo,
+               sharded_shape_checks={"by_kernel": dict(by_kernel),
+                                     "max_rel_err": max(r["max_rel_err"] for r in shard_checks)})
+    log(f"phase 10e: bf16 conv3x3 with halo rows at the {len(halo)} shapes of the per-conv "
+        f"path at {PC_AWK_H}x2048 (shard rows {awk_rows}) and {len(edge)} edge shapes (one "
+        f"row, every bf16 template's ragged tiles, N = 2, rows off 16-byte alignment, Cin 3, "
+        f"the wgmma widths, only the rows off 16 bytes): none past one bf16 ulp of the plain "
+        f"version; {len(shard_checks)} further shapes of the bf16 sharded paths ("
+        f"{', '.join(f'{n} {k}' for k, n in sorted(by_kernel.items()))}; slab-in-shard "
+        f"windows, per-conv 2048^2 shards): none past one ulp (pool, upsample exact); a cascade's "
+        f"{halo_t['launches']} halo convs {halo_t['conv_ms']:.3f} ms of device time against "
+        f"{halo_t['reflect_ms']:.3f} reflecting their own rows: the rows add "
+        f"{halo_t['ms']:.3f} ms (by events, host pace included: {halo_t['event_conv_ms']:.3f} "
+        f"against {halo_t['event_reflect_ms']:.3f}, {halo_t['event_ms']:.3f}; bound "
+        f"{halo_t['bound_ms']:.4f}, plain {halo_t['plain_ms']:.3f}, torch.cat of the extended "
+        f"shards {halo_t['library_ms']:.3f} by events, {halo_t['library_device_ms']:.3f} on "
+        f"the device); bf16 conv3x3 on "
+        f"{len(unpooled)} max-unpooled 2048^2 decoder maps: {unpooled_t['ms']:.3f} ms a cascade "
+        f"(bound {unpooled_t['bound_ms']:.3f}, plain {unpooled_t['plain_ms']:.3f}, cuDNN bf16 "
+        f"{unpooled_t['library_ms']:.3f}); halo_exchange_rows on bf16 shards at {len(xch)} "
+        f"sharded UHD shapes, exact: {xch_t['ms']:.3f} ms over {xch_t['launches']} launches "
+        f"(bound {xch_t['bound_ms']:.3f}, plain {xch_t['plain_ms']:.3f}, torch.cat "
+        f"{xch_t['library_ms']:.3f})")
+
+    # (f) the bf16 engines, every count zeroed before and read after
+    every = kc.KERNELS + kc.BF16_KERNELS
+
+    def counted(fn):
+        _zero(kc)
+        r = fn()
+        torch.cuda.synchronize()
+        return r, {k.__name__: k.launches for k in every}, kc.conv3x3_reflect_bf16.halo_launches
+
+    eng16_cpu = WCTEngine(mode="16x", device="cpu", dtype=bf)
+    with torch.inference_mode():
+        img16, sty16 = eng16._prep(c2k), eng16._prep(s2k)
+        plain16 = eng16.stylize_device(img16, sty16)
+        db_ref = psnr_device(torch, plain16, eng.stylize_device(eng._prep(c2k), eng._prep(s2k)))
+        pc = {}
+        for h in (2048, PC_AWK_H):
+            rows = pc16._block_rows(h)
+            o, launches, halo_n = counted(lambda: pc16.stylize_device(img16[:, :h], sty16))
+            want = bf16_totals(kc, per_conv_path_calls(pyr, stages, rows, 2048, 2048, 2048))
+            want_halo = sum(per_conv_calls(pyr, stages, rows, 2048).values())
+            _check_counts(f"phase 10f: bf16 per-conv {h}x2048 (shard rows {rows})", launches, want)
+            if halo_n != want_halo:
+                raise AssertionError(f"phase 10f: bf16 per-conv {h}: {halo_n} halo convs, "
+                                     f"predicted {want_halo}")
+            ref = plain16 if h == 2048 else eng16.stylize_device(img16[:, :h], sty16)
+            pc[h] = {"launches": launches, "halo_launches": halo_n,
+                     "psnr_vs_bf16_plain_db": psnr_device(torch, o, ref)}
+            del o, ref
+        del plain16
+        img_u = sh16._prep(c_uhd)
+        o, launches_sh, _ = counted(lambda: sh16.stylize_device(img_u, sty16))
+        _check_counts(f"phase 10f: bf16 sharded UHD (space={SHARDS}, slab_rows={SHARD_SLAB})",
+                      launches_sh, bf16_totals(kc, calls_sh))
+        slab16 = WCTEngine(mode="16x", dtype=bf, slab_rows=SHARD_SLAB)
+        db_sh = psnr_device(torch, o, slab16.stylize_device(img_u, sty16))
+        del o
+        want_pw = {k.__name__: 0 for k in every}
+        for name, n in pwct_path_calls(pyr, stages, 2048, 2048).items():
+            want_pw[BF16_OF.get(name, name)] += n
+        o, launches_pw, _ = counted(lambda: eng16.stylize_device(img16, sty16, pwct=True))
+        _check_counts("phase 10f: bf16 stylize(pwct=True) 2048^2", launches_pw, want_pw)
+        db_pw = psnr_device(torch, o, eng.stylize_device(eng._prep(c2k), eng._prep(s2k),
+                                                         pwct=True))
+        del o
+    shared = pwct_shared_indices(torch, eng16, eng16_cpu, c512, s512)
+    out.update(per_conv={str(h): v for h, v in pc.items()}, bf16_vs_f32_plain_2048_db=db_ref,
+               sharded_uhd={"launches": launches_sh, "psnr_vs_bf16_slab_db": db_sh},
+               pwct={"launches": launches_pw, "psnr_vs_f32_pwct_db": db_pw,
+                     "card_vs_cpu_shared_indices_512": shared})
+    log(f"phase 10f: bf16 per-conv (space={SHARDS} on one card) vs the bf16 plain cascade "
+        f"2048^2 {pc[2048]['psnr_vs_bf16_plain_db']:.2f} dB, {PC_AWK_H}x2048 "
+        f"{pc[PC_AWK_H]['psnr_vs_bf16_plain_db']:.2f} dB (bf16 plain vs float32 plain "
+        f"{db_ref:.2f} dB; min {BF16_SHARD_MIN_DB}), halo convs {pc[2048]['halo_launches']} "
+        f"and {pc[PC_AWK_H]['halo_launches']}; bf16 sharded UHD vs the bf16 slab cascade at "
+        f"slab_rows={SHARD_SLAB} {db_sh:.2f} dB (min {BF16_SHARD_MIN_DB}); bf16 photo-WCT 2048^2 vs "
+        f"float32 photo-WCT {db_pw:.2f} dB (min {BF16_PWCT_MIN_DB}); 512^2 bf16 photo-WCT card "
+        f"vs cpu with the card's pool indices: encoders max rel err "
+        f"{shared['encoder_max_rel_err']:.3e}, decoders {shared['decoder_max_rel_err']:.3e} "
+        f"(tol {BF16_STAGE_TOL}), cascade {shared['psnr_db']:.2f} dB (min {BF16_ORDER_MIN_DB}), "
+        f"card side vs stylize(pwct=True) max abs {shared['engine_max_abs']:.3e}")
+    if not (min(v["psnr_vs_bf16_plain_db"] for v in pc.values()) >= BF16_SHARD_MIN_DB
+            and db_sh >= BF16_SHARD_MIN_DB and db_pw >= BF16_PWCT_MIN_DB
+            and max(shared["encoder_max_rel_err"], shared["decoder_max_rel_err"])
+            <= BF16_STAGE_TOL and shared["psnr_db"] >= BF16_ORDER_MIN_DB
+            and shared["engine_max_abs"] <= CACHE_TOL):
+        raise AssertionError(f"phase 10f: per-conv {pc}, sharded {db_sh:.2f} dB, photo-WCT "
+                             f"{db_pw:.2f} dB, shared indices {shared}")
+
+    # (f) warm: each bf16 cascade beside the float32 one of this run
+    warm = {"per_conv_2048": per_conv_timing(torch, kc, pc16, img16, sty16,
+                                             "phase 10f (bf16 per-conv 2048x2048)")}
+    warm["per_conv_2048"]["f32_median_ms"] = f32["per_conv"]
+    with torch.inference_mode():
+        for label, e, img, kw, n in (("sharded_uhd", sh16, img_u, {}, 3),
+                                     ("pwct_2048", eng16, img16, {"pwct": True}, 5),
+                                     ("pwct_2048_f32", eng, eng._prep(c2k), {"pwct": True}, 5)):
+            sty = sty16 if e is not eng else eng._prep(s2k)
+            e.stylize_device(img, sty, **kw)   # warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated() / 2**30
+            runs = []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e.stylize_device(img, sty, **kw)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) * 1e3)
+            warm[label] = {"runs_ms": runs, "median_ms": statistics.median(runs),
+                           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                           "resident_before_gib": resident,
+                           "profile": profile_cascade(torch, e, img, sty, f"phase 10f ({label})",
+                                                      **kw)}
+            warm[label]["idle_share"] = warm[label]["profile"].get("idle_share")
+        del img_u
+    warm["sharded_uhd"]["f32_median_ms"] = f32["sharded"]
+    warm["pwct_2048"]["f32_median_ms"] = warm["pwct_2048_f32"]["median_ms"]
+    out["warm"] = warm
+    idle = lambda w: ("not measured" if w.get("idle_share") is None
+                      else f"{w['idle_share']:.3f}")
+    for label in ("per_conv_2048", "sharded_uhd", "pwct_2048"):
+        w = warm[label]
+        log(f"phase 10f: bf16 {label} warm {w['median_ms']:.2f} ms (runs "
+            f"{', '.join(f'{r:.2f}' for r in w['runs_ms'])}), float32 {w['f32_median_ms']:.2f} "
+            f"ms in this run; peak {w['peak_gib']:.2f} GiB ({w['resident_before_gib']:.2f} GiB "
+            f"held before it); idle share {idle(w)}")
+
+    # (g) cli.stylize --bf16 --space --slab_rows on one 2048^2 pair, the shards
+    # on the one card: the bf16 sharded engine's pixels
+    cli_eng = WCTEngine(mode="16x", dtype=bf, space=SHARDS, slab_rows=SHARD_SLAB, devices=devs)
+    calls_cli, _ = sharded_path_calls(pyr, stages, margins, cli_eng._tiled_slab, SHARDS, 2048,
+                                      2048, 2048, 2048)
+    with tempfile.TemporaryDirectory() as tmp:
+        for sub, img in (("content", c2k), ("style", s2k)):
+            os.makedirs(os.path.join(tmp, sub))
+            save_image(img, os.path.join(tmp, sub, "p.png"))
+        t0 = time.perf_counter()
+        _, launches_cli, _ = counted(lambda: cli.main(
+            ["--mode", "16x", "--contentPath", os.path.join(tmp, "content"), "--stylePath",
+             os.path.join(tmp, "style"), "--outf", os.path.join(tmp, "out"), "--log_mark", "b",
+             "--bf16", "--space", str(SHARDS), "--slab_rows", str(SHARD_SLAB), "--devices",
+             ",".join(devs)]))
+        out["cli_s"] = time.perf_counter() - t0
+        _check_counts(f"phase 10g: cli.stylize --bf16 --space {SHARDS} --slab_rows "
+                      f"{SHARD_SLAB}, one 2048^2 pair", launches_cli, bf16_totals(kc, calls_cli))
+        path, _ = jpeg_or_png(os.path.join(tmp, "out", "b_mode=16x_alpha=1.0_p+p.jpg"))
+        with open(path, "rb") as f:
+            _same_as(f.read(), "image/png" if path.endswith(".png") else "image/jpeg",
+                     cli_eng.stylize(c2k, s2k, as_uint8=True), "phase 10g: cli.stylize")
+    log(f"phase 10g: cli.stylize --bf16 --space {SHARDS} --slab_rows {SHARD_SLAB} wrote "
+        f"{os.path.basename(path)} in {out['cli_s']:.2f} s: the bf16 sharded engine's pixels")
+    out["phase10efg_s"] = time.perf_counter() - t_e
+    log(f"phase 10e-g: {out['phase10efg_s']:.1f} s")
+    sub = {"conv3x3_reflect_bf16": {
+               "per_conv_halo": {"path": f"bf16 per-conv {PC_AWK_H}x2048, what the rows add",
+                                 **halo_t},
+               "unpooled": {"path": "bf16 photo-WCT 2048^2 decoders, unpooled maps",
+                            **unpooled_t}},
+           "halo_exchange_rows": {
+               "bf16_sharded": {"path": "bf16 UHD sharded",
+                                "launches_counted": launches_sh["halo_exchange_rows"], **xch_t}}}
+    return out, sub
 
 
 def main() -> int:
@@ -3905,6 +4360,13 @@ def main() -> int:
         calls_uhd, layers_uhd, {"2048": detail["cascade_2048_ms"]["median"],
                                 "uhd": detail["cascade_uhd_ms"]["median"]})
     table += table_bf16
+    detail["bf16_sharded"], sub_rows = bf16_sharded_phase(
+        torch, kc, WCTEngine, bench, eng, WCTEngine(mode="16x", dtype=torch.bfloat16), c2k,
+        s2k, c_uhd, c512, s512, calls_sh, layers_sh, cas.margins,
+        {"per_conv": detail["per_conv_timed"][0]["median_ms"],
+         "sharded": detail["cascade_sharded_ms"]["median"]})
+    for name, extra in sub_rows.items():
+        next(r for r in table if r["name"] == name).update(extra)
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         # ---- phase 9: photo-WCT, the cascade function, the teacher store ---------

@@ -14,9 +14,11 @@ pair's upload and another's readback with the cascade. Outputs are named
 are read and written by the codec of ``--device`` (nvJPEG on the card,
 libjpeg on the CPU); where it cannot load the same stem is written as
 ``.png`` and the log says why. ``--bf16`` runs the engine in bfloat16
-(``WCTEngine(dtype=torch.bfloat16)``; with ``--space`` it is refused, as the
-engine refuses it); ``--packed`` and ``--halo pallas`` have no counterpart in
-the port and are refused.
+(``WCTEngine(dtype=torch.bfloat16)``), on every path: plain, ``--slab_rows``,
+``--space`` with and without ``--slab_rows``. ``--devices`` places the
+``--space`` shards on the cards named (the reference's CLI takes its mesh's
+devices whole and has no such flag). ``--packed`` and ``--halo pallas``
+have no counterpart in the port and are refused.
 """
 
 from __future__ import annotations
@@ -57,9 +59,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--space", type=int, default=0,
                     help="cut each image's rows over N cards, one shard per visible card "
                          "(0 = one card); raises with fewer cards")
+    ap.add_argument("--devices", type=str, default="",
+                    help="with --space: the cards that carry the shards (device "
+                         "placement), comma-separated, in shard order, e.g. cuda:2,cuda:3; "
+                         "one may stand more than once (cuda:0,cuda:0,cuda:0,cuda:0: four "
+                         "shards on one card); default one shard per visible card")
     ap.add_argument("--bf16", action="store_true",
-                    help="bfloat16 params and activations (the WCT statistics stay float32); "
-                         "plain and --slab_rows paths only")
+                    help="bfloat16 params and activations (the WCT statistics stay float32), "
+                         "on every path (--slab_rows, --space)")
     ap.add_argument("--weights_root", type=str, default="")
     ap.add_argument("--slab_rows", type=int, default=0,
                     help="stream in row slabs of N rows (single-card UHD)")
@@ -114,6 +121,7 @@ def main(argv=None) -> int:
     import torch
     engine = WCTEngine(mode=args.mode, weights_root=args.weights_root or None,
                        method=args.method, space=args.space, slab_rows=args.slab_rows,
+                       devices=args.devices.split(",") if args.devices else None,
                        transport=args.transport, device=device,
                        dtype=torch.bfloat16 if args.bf16 else torch.float32)
     tp = Throughput()

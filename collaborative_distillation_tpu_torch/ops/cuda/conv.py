@@ -18,10 +18,11 @@ reflection row, as without halos.
 
 bfloat16 maps take :func:`conv3x3_reflect_bf16` (``csrc/conv3x3_bf16.cu``,
 tensor cores, f32 sums rounded once to bf16), the reference's bf16
-instantiation of the same Pallas kernels; :func:`conv3x3_plain` computes it
-in float32 and rounds once. Halo rows in bf16 are refused: the sharded paths
-run float32. :func:`launch_plan_bf16` picks the template of its persistent
-ring kernel (``csrc/bf16_igemm.cuh``), and that of the bf16 1x1's.
+instantiation of the same Pallas kernels, halo rows included (bf16 rows,
+read in place by its staging as the float32 kernel reads them);
+:func:`conv3x3_plain` computes it in float32 and rounds once.
+:func:`launch_plan_bf16` picks the template of its persistent ring kernel
+(``csrc/bf16_igemm.cuh``), and that of the bf16 1x1's.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..pad import reflect_index, reflect_pad
-from ..precision import BF16_REFUSED, full_float32
+from ..precision import full_float32
 from . import _build
 from .peer import batch_stride, ptr, reachable, release
 
@@ -244,15 +245,16 @@ def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
     ``[top, x, bot]`` along H (the shard's own reflection row where one is
     ``None``), reflect-padded in W only, then the VALID conv.
 
-    A bfloat16 ``x`` (and ``w``; ``b`` bf16 or f32): the conv of the values
-    upcast to float32 in full float32 (the products are exact), bias and
-    ReLU in float32, then one rounding to bf16, as the bf16 kernel rounds.
-    ``F.conv2d`` is never called on bf16 CPU tensors, which round elsewhere."""
+    A bfloat16 ``x`` (and ``w``, halo rows; ``b`` bf16 or f32): the conv of
+    the values upcast to float32 in full float32 (the products are exact),
+    bias and ReLU in float32, then one rounding to bf16, as the bf16 kernel
+    rounds. ``F.conv2d`` is never called on bf16 CPU tensors, which round
+    elsewhere."""
     if x.dtype == torch.bfloat16:
-        if top is not None or bot is not None:
-            raise ValueError(f"conv3x3_plain: bfloat16 halo rows; {BF16_REFUSED}")
+        _check_halo("conv3x3_plain", x, top, bot)
+        up = [None if t is None else t.float() for t in (b, top, bot)]
         with full_float32():
-            y = conv3x3_plain(x.float(), w.float(), None if b is None else b.float(), relu)
+            y = conv3x3_plain(x.float(), w.float(), up[0], relu, top=up[1], bot=up[2])
         return y.to(torch.bfloat16)
     if top is None and bot is None:
         xp = reflect_pad(x, 1)
@@ -278,12 +280,10 @@ def conv3x3_reflect(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
     on any card, or None; the staging reads them in place (counted in
     ``conv3x3_reflect.halo_launches`` too). ``conv3x3_reflect.by_template``
     counts the launches by the plan's template name. A bfloat16 ``x`` goes
-    to :func:`conv3x3_reflect_bf16` (no halo rows)."""
+    to :func:`conv3x3_reflect_bf16`, its halo rows with it."""
     name = "conv3x3_reflect"
     if x.dtype == torch.bfloat16:
-        if top is not None or bot is not None:
-            raise ValueError(f"{name}: bfloat16 halo rows; {BF16_REFUSED}")
-        return conv3x3_reflect_bf16(x, w, b, relu)
+        return conv3x3_reflect_bf16(x, w, b, relu, top=top, bot=bot)
     if x.dim() != 4 or w.shape[:3] != (3, 3, x.shape[3]):
         raise ValueError(f"{name}: x {tuple(x.shape)} and HWIO w "
                          f"{tuple(w.shape)} do not match")
@@ -326,14 +326,19 @@ conv3x3_reflect.plain = conv3x3_plain
 
 
 def conv3x3_reflect_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
-                         relu: bool) -> torch.Tensor:
+                         relu: bool, *, top: torch.Tensor | None = None,
+                         bot: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the bf16 kernel (``csrc/conv3x3_bf16.cu``): ``x`` (N, H, W,
     Cin) and ``w`` (3, 3, Cin, Cout) HWIO bfloat16, ``b`` (Cout,) bfloat16
     or float32 or None, all contiguous on one CUDA device, Cin and Cout in
     1..512 -> (N, H, W, Cout) bfloat16: f32 sums of the exact products, the
     bias and ReLU in f32, one rounding; by the template
     :func:`launch_plan_bf16` picks (``conv3x3_reflect_bf16.by_template``
-    counts the launches by its name)."""
+    counts the launches by its name). ``top``, ``bot``: (N, 1, W, Cin)
+    bfloat16 CUDA rows, each image's row contiguous, on any card, or None,
+    as :func:`conv3x3_reflect` takes them; the staging of the template's
+    halo instantiation reads them in place (counted in
+    ``conv3x3_reflect_bf16.halo_launches`` too)."""
     name = "conv3x3_reflect_bf16"
     if x.dim() != 4 or w.dim() != 4 or w.shape[:3] != (3, 3, x.shape[3]):
         raise ValueError(f"{name}: x {tuple(x.shape)} and HWIO w {tuple(w.shape)} do not match")
@@ -346,28 +351,36 @@ def conv3x3_reflect_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | Non
     bias = () if b is None else (b,)
     if b is not None and b.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name}: bias must be bfloat16 or float32, got {b.dtype}")
-    _check_cuda(name, x, w, *bias, dtype=(torch.bfloat16, torch.bfloat16,
-                                          *(t.dtype for t in bias)))
+    rows = [t for t in (top, bot) if t is not None]
+    _check_cuda(name, x, w, *bias, rows=rows,
+                dtype=(torch.bfloat16, torch.bfloat16, *(t.dtype for t in bias)))
     if b is not None and b.shape != (cout,):
         raise ValueError(f"{name}: bias {tuple(b.shape)} != ({cout},)")
+    _check_halo(name, x, top, bot)
     y = torch.empty((n, h, wd, cout), device=x.device, dtype=torch.bfloat16)
     if y.numel() == 0:
         return y
     plan = device_plan_bf16(n, h, wd, cin, cout, x.device.index)
     lib = _build.library()
     with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream()
+        top, bot = reachable(top, x.device, stream), reachable(bot, x.device, stream)
         err = lib.cd_conv3x3_reflect_bf16(
             x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
+            ptr(top), ptr(bot), batch_stride(top), batch_stride(bot),
             n, h, wd, cin, cout, int(relu), int(b is not None and b.dtype == torch.bfloat16),
-            plan.template, plan.grid[0], int(plan.resident),
-            torch.cuda.current_stream().cuda_stream)
+            plan.template, plan.grid[0], int(plan.resident), stream.cuda_stream)
+        release(top, x.device, stream)
+        release(bot, x.device, stream)
     _build.check(err, name)
     conv3x3_reflect_bf16.launches += 1
+    conv3x3_reflect_bf16.halo_launches += bool(rows)
     conv3x3_reflect_bf16.by_template[plan.kernel] += 1
     return y
 
 
 conv3x3_reflect_bf16.launches = 0
+conv3x3_reflect_bf16.halo_launches = 0
 conv3x3_reflect_bf16.by_template = Counter()
 conv3x3_reflect_bf16.plain = conv3x3_plain
 

@@ -46,6 +46,17 @@
 //     for all NT couts, MF * NT / 2 f32 sums a thread (32 or 64); the k
 //     loop is unrolled, so every ldmatrix address is a per-lane base plus a
 //     constant;
+//   * halo rows (the 3x3, kernel template flag HALO): a shard of a row-
+//     sharded map convolved as the reference's conv3x3_halo does it
+//     (parallel/spatial.py:79-88): the staging reads map row -1 of image n
+//     from top + n top_stride and row H from bot + n bot_stride where those
+//     are given (the neighbour shards' boundary rows, read in place, through
+//     a peer pointer where they lie on another card), and reflects where one
+//     is null; columns reflect inside a halo row too, the corners of the
+//     reference's W-only pad. Only the units of a tile whose border leaves
+//     the map pick a source; interior tiles address as without HALO. The
+//     flag is a template argument, so the instantiations without it carry
+//     no halo code;
 //   * epilogue: + bias (bf16 or f32) in f32, ReLU (NaN stays NaN), one RNE
 //     rounding, written into the warp's own staging area in shared memory and
 //     stored from there as 16-byte vectors (Cout % 8 == 0: a fragment's 16
@@ -81,6 +92,11 @@ struct Args {
   int H, W, tiles_w;         // map and tile columns (the 3x3)
   int Cin, Cout, cout_tiles, chunks, resident;
   int relu, bias_bf16, vec_x, vec_w, vec_y;
+  // halo rows (the 3x3 with HALO): image 0's row -1 and row H, (W, Cin)
+  // each, image n's *_stride elements further on; null: reflect
+  const unsigned short* top;
+  const unsigned short* bot;
+  long long top_stride, bot_stride;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -185,6 +201,26 @@ __device__ __forceinline__ int reflect1(int i, int n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
 }
 
+// The map that staging reads row gy of an image from, for a row outside
+// [0, H): row -1 from top_n and row H from bot_n (the image's halo rows)
+// where given, gy moved to 0 in it (so a one-row shard takes both rows and
+// never reflects onto itself); any other row reflects into xn
+__device__ __forceinline__ const unsigned short* edge_row(const unsigned short* xn,
+                                                          const unsigned short* top_n,
+                                                          const unsigned short* bot_n, int& gy,
+                                                          int H) {
+  if (gy == -1 && top_n) {
+    gy = 0;
+    return top_n;
+  }
+  if (gy == H && bot_n) {
+    gy = 0;
+    return bot_n;
+  }
+  gy = reflect1(gy, H);
+  return xn;
+}
+
 // 8 bf16 from src, those at channel ch + j >= lim zero
 __device__ __forceinline__ uint4 load8_masked(const unsigned short* src, int ch, int lim) {
   uint32_t v[4];
@@ -246,8 +282,9 @@ __host__ __device__ inline size_t smem_bytes(int cin, int chunks, bool resident)
   return 2 * ((size_t)R::S * R::SP * R::XS + w + (size_t)R::TH * R::TW * R::NT) + 16;
 }
 
-template <class R>
+template <class R, bool HALO = false>
 __global__ void __launch_bounds__(R::THREADS, 1) bf16_ring_kernel(const Args a) {
+  static_assert(!HALO || R::TAPS == 9, "halo rows are the 3x3's");
   constexpr int TAPS = R::TAPS, CK = R::CK, NT = R::NT, TH = R::TH, TW = R::TW, S = R::S;
   constexpr int kThreads = R::THREADS;
   constexpr int XS = R::XS, SP = R::SP, MF = R::MF, U = R::U;
@@ -320,7 +357,8 @@ __global__ void __launch_bounds__(R::THREADS, 1) bf16_ring_kernel(const Args a) 
   // ch = c CK + 8 (e % G) ..; fn(k, dst, src, ch, valid) for this thread's
   // k-th unit e = tid + k kThreads, dst its offset in the slot. An interior
   // 3x3 tile (its border inside the map) and a 1x1 run address every unit
-  // from one base pointer; the other 3x3 tiles reflect per unit.
+  // from one base pointer; the other 3x3 tiles reflect per unit (HALO:
+  // rows -1 and H from the image's halo rows where given).
   auto units = [&](Step st, auto&& fn) {
     if constexpr (TAPS == 9) {
       const int ch0 = st.c * CK;
@@ -337,6 +375,15 @@ __global__ void __launch_bounds__(R::THREADS, 1) bf16_ring_kernel(const Args a) 
         const unsigned short* src;
         if (inner) {
           src = xb + hy * row + hx * a.Cin + g * 8;
+        } else if constexpr (HALO) {
+          int gy = ty0 - 1 + hy, gx = tx0 - 1 + hx;
+          const unsigned short* xn = a.x + (long long)img * a.H * row;
+          const unsigned short* xr = xn;
+          if ((unsigned)gy >= (unsigned)a.H)
+            xr = edge_row(xn, a.top ? a.top + img * a.top_stride : nullptr,
+                          a.bot ? a.bot + img * a.bot_stride : nullptr, gy, a.H);
+          if ((unsigned)gx >= (unsigned)a.W) gx = reflect1(gx, a.W);
+          src = xr + ((long long)gy * a.W + gx) * a.Cin + ch0 + g * 8;
         } else {
           int gy = ty0 - 1 + hy, gx = tx0 - 1 + hx;
           if ((unsigned)gy >= (unsigned)a.H) gy = reflect1(gy, a.H);
@@ -649,16 +696,17 @@ __global__ void __launch_bounds__(R::THREADS, 1) bf16_ring_kernel(const Args a) 
   cp_async_wait<0>();
 }
 
-// One launch of template R over ``grid`` blocks: opts in to the card's
-// largest dynamic shared memory once per device; refuses a plan whose
-// shared memory exceeds it or whose grid is not whole Cout tiles.
-template <class R>
+// One launch of template R (HALO: the 3x3 with halo rows) over ``grid``
+// blocks: opts in to the card's largest dynamic shared memory once per
+// device; refuses a plan whose shared memory exceeds it or whose grid is not
+// whole Cout tiles.
+template <class R, bool HALO = false>
 int launch(const Args& a, int grid, cudaStream_t s) {
   const size_t smem = smem_bytes<R>(a.Cin, a.chunks, a.resident != 0);
   if (smem > (size_t)kMaxSmem || grid <= 0 || grid % a.cout_tiles != 0 ||
       (R::TAPS == 1 && a.cout_tiles != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = bf16_ring_kernel<R>;
+  auto kernel = bf16_ring_kernel<R, HALO>;
   static bool opted[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);

@@ -39,6 +39,17 @@
 //   * Cin 256 / 512 (the teachers): the weights do not fit; they stream
 //     through the ring with each 32-channel chunk.
 // The template and the grid are ops/cuda/conv.py:launch_plan_bf16's, by id.
+//
+// Halo rows (the per-conv sharded path, kernel table row 8b): given `top` or
+// `bot`, the launch is the template's HALO instantiation, whose staging reads
+// map row -1 and row H from them in place (bf16_igemm.cuh's head), as the
+// float32 kernel's HALO flag does (conv3x3.cu). Without them it is the
+// instantiation without HALO, which has no halo code. What the rows must move
+// is two rows of W x Cin bf16 a shard; the staging already computes a source
+// for every unit of a tile that crosses the map's border, so the rows cost
+// no pass and no launch of their own. The 16-byte copies need the rows and
+// their image strides 16-byte aligned too; rows that are not take the
+// kernel's 2-byte loads.
 
 #include "bf16_igemm.cuh"
 
@@ -67,16 +78,21 @@ int run(cd_bf16::Args a, int n, int grid, int resident, cudaStream_t s) {
   if (tiles * a.chunks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   a.tiles = (int)tiles;
   a.resident = resident;
+  if (a.top || a.bot) return cd_bf16::launch<R, true>(a, grid, s);
   return cd_bf16::launch<R>(a, grid, s);
 }
 
 }  // namespace
 
 // x (N, H, W, Cin), w (3, 3, Cin, Cout) HWIO, both bf16; b (Cout,) bf16
-// (bias_bf16) or f32, or null; y (N, H, W, Cout) bf16. ``tmpl``, ``grid``
-// and ``resident`` are the launch plan's.
+// (bias_bf16) or f32, or null; y (N, H, W, Cout) bf16. top, bot: null, or
+// one bf16 row (W, Cin) of image 0 that stands for map row -1 (row H),
+// image i's row i * {top,bot}_stride elements further on. ``tmpl``,
+// ``grid`` and ``resident`` are the launch plan's.
 extern "C" int cd_conv3x3_reflect_bf16(const void* x, const void* w, const void* b, void* y,
-                                       int n, int h, int wd, int cin, int cout, int relu,
+                                       const void* top, const void* bot,
+                                       long long top_stride, long long bot_stride, int n,
+                                       int h, int wd, int cin, int cout, int relu,
                                        int bias_bf16, int tmpl, int grid, int resident,
                                        void* stream) {
   if ((long long)n * h * wd == 0) return static_cast<int>(cudaGetLastError());
@@ -84,6 +100,13 @@ extern "C" int cd_conv3x3_reflect_bf16(const void* x, const void* w, const void*
   a.H = h;
   a.W = wd;
   a.bias_bf16 = bias_bf16;
+  a.top = static_cast<const unsigned short*>(top);
+  a.bot = static_cast<const unsigned short*>(bot);
+  a.top_stride = top ? top_stride : 0;
+  a.bot_stride = bot ? bot_stride : 0;
+  // the 16-byte copies read the halo rows as they read x
+  a.vec_x = a.vec_x && cd_bf16::aligned(top, 16) && cd_bf16::aligned(bot, 16) &&
+            a.top_stride % 8 == 0 && a.bot_stride % 8 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (tmpl) {
     case 1: return run<RingCk8Co16>(a, n, grid, resident, s);

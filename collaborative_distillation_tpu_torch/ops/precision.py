@@ -7,11 +7,7 @@ import contextlib
 
 import torch
 
-__all__ = ["full_float32", "bf16_full_reduction", "BF16_REFUSED"]
-
-# what the paths that still run only float32 cite when given bfloat16
-BF16_REFUSED = ("bfloat16 runs the plain and UHD slab paths only; the sharded paths "
-                "and photo-WCT are ROADMAP.md Queue 1 item 9")
+__all__ = ["full_float32", "bf16_full_reduction"]
 
 
 @contextlib.contextmanager

@@ -18,10 +18,11 @@ of device planes), on the CPU by libjpeg on the host (in row bands that
 overlap the transfers).
 
 The engine runs on the GPU unless the caller passes ``device="cpu"``, which
-takes every kernel's plain PyTorch version. ``dtype=torch.bfloat16`` runs the
-plain and UHD slab paths with bf16 params and activations (each conv sums in
-float32 and rounds once; the WCT statistics, ``eigh`` and T stay float32;
-outputs are clipped in float32); float32 is the default.
+takes every kernel's plain PyTorch version. ``dtype=torch.bfloat16`` runs
+every path (plain, UHD slab, both row-sharded ones, photo-WCT) with bf16
+params and activations (each conv sums in float32 and rounds once; the WCT
+statistics, ``eigh`` and T stay float32; outputs are clipped in float32);
+float32 is the default.
 """
 
 from __future__ import annotations
@@ -41,7 +42,6 @@ from ..data import jpeg_header, native_codec, nvjpeg_codec
 from ..models.vgg import apply_decoder, apply_decoder_pwct, apply_encoder
 from ..models.zoo import load_pyramid
 from ..ops.pad import reflect_index
-from ..ops.precision import BF16_REFUSED
 from ..ops.wct_transform import feature_stats, wct_transform
 from ..utils.colorspace import (rgb_to_yuv420_host, rgbf_to_yuv420_device,
                                 yuv420_to_rgb_host, yuv420_to_rgbf_device)
@@ -219,8 +219,11 @@ class WCTEngine:
     converted to float and then to bf16 on the device; every conv sums in
     float32 and rounds once; the style-statistics cache holds float32
     statistics; uint8 and float outputs are clipped in float32 (the host's
-    float output is float32). The sharded paths (``space``) and photo-WCT
-    refuse bf16 (``BF16_REFUSED``).
+    float output is float32). Every path runs in bf16: the row shards of
+    ``space`` are bf16 maps (the per-conv path's halo rows bf16 rows read in
+    place by the bf16 conv, the slab path's halo exchange bf16 rows) whose
+    summed statistics are float32, and photo-WCT pools, unpools and decodes
+    bf16 maps.
     """
 
     def __init__(self, mode: str = "16x", weights_root: str | None = None, *,
@@ -231,8 +234,6 @@ class WCTEngine:
                  transport: str = "auto", dtype=torch.float32):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
-        if dtype == torch.bfloat16 and space and space > 1:
-            raise ValueError(f"space={space} with dtype=torch.bfloat16: {BF16_REFUSED}")
         if method not in ("eigh", "newton"):
             raise ValueError(f"unknown WCT method {method!r}")
         if transport not in ("auto", "rgb", "yuv420"):
@@ -832,8 +833,6 @@ class WCTEngine:
             raise ValueError(
                 "pwct=True is only supported on the plain per-stage path; "
                 "construct the engine without slab_rows/space for photo-WCT")
-        if pwct and self.dtype == torch.bfloat16:
-            raise ValueError(f"pwct=True with dtype=torch.bfloat16: {BF16_REFUSED}")
         alpha = torch.as_tensor(alpha, dtype=torch.float32, device=self.device)
         if ((self.slab is not None or self._tiled_fn is not None)
                 and (img.shape[0] > 1 or sty.shape[0] > 1)):

@@ -132,8 +132,14 @@ def test_conv3x3_bf16_plain_takes_a_bf16_bias_and_none(rng):
     none = kc.conv3x3_reflect_bf16.plain(xt, wtt, None, False)
     zero = kc.conv3x3_reflect_bf16.plain(xt, wtt, torch.zeros(24), False)
     assert torch.equal(none, zero) and none.dtype == BF16
-    with pytest.raises(ValueError, match="halo"):
-        kc.conv3x3_reflect_bf16.plain(xt, wtt, None, True, top=xt[:, :1])
+    # bf16 halo rows are taken (the per-conv sharded path in bf16): the
+    # float32 halo conv of the upcast values, rounded once; a row that is
+    # not one (N, 1, W, Cin) row of x's type is refused
+    got = kc.conv3x3_reflect_bf16.plain(xt, wtt, None, True, top=xt[:, :1])
+    want = kc.conv3x3_reflect.plain(xt.float(), wtt.float(), None, True, top=xt[:, :1].float())
+    assert got.dtype == BF16 and torch.equal(got, want.to(BF16))
+    with pytest.raises(ValueError, match="top row"):
+        kc.conv3x3_reflect_bf16.plain(xt, wtt, None, True, top=xt[:, :2])
 
 
 @pytest.mark.parametrize("pair", [(16, 16), (32, 32), (64, 64), (128, 128), (96, 96),
@@ -321,16 +327,21 @@ def test_engine_external_pyramid_cast_to_dtype(rng):
 
 
 def test_bf16_refusals(weights_root):
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
-        WCTEngine(mode="16x", weights_root=weights_root, device="cpu", dtype=BF16, space=2,
-                  devices=["cpu"] * 2)
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
-        WCTEngine(mode="16x", weights_root=weights_root, device="cpu", dtype=BF16, space=4,
-                  slab_rows=288, devices=["cpu"] * 4)
-    eng = WCTEngine(mode="16x", weights_root=weights_root, device="cpu", dtype=BF16)
-    img = np.zeros((32, 32, 3), np.float32)
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
-        eng.stylize(img, img, pwct=True)
+    """The bf16 engines that were refused before (``space`` with and
+    without ``slab_rows``, ``pwct=True``) construct and run, in bf16 on the
+    device; what stays refused is another dtype than float32 and bfloat16
+    (and photo-WCT on the slab and sharded paths, as in float32)."""
+    img = np.random.default_rng(0).random((64, 32, 3), dtype=np.float32)
+    plain = WCTEngine(mode="16x", weights_root=weights_root, device="cpu", dtype=BF16)
+    for kw in (dict(space=2, devices=["cpu"] * 2),
+               dict(space=4, slab_rows=288, devices=["cpu"] * 4)):
+        eng = WCTEngine(pyramid=plain.pyramid, device="cpu", dtype=BF16, **kw)
+        out = eng.stylize_device(torch.from_numpy(img), torch.from_numpy(img))
+        assert out.dtype == BF16 and bool(torch.isfinite(out.float()).all())
+        with pytest.raises(ValueError, match="only supported on the plain per-stage path"):
+            eng.stylize(img, img, pwct=True)
+    out = plain.stylize_device(torch.from_numpy(img), torch.from_numpy(img), pwct=True)
+    assert out.dtype == BF16 and out.shape == (1, 64, 32, 3)
     for dtype in (torch.float16, torch.float64, "bfloat16"):
         with pytest.raises(ValueError, match="dtype"):
             WCTEngine(mode="16x", weights_root=weights_root, device="cpu", dtype=dtype)

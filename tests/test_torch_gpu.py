@@ -985,12 +985,172 @@ def test_bf16_kernels_keep_nan_and_refuse_what_they_do_not_take(gen):
     ref = kc.conv3x3_reflect.plain(x, w, None, True)
     assert torch.equal(torch.isnan(y), torch.isnan(ref)) and bool(torch.isnan(y).any())
     assert bool(torch.isnan(kc.max_pool_2x2(x)).any())
-    with pytest.raises(ValueError, match="halo"):
-        kc.conv3x3_reflect(x, w, None, True, top=x[:, :1])
+    with pytest.raises(ValueError, match="top row"):   # a halo row is one row
+        kc.conv3x3_reflect(x, w, None, True, top=x[:, :2])
+    with pytest.raises(ValueError, match="bot row is torch.float32"):
+        kc.conv3x3_reflect(x, w, None, True, bot=x[:, :1].float())
     with pytest.raises(ValueError, match="bfloat16"):
         kc.conv3x3_reflect_bf16(x, w.float(), None, True)
     with pytest.raises(ValueError, match="float32"):
         kc.conv1x1_bias(x.reshape(-1, 16), w[0, 0], w[0, 0, 0], False)   # bias must be f32
+
+
+# ---- bf16 halo rows (the per-conv sharded path in bf16) ----------------------------
+# (Cin, Cout) on every bf16 3x3 template: Cin 3 (registers a step ahead),
+# 16 / 24 / 32, the wgmma widths 64 and 128
+BF16_HALO_PAIRS = [(3, 16), (3, 24), (16, 3), (16, 16), (16, 32), (24, 3), (32, 16), (32, 32),
+                   (64, 64), (64, 128), (128, 128), (128, 64)]
+
+
+def _bf16_maps(gen, n, rows, w, ci, offset, pad):
+    """(n, rows, w, ci) bf16 maps ``offset`` elements into a buffer that
+    holds ``pad`` more elements after each image (batch stride rows * w * ci
+    + pad)."""
+    per = rows * w * ci
+    return _bf16_rand(gen, n, per + pad, offset=offset)[:, :per].view(n, rows, w, ci)
+
+
+def _halo_conv_bf16_check(gen, n, h, w, ci, co, relu, sides, offset, rows_device="cuda",
+                          row_offset=None, row_pad=0):
+    """The bf16 halo conv against its plain version within one bf16 ulp:
+    ``x`` and two neighbour maps of other heights, each ``offset`` elements
+    into its buffer (odd: off 16-byte alignment, the 2-byte staging; the
+    neighbours ``row_offset`` where given, with ``row_pad`` elements after
+    each image), the rows views of them (batch strides of their own maps);
+    a second call bit-equal, and one halo launch a call."""
+    row_offset = offset if row_offset is None else row_offset
+    x = _bf16_rand(gen, n, h, w, ci, offset=offset)
+    up = _bf16_maps(gen, n, 3, w, ci, row_offset, row_pad).to(rows_device)
+    down = _bf16_maps(gen, n, 2, w, ci, row_offset, row_pad).to(rows_device)
+    top = up[:, -1:] if sides in ("both", "top") else None
+    bot = down[:, :1] if sides in ("both", "bot") else None
+    wt = _bf16_rand(gen, 3, 3, ci, co, scale=(3 / (9 * ci)) ** 0.5)
+    b = _bf16_rand(gen, co)
+    before = (kc.conv3x3_reflect_bf16.halo_launches, kc.conv3x3_reflect.halo_launches)
+    got = kc.conv3x3_reflect(x, wt, b, relu, top=top, bot=bot)
+    again = kc.conv3x3_reflect_bf16(x, wt, b, relu, top=top, bot=bot)
+    ref = kc.conv3x3_reflect_bf16.plain(x, wt, b, relu, top=top, bot=bot)
+    torch.cuda.synchronize()
+    assert (kc.conv3x3_reflect_bf16.halo_launches, kc.conv3x3_reflect.halo_launches) == (
+        before[0] + 2, before[1])
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert _bf16_misses(got, ref) == 0
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("pair", BF16_HALO_PAIRS, ids=str)
+@pytest.mark.parametrize("hw", ["1x1", "2x37", "tile+1"])
+@pytest.mark.parametrize("sides", ["both", "top", "bot"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_conv3x3_bf16_halo_rows_at_edge_shapes(gen, pair, hw, sides, offset):
+    # every bf16 3x3 template; H = 1 (both rows are halo rows), W = 37 and
+    # N = 2, one past the template's tile both ways (ragged tiles read no
+    # row past ``bot``); a null side reflects
+    ci, co = pair
+    plan = kconv.device_plan_bf16(1, 64, 64, ci, co, 0)
+    h, w = (plan.tile[0] + 1, plan.tile[1] + 1) if hw == "tile+1" else map(int, hw.split("x"))
+    _halo_conv_bf16_check(gen, 2 if hw == "2x37" else 1, h, w, ci, co, ci % 2 == 0, sides,
+                          offset)
+
+
+@pytest.mark.parametrize("pair", [(16, 16), (24, 24), (32, 32), (64, 64), (64, 128),
+                                  (128, 128)], ids=str)
+@pytest.mark.parametrize("rows_at", [(1, 0), (4, 0), (0, 1), (0, 4)], ids=str)
+@pytest.mark.parametrize("sides", ["both", "bot"])
+def test_conv3x3_bf16_halo_rows_off_alignment_beside_an_aligned_map(gen, pair, rows_at, sides):
+    # x 16-byte aligned with Cin % 8 == 0, the 16-byte copies' case, and only
+    # the rows off 16 bytes: their start (row offset 1 or 4 elements) or, at
+    # N = 2, their batch stride (1 or 4 elements of pad after each image);
+    # the kernel must stage them with its 2-byte loads
+    ci, co = pair
+    row_offset, row_pad = rows_at
+    _halo_conv_bf16_check(gen, 2, 17, 33, ci, co, True, sides, 0, row_offset=row_offset,
+                          row_pad=row_pad)
+
+
+@pytest.mark.parametrize("pair", BF16_HALO_PAIRS, ids=str)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_conv3x3_bf16_own_reflection_rows_as_halos_are_bit_equal(gen, pair, offset):
+    """The shard's own reflection rows given as halo rows stage the same
+    values in the same order as the kernel without rows: bit-equal."""
+    ci, co = pair
+    x = _bf16_rand(gen, 2, 19, 37, ci, offset=offset)
+    wt = _bf16_rand(gen, 3, 3, ci, co, scale=(3 / (9 * ci)) ** 0.5)
+    b = _bf16_rand(gen, co)
+    plain = kc.conv3x3_reflect_bf16(x, wt, b, True)
+    halo = kc.conv3x3_reflect_bf16(x, wt, b, True, top=x[:, 1:2], bot=x[:, -2:-1])
+    torch.cuda.synchronize()
+    assert torch.equal(plain, halo)
+
+
+def test_conv3x3_bf16_halo_rows_on_other_cards(gen):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    last = f"cuda:{torch.cuda.device_count() - 1}"
+    for ci, co in ((16, 16), (3, 24), (64, 128), (128, 64)):
+        _halo_conv_bf16_check(gen, 2, 9, 33, ci, co, True, "both", 0, rows_device=last)
+
+
+@pytest.mark.parametrize("rows", [(16, 16, 16, 32), (1, 1, 1, 2), (3, 3, 3, 5)], ids=str)
+def test_bf16_halo_rows_at_unequal_shard_heights(gen, rows):
+    """bf16 shards of unequal heights: the slab path's halo kernel extends
+    each with its pair exactly as its plain version; the bf16 halo convs
+    joined stay within one ulp of the unsharded plain bf16 conv."""
+    from collaborative_distillation_tpu_torch.parallel import spatial as tsp
+    shards = [_bf16_rand(gen, 1, h, 37, 16) for h in rows]
+    for x, (top, bot) in zip(shards, tsp.halo_rows(shards)):
+        top = x[:, 1:2] if top is None else top
+        bot = x[:, -2:-1] if bot is None else bot
+        assert torch.equal(kc.halo_exchange_rows(x, top, bot, 1),
+                           kc.halo_exchange_rows.plain(x, top, bot, 1))
+    wt = _bf16_rand(gen, 3, 3, 16, 16, scale=0.2)
+    b = _bf16_rand(gen, 16)
+    got = torch.cat(tsp.conv3x3_halo(shards, [wt] * len(rows), [b] * len(rows)), dim=1)
+    whole = kc.conv3x3_reflect_bf16.plain(torch.cat(shards, dim=1), wt, b, True)
+    torch.cuda.synchronize()
+    assert _bf16_misses(got, whole) == 0
+
+
+def test_bf16_sharded_and_pwct_engines_on_one_card():
+    """The bf16 engines that were refused before, on cuda:0: four shards
+    per conv and in slabs, against the single-card bf16 engines (the slab
+    path: the same sums in the same order), and photo-WCT; every conv of
+    the per-conv path reads its rows in the bf16 kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+
+    import numpy as np
+
+    from collaborative_distillation_tpu_torch.wct.engine import WCTEngine
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with np.load(os.path.join(root, "collaborative_distillation_tpu_torch", "data",
+                              "photo_pair_512.npz")) as d:
+        c, s = d["content"], d["style"]
+    tall = np.concatenate([c, c[::-1], c])[:1152, :128]
+    bf = torch.bfloat16
+
+    def psnr(a, b):
+        mse = float(np.mean((a.astype(np.float64) - b) ** 2))
+        return float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
+
+    before = kc.halo_exchange_rows.launches
+    sharded = WCTEngine(mode="16x", space=4, slab_rows=288, devices=["cuda:0"] * 4,
+                        dtype=bf).stylize(tall, s)
+    assert kc.halo_exchange_rows.launches - before == 5 * 4
+    assert psnr(sharded, WCTEngine(mode="16x", slab_rows=288, dtype=bf).stylize(tall, s)) >= 40
+    before = (kc.conv3x3_reflect.halo_launches, kc.conv3x3_reflect_bf16.halo_launches)
+    per_conv = WCTEngine(mode="16x", space=4, devices=["cuda:0"] * 4, dtype=bf).stylize(c, s)
+    assert kc.conv3x3_reflect.halo_launches == before[0]
+    assert kc.conv3x3_reflect_bf16.halo_launches - before[1] == 4 * 62
+    plain = WCTEngine(mode="16x", dtype=bf)
+    assert psnr(per_conv, plain.stylize(c, s)) >= 30
+    # photo-WCT on a 128^2 crop (at 512^2 bf16 photo-WCT stands ~12 dB from
+    # float32 in both packages: bf16 ties move the unpool's maxima)
+    pwct = plain.stylize(c[:128, :128], s[:64, :64], pwct=True)
+    assert pwct.shape == (128, 128, 3) and np.isfinite(pwct).all()
+    assert psnr(pwct, WCTEngine(mode="16x").stylize(c[:128, :128], s[:64, :64],
+                                                    pwct=True)) >= 40
 
 
 # bf16 training (phase 8e of chip_smoke.py): (N, H, W, Cin, Cout) of the

@@ -6,9 +6,11 @@ flags of ``ops/cuda/_build.py``, dumps it with ``cuobjdump -sass``, and
 compares the kernels function by function: a kernel whose instructions are
 the same in both prints ``same``, one that differs ``DIFFERENT``, and kernels
 of one checkout only are listed as new or gone. Kernel names are demangled,
-and a ``Ring<...>`` template argument list that ends in the default
-``false`` of the Cout walk (``WALK``) is read without it, so that a
-template instantiated before that flag existed matches its successor.
+and a flag at its default ``false`` is read as absent, so that a template
+instantiated before the flag existed matches its successor: a float32
+``Ring<...>`` argument list that ends in the Cout walk's (``WALK``), and a
+``bf16_ring_kernel<Ring<...>, false>`` (no halo rows, ``HALO``). Its halo
+instantiations (``..., true>``) are listed as new.
 
     python3 tools/sass_diff.py OTHER_CHECKOUT [--source conv3x3.cu]
 
@@ -70,9 +72,17 @@ def sass(root: str, source: str, tmp: str) -> dict:
                              check=True).stdout.splitlines()
     else:
         out = names
-    norm = lambda n: re.sub(r"(Ring<[^<>]*?), false>", lambda m: (
-        m.group(1) + ">" if m.group(1).count(",") == 6 else m.group(0)), n)
-    return {norm(d): funcs[n] for n, d in zip(names, out)}
+    return {normalize(d): funcs[n] for n, d in zip(names, out)}
+
+
+def normalize(name: str) -> str:
+    """A demangled kernel name with the flags that stand at their default
+    ``false`` taken out (``WALK`` of the float32 ``Ring``, ``HALO`` of
+    ``bf16_ring_kernel``), and ``> >`` written ``>>``."""
+    name = re.sub(r"(Ring<[^<>]*?), false>", lambda m: (
+        m.group(1) + ">" if m.group(1).count(",") == 6 else m.group(0)), name)
+    name = re.sub(r"(bf16_ring_kernel<.*?Ring<[^<>]*>), false>", r"\1>", name)
+    return name.replace("> >", ">>")
 
 
 def main() -> int:
