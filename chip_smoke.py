@@ -19,10 +19,12 @@ Phases (any failure raises and the script exits non-zero):
      shape of the mode-16x cascade at 512^2 and of the UHD slab cascade,
      the plain UHD cascade's largest conv map, plus edge shapes (1-pixel maps, odd sizes, C not a multiple of 4,
      unaligned slices; for both convs one past each template's pixel tile,
-     off 16-byte alignment); ``halo_exchange_rows`` exactly, at every (stage,
-     shard position) shape of the sharded UHD path and at edge shapes (one
-     row, the whole neighbour, N = 2, odd row sizes, offset slices, the
-     shard's own reflection rows as sources); conv3x3 with halo rows (the
+     off 16-byte alignment); ``halo_exchange_rows`` and ``halo_fill_rows``
+     exactly, at every launch of the sharded UHD path (the first stage's
+     exchange of the card's four shards, each later stage's fill) and at
+     edge shapes (one row, the whole neighbour, N = 2, odd row sizes, offset
+     slices, one to five shards a launch, the shard's own reflection rows as
+     sources); conv3x3 with halo rows (the
      per-conv sharded path's conv, staging its neighbours' boundary rows) at
      every shape of that path at 2000 x 2048 (shards of unequal heights),
      timed against the same conv reflecting its own rows and against
@@ -47,9 +49,13 @@ Phases (any failure raises and the script exits non-zero):
   3c. the sharded UHD path: ``WCTEngine(mode="16x", space=4, slab_rows=512,
      devices=["cuda:0"] * 4).stylize`` on the same pair, four row shards on
      the one card, counters zeroed; the counts must equal the sharded plan's
-     (20 ``halo_exchange_rows`` launches: 5 stages x 4 shards). With two or
-     more cards the halo check and this phase run once more across cards;
-     with one a line says that no cross-card run was made;
+     (one ``halo_exchange_rows`` launch at the first stage, which extends
+     the card's four shards whole, and one ``halo_fill_rows`` launch before
+     each later stage, which fills only the halo rows of the extended shards
+     the stage before decoded into). With two or more cards the halo
+     checks and this phase run once more across cards (one exchange and one
+     fill a stage on each card); with one a line says that no cross-card run
+     was made;
   4. the card's 512^2 output against the same engine on the CPU (PSNR);
   4b. the UHD slab output against the plain per-stage cascade on the card
      (PSNR), a 2048^2 slab run (``slab_rows=512``) against the plain one,
@@ -77,8 +83,11 @@ Phases (any failure raises and the script exits non-zero):
      its peak memory and profile; ``stylize(as_uint8=True)`` host to host
      with the streamed last stage against without, three runs each, both
      with the slab plan's launch counts;
-  5c. ``halo_exchange_rows`` at the sharded UHD shapes beside its plain
-     version and ``torch.cat`` of ready slices; the warm sharded UHD cascade
+  5c. ``halo_exchange_rows`` and ``halo_fill_rows`` at the sharded UHD
+     launches beside the bound, their plain versions, ``torch.cat`` of the
+     extended shards (the exchange at every stage that the fill replaced)
+     and the same rows by ``copy_``/``zero_``, on the device and by
+     events, summed per cascade; the warm sharded UHD cascade
      (median of 3), its peak memory and profile;
   5d. the warm per-conv sharded cascade (``space=4`` on the one card) at
      2048^2 and at 2000 x 2048: median of 5, device busy and idle share,
@@ -199,9 +208,9 @@ Phases (any failure raises and the script exits non-zero):
      extended shards, and at edge shapes (``BF16_HALO_EDGE``: one row,
      ragged tiles of every bf16 template, N = 2, rows off 16-byte alignment,
      Cin 3, the ``wgmma`` widths); the bf16 conv on photo-WCT's unpooled
-     2048^2 decoder maps; ``halo_exchange_rows`` on bf16 shards exactly at
-     every (stage, shard) shape of the sharded UHD path, timed; (f) the bf16
-     engines with every count zeroed before and read after (the per-conv
+     2048^2 decoder maps; ``halo_exchange_rows`` and ``halo_fill_rows`` on
+     bf16 shards exactly at every launch of the sharded UHD path, timed as
+     in 5c; (f) the bf16 engines with every count zeroed before and read after (the per-conv
      plan ``per_conv_path_calls``, ``sharded_path_calls`` and
      ``pwct_path_calls`` on the bf16 kernels, ``bf16_totals``): per-conv
      (``space=4`` on ``cuda:0``) at 2048^2 and 2000 x 2048 against the bf16
@@ -213,7 +222,7 @@ Phases (any failure raises and the script exits non-zero):
      cuda:0,cuda:0,cuda:0,cuda:0`` on one 2048^2 pair writes the bf16
      sharded engine's pixels.
 
-With ``--cross-card`` (two or more cards) it runs only the halo check, the
+With ``--cross-card`` (two or more cards) it runs only the halo checks, the
 conv3x3 halo staging with its rows on other cards (float32 and bf16), the
 per-conv 2048^2 cascade with one shard per card against the plain one and
 timed (float32 and bf16), and the sharded UHD path with neighbouring shards
@@ -253,6 +262,7 @@ KERNEL_META = {
     "max_pool_2x2": ("pool.cu", "collaborative_distillation_tpu/ops/pallas/pool.py:96"),
     "upsample_nearest_2x": ("pool.cu", "collaborative_distillation_tpu/ops/pallas/pool.py:141"),
     "halo_exchange_rows": ("halo.cu", "collaborative_distillation_tpu/ops/pallas/halo.py:148"),
+    "halo_fill_rows": ("halo.cu", "collaborative_distillation_tpu/ops/pallas/halo.py:148"),
     "conv3x3_reflect_bf16": ("conv3x3_bf16.cu",
                              "collaborative_distillation_tpu/ops/pallas/conv.py:754"),
     "conv1x1_bias_bf16": ("conv1x1.cu", "collaborative_distillation_tpu/ops/pallas/conv.py:437"),
@@ -264,16 +274,22 @@ KERNEL_META = {
 # copy of the features, as the reference upcasts before its kernel)
 BF16_OF = {"conv3x3_reflect": "conv3x3_reflect_bf16", "conv1x1_bias": "conv1x1_bias_bf16",
            "max_pool_2x2": "max_pool_2x2_bf16", "upsample_nearest_2x": "upsample_nearest_2x_bf16"}
-KERNEL_PATH = {"conv1x1_bias": "UHD slab", "halo_exchange_rows": "UHD sharded"}
+# the kernels that only the slab-in-shard path launches
+SHARDED_ONLY = ("halo_exchange_rows", "halo_fill_rows")
+KERNEL_PATH = {"conv1x1_bias": "UHD slab", **{k: "UHD sharded" for k in SHARDED_ONLY}}
 # conv3x3_reflect with halo rows (the per-conv sharded path): its own rows in
 # the checks, the kernel's in the table; the same in bf16, and the halo
-# exchange on bf16 shards (phase 10e)
+# exchange and fill on bf16 shards (phase 10e)
 KERNEL_OF = {"conv3x3_halo": "conv3x3_reflect", "conv3x3_halo_bf16": "conv3x3_reflect_bf16",
-             "halo_exchange_rows_bf16": "halo_exchange_rows"}
+             **{k + "_bf16": k for k in SHARDED_ONLY}}
 # the float32 check of each check that Bench runs on bf16 inputs
 F32_OF = {**{b: f for f, b in BF16_OF.items()}, "conv3x3_halo_bf16": "conv3x3_halo",
-          "halo_exchange_rows_bf16": "halo_exchange_rows"}
+          **{k + "_bf16": k for k in SHARDED_ONLY}}
 CONV3X3_NAMES = "conv3x3_kernel"   # the profiler's names of csrc/conv3x3.cu's kernels
+# the profiler's names of csrc/halo.cu's kernels (and of the grid-stride
+# kernel it held before the segment tables, so that bench_cascade.py reads
+# an older checkout's halo time too)
+HALO_NAMES = ("segment_copy_kernel", "halo_rows_kernel")
 # the profiler's names of the bf16 ring kernel's conv3x3 and 1x1 instantiations
 # (bf16_igemm.cuh's ``bf16_ring_kernel<Ring<TAPS, ...>>``)
 BF16_RING_KERNEL = "bf16_ring_kernel"
@@ -288,7 +304,8 @@ BF16_CONV_NAMES = {"conv3x3_reflect_bf16": "Ring<9,", "conv1x1_bias_bf16": "Ring
 #   covariance at the 2048^2 and UHD stage-1 maps vs float64 centred:
 #     1e-4 * max|cov64|.
 #   feature cache on vs off: 1e-6 (the same kernels on the same inputs).
-#   pool, upsample, halo_exchange_rows: exact (a max and copies).
+#   pool, upsample, halo_exchange_rows, halo_fill_rows: exact (a max and
+#     copies).
 #   a whole encoder or decoder, card vs CPU on the same inputs (phases 2
 #     and 9a): 1e-4 of the output's largest magnitude (CONV_TOL compounded
 #     over up to 16 convs, pools and unpools; 7.6e-6 read at 16x16).
@@ -443,26 +460,33 @@ def slab_path_calls(pyramid, stages, margins, slab, h, w, sh, sw, cache_bytes, s
     return calls, layer_of
 
 
-def sharded_path_calls(pyramid, stages, margins, slab, space, h, w, sh, sw):
+def sharded_path_calls(pyramid, stages, margins, slab, space, h, w, sh, sw, devices=None):
     """Kernel calls of one sharded slab cascade (no style key) on an (h, w)
     content cut into ``space`` row shards of a multiple of ``slab`` rows,
     and an (sh, sw) style: per stage the style's encode and statistics on
-    the engine's device, one halo exchange per shard (2 * margin rows from
-    each neighbour), then per shard pass 1 over its slabs of ``slab + 2 *
-    margin`` rows and pass 2, which encodes each slab again."""
+    the engine's device; the halos (2 * margin rows from each neighbour),
+    at the first stage one ``halo_exchange_rows`` launch a card that
+    extends its shards whole, at every later one a ``halo_fill_rows``
+    launch a card that fills only the halo rows of the extended shards the
+    stage before decoded into; then per shard pass 1 over its slabs of
+    ``slab + 2 * margin`` rows and pass 2, which encodes each slab again.
+    ``devices``: the shards' devices (default: all on one card). The halos'
+    shapes are (1, h_loc, w, 3, hm, shards on the card, 0)."""
     calls, layer_of = Counter(), {}
     h_loc = h // space
     n_slabs = h_loc // slab
-    for k in stages:
+    per_card = Counter(devices or ["cuda:0"] * space)
+    for i, k in enumerate(stages):
         es, ds = pyramid[k]["enc_spec"], pyramid[k]["dec_spec"]
         c, down = es.out_channels, 2 ** (k - 1)
         hh, ww = _encoder_calls(calls, layer_of, k, es, sh, sw)
         calls[("sum_gram", (hh * ww, c))] += 1
         hm = 2 * margins[k]
         rows = slab + hm
+        for n_shards in per_card.values():
+            calls[("halo_fill_rows" if i else "halo_exchange_rows",
+                   (1, h_loc, w, 3, hm, n_shards, 0))] += 1
         for d in range(space):
-            pos = "first" if d == 0 else "last" if d == space - 1 else "mid"
-            calls[("halo_exchange_rows", (1, h_loc, w, 3, hm, pos, 0))] += 1
             for _ in range(n_slabs):
                 fh, fw = _encoder_calls(calls, layer_of, k, es, rows, w)
                 calls[("sum_gram", (slab // down * fw, c))] += 1
@@ -579,12 +603,16 @@ def work(kernel, shape, itemsize=4):
         # rows, read once (a null side reads nothing new)
         n, h, w, ci, _, _, sides = shape[:7]
         return e * n * w * ci * (2 if sides == "both" else 1), 0
-    if kernel == "halo_exchange_rows":
-        # the extended map written once; the shard and each halo that has a
-        # source read once (a global edge's zero fill reads nothing)
+    if kernel in SHARDED_ONLY:
+        # (N, H, W, C, hm, position or shards, offset): every row written
+        # once (the fill writes only the halos), each row with a source read
+        # once (a global edge's zero fill reads nothing); k shards of one
+        # launch have 2 (k - 1) sourced halos
         n, h, w, c, hm, pos, _ = shape
-        sources = (pos != "first") + (pos != "last")
-        return e * n * w * c * ((h + 2 * hm) + (h + sources * hm)), 0
+        k, sources = ((1, (pos != "first") + (pos != "last")) if isinstance(pos, str)
+                      else (pos, 2 * (pos - 1)))
+        inner = 2 * h if kernel == "halo_exchange_rows" else 0
+        return e * n * w * c * (k * (inner + 2 * hm) + sources * hm), 0
     n, h, w, c = shape
     if kernel == "max_pool_2x2":
         out = n * (h // 2) * (w // 2) * c
@@ -606,6 +634,44 @@ def device_ms(torch, fn, reps):
         torch.cuda.synchronize()
     return sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
                if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e3 / reps
+
+
+L2_FLUSH_BYTES = 256 << 20   # over four times the H100's 50 MB L2
+
+
+def queued_ms(torch, fn, reps, flush=True):
+    """Milliseconds of device time per call, the host's pace taken out and
+    no profiler: a sleep kernel holds the stream while ``reps`` calls, each
+    between two events, are queued, so the card runs them back to back. With
+    ``flush`` a read of ``L2_FLUSH_BYTES`` before each call evicts the last
+    call's rows from L2 (outside the events), so each call reads and writes
+    HBM: back to back on the same buffers, a copy of under 50 MB is served
+    from L2 and reads faster than its HBM bound. The sleep lasts some four
+    times the enqueue time of the calls, measured just before (cycles at
+    ~2 GHz)."""
+    junk = (torch.empty(L2_FLUSH_BYTES // 4, device="cuda") if flush else None)
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+
+    def queue():
+        for a, b in pairs:
+            if flush:
+                junk.amax()
+            a.record()
+            fn()
+            b.record()
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    queue()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(8e9 * enqueue_s) + 1_000_000)
+    queue()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 def cuda_ms(torch, fn, reps):
@@ -638,6 +704,8 @@ class Bench:
 
     def run(self, kernel, shape, layer=None, timed=False, reps=10):
         with self.torch.no_grad():
+            if KERNEL_OF.get(kernel, kernel) in SHARDED_ONLY:
+                return self._run_halo(kernel, shape, timed, reps)
             if kernel in F32_OF:
                 return self._run_bf16(kernel, shape, layer, timed, reps)
             return self._run(kernel, shape, layer, timed, reps)
@@ -647,8 +715,8 @@ class Bench:
         params rounded to bf16), one-ulp agreement with the plain version
         (pool and upsample exact), times against cuDNN's bf16 reflect conv,
         ``torch.addmm`` in bf16, ``F.max_pool2d``, ``F.interpolate``. The
-        halo conv and the halo exchange on bf16 maps as ``_run`` takes them
-        in float32 (the conv within one ulp, the exchange exactly)."""
+        halo conv on bf16 maps as ``_run`` takes it in float32, within one
+        ulp."""
         torch, F = self.torch, self.F
         from collaborative_distillation_tpu_torch.ops import cuda as kc
         bf = torch.bfloat16
@@ -680,17 +748,6 @@ class Bench:
             parts = [x[:, 1:2] if top is None else top, x, x[:, -2:-1] if bot is None else bot]
             library = lambda: torch.cat(parts, dim=1)
             own = lambda: k(x, wt, b, relu)
-        elif kernel == "halo_exchange_rows_bf16":
-            # (N, H, W, C, hm, shard position, offset), as in float32
-            n, h, w, c, hm, pos, offset = shape
-            x, up, down = (self.rand(n * h * w * c + offset).to(bf)[offset:].view(n, h, w, c)
-                           for _ in range(3))
-            args = (x, up[:, -hm:] if pos != "first" else None,
-                    down[:, :hm] if pos != "last" else None, hm)
-            zeros = torch.zeros((n, hm, w, c), device="cuda", dtype=bf)
-            parts = [zeros if args[1] is None else args[1], x,
-                     zeros if args[2] is None else args[2]]
-            library = lambda: torch.cat(parts, dim=1)
         elif kernel == "conv3x3_reflect_bf16":
             n, h, w, ci, co, relu, *rest = shape
             offset = rest[0] if rest else 0
@@ -867,26 +924,6 @@ class Bench:
             call = lambda: k(x, shift)
             plain = lambda: k.plain(x, shift)
             library = lambda: x.T @ x
-        elif kernel == "halo_exchange_rows":
-            # (N, H, W, C, hm, shard position, float offset): the shard and
-            # its neighbours are contiguous maps that start ``offset`` floats
-            # into their buffers; the halos are the neighbours' boundary rows
-            n, h, w, c, hm, pos, offset = shape
-            x, up, down = ((self.rand(n * h * w * c + offset))[offset:].view(n, h, w, c)
-                           for _ in range(3))
-            top = up[:, -hm:] if pos != "first" else None
-            bot = down[:, :hm] if pos != "last" else None
-            got, ref = k(x, top, bot, hm), k.plain(x, top, bot, hm)
-            if got.shape != ref.shape:
-                raise AssertionError(f"{kernel}{shape}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
-            err = float((got - ref).abs().max())
-            tol, scale = 0.0, 1.0
-            del got, ref
-            call = lambda: k(x, top, bot, hm)
-            plain = lambda: k.plain(x, top, bot, hm)
-            zeros = torch.zeros((n, hm, w, c), device="cuda")
-            parts = [zeros if top is None else top, x, zeros if bot is None else bot]
-            library = lambda: torch.cat(parts, dim=1)
         else:
             n, h, w, c = shape
             x = self.rand(n, h, w, c)
@@ -915,6 +952,120 @@ class Bench:
                 row.update(conv_ms=row["ms"], reflect_ms=cuda_ms(torch, own, reps))
                 row["ms"] = row["conv_ms"] - row["reflect_ms"]
         return row
+
+    def _run_halo(self, kernel, shape, timed, reps):
+        """``halo_exchange_rows`` or ``halo_fill_rows`` (``_bf16``: on bf16
+        maps) at (N, H, W, C, hm, position or shards, offset). A position
+        ("first", "mid", "last") is one exchange of one shard; an int k is
+        one launch for k neighbouring shards of one card, as the
+        slab-in-shard path makes it: the exchange extends k shards, the fill
+        writes the halo rows of k extended shards from their neighbours'
+        interiors. Every map starts ``offset`` elements into its buffer.
+        Exactly the plain version (the fill's halos hold NaN before it).
+        Timed on the device (:func:`queued_ms`, L2 evicted before each call:
+        a fill is shorter than its wrapper's host time, which events count)
+        and by events (``*event_ms``, the host's pace included): ``ms`` the
+        kernel (``l2_warm_ms`` back to back on the same buffers, L2 kept);
+        ``library_ms`` torch.cat of the extended shards (the exchange at
+        every stage that the fill replaces); ``copy_ms`` the same row blocks
+        by one ``copy_`` or ``zero_`` each into ready maps (for the fill its
+        plain version); ``plain_ms`` by events."""
+        torch = self.torch
+        from collaborative_distillation_tpu_torch.ops import cuda as kc
+        from collaborative_distillation_tpu_torch.ops.cuda import halo as khalo
+        base = KERNEL_OF.get(kernel, kernel)
+        dtype = torch.bfloat16 if kernel.endswith("_bf16") else torch.float32
+        n, h, w, c, hm, pos, offset = shape
+
+        def rows(r):
+            return self.rand(n * r * w * c + offset).to(dtype)[offset:].view(n, r, w, c)
+
+        fill = base == "halo_fill_rows"
+        k = 1 if isinstance(pos, str) else pos
+        maps = [rows(h + 2 * hm if fill else h) for _ in range(k)]
+        interiors = [m[:, hm:hm + h] for m in maps] if fill else maps
+        if isinstance(pos, str):
+            up, down = rows(h), rows(h)
+            items = [(maps[0], up[:, -hm:] if pos != "first" else None,
+                      down[:, :hm] if pos != "last" else None)]
+        else:
+            items = [(maps[d], interiors[d - 1][:, -hm:] if d else None,
+                      interiors[d + 1][:, :hm] if d < k - 1 else None) for d in range(k)]
+        zeros = torch.zeros((n, hm, w, c), device="cuda", dtype=dtype)
+        parts = [[zeros if t is None else t, x, zeros if b is None else b]
+                 for x, (_, t, b) in zip(interiors, items)]
+        if fill:
+            want = [m.clone() for m in maps]
+            khalo.halo_fill_rows_plain([(m, *it[1:]) for m, it in zip(want, items)], hm)
+            for m in maps:
+                m[:, :hm] = float("nan")
+                m[:, hm + h:] = float("nan")
+            call = lambda: kc.halo_fill_rows(items, hm)
+            plain = lambda: khalo.halo_fill_rows_plain(items, hm)
+            copy = plain
+            call()
+            got = maps
+        else:
+            want = [khalo.halo_exchange_rows_plain(*it, hm) for it in items]
+            call = lambda: kc.halo_exchange_rows_many(items, hm)
+            plain = lambda: [khalo.halo_exchange_rows_plain(*it, hm) for it in items]
+            outs = [torch.empty_like(x) for x in want]
+
+            def copy():
+                for out, (x, t, b) in zip(outs, items):
+                    for dst, src in ((out[:, :hm], t), (out[:, hm:hm + h], x),
+                                     (out[:, hm + h:], b)):
+                        dst.zero_() if src is None else dst.copy_(src)
+            got = call()
+        torch.cuda.synchronize()
+        if not all(g.shape == r.shape and torch.equal(g, r) for g, r in zip(got, want)):
+            raise AssertionError(f"{kernel}{shape}: the kernel differs from its plain version")
+        del got, want
+        row = {"kernel": kernel, "shape": list(shape), "max_abs_err": 0.0, "max_rel_err": 0.0,
+               "tol": 0.0, "ulp_misses": 0, "ok": True}
+        if timed:
+            nbytes, _ = work(base, shape, 2 if dtype == torch.bfloat16 else 4)
+            cat = lambda: [torch.cat(p, dim=1) for p in parts]
+            row.update(ms=queued_ms(torch, call, reps),
+                       l2_warm_ms=queued_ms(torch, call, reps, flush=False),
+                       event_ms=cuda_ms(torch, call, reps),
+                       plain_ms=cuda_ms(torch, plain, reps),
+                       library_ms=queued_ms(torch, cat, reps),
+                       library_event_ms=cuda_ms(torch, cat, reps),
+                       copy_ms=queued_ms(torch, copy, reps),
+                       copy_event_ms=cuda_ms(torch, copy, reps),
+                       bytes_ms=nbytes / PEAK_BYTES * 1e3, flops_ms=0.0)
+        return row
+
+
+def halo_per_cascade(rows, label) -> dict:
+    """The halos of one slab-in-shard cascade from its timed halo rows
+    (each with its ``calls``): the exchange and the fills summed, beside the
+    bound and both yardsticks; logged."""
+    t = {"launches": sum(r["calls"] for r in rows), **path_times(rows),
+         **{k: path_times([r for r in rows if r["kernel"].startswith(k)])["ms"]
+            for k in SHARDED_ONLY}}
+    log(f"{label} slab-in-shard halos per UHD cascade: {t['ms']:.4f} ms of device time over "
+        f"{t['launches']} launches, L2 evicted before each (exchange "
+        f"{t['halo_exchange_rows']:.4f}, fills {t['halo_fill_rows']:.4f}; L2 kept "
+        f"{t['l2_warm_ms']:.4f}), bound {t['bound_ms']:.4f} ({t['bound_by']}); torch.cat "
+        f"of the extended shards {t['library_ms']:.4f}, copy_/zero_ of the same rows "
+        f"{t['copy_ms']:.4f}; by events (host pace included) {t['event_ms']:.4f}, torch.cat "
+        f"{t['library_event_ms']:.4f}, copy_/zero_ {t['copy_event_ms']:.4f}, plain "
+        f"{t['plain_ms']:.4f}")
+    return t
+
+
+def halo_in_cascade(prof, launches) -> dict:
+    """The halos' device time in one profiled slab-in-shard cascade on one
+    card, by kernel: the first ``halo.cu`` launch is the exchange, the rest
+    the fills (``launches`` of them in all, else not measured: None). In
+    the cascade a fill reads rows that the decode has just written, from L2
+    where they still lie there."""
+    ms = prof.get("halo_launch_ms") or []
+    if len(ms) != launches:
+        return {k: None for k in SHARDED_ONLY}
+    return {"halo_exchange_rows": ms[0], "halo_fill_rows": sum(ms[1:])}
 
 
 def conv3x3_sha256(torch, kc, calls) -> str:
@@ -949,8 +1100,10 @@ def path_times(mine) -> dict:
            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
            "bound_bytes_ms": by_bytes, "bound_ops_ms": by_ops,
            "library_ms": tot("library_ms")}
-    if mine and all("library_conv_ms" in r for r in mine):
-        out["library_conv_ms"] = tot("library_conv_ms")
+    for key in ("library_conv_ms", "copy_ms", "event_ms", "library_event_ms", "copy_event_ms",
+                "l2_warm_ms"):
+        if mine and all(key in r for r in mine):
+            out[key] = tot(key)
     return out
 
 
@@ -995,17 +1148,25 @@ def profile_cascade(torch, eng, img, sty, label="phase 5", **kw) -> dict:
     sg_calls = sum(n for name, n in calls.items() if "sum_gram" in name)
     c3 = sum(ms for name, ms in kernels.items() if CONV3X3_NAMES in name)
     c3_calls = sum(n for name, n in calls.items() if CONV3X3_NAMES in name)
+    halo = sum(ms for name, ms in kernels.items() if any(h in name for h in HALO_NAMES))
+    halo_calls = sum(n for name, n in calls.items() if any(h in name for h in HALO_NAMES))
+    halo_launch_ms = [ms for _, ms in sorted(
+        (e.time_range.start, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+        if str(getattr(e, "device_type", "")).endswith("CUDA")
+        and any(h in e.name for h in HALO_NAMES))]
     log(f"{label}: profiled cascade wall {wall_ms:.2f} ms, event span {span_ms:.2f} ms, "
         f"device busy {busy:.2f} ms, idle share {1 - busy / span_ms:.3f}; sum_gram "
         f"{sg:.3f} ms over {sg_calls} CUDA launches; conv3x3_reflect {c3:.3f} ms over "
         f"{c3_calls}"
         + "".join(f"; {name} {bf16[name]:.3f} ms over {bf16[name + '_calls']}"
                   for name in BF16_CONV_NAMES if bf16[name + "_calls"])
+        + (f"; halo.cu {halo:.3f} ms over {halo_calls}" if halo_calls else "")
         + "; top device time:")
     for name, ms in top:
         log(f"    {ms:8.3f} ms  x{calls[name]:<4d} {name}")
     return {"wall_ms": wall_ms, "span_ms": span_ms, "busy_ms": busy,
             "idle_share": 1 - busy / span_ms, "sum_gram_ms": sg, "conv3x3_ms": c3,
+            "halo_ms": halo, "halo_calls": halo_calls, "halo_launch_ms": halo_launch_ms,
             "bf16_conv_ms": dict(bf16),
             "by_kernel_ms": dict(top), "calls": {n: calls[n] for n, _ in top}}
 
@@ -1076,9 +1237,10 @@ def sharded_main_path(torch, kc, engine, c_uhd, s2k, calls_sh, label) -> dict:
 
 def cross_card(torch, kc, WCTEngine, bench, c_uhd, c2k, s2k, calls_sh) -> dict:
     """Phases 2, 3c, 4c and 5c for shards on different cards (two or more
-    visible): the halo kernel reading neighbours' rows on other cards (peer
-    pointers, or the copy where the cards have no peer access) against its
-    plain version, exactly; conv3x3's halo staging reading its rows there
+    visible; ``calls_sh`` the sharded plan with the shards spread over them):
+    the halo exchange and fill reading neighbours' rows on other cards (peer
+    pointers, or the copy where the cards have no peer access) against their
+    plain versions, exactly; conv3x3's halo staging reading its rows there
     against its plain version (CONV_TOL); the per-conv 2048^2 cascade with
     one shard per card against the plain one, with its launches, and timed
     (:func:`per_conv_timing`: median of 5, peak per card); the sharded
@@ -1101,8 +1263,21 @@ def cross_card(torch, kc, WCTEngine, bench, c_uhd, c2k, s2k, calls_sh) -> dict:
                 got, kc.halo_exchange_rows.plain(x, up[:, -hm:], down[:, :hm], hm))):
             raise AssertionError(f"halo_exchange_rows{(n, h, w, c, hm, offset)} with "
                                  f"neighbours on other cards differs from its plain version")
-    log("cross-card: halo_exchange_rows with neighbours on other cards equals its plain "
-        "version exactly at 3 shapes")
+        # the fill of two extended shards on this card, their outer halos
+        # from the neighbours' interiors on the other cards
+        exts = [bench.rand(n * (h + 2 * hm) * w * c + offset)[offset:].view(n, h + 2 * hm, w, c)
+                for _ in range(2)]
+        items = [(exts[0], up[:, -hm:], exts[1][:, hm:2 * hm]),
+                 (exts[1], exts[0][:, h:h + hm], down[:, :hm])]
+        want = [e.clone() for e in exts]
+        kc.halo_fill_rows.plain([(m, *it[1:]) for m, it in zip(want, items)], hm)
+        kc.halo_fill_rows(items, hm)
+        torch.cuda.synchronize()
+        if not all(torch.equal(e, r) for e, r in zip(exts, want)):
+            raise AssertionError(f"halo_fill_rows{(n, h, w, c, hm, offset)} with neighbours "
+                                 f"on other cards differs from its plain version")
+    log("cross-card: halo_exchange_rows and halo_fill_rows with neighbours on other cards "
+        "equal their plain versions exactly at 3 shapes")
     worst = 0.0
     for n, h, w, ci, co in [(1, 512, 2048, 3, 16), (2, 9, 33, 16, 16), (1, 64, 256, 64, 64),
                             (1, 32, 128, 128, 128), (1, 17, 40, 256, 24), (1, 1, 64, 32, 24)]:
@@ -1167,7 +1342,7 @@ def cross_card(torch, kc, WCTEngine, bench, c_uhd, c2k, s2k, calls_sh) -> dict:
         f"the plain one {db_pc:.2f} dB (min {PSNR_MIN_DB}), launches {pc_counts}")
     pc_plan = sum(per_conv_calls(per_conv.pyramid, per_conv.stages, [2048 // SHARDS] * SHARDS,
                                  2048).values())
-    if not (db_pc >= PSNR_MIN_DB and pc_counts == {"halo_exchange_rows": 0,
+    if not (db_pc >= PSNR_MIN_DB and pc_counts == {"halo_exchange_rows": 0, "halo_fill_rows": 0,
                                                    "conv3x3_halo": pc_plan}):
         raise AssertionError(f"cross-card per-conv cascade: {db_pc:.2f} dB, launches "
                              f"{pc_counts}, predicted {pc_plan} halo convs")
@@ -1175,6 +1350,7 @@ def cross_card(torch, kc, WCTEngine, bench, c_uhd, c2k, s2k, calls_sh) -> dict:
         f"shapes, none past one bf16 ulp; the bf16 per-conv 2048^2 cascade on {spread} vs the "
         f"bf16 plain one {db_pc16:.2f} dB (min {BF16_SHARD_MIN_DB}), launches {pc16_counts}")
     if not (db_pc16 >= BF16_SHARD_MIN_DB and pc16_counts == {"halo_exchange_rows": 0,
+                                                            "halo_fill_rows": 0,
                                                             "conv3x3_halo": pc_plan}):
         raise AssertionError(f"cross-card bf16 per-conv cascade: {db_pc16:.2f} dB, launches "
                              f"{pc16_counts}, predicted {pc_plan} halo convs")
@@ -1427,7 +1603,7 @@ def host_boundary(torch, kc, slab_eng, eng, c_uhd, c2k, s2k, expect_uhd) -> dict
         f"predicted {expect_uhd}; bytes equal to stylize_planes(on_device=True) + "
         f"encode_jpeg_yuv420: {body == whole}; stylize_planes_jpeg's: {planes_body == whole}")
     if counts != expect_uhd or any(v <= 0 for n, v in counts.items()
-                                   if n != "halo_exchange_rows"):
+                                   if n not in SHARDED_ONLY):
         raise AssertionError(f"stylize_jpeg launches {counts} != predicted {expect_uhd}")
     if body is None or body != whole or planes_body != whole:
         raise AssertionError("stylize_jpeg bytes differ from stylize_planes + encode")
@@ -1526,11 +1702,12 @@ def _zero(kc) -> None:
 
 def per_conv_run(kc, engine, img, sty):
     """One per-conv sharded cascade on device maps, the counters zeroed
-    around it: its output, and its exchange launches and halo convs (float32
-    or bf16)."""
+    around it: its output, and its exchange and fill launches and halo convs
+    (float32 or bf16)."""
     _zero(kc)
     out = engine.stylize_device(img, sty)
     return out, {"halo_exchange_rows": kc.halo_exchange_rows.launches,
+                 "halo_fill_rows": kc.halo_fill_rows.launches,
                  "conv3x3_halo": (kc.conv3x3_reflect.halo_launches
                                   + kc.conv3x3_reflect_bf16.halo_launches)}
 
@@ -3486,9 +3663,9 @@ def bf16_sharded_phase(torch, kc, WCTEngine, bench, eng, eng16, c2k, s2k, c_uhd,
     shard_checks = [bench.run(kernel, shape, layer)
                     for (kernel, shape), layer in sorted(shard_shapes.items(), key=str)]
     unpooled = unpooled_conv_checks(torch, kc, eng16.pyramid, stages, 2048, 2048)
-    xch = [{**bench.run("halo_exchange_rows_bf16", shape, timed=True), "calls": n}
+    xch = [{**bench.run(kernel + "_bf16", shape, timed=True), "calls": n}
            for (kernel, shape), n in sorted(calls_sh.items(), key=str)
-           if kernel == "halo_exchange_rows"]
+           if kernel in SHARDED_ONLY]
     per_cascade = lambda key: sum(r[key] * r["calls"] for r in halo)
     halo_t = {"shard_rows": awk_rows, "launches": sum(pc_calls.values()), **path_times(halo),
               **{key: per_cascade(key) for key in ("conv_ms", "reflect_ms", "event_ms",
@@ -3498,8 +3675,10 @@ def bf16_sharded_phase(torch, kc, WCTEngine, bench, eng, eng16, c2k, s2k, c_uhd,
     by_kernel = Counter(r["kernel"] for r in shard_checks)
     unpooled_t = {"launches": len(unpooled), **path_times(unpooled),
                   "max_abs_err": max(r["max_abs_err"] for r in unpooled)}
-    xch_t = {"launches": sum(r["calls"] for r in xch), **path_times(xch),
-             "max_abs_err": max(r["max_abs_err"] for r in xch)}
+    xch_t = halo_per_cascade(xch, "phase 10e: bf16")
+    xch_by = {k: {"launches": sum(r["calls"] for r in xch if r["kernel"] == k + "_bf16"),
+                  **path_times([r for r in xch if r["kernel"] == k + "_bf16"]),
+                  "max_abs_err": 0.0} for k in SHARDED_ONLY}
     out.update(halo_conv=halo_t, unpooled=unpooled_t, halo_exchange=xch_t,
                halo_edge_shapes=len(edge), halo_conv_shapes=halo,
                sharded_shape_checks={"by_kernel": dict(by_kernel),
@@ -3520,10 +3699,9 @@ def bf16_sharded_phase(torch, kc, WCTEngine, bench, eng, eng16, c2k, s2k, c_uhd,
         f"the device); bf16 conv3x3 on "
         f"{len(unpooled)} max-unpooled 2048^2 decoder maps: {unpooled_t['ms']:.3f} ms a cascade "
         f"(bound {unpooled_t['bound_ms']:.3f}, plain {unpooled_t['plain_ms']:.3f}, cuDNN bf16 "
-        f"{unpooled_t['library_ms']:.3f}); halo_exchange_rows on bf16 shards at {len(xch)} "
-        f"sharded UHD shapes, exact: {xch_t['ms']:.3f} ms over {xch_t['launches']} launches "
-        f"(bound {xch_t['bound_ms']:.3f}, plain {xch_t['plain_ms']:.3f}, torch.cat "
-        f"{xch_t['library_ms']:.3f})")
+        f"{unpooled_t['library_ms']:.3f}); halo_exchange_rows and halo_fill_rows on bf16 "
+        f"shards at the {len(xch)} launch shapes of the sharded UHD path, exact on both "
+        f"paths (the per-cascade line above)")
 
     # (f) the bf16 engines, every count zeroed before and read after
     every = kc.KERNELS + kc.BF16_KERNELS
@@ -3657,15 +3835,18 @@ def bf16_sharded_phase(torch, kc, WCTEngine, bench, eng, eng16, c2k, s2k, c_uhd,
     log(f"phase 10g: cli.stylize --bf16 --space {SHARDS} --slab_rows {SHARD_SLAB} wrote "
         f"{os.path.basename(path)} in {out['cli_s']:.2f} s: the bf16 sharded engine's pixels")
     out["phase10efg_s"] = time.perf_counter() - t_e
+    in_cascade = halo_in_cascade(warm["sharded_uhd"]["profile"],
+                                 sum(launches_sh[k] for k in SHARDED_ONLY))
     log(f"phase 10e-g: {out['phase10efg_s']:.1f} s")
     sub = {"conv3x3_reflect_bf16": {
                "per_conv_halo": {"path": f"bf16 per-conv {PC_AWK_H}x2048, what the rows add",
                                  **halo_t},
                "unpooled": {"path": "bf16 photo-WCT 2048^2 decoders, unpooled maps",
                             **unpooled_t}},
-           "halo_exchange_rows": {
-               "bf16_sharded": {"path": "bf16 UHD sharded",
-                                "launches_counted": launches_sh["halo_exchange_rows"], **xch_t}}}
+           **{k: {"bf16_sharded": {"path": "bf16 UHD sharded",
+                                   "launches_counted": launches_sh[k], **xch_by[k],
+                                   "in_cascade_ms": in_cascade[k]}}
+              for k in SHARDED_ONLY}}
     return out, sub
 
 
@@ -3740,13 +3921,19 @@ def main() -> int:
     calls_sh, layers_sh = sharded_path_calls(pyr, eng.stages, cas.margins,
                                              shard_eng._tiled_slab, SHARDS, UHD_H, UHD_W,
                                              2048, 2048)
+    # the same path one shard a card where there are several (cross_card's
+    # spread): one exchange and one fill a stage on each card
+    calls_x, _ = sharded_path_calls(pyr, eng.stages, cas.margins, shard_eng._tiled_slab,
+                                    SHARDS, UHD_H, UHD_W, 2048, 2048,
+                                    devices=[f"cuda:{i % torch.cuda.device_count()}"
+                                             for i in range(SHARDS)])
     names = [k.__name__ for k in kc.KERNELS]
     if "--cross-card" in sys.argv[1:]:
         # only what exists across cards: needs two or more, prints no kernel table
         if torch.cuda.device_count() < 2:
             print("chip_smoke --cross-card: needs two or more CUDA devices", file=sys.stderr)
             return 1
-        detail["cross_card"] = cross_card(torch, kc, WCTEngine, bench, c_uhd, c2k, s2k, calls_sh)
+        detail["cross_card"] = cross_card(torch, kc, WCTEngine, bench, c_uhd, c2k, s2k, calls_x)
         os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
         with open(os.path.join(HERE, "chiprun_out", "chip_smoke_cross_card.json"), "w") as f:
             json.dump(detail, f, indent=1)
@@ -3796,11 +3983,17 @@ def main() -> int:
               (1, 1, 257, 64, 64, False, True, 3), (1, 1, 129, 128, 128, False, True, 1),
               (1, 3, 100001, 24, 24, False, True, 1)]]
     # halo: (N, H, W, C, hm, position, float offset): one row, the whole
-    # neighbour, N = 2, W*C not a multiple of 4, shards at odd offsets
+    # neighbour, N = 2, W*C not a multiple of 4, shards at odd offsets; and
+    # with k shards of one launch instead of a position, the exchange and
+    # the fill (two to five shards, the same edges)
     edge += [("halo_exchange_rows", s) for s in
              [(1, 8, 16, 8, 1, "mid", 0), (1, 8, 16, 8, 8, "mid", 0), (2, 8, 16, 8, 2, "mid", 0),
               (1, 6, 5, 3, 2, "mid", 0), (2, 6, 5, 3, 3, "first", 1), (1, 4, 7, 1, 1, "last", 3),
               (2, 64, 33, 3, 32, "mid", 2), (1, 1, 9, 4, 1, "mid", 0)]]
+    edge += [(kernel, s) for kernel in SHARDED_ONLY for s in
+             [(1, 8, 16, 8, 1, 3, 0), (1, 8, 16, 8, 8, 2, 0), (2, 8, 16, 8, 2, 4, 0),
+              (2, 6, 5, 3, 3, 3, 1), (1, 4, 7, 1, 1, 5, 3), (2, 64, 33, 3, 32, 2, 2),
+              (1, 1, 9, 4, 1, 2, 0), (1, 96, 2048, 3, 40, 4, 0)]]
     for kernel, shape in edge:
         checks.append(bench.run(kernel, shape))
     # the per-conv exchange's sources at a global edge: the shard's own rows
@@ -3823,7 +4016,7 @@ def main() -> int:
     only_sh = sorted(set(calls_sh) - set(calls_uhd), key=str)
     for kernel, shape in only_sh:
         checks.append(bench.run(kernel, shape, layers_sh.get(shape)))
-    n_halo = sum(kernel == "halo_exchange_rows" for kernel, _ in only_sh)
+    n_halo = sum(kernel in SHARDED_ONLY for kernel, _ in only_sh)
     log(f"phase 2: {len(checks)} kernel-vs-plain checks passed at the 512^2 path, edge, "
         f"all {len(calls_uhd)} UHD slab path, the plain UHD {biggest} and the "
         f"{len(only_sh)} further sharded UHD path shapes ({n_halo} of the halo, exact; "
@@ -4007,7 +4200,7 @@ def main() -> int:
         f"({cold_s:.3f} s first call; host transfer included); margins {cas.margins}; "
         f"launches {launches_uhd}, predicted {expect_uhd}")
     if launches_uhd != expect_uhd or any(v <= 0 for n, v in launches_uhd.items()
-                                         if n != "halo_exchange_rows"):
+                                         if n not in SHARDED_ONLY):
         raise AssertionError(f"UHD launch counts {launches_uhd} != predicted {expect_uhd}")
     change = float(np.abs(out_uhd - c_uhd.astype(np.float32) / 255.0).mean())
     if not (out_uhd.shape == c_uhd.shape and np.isfinite(out_uhd).all()
@@ -4025,7 +4218,7 @@ def main() -> int:
                                                "phase 3c")
     launches_sh = detail["sharded_main"]["launches"]
     if torch.cuda.device_count() >= 2:
-        detail["cross_card"] = cross_card(torch, kc, WCTEngine, bench, c_uhd, c2k, s2k, calls_sh)
+        detail["cross_card"] = cross_card(torch, kc, WCTEngine, bench, c_uhd, c2k, s2k, calls_x)
     else:
         log("phase 3c: one card: the four shards shared it; no cross-card run was made "
             "(peer pointers and the event ordering between cards' streams are not "
@@ -4088,9 +4281,9 @@ def main() -> int:
         db_awk_s = psnr_device(torch, pc_out, eng.stylize_device(img2k, sty2k[:, :PC_AWK_H]))
         del pc_out
     # one halo conv per conv of the content's encoder and the decoder, and shard
-    pc_expect = {"halo_exchange_rows": 0, "conv3x3_halo": sum(per_conv_calls(
-        pyr, eng.stages, [2048 // SHARDS] * SHARDS, 2048).values())}
-    awk_expect = {"halo_exchange_rows": 0, "conv3x3_halo": sum(per_conv_calls(
+    pc_expect = {"halo_exchange_rows": 0, "halo_fill_rows": 0, "conv3x3_halo": sum(
+        per_conv_calls(pyr, eng.stages, [2048 // SHARDS] * SHARDS, 2048).values())}
+    awk_expect = {"halo_exchange_rows": 0, "halo_fill_rows": 0, "conv3x3_halo": sum(per_conv_calls(
         pyr, eng.stages, per_conv._block_rows(PC_AWK_H), 2048).values())}
     log(f"phase 4c: UHD sharded (space={SHARDS}, slab_rows={SHARD_SLAB}) vs the single-card "
         f"slab cascade at the same slab size PSNR {db_sh:.2f} dB; 2048^2 per-conv sharded "
@@ -4163,14 +4356,16 @@ def main() -> int:
             r = bench.run(kernel, shape, timed=True)
             r["calls"] = n
             rows_sg_uhd.append(r)
-    # halo_exchange_rows lies on the sharded UHD path only
+    # the halo exchange and fill lie on the sharded UHD path only
     for (kernel, shape), n in sorted(calls_sh.items(), key=str):
-        if kernel == "halo_exchange_rows":
+        if kernel in SHARDED_ONLY:
             r = bench.run(kernel, shape, timed=True)
             r["calls"] = n
             rows.append(r)
     path_launches = {**launches, "conv1x1_bias": launches_uhd["conv1x1_bias"],
-                     "halo_exchange_rows": launches_sh["halo_exchange_rows"]}
+                     **{k: launches_sh[k] for k in SHARDED_ONLY}}
+    detail["halo_per_cascade"] = halo_per_cascade(
+        [r for r in rows if r["kernel"] in SHARDED_ONLY], "phase 5c: float32")
     sg_uhd = {"launches": launches_uhd["sum_gram"], **path_times(rows_sg_uhd)}
     log(f"phase 5b: sum_gram per UHD slab cascade {sg_uhd['ms']:.3f} ms over "
         f"{sg_uhd['launches']} launches, plain {sg_uhd['plain_ms']:.3f}, x.T @ x "
@@ -4348,6 +4543,11 @@ def main() -> int:
         f"enqueued all work after {', '.join(f'{r:.2f}' for r in enqueued_sh)} ms), peak "
         f"{peak_sh:.2f} GiB ({resident_sh:.2f} GiB held before it)")
     detail["profile_sharded"] = profile_cascade(torch, shard_eng, img_uhd, sty2k, "phase 5c")
+    for name, ms in halo_in_cascade(detail["profile_sharded"],
+                                    sum(launches_sh[k] for k in SHARDED_ONLY)).items():
+        next(r for r in table if r["name"] == name)["in_cascade_ms"] = ms
+        log(f"phase 5c: {name} in the profiled cascade: "
+            + ("not measured" if ms is None else f"{ms:.4f} ms of device time"))
     # ---- phase 5d: the warm per-conv sharded cascade -----------------------------
     detail["per_conv_timed"] = [per_conv_timing(torch, kc, per_conv, img2k[:, :h], sty2k,
                                                 f"phase 5d ({h}x2048)")

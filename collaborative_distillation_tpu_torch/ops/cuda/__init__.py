@@ -14,16 +14,17 @@ count (the float32 wrappers hand a bf16 map to them and count nothing).
 
 from .conv import conv3x3_reflect, conv3x3_reflect_bf16
 from .conv1x1 import conv1x1_bias, conv1x1_bias_bf16
-from .halo import halo_exchange_rows
+from .halo import halo_exchange_rows, halo_exchange_rows_many, halo_fill_rows
 from .pool import max_pool_2x2, max_pool_2x2_bf16, upsample_nearest_2x, upsample_nearest_2x_bf16
 from .stats import sum_gram
 
 KERNELS = (conv3x3_reflect, conv1x1_bias, sum_gram, max_pool_2x2,
-           upsample_nearest_2x, halo_exchange_rows)
+           upsample_nearest_2x, halo_exchange_rows, halo_fill_rows)
 BF16_KERNELS = (conv3x3_reflect_bf16, conv1x1_bias_bf16, max_pool_2x2_bf16,
                 upsample_nearest_2x_bf16)
 
 __all__ = ["KERNELS", "BF16_KERNELS", "conv3x3_reflect", "conv1x1_bias", "sum_gram",
            "max_pool_2x2", "upsample_nearest_2x", "halo_exchange_rows",
+           "halo_exchange_rows_many", "halo_fill_rows",
            "conv3x3_reflect_bf16", "conv1x1_bias_bf16", "max_pool_2x2_bf16",
            "upsample_nearest_2x_bf16"]

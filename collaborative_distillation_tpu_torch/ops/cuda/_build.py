@@ -43,7 +43,7 @@ _SIGNATURES = {
     "cd_sum_gram": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cd_max_pool_2x2": [_P, _P, _I, _I, _I, _I, _P],
     "cd_upsample_nearest_2x": [_P, _P, _I, _I, _I, _I, _P],
-    "cd_halo_exchange_rows": [_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _P],
+    "cd_halo_copy_segments": [ctypes.POINTER(_L), _I, ctypes.POINTER(_I), _P],
     "cd_conv3x3_reflect_bf16": [_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _P],
     "cd_conv1x1_bias_bf16": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],

@@ -22,10 +22,13 @@ lists take the place of its ``axis_name``). Two paths:
 
 The per-conv halos go into no map of their own: ``conv3x3_reflect``
 (:mod:`..ops.cuda.conv`) reads the neighbours' boundary rows in place while
-it stages its tiles. The slab path's exchange goes through the
-``halo_exchange_rows`` kernel (:mod:`..ops.cuda.halo`). CUDA shards launch
-the kernels, CPU shards take their plain versions. Nothing here assumes
-distinct devices: a mesh may name one card, or the CPU, for every shard.
+it stages its tiles. The slab path extends the caller's shards once, at its
+first stage (``halo_exchange_rows``, :mod:`..ops.cuda.halo`); every later
+stage's extended shards are written in place: each stage decodes into the
+interior of the next stage's, and ``halo_fill_rows`` fills only their halo
+rows, one launch a card. CUDA shards launch the kernels, CPU shards take
+their plain versions. Nothing here assumes distinct devices: a mesh may name
+one card, or the CPU, for every shard.
 """
 
 from __future__ import annotations
@@ -53,14 +56,6 @@ __all__ = [
     "slab_coords",
     "build_tiled_slab_cascade",
 ]
-
-
-def _extend(x: torch.Tensor, top, bot, hm: int) -> torch.Tensor:
-    """The slab path's exchange: the kernel for a CUDA shard, its plain
-    version for a CPU shard, nothing else."""
-    if on_card(x):
-        return _khalo.halo_exchange_rows(x, top, bot, hm)
-    return _khalo.halo_exchange_rows_plain(x, top, bot, hm)
 
 
 def _to(tree, device):
@@ -241,19 +236,59 @@ def build_tiled_stylize_fn(pyramid, mesh: Mesh, *, stages=(5, 4, 3, 2, 1),
 #      bounds a shard's memory by the slab size. ----
 
 
+def _check_halo(rows: list[int], hm: int) -> None:
+    for r in rows:
+        if not r >= hm > 0:
+            raise ValueError(f"halo of {hm} rows needs shards of at least as many "
+                             f"rows, got {r}")
+
+
+def _cards(maps) -> dict:
+    """{device: indices of ``maps`` on it}, in the order of first use."""
+    groups: dict = {}
+    for i, x in enumerate(maps):
+        groups.setdefault(x.device, []).append(i)
+    return groups
+
+
 def _exchange_row_halos(shards: list[torch.Tensor], hm: int) -> list[torch.Tensor]:
     """Extend every row shard with ``hm`` rows from each mesh neighbour:
-    (N, H_loc, W, C) -> (N, H_loc + 2*hm, W, C). Global-edge shards get zero
-    fill in the out-of-image region; callers must never read it (the slab
-    index arithmetic below guarantees that)."""
+    (N, H_loc, W, C) -> (N, H_loc + 2*hm, W, C), one launch a card.
+    Global-edge shards get zero fill in the out-of-image region; callers
+    must never read it (the slab index arithmetic below guarantees that)."""
     n = len(shards)
-    for x in shards:
-        if not x.shape[1] >= hm > 0:
-            raise ValueError(f"halo of {hm} rows needs shards of at least as many "
-                             f"rows, got {x.shape[1]}")
-    return [_extend(x, shards[d - 1][:, -hm:] if d > 0 else None,
-                    shards[d + 1][:, :hm] if d < n - 1 else None, hm)
-            for d, x in enumerate(shards)]
+    _check_halo([x.shape[1] for x in shards], hm)
+    items = [(x, shards[d - 1][:, -hm:] if d > 0 else None,
+              shards[d + 1][:, :hm] if d < n - 1 else None) for d, x in enumerate(shards)]
+    out = [None] * n
+    groups = _cards(shards)
+    with _peer.one_step(list(groups)):
+        for idx in groups.values():
+            group = [items[i] for i in idx]
+            exts = (_khalo.halo_exchange_rows_many(group, hm) if on_card(shards[idx[0]])
+                    else [_khalo.halo_exchange_rows_plain(*item, hm) for item in group])
+            for i, e in zip(idx, exts):
+                out[i] = e
+    return out
+
+
+def _fill_row_halos(exts: list[torch.Tensor], hm: int) -> None:
+    """In place, the ``hm``-row halos of every extended row shard (N, H_loc
+    + 2*hm, W, C) whose interior rows [hm, hm + H_loc) are written: each
+    neighbour's boundary interior rows, read where they lie, zeros at the
+    global edges. The result is :func:`_exchange_row_halos`' on the
+    interiors, one launch a card that moves only the halo rows."""
+    n = len(exts)
+    inner = [e[:, hm:e.shape[1] - hm] for e in exts]
+    _check_halo([x.shape[1] for x in inner], hm)
+    items = [(e, inner[d - 1][:, -hm:] if d > 0 else None,
+              inner[d + 1][:, :hm] if d < n - 1 else None) for d, e in enumerate(exts)]
+    groups = _cards(exts)
+    with _peer.one_step(list(groups)):
+        for idx in groups.values():
+            fill = (_khalo.halo_fill_rows if on_card(exts[idx[0]])
+                    else _khalo.halo_fill_rows_plain)
+            fill([items[i] for i in idx], hm)
 
 
 def shard_rows(h: int, slab: int, space: int) -> list[int]:
@@ -372,7 +407,8 @@ def build_tiled_slab_cascade(pyramid, mesh: Mesh, *, stages=(5, 4, 3, 2, 1),
         dev0 = devs[0]
         alphas = {dev: _alpha_on(alpha, dev) for dev in devs}
         parts = [shards[d] for d in live]
-        for k in stages:
+        ext = None   # the stage's extended shards, written by the stage before
+        for i, k in enumerate(stages):
             mk = cas[0].margins[k]
             hm = 2 * mk  # halo rows: edge windows extend inward by 2m
             s_mean, s_cov = style[k] if external_style_stats else cas[0].style_stats(
@@ -381,7 +417,10 @@ def build_tiled_slab_cascade(pyramid, mesh: Mesh, *, stages=(5, 4, 3, 2, 1),
                 # one shard holds the whole image: the single-card plan
                 ext, coords = parts, [list(cas[0]._slabs(h, k))]
             else:
-                ext = _exchange_row_halos(parts, hm)
+                if ext is None:
+                    ext = _exchange_row_halos(parts, hm)   # the caller's shards, whole
+                else:
+                    _fill_row_halos(ext, hm)
                 coords = [[(start, slab + hm, off, min(slab, x.shape[1] - i * slab))
                            for i in range(-(-x.shape[1] // slab))
                            for start, off in [slab_coords(
@@ -398,9 +437,21 @@ def build_tiled_slab_cascade(pyramid, mesh: Mesh, *, stages=(5, 4, 3, 2, 1),
             c_mean, c_cov = stats_from_sums(shift, s_sum, g_sum, count)
             t = coloring_matrix(c_cov, s_cov.float().to(dev0), method=method, eps=eps,
                                 newton_iters=newton_iters)
-            parts = [cas[j].color_decode_stage(
-                k, ext[j], t.to(dev), c_mean.to(dev), s_mean.float().to(dev), alphas[dev],
-                slabs=coords[j]) for j, dev in enumerate(devs)]
+            # each shard decodes into the interior of its extended shard of
+            # the next stage (a plain one after the last stage), allocated
+            # just before; its input goes as soon as it is decoded
+            hn = (2 * cas[0].margins[stages[i + 1]]
+                  if i + 1 < len(stages) and len(parts) > 1 else 0)
+            nxt = []
+            for j, dev in enumerate(devs):
+                n_img, rows, *rest = parts[j].shape
+                nxt.append(parts[j].new_empty((n_img, rows + 2 * hn, *rest)))
+                cas[j].color_decode_stage(
+                    k, ext[j], t.to(dev), c_mean.to(dev), s_mean.float().to(dev), alphas[dev],
+                    slabs=coords[j], out=nxt[j][:, hn:hn + rows])
+                ext[j] = parts[j] = None
+            parts = [x[:, hn:x.shape[1] - hn] for x in nxt]
+            ext = nxt if hn else None
         out = list(shards)
         for d, x in zip(live, parts):
             out[d] = x

@@ -263,11 +263,19 @@ class SlabCascade:
             del feats
 
     def color_decode_stage(self, k, img: torch.Tensor, t, c_mean, s_mean, alpha, *,
-                           kept=None, slabs=None) -> torch.Tensor:
+                           kept=None, slabs=None, out=None) -> torch.Tensor:
         """Pass 2 of stage ``k``, the windows' interior rows into one
-        preallocated image (``img``'s own height without ``slabs``)."""
+        preallocated image (``img``'s own height without ``slabs``), or into
+        ``out``, a map of that shape, type and device that may be a view
+        (the interior of the next stage's extended row shard); returns it."""
         slabs = list(self._slabs(img.shape[1], k) if slabs is None else slabs)
-        out = img.new_empty((img.shape[0], sum(n for *_, n in slabs), *img.shape[2:]))
+        shape = (img.shape[0], sum(n for *_, n in slabs), *img.shape[2:])
+        if out is None:
+            out = img.new_empty(shape)
+        elif (tuple(out.shape), out.dtype, out.device) != (shape, img.dtype, img.device):
+            raise ValueError(f"color_decode_stage: out is {tuple(out.shape)} {out.dtype} on "
+                             f"{out.device}, the stage writes {shape} {img.dtype} on "
+                             f"{img.device}")
         for row, rows in self._decoded_slabs(k, img, t, c_mean, s_mean, alpha, kept, slabs):
             out[:, row:row + rows.shape[1]] = rows
         return out

@@ -390,12 +390,113 @@ def test_halo_kernel_takes_the_shards_own_rows_and_refuses_strided_ones(gen):
         kc.halo_exchange_rows(x, x[:, :1].cpu(), None, 1)
 
 
+FILL_CASES = [  # (N, H, W, C, hm, float offset of the sources, sides)
+    (1, 8, 16, 8, 2, 0, "both"), (2, 8, 16, 8, 1, 0, "both"), (1, 6, 5, 3, 2, 1, "both"),
+    (2, 6, 5, 3, 3, 3, "both"), (1, 4, 7, 1, 1, 0, "top"), (2, 5, 9, 2, 5, 2, "bot"),
+    (1, 16, 64, 3, 4, 0, "none"), (2, 64, 1024, 3, 32, 0, "both"),
+]
+
+
+def _fill_inputs(gen, n, h, w, c, hm, offset, dtype, shards=3):
+    """``shards`` extended shards (N, H + 2*hm, W, C) with written interiors
+    and garbage halos, and per shard the (top, bot) interior rows of its
+    neighbours: views into other maps, ``offset`` elements into buffers."""
+    def buf(rows, at):
+        per = rows * w * c
+        return (_rand(gen, n * per + at) * 200).to(dtype)[at:].view(n, rows, w, c)
+
+    exts = [buf(h + 2 * hm, 0) for _ in range(shards)]
+    nbrs = [buf(h, offset) for _ in range(2)]
+    return exts, nbrs[0][:, -hm:], nbrs[1][:, :hm]
+
+
+@pytest.mark.parametrize("case", FILL_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8], ids=str)
+def test_halo_fill_kernel_equals_plain(gen, case, dtype):
+    """The fill of three extended shards in one launch: exactly its plain
+    version (16-, 4- and 1-byte units: odd row sizes, sources at odd
+    offsets, N = 2 batch strides, null sources), the interiors untouched."""
+    n, h, w, c, hm, offset, sides = case
+    exts, up, down = _fill_inputs(gen, n, h, w, c, hm, offset, dtype)
+    top = up if sides in ("both", "top") else None
+    bot = down if sides in ("both", "bot") else None
+    items = [(e, top, bot) for e in exts]
+    want = [e.clone() for e in exts]
+    kc.halo_fill_rows.plain([(e, top, bot) for e in want], hm)
+    inner = [e[:, hm:hm + h].clone() for e in exts]
+    before = kc.halo_fill_rows.launches
+    kc.halo_fill_rows(items, hm)
+    torch.cuda.synchronize()
+    assert kc.halo_fill_rows.launches == before + 1
+    for e, ref, x in zip(exts, want, inner):
+        assert torch.equal(e, ref) and torch.equal(e[:, hm:hm + h], x)
+
+
+@pytest.mark.parametrize("case", HALO_CASES[:6] + [(2, 64, 1024, 3, 32, 0, "both")], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8], ids=str)
+def test_halo_exchange_of_several_shards_in_one_launch(gen, case, dtype):
+    """``halo_exchange_rows_many``: three shards of one card (one of other
+    rows) in one launch, each equal to the plain exchange."""
+    n, h, w, c, hm, offset, _ = case
+
+    def shard(rows):
+        buf = (_rand(gen, n * rows * w * c + offset) * 200).to(dtype)
+        return buf[offset:].view(n, rows, w, c)
+
+    xs = [shard(h), shard(h + 3), shard(h)]
+    items = [(xs[0], None, xs[1][:, :hm]), (xs[1], xs[0][:, -hm:], xs[2][:, :hm]),
+             (xs[2], xs[1][:, -hm:], None)]
+    before = kc.halo_exchange_rows.launches
+    got = kc.halo_exchange_rows_many(items, hm)
+    torch.cuda.synchronize()
+    assert kc.halo_exchange_rows.launches == before + 1
+    for g, item in zip(got, items):
+        assert torch.equal(g, kc.halo_exchange_rows.plain(*item, hm))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8], ids=str)
+def test_halo_tables_longer_than_one_launch(gen, dtype):
+    """Twelve shards of one card are 36 exchange and 24 fill segments: the
+    library splits the exchange's table into two launches and takes the
+    fill's in one, each shard exactly its plain version."""
+    n, h, w, c, hm = 2, 9, 33, 3, 2
+    xs = [(_rand(gen, n, h, w, c) * 200).to(dtype) for _ in range(12)]
+    items = [(x, xs[i - 1][:, -hm:] if i else None, xs[i + 1][:, :hm] if i < 11 else None)
+             for i, x in enumerate(xs)]
+    before = (kc.halo_exchange_rows.launches, kc.halo_fill_rows.launches)
+    got = kc.halo_exchange_rows_many(items, hm)
+    exts = [g.clone() for g in got]
+    for e in exts:
+        e[:, :hm] = 7
+        e[:, -hm:] = 7
+    kc.halo_fill_rows([(e, *it[1:]) for e, it in zip(exts, items)], hm)
+    torch.cuda.synchronize()
+    assert (kc.halo_exchange_rows.launches - before[0],
+            kc.halo_fill_rows.launches - before[1]) == (2, 1)
+    for g, e, item in zip(got, exts, items):
+        want = kc.halo_exchange_rows.plain(*item, hm)
+        assert torch.equal(g, want) and torch.equal(e, want)
+
+
+def test_halo_fill_refusals(gen):
+    ext = _rand(gen, 1, 8, 5, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        kc.halo_fill_rows([(ext, None, None), (ext.cpu(), None, None)], 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        kc.halo_fill_rows([(ext.permute(0, 2, 1, 3), None, None)], 1)
+    with pytest.raises(ValueError, match="no room"):
+        kc.halo_fill_rows([(ext, None, None)], 5)
+    g = ext.clone().requires_grad_()
+    with pytest.raises(ValueError, match="requires grad"):
+        kc.halo_fill_rows([(g, None, None)], 2)
+
+
 def test_sharded_engines_on_one_card_match_single_device():
     """Four row shards on cuda:0: the slab-in-shard cascade against the
     single-card slab engine at the same slab size (global slab boundaries
     coincide; float32 order only), and the per-conv cascade against the plain
-    engine, both at the cascade bar of 40 dB; 5 stages x 4 shards halo
-    launches for the first."""
+    engine, both at the cascade bar of 40 dB; one exchange and four fills
+    for the first."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import os
@@ -413,9 +514,11 @@ def test_sharded_engines_on_one_card_match_single_device():
         mse = float(np.mean((a.astype(np.float64) - b) ** 2))
         return float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
 
-    before = kc.halo_exchange_rows.launches
+    before = (kc.halo_exchange_rows.launches, kc.halo_fill_rows.launches)
     sharded = WCTEngine(mode="16x", space=4, slab_rows=288, devices=["cuda:0"] * 4).stylize(tall, s)
-    assert kc.halo_exchange_rows.launches - before == 5 * 4
+    # one card: one exchange at stage 5, one fill before each later stage
+    assert (kc.halo_exchange_rows.launches - before[0],
+            kc.halo_fill_rows.launches - before[1]) == (1, 4)
     assert psnr(sharded, WCTEngine(mode="16x", slab_rows=288).stylize(tall, s)) >= 40.0
     before = (kc.halo_exchange_rows.launches, kc.conv3x3_reflect.halo_launches)
     per_conv = WCTEngine(mode="16x", space=4, devices=["cuda:0"] * 4).stylize(c, s)
@@ -1134,10 +1237,11 @@ def test_bf16_sharded_and_pwct_engines_on_one_card():
         mse = float(np.mean((a.astype(np.float64) - b) ** 2))
         return float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
 
-    before = kc.halo_exchange_rows.launches
+    before = (kc.halo_exchange_rows.launches, kc.halo_fill_rows.launches)
     sharded = WCTEngine(mode="16x", space=4, slab_rows=288, devices=["cuda:0"] * 4,
                         dtype=bf).stylize(tall, s)
-    assert kc.halo_exchange_rows.launches - before == 5 * 4
+    assert (kc.halo_exchange_rows.launches - before[0],
+            kc.halo_fill_rows.launches - before[1]) == (1, 4)
     assert psnr(sharded, WCTEngine(mode="16x", slab_rows=288, dtype=bf).stylize(tall, s)) >= 40
     before = (kc.conv3x3_reflect.halo_launches, kc.conv3x3_reflect_bf16.halo_launches)
     per_conv = WCTEngine(mode="16x", space=4, devices=["cuda:0"] * 4, dtype=bf).stylize(c, s)
