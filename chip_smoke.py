@@ -170,7 +170,16 @@ Phases (any failure raises and the script exits non-zero):
      and the falling loss; (d) each mode's bf16 median step, images/s, peak
      and profiled split beside (c)'s float32 ones, and the bf16 kernels'
      time per step at the steps' shapes against the bound at 2-byte
-     elements and the bf16 peak;
+     elements and the bf16 peak; (f) data-parallel training: a wct_se
+     ``Trainer`` on ``make_mesh(data=4, devices=["cuda:0"] * 4)`` (four
+     replicas of 4 images on the one card) against a single-device one at
+     stage 5 x 16 x 256^2, seeded weights, float32 and bf16, six steps
+     each: over three steps from the same masters and Adam state the
+     losses (1e-5 relative; bf16 BF16_LOSS_REL) and the root's mean
+     gradient (1e-4 of each leaf's max|g|; bf16 BF16_STEP_REL in relative
+     L2), every replica's masters bit-identical to the root's, launches 4 x
+     the single step's (counters zeroed around each step); the median step,
+     host enqueue, images/s and peak of both;
   9. run before phases 7 and 8: (a) photo-WCT, ``stylize(pwct=True)`` at
      2048^2 with the counters zeroed (the plain path's conv3x3 and sum_gram
      launches, ``max_pool_2x2`` for the style only, no upsample), finite and
@@ -226,8 +235,14 @@ With ``--cross-card`` (two or more cards) it runs only the halo checks, the
 conv3x3 halo staging with its rows on other cards (float32 and bf16), the
 per-conv 2048^2 cascade with one shard per card against the plain one and
 timed (float32 and bf16), and the sharded UHD path with neighbouring shards
-on different cards, against the single-card slab cascade, and prints no
-kernel table.
+on different cards, against the single-card slab cascade; then phase 8f's
+data-parallel check with one replica a card at 2 cards and at 4 where
+present (float32 and bf16), and as many processes, one card each, joined
+by ``initialize_multihost`` over NCCL (this script with ``--dp-worker``),
+against the single-device step and timed: images/s at 1, 2 and 4 cards;
+and ``cli.train`` launched one process a card as ``torchrun`` launches it. It
+prints no kernel table. ``--cross-card --dp`` runs the data-parallel part
+alone.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Per-shape details go to
@@ -2642,18 +2657,18 @@ def _loss_falls(torch, trainer, first, steps=8) -> list:
     return [total(trainer.train_step(batch)[0]) for _ in range(steps + 1)]
 
 
-def _write_training_pngs(torch, c512, s512, folder) -> None:
-    """TRAIN_IMAGES PNG crops of the reflect-tiled photo pair, shorter side
-    300 to 420."""
+def _write_training_pngs(torch, c512, s512, folder, n=TRAIN_IMAGES) -> None:
+    """``n`` PNG crops of the reflect-tiled photo pair, shorter side 300 to
+    420."""
     from collaborative_distillation_tpu_torch.utils.image import save_image
     os.makedirs(folder)
     rng = np.random.default_rng(0)
     tiles = [reflect_tile(torch, c512, 1024), reflect_tile(torch, s512, 1024)]
-    for i in range(TRAIN_IMAGES):
+    for i in range(n):
         h, w = (int(v) for v in rng.integers(300, 421, 2))
         y, x = (int(v) for v in rng.integers(0, 1024 - 420, 2))
         save_image(np.ascontiguousarray(tiles[i % 2][y:y + h, x:x + w]),
-                   os.path.join(folder, f"{i:02d}.png"))
+                   os.path.join(folder, f"{i:03d}.png"))
 
 
 def train_cli_runs(torch, kc, c512, s512, tmp, teachers, f32=None) -> dict:
@@ -3009,8 +3024,420 @@ def training_bf16(torch, kc, c512, s512, tmp, teachers, f32) -> dict:
     return out
 
 
+# ---- phase 8f: data-parallel training -------------------------------------------
+
+DP_REPLICAS = 4      # replicas of phase 8f, all on cuda:0
+DP_CHECKED = 3       # steps held to the single-device step from the same state
+DP_SEED = 5
+
+
+def dp_setup(torch, c512, s512) -> tuple:
+    """Phase 8f's wct_se at stage 5 x 16 x 256^2: (student, frozen, batches):
+    the teachers and the 16x student drawn from a seeded ``torch.Generator``
+    on the CPU, and DP_CHECKED uint8 batches of TRAIN_N 256^2 crops of the
+    reflect-tiled photo pair from a seeded generator (any process draws the
+    same)."""
+    from collaborative_distillation_tpu_torch.models.specs import decoder_spec, encoder_spec
+    from collaborative_distillation_tpu_torch.models.vgg import init_params
+    gen = torch.Generator().manual_seed(DP_SEED)
+    frozen = {"be": init_params(encoder_spec("original", TRAIN_STAGE), gen),
+              "bd": init_params(decoder_spec("original", TRAIN_STAGE), gen)}
+    student = init_params(encoder_spec("16x", TRAIN_STAGE, aux=True), gen)
+    rng = np.random.default_rng(DP_SEED)
+    tiles = [reflect_tile(torch, c512, 1024), reflect_tile(torch, s512, 1024)]
+    batches = []
+    for _ in range(DP_CHECKED):
+        crops = []
+        for i in range(TRAIN_N):
+            y, x = (int(v) for v in rng.integers(0, 1024 - TRAIN_HW, 2))
+            crops.append(tiles[i % 2][y:y + TRAIN_HW, x:x + TRAIN_HW])
+        batches.append(np.stack(crops))
+    return student, frozen, batches
+
+
+def _dp_state(trainer) -> tuple:
+    """The root masters and Adam state, copied."""
+    import copy
+    return ({n: {k: t.detach().clone() for k, t in leaf.items()}
+             for n, leaf in trainer.params.items()}, copy.deepcopy(trainer.opt.state_dict()))
+
+
+def _dp_load(torch, trainer, state) -> None:
+    import copy
+    masters, opt = state
+    with torch.no_grad():
+        for n, leaf in trainer.params.items():
+            for k, t in leaf.items():
+                t.copy_(masters[n][k])
+    trainer.opt.load_state_dict(copy.deepcopy(opt))
+
+
+def _dp_steps(torch, kc, trainer, batches, steps, devices, before=None) -> dict:
+    """``steps`` steps of ``trainer`` on ``batches`` in turn, the counters
+    zeroed just before each and read just after: each step's wall
+    (synchronised) and host enqueue (until ``train_step`` returns), launches
+    and losses; for the first DP_CHECKED the root's gradient, ``before(i)``
+    (untimed) run before step i, and whether every replica's masters equal
+    the root's bit for bit; the peak memory of each card used."""
+    cards = sorted({torch.device(d).index or 0 for d in devices})
+    torch.cuda.synchronize()
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    out = []
+    for i in range(steps):
+        if before is not None:
+            before(i)
+        for c in cards:
+            torch.cuda.synchronize(c)
+        _zero(kc)
+        t0 = time.perf_counter()
+        losses, rec = trainer.train_step(batches[i % len(batches)])
+        t1 = time.perf_counter()
+        for c in cards:
+            torch.cuda.synchronize(c)
+        t2 = time.perf_counter()
+        st = {"s": t2 - t0, "enqueue_s": t1 - t0,
+              "launches": {k.__name__: k.launches for k in kc.KERNELS + kc.BF16_KERNELS},
+              "losses": {k: float(v) for k, v in losses.items()},
+              "rec_ok": tuple(rec.shape) == (TRAIN_N, TRAIN_HW, TRAIN_HW, 3)
+              and rec.dtype == torch.float32 and bool(torch.isfinite(rec).all())}
+        if i < DP_CHECKED:
+            st["grads"] = {n: {k: t.grad.detach().clone() for k, t in leaf.items()}
+                           for n, leaf in trainer.params.items()}
+            root = [t for leaf in trainer.params.values() for t in leaf.values()]
+            st["replicas_equal"] = all(
+                torch.equal(t, r.to(t.device)) for rep in trainer.replicas[1:]
+                for t, r in zip([t for leaf in rep.params().values() for t in leaf.values()],
+                                root))
+        out.append(st)
+    times = [st["s"] for st in out[1:]]
+    return {"steps": out, "median_s": statistics.median(times),
+            "enqueue_median_s": statistics.median(st["enqueue_s"] for st in out[1:]),
+            "peak_gib": {f"cuda:{c}": torch.cuda.max_memory_allocated(c) / 2 ** 30
+                         for c in cards}}
+
+
+def _dp_errors(torch, got, want, bf16) -> dict:
+    """Losses' relative error and the worst leaf's gradient error: of max|g|
+    in float32, relative L2 in bf16 (8e(b)'s measures)."""
+    loss = max(abs(got["losses"][k] - want["losses"][k]) / abs(want["losses"][k])
+               for k in want["losses"])
+    grad = 0.0
+    for n, leaf in want["grads"].items():
+        for k, g in leaf.items():
+            d = got["grads"][n][k].double() - g.double()
+            grad = max(grad, float(d.norm() / g.double().norm()) if bf16
+                       else float(d.abs().max() / g.abs().max()))
+    return {"loss_rel_err": loss, "grad_err": grad}
+
+
+def dp_compare(torch, kc, setup, dtype: str, devices, label, steps=TRAIN_STEPS) -> dict:
+    """A data-parallel ``Trainer`` on ``make_mesh(data=len(devices),
+    devices=devices)`` against a single-device one on ``cuda:0``, wct_se,
+    both from ``setup``'s weights: ``steps`` steps each on its batches in
+    turn. Before each of the first DP_CHECKED single-device steps the
+    single-device trainer takes the data-parallel one's masters and Adam
+    state from before the same step, so both differentiate at the same
+    masters (Adam near 0 may step either way between two reduction orders):
+    losses within 1e-5 relative and the root's mean gradient within 1e-4
+    of each leaf's max|g| in float32, BF16_LOSS_REL and BF16_STEP_REL
+    (relative L2) in bf16; every replica's masters bit-identical to the
+    root's; launches len(devices) x the single step's (``_train_launches``),
+    losses finite, ``rec`` the whole batch's. Returns both runs' step
+    medians (steps 2..``steps``), images/s, host enqueue, peaks and the
+    errors; raises on a failed check."""
+    import gc
+
+    from collaborative_distillation_tpu_torch.parallel.mesh import make_mesh
+    from collaborative_distillation_tpu_torch.train.trainer import TrainConfig, Trainer
+    student, frozen, batches = setup
+    bf16 = dtype == "bfloat16"
+    cfg = TrainConfig(mode="wct_se", stage=TRAIN_STAGE, batch_size=TRAIN_N, compute_dtype=dtype)
+    per_step = _train_launches("wct_se", bf16)
+    zero = {k.__name__: 0 for k in kc.KERNELS + kc.BF16_KERNELS}
+    dp = Trainer(cfg, student, frozen, mesh=make_mesh(data=len(devices), devices=devices))
+    states = []
+    run = _dp_steps(torch, kc, dp, batches, steps, devices,
+                    before=lambda i: states.append(_dp_state(dp)) if i < DP_CHECKED else None)
+    del dp
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = Trainer(cfg, student, frozen, device="cuda:0")
+    ref = _dp_steps(torch, kc, one, batches, steps, ["cuda:0"],
+                    before=lambda i: _dp_load(torch, one, states[i]) if i < DP_CHECKED else None)
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = [_dp_errors(torch, run["steps"][i], ref["steps"][i], bf16) for i in range(DP_CHECKED)]
+    loss_tol, grad_tol = (BF16_LOSS_REL, BF16_STEP_REL) if bf16 else (1e-5, 1e-4)
+    want_dp = {**zero, **{k: len(devices) * v for k, v in per_step.items()}}
+    want_one = {**zero, **per_step}
+    bad = [f"step {i + 1}: {e}" for i, e in enumerate(errs)
+           if not (e["loss_rel_err"] <= loss_tol and e["grad_err"] <= grad_tol)]
+    bad += [f"step {i + 1}: replicas differ from the root" for i, st in
+            enumerate(run["steps"][:DP_CHECKED]) if not st["replicas_equal"]]
+    bad += [f"{who} step {i + 1}: launches {st['launches']} != {want}"
+            for who, r, want in (("DP", run, want_dp), ("single", ref, want_one))
+            for i, st in enumerate(r["steps"]) if st["launches"] != want]
+    bad += [f"{who} step {i + 1}: losses {st['losses']} or rec not finite/whole"
+            for who, r in (("DP", run), ("single", ref)) for i, st in enumerate(r["steps"])
+            if not (st["rec_ok"] and all(np.isfinite(v) for v in st["losses"].values()))]
+    if bad:
+        raise AssertionError(f"{label} {dtype}: " + "; ".join(bad))
+    out = {"devices": [str(d) for d in devices], "dtype": dtype, "errors": errs,
+           "launches_per_step": want_dp, "single_launches_per_step": want_one,
+           **{f"{k}": run[k] for k in ("median_s", "enqueue_median_s", "peak_gib")},
+           "images_per_s": TRAIN_N / run["median_s"],
+           "steps_s": [st["s"] for st in run["steps"]],
+           "single": {"median_s": ref["median_s"], "images_per_s": TRAIN_N / ref["median_s"],
+                      "enqueue_median_s": ref["enqueue_median_s"], "peak_gib": ref["peak_gib"],
+                      "steps_s": [st["s"] for st in ref["steps"]]},
+           "losses_first": run["steps"][0]["losses"], "losses_last": run["steps"][-1]["losses"]}
+    worst = {k: max(e[k] for e in errs) for k in ("loss_rel_err", "grad_err")}
+    log(f"{label}: wct_se {dtype} stage {TRAIN_STAGE} x {TRAIN_N} x {TRAIN_HW}^2 on "
+        f"{len(devices)} replicas ({', '.join(out['devices'])}; {TRAIN_N // len(devices)} images "
+        f"each) vs one device: median step {run['median_s'] * 1e3:.1f} vs "
+        f"{ref['median_s'] * 1e3:.1f} ms over steps 2-{steps} ({out['images_per_s']:.2f} vs "
+        f"{out['single']['images_per_s']:.2f} images/s), host enqueue "
+        f"{run['enqueue_median_s'] * 1e3:.1f} vs {ref['enqueue_median_s'] * 1e3:.1f} ms, peak "
+        + ", ".join(f"{d} {g:.2f}" for d, g in run["peak_gib"].items()) + " vs "
+        + ", ".join(f"{g:.2f}" for g in ref["peak_gib"].values())
+        + f" GiB; launches a step {dict((k, v) for k, v in want_dp.items() if v)} "
+        f"({len(devices)} x the single step's); over {DP_CHECKED} steps from the same state: "
+        f"losses {worst['loss_rel_err']:.2e} rel (tol {loss_tol:.3g}), root gradient "
+        f"{worst['grad_err']:.2e} {'rel L2' if bf16 else 'of max|g|'} (tol {grad_tol:.3g}), "
+        f"replicas bit-identical to the root")
+    return out
+
+
+def train_data_parallel(torch, kc, c512, s512) -> dict:
+    """8f: four replicas on cuda:0 against one device, float32 and bf16
+    (:func:`dp_compare`), with its own clock."""
+    t0 = time.perf_counter()
+    setup = dp_setup(torch, c512, s512)
+    out = {dtype: dp_compare(torch, kc, setup, dtype, ["cuda:0"] * DP_REPLICAS, "phase 8f")
+           for dtype in ("float32", "bfloat16")}
+    out["phase8f_s"] = time.perf_counter() - t0
+    log(f"phase 8f: {out['phase8f_s']:.1f} s")
+    return out
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_processes(argvs, label, cwd=HERE, envs=None) -> float:
+    """Start one process per argv (with ``envs``' extra variables), wait for
+    all (600 s), stop any left; raises naming ``label`` with their output
+    if one failed; returns the wall seconds."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv, cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, env={**os.environ, **(envs[i] if envs else {})})
+             for i, argv in enumerate(argvs)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"--cross-card: {label}: exit codes "
+                             f"{[p.returncode for p in procs]}\n" + "\n".join(logs))
+    return time.perf_counter() - t0
+
+
+def dp_worker(rank: int, world: int, port: int, path: str) -> int:
+    """One of ``--cross-card``'s data-parallel processes: card ``rank`` of
+    ``world``, joined through ``initialize_multihost`` over NCCL, a mesh of
+    its one card; in float32 and bf16, phase 8f's wct_se steps on its rows
+    of the global batches (TRAIN_N // world images a process), each timed as in
+    8f (the all-reduce waits for every process); writes the first step's
+    losses, gradient and masters and the times to ``path``."""
+    import torch
+    from collaborative_distillation_tpu_torch.parallel.mesh import (initialize_multihost,
+                                                                    make_mesh)
+    from collaborative_distillation_tpu_torch.train.trainer import TrainConfig, Trainer
+    torch.cuda.set_device(rank)
+    initialize_multihost(f"127.0.0.1:{port}", world, rank)
+    try:
+        with np.load(os.path.join(HERE, "collaborative_distillation_tpu_torch", "data",
+                                  "photo_pair_512.npz")) as d:
+            student, frozen, batches = dp_setup(torch, d["content"], d["style"])
+        out = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = TrainConfig(mode="wct_se", stage=TRAIN_STAGE, batch_size=TRAIN_N,
+                              compute_dtype=dtype)
+            tr = Trainer(cfg, student, frozen, mesh=make_mesh(data=1, devices=[f"cuda:{rank}"]))
+            per = TRAIN_N // world
+            mine = [b[rank * per:(rank + 1) * per] for b in batches]
+            losses, rec = tr.train_step(mine[0])
+            out.update({f"{dtype}/loss/{k}": float(v) for k, v in losses.items()})
+            out[f"{dtype}/rec_ok"] = (tuple(rec.shape) == (TRAIN_N, TRAIN_HW, TRAIN_HW, 3)
+                                      and bool(torch.isfinite(rec).all()))
+            for n, leaf in tr.params.items():
+                for k, t in leaf.items():
+                    out[f"{dtype}/grad/{n}/{k}"] = t.grad.cpu().numpy()
+                    out[f"{dtype}/params/{n}/{k}"] = t.detach().cpu().numpy()
+            times = []
+            for i in range(1, TRAIN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.train_step(mine[i % len(mine)])
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0, t1 - t0))
+            out[f"{dtype}/steps_s"] = np.array([t for t, _ in times])
+            out[f"{dtype}/enqueue_s"] = np.array([e for _, e in times])
+        np.savez(path, **out)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def dp_processes(torch, setup, single, world: int, tmp) -> dict:
+    """``--cross-card``: ``world`` processes (this script with
+    ``--dp-worker``), one card each, joined by ``initialize_multihost`` over
+    NCCL, the first step on the same global batch against the single-device
+    step on cuda:0 from the same weights (8f's tolerances; every process's
+    masters bit-identical to process 0's), then timed; ``single``:
+    :func:`dp_compare`'s results by dtype, printed beside."""
+    from collaborative_distillation_tpu_torch.train.trainer import TrainConfig, Trainer
+    port = _free_port()
+    paths = [os.path.join(tmp, f"dp_worker{world}_{r}.npz") for r in range(world)]
+    wall = _run_processes([[sys.executable, os.path.abspath(__file__), "--dp-worker", str(r),
+                            str(world), str(port), paths[r]] for r in range(world)],
+                          f"{world} data-parallel processes")
+    got = [dict(np.load(p)) for p in paths]
+    student, frozen, batches = setup
+    out = {"processes": world, "wall_s": wall}
+    for dtype in ("float32", "bfloat16"):
+        bf16 = dtype == "bfloat16"
+        one = Trainer(TrainConfig(mode="wct_se", stage=TRAIN_STAGE, batch_size=TRAIN_N,
+                                  compute_dtype=dtype), student, frozen, device="cuda:0")
+        losses, _ = one.train_step(batches[0])
+        want = {"losses": {k: float(v) for k, v in losses.items()},
+                "grads": {n: {k: t.grad.cpu() for k, t in leaf.items()}
+                          for n, leaf in one.params.items()}}
+        del one
+        errs = []
+        for g in got:
+            mine = {"losses": {k.split("/")[-1]: float(v) for k, v in g.items()
+                               if k.startswith(f"{dtype}/loss/")},
+                    "grads": {n: {k: torch.from_numpy(g[f"{dtype}/grad/{n}/{k}"]) for k in leaf}
+                              for n, leaf in want["grads"].items()}}
+            errs.append(_dp_errors(torch, mine, want, bf16))
+        same = all(np.array_equal(got[0][k], g[k]) for g in got[1:] for k in got[0]
+                   if k.startswith(f"{dtype}/params/"))
+        loss_tol, grad_tol = (BF16_LOSS_REL, BF16_STEP_REL) if bf16 else (1e-5, 1e-4)
+        med = statistics.median(got[0][f"{dtype}/steps_s"])
+        out[dtype] = {"errors": errs, "masters_equal": same, "median_s": med,
+                      "enqueue_median_s": statistics.median(got[0][f"{dtype}/enqueue_s"]),
+                      "images_per_s": TRAIN_N / med,
+                      "steps_s": [float(t) for t in got[0][f"{dtype}/steps_s"]]}
+        if not (same and all(g[f"{dtype}/rec_ok"] for g in got) and all(
+                e["loss_rel_err"] <= loss_tol and e["grad_err"] <= grad_tol for e in errs)):
+            raise AssertionError(f"--cross-card: {world} processes over NCCL, {dtype}: "
+                                 f"{out[dtype]}")
+    log(f"cross-card: {world} processes over NCCL (initialize_multihost, one card each, "
+        f"{TRAIN_N // world} images a process) vs one device: " + "; ".join(
+            f"{d} first step losses {max(e['loss_rel_err'] for e in out[d]['errors']):.2e} "
+            f"rel, gradient {max(e['grad_err'] for e in out[d]['errors']):.2e}, masters "
+            f"bit-identical; median step {out[d]['median_s'] * 1e3:.1f} ms (host enqueue "
+            f"{out[d]['enqueue_median_s'] * 1e3:.1f}) over steps 2-{TRAIN_STEPS}, "
+            f"{out[d]['images_per_s']:.2f} images/s against one device's "
+            f"{single[d]['images_per_s']:.2f}" for d in ("float32", "bfloat16"))
+        + f" ({wall:.1f} s for the processes)")
+    return out
+
+
+DP_CLI_STEPS = 10   # one epoch of DP_CLI_STEPS x TRAIN_N images
+
+
+def dp_cli_processes(torch, setup, c512, s512, world: int, tmp) -> dict:
+    """``--cross-card``: ``cli.train`` with its default ``--data_parallel
+    0`` on ``world`` (every visible) cards, which starts a process a card
+    over NCCL, and with ``--data_parallel 1`` (one card) beside it; wct_se
+    at stage 5 x 16 x 256^2, 8f's seeded weights (``--weights_root`` and
+    ``--SE``), one epoch of DP_CLI_STEPS steps over as many batches of PNGs:
+    each exits 0, process 0 alone writes the run (its log says ``DP x world
+    (one process a device)``), one checkpoint. Images/s from the log's
+    MPix/s (a step's wall, the loader's wait and the loss read-back
+    included), the median over steps 3 on: the first line holds the
+    loader's start and the second the grid written after the first."""
+    import re
+
+    from collaborative_distillation_tpu_torch.models.zoo import save_tree_npz
+    student, frozen, _ = setup
+    root, data = os.path.join(tmp, "dp_weights"), os.path.join(tmp, "dp_images")
+    save_tree_npz(frozen["be"], os.path.join(root, "original", f"e{TRAIN_STAGE}.npz"))
+    save_tree_npz(frozen["bd"], os.path.join(root, "original", f"d{TRAIN_STAGE}.npz"))
+    save_tree_npz(student, os.path.join(root, f"se{TRAIN_STAGE}.npz"))
+    _write_training_pngs(torch, c512, s512, data, DP_CLI_STEPS * TRAIN_N)
+    argv = [sys.executable, "-m", "collaborative_distillation_tpu_torch.cli.train", "--mode",
+            "wct_se", "--stage", str(TRAIN_STAGE), "-b", str(TRAIN_N), "--content_train", data,
+            "--weights_root", root, "--SE", os.path.join(root, f"se{TRAIN_STAGE}.npz"),
+            "--max_steps", str(DP_CLI_STEPS), "--print_interval", "1", "--device", "cuda"]
+    out = {}
+    for cards, dp, want in ((1, "1", "mesh: single device"),
+                            (world, "0" if world == torch.cuda.device_count() else str(world),
+                             f"mesh: DP x {world} (one process a device)")):
+        run = os.path.join(tmp, f"dp_cli{cards}")
+        os.makedirs(run)
+        wall = _run_processes([argv + ["-p", f"dp_cli{cards}", "--data_parallel", dp]],
+                              f"cli.train on {cards} cards", cwd=run, envs=[{"PYTHONPATH": HERE}])
+        runs = os.listdir(os.path.join(run, "Experiments")) if os.path.isdir(
+            os.path.join(run, "Experiments")) else []
+        text, ckpts = "", []
+        if len(runs) == 1:
+            wdir = os.path.join(run, "Experiments", runs[0], "weights")
+            text = open(os.path.join(wdir, [f for f in os.listdir(wdir)
+                                            if f.startswith("log_")][0])).read()
+            ckpts = [f for f in os.listdir(wdir) if f.endswith(".npz")]
+        mpix = [float(m.group(1)) for m in re.finditer(r"\(([\d.]+) MPix/s", text)]
+        if len(runs) != 1 or want not in text or len(ckpts) != 1 or \
+                f"max_steps {DP_CLI_STEPS} reached" not in text or len(mpix) != DP_CLI_STEPS:
+            raise AssertionError(f"--cross-card: cli.train on {cards} cards: runs {runs}, "
+                                 f"checkpoints {ckpts}\n{text}")
+        ips = statistics.median(mpix[2:]) * 1e6 / TRAIN_HW ** 2
+        out[cards] = {"data_parallel": dp, "wall_s": wall, "mpix_per_s": mpix,
+                      "images_per_s": ips}
+        log(f"cross-card: cli.train wct_se stage {TRAIN_STAGE} x {TRAIN_N} x {TRAIN_HW}^2, "
+            f"--data_parallel {dp} on {cards} card(s): exited 0 in {wall:.1f} s, process 0 "
+            f"wrote the one run ('{want}', one checkpoint); MPix/s a step {mpix}: "
+            f"{ips:.2f} images/s (median of steps 3-{DP_CLI_STEPS})")
+    log(f"cross-card: cli.train images/s, default on {world} cards against one: "
+        f"{out[world]['images_per_s']:.2f} / {out[1]['images_per_s']:.2f} = "
+        f"{out[world]['images_per_s'] / out[1]['images_per_s']:.2f}x")
+    return out
+
+
+def dp_cross_card(torch, kc, c512, s512, tmp) -> dict:
+    """``--cross-card``: 8f's check with one replica a card in this process
+    at 2 cards and at 4 where present, float32 and bf16; then the same
+    numbers of processes, one card each (:func:`dp_processes`); images/s
+    at 1, 2 and 4 cards both ways."""
+    setup = dp_setup(torch, c512, s512)
+    counts = [n for n in (2, 4) if n <= torch.cuda.device_count()]
+    out = {dtype: {n: dp_compare(torch, kc, setup, dtype, [f"cuda:{i}" for i in range(n)],
+                                 "cross-card") for n in counts}
+           for dtype in ("float32", "bfloat16")}
+    single = {dtype: out[dtype][counts[0]]["single"] for dtype in out}
+    out["processes"] = {n: dp_processes(torch, setup, single, n, tmp) for n in counts}
+    out["cli"] = dp_cli_processes(torch, setup, c512, s512, counts[-1], tmp)
+    for dtype in ("float32", "bfloat16"):
+        log(f"cross-card: data-parallel wct_se {dtype} images/s: 1 card "
+            f"{single[dtype]['images_per_s']:.2f}; " + "; ".join(
+                f"{n} cards {out[dtype][n]['images_per_s']:.2f} in one process, "
+                f"{out['processes'][n][dtype]['images_per_s']:.2f} one process a card"
+                for n in counts))
+    return out
+
+
 def training(torch, kc, c512, s512, tmp, teachers) -> dict:
-    """Phase 8: the training path (8a, 8b, 8c, 8d, 8e), with its own clock;
+    """Phase 8: the training path (8a, 8b, 8c, 8d, 8e, 8f), with its own clock;
     ``teachers``: phase 9c's store."""
     t0 = time.perf_counter()
     out = {"autograd": train_autograd_checks(torch), "card_vs_cpu": train_card_vs_cpu(torch),
@@ -3020,6 +3447,7 @@ def training(torch, kc, c512, s512, tmp, teachers) -> dict:
         raise AssertionError(f"phase 8d: {out['teacher_convs']['first_launches']} convs of a "
                              f"wct_se step plan the first kernel")
     out["bf16"] = training_bf16(torch, kc, c512, s512, tmp, teachers, out["cli"])
+    out["data_parallel"] = train_data_parallel(torch, kc, c512, s512)
     out["phase8_s"] = time.perf_counter() - t0
     log(f"phase 8: {out['phase8_s']:.1f} s")
     return out
@@ -3859,6 +4287,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    if sys.argv[1:2] == ["--dp-worker"]:
+        return dp_worker(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
     from collaborative_distillation_tpu_torch.utils.flops import card_peak_flops, cascade_flops
     PEAK_FP32_FLOPS, peak_label = card_peak_flops(0, "float32")
     PEAK_BF16_FLOPS = card_peak_flops(0, "bfloat16")[0]
@@ -3933,7 +4363,12 @@ def main() -> int:
         if torch.cuda.device_count() < 2:
             print("chip_smoke --cross-card: needs two or more CUDA devices", file=sys.stderr)
             return 1
-        detail["cross_card"] = cross_card(torch, kc, WCTEngine, bench, c_uhd, c2k, s2k, calls_x)
+        import tempfile
+        if "--dp" not in sys.argv[1:]:
+            detail["cross_card"] = cross_card(torch, kc, WCTEngine, bench, c_uhd, c2k, s2k,
+                                              calls_x)
+        with tempfile.TemporaryDirectory() as tmp:
+            detail["data_parallel"] = dp_cross_card(torch, kc, c512, s512, tmp)
         os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
         with open(os.path.join(HERE, "chiprun_out", "chip_smoke_cross_card.json"), "w") as f:
             json.dump(detail, f, indent=1)

@@ -330,13 +330,19 @@ class Loader:
     Decode and augmentation run in a pool of ``num_workers`` threads; up to
     ``prefetch`` ready batches wait in a queue, so the card does not wait on
     the host's decoding. A dataset error is raised on the consumer's side.
+    ``shard=(i, n)`` yields part ``i`` of ``n`` equal parts of each batch,
+    in order: the ``n`` loaders of a data-parallel group of processes, with
+    one ``seed``, draw the same batches and decode each row once.
     """
 
     def __init__(self, dataset, batch_size: int = 16, *, shuffle: bool = True,
                  drop_last: bool = True, num_workers: int = 8, prefetch: int = 2,
-                 seed: int = 0):
+                 seed: int = 0, shard: tuple[int, int] = (0, 1)):
+        if batch_size % shard[1]:
+            raise ValueError(f"batch_size {batch_size} does not split into {shard[1]} parts")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shard = shard
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_workers = num_workers
@@ -351,8 +357,11 @@ class Loader:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             self.rng.shuffle(order)
-        for i in range(len(self)):
-            yield order[i * self.batch_size: (i + 1) * self.batch_size]
+        i, n = self.shard
+        rows = self.batch_size // n
+        for b in range(len(self)):
+            batch = order[b * self.batch_size: (b + 1) * self.batch_size]
+            yield batch[i * rows:(i + 1) * rows]
 
     def __iter__(self):
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)

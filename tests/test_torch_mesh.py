@@ -84,3 +84,35 @@ def test_default_mesh_never_picks_the_cpu():
         tmesh.make_mesh()
     with pytest.raises(ValueError, match="needs 4 devices, have 0"):
         tmesh.make_mesh(space=4)
+
+
+def test_initialize_multihost_forwards_args(monkeypatch):
+    """As the reference's ``jax.distributed.initialize`` wrapper: the
+    arguments win over the environment, which fills in what they leave
+    out (PyTorch's ``env://`` variables); gloo without CUDA."""
+    calls = []
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda **kw: calls.append(kw))
+    for var in ("WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    tmesh.initialize_multihost("coord:1234", 4, 2, backend="gloo")
+    assert calls[-1] == {"backend": "gloo", "init_method": "tcp://coord:1234",
+                         "world_size": 4, "rank": 2}
+    monkeypatch.setenv("WORLD_SIZE", "8")
+    monkeypatch.setenv("RANK", "5")
+    tmesh.initialize_multihost()
+    assert calls[-1] == {"backend": "nccl" if torch.cuda.is_available() else "gloo",
+                         "init_method": "env://", "world_size": 8, "rank": 5}
+    tmesh.initialize_multihost(process_id=0, backend="nccl")
+    assert calls[-1] == {"backend": "nccl", "init_method": "env://", "world_size": 8,
+                         "rank": 0}
+
+
+def test_make_mesh_records_the_process_group(monkeypatch):
+    """The mesh carries the group joined when it was built: (1, 0) without
+    one, the group's size and this process's rank with one."""
+    mesh = tmesh.make_mesh(data=2, devices=["cpu"] * 2)
+    assert (mesh.processes, mesh.rank) == (1, 0)
+    monkeypatch.setattr(tmesh, "process_group", lambda: (4, 2))
+    mesh = tmesh.make_mesh(data=1, devices=["cpu"])
+    assert (mesh.processes, mesh.rank, mesh.shape) == (4, 2, {"data": 1, "space": 1})

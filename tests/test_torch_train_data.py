@@ -77,6 +77,20 @@ def test_npy_folder_and_loader_equal_reference(png_dir, tmp_path):
         np.testing.assert_array_equal(a, b)
 
 
+def test_loader_shards_split_each_batch(png_dir):
+    """``shard=(i, n)``: part ``i`` of each of the unsharded loader's
+    batches, in order, so ``n`` loaders of one seed decode each row once."""
+    ds = tpipe.ImageFolderDataset(png_dir, shorter_side=84, crop=64, uint8=True)
+    whole = [paths for _, paths in tpipe.Loader(ds, 4, num_workers=1, seed=7)]
+    parts = [[paths for _, paths in tpipe.Loader(ds, 4, num_workers=1, seed=7, shard=(i, 2))]
+             for i in range(2)]
+    assert len(whole) == 1 and [len(p) for p in parts] == [1, 1]
+    assert parts[0][0] + parts[1][0] == whole[0]
+    assert all(len(p[0]) == 2 for p in parts)
+    with pytest.raises(ValueError, match="batch_size 3 does not split into 2 parts"):
+        tpipe.Loader(ds, 3, shard=(0, 2))
+
+
 @pytest.mark.parametrize("size", [(300, 400, 256, 341), (37, 53, 100, 11), (512, 300, 257, 299),
                                   (64, 64, 64, 128), (90, 120, 90, 119)], ids=str)
 def test_bilinear_resize_equals_pil(rng, size):
@@ -124,7 +138,8 @@ def test_train_cli_writes_log_grid_and_checkpoint_and_resumes(png_dir, teacher_r
 
 def test_train_cli_without_teachers_and_refusals(png_dir, tmp_path, monkeypatch):
     """wct_sd with --lw_perc 0 on the shipped 16x_base weights alone, in
-    float32 and with --bf16; --data_parallel above 1 stays refused."""
+    float32 and with --bf16; --data_parallel 2 on two CPU replicas (a batch
+    of 3 refused with the reference's words), --data_parallel 0 one device."""
     monkeypatch.chdir(tmp_path)
     argv = ["--mode", "wct_sd", "--stage", "1", "--lw_perc", "0", "--pretrained_init",
             "--content_train", png_dir, "-b", "3", "--shorter_side", "72", "--max_steps", "1",
@@ -141,8 +156,57 @@ def test_train_cli_without_teachers_and_refusals(png_dir, tmp_path, monkeypatch)
     assert "'bf16': True" in text and "compute bfloat16" in text and "max_steps 1 reached" in text
     with np.load(glob.glob("Experiments/*_sd16/weights/*.npz")[0]) as z:
         assert all(z[k].dtype == np.float32 for k in z.files if k.startswith("params/"))
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    with pytest.raises(SystemExit, match="batch_size 3 not divisible by 2 devices"):
         cli.main(argv + ["--device", "cpu", "--data_parallel", "2"])
+    even = [a if a != "3" else "4" for a in argv]
+    assert cli.main(even + ["--device", "cpu", "--data_parallel", "2", "-p", "dp2"]) == 0
+    text = open(glob.glob("Experiments/*_dp2/weights/log_*.txt")[0]).read()
+    assert "mesh: DP x 2" in text and "max_steps 1 reached" in text
+    with np.load(glob.glob("Experiments/*_dp2/weights/*.npz")[0]) as z:
+        assert "params/conv11/w" in z.files and "opt_state/0/0" in z.files
+    assert cli.main(argv + ["--device", "cpu", "--data_parallel", "0", "-p", "dp0"]) == 0
+    text = open(glob.glob("Experiments/*_dp0/weights/log_*.txt")[0]).read()
+    assert "mesh: single device" in text and "max_steps 1 reached" in text
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu|device='cpu'"):
             cli.main(argv)
+
+
+def test_train_cli_one_process_a_card(monkeypatch):
+    """On the card, ``--data_parallel N`` above 1 (0: every visible card)
+    starts a process a card; too few cards and a batch that does not divide
+    are refused first; 1 trains in this process."""
+    started = []
+    monkeypatch.setattr(cli, "resolve_device", lambda d: torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(cli, "_spawn", lambda argv, n: started.append((argv, n)) or 0)
+    monkeypatch.setattr(cli, "_stages", lambda args: started.append("here") or 0)
+    argv = ["--mode", "wct_se", "--stage", "1", "-b", "8"]
+    assert cli.main(argv) == 0 and cli.main(argv + ["--data_parallel", "2"]) == 0
+    assert cli.main(argv + ["--data_parallel", "1"]) == 0
+    assert started == [(argv, 4), (argv + ["--data_parallel", "2"], 2), "here"]
+    with pytest.raises(SystemExit, match="--data_parallel 8: 4 CUDA devices visible"):
+        cli.main(argv + ["--data_parallel", "8"])
+    with pytest.raises(SystemExit, match="batch_size 6 not divisible by 4 devices"):
+        cli.main(argv[:-1] + ["6"])
+
+
+def test_train_cli_one_process_a_device_over_gloo(png_dir, tmp_path, monkeypatch):
+    """Two ``cli.train --device cpu`` processes started by the CLI's own
+    launcher (``_spawn``, as ``torchrun`` launches them: WORLD_SIZE, RANK,
+    LOCAL_RANK, MASTER_ADDR, MASTER_PORT) join over gloo and train as one
+    data-parallel run of 2: process 0 alone writes the run's directory, its
+    log (``DP x 2``) and its checkpoint."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    argv = ["--mode", "wct_sd", "--stage", "1", "--lw_perc", "0", "--pretrained_init",
+            "--content_train", png_dir, "-b", "4", "--shorter_side", "72", "--max_steps", "2",
+            "--device", "cpu", "-p", "group", "--save_interval", "1"]
+    assert cli._spawn(argv, 2) == 0
+    (run,) = glob.glob(str(tmp_path / "Experiments" / "*_group"))
+    text = open(glob.glob(f"{run}/weights/log_*.txt")[0]).read()
+    assert "mesh: DP x 2 (one process a device)" in text and "max_steps 2 reached" in text
+    assert "E1S0" in text and len(glob.glob(f"{run}/weights/*.npz")) == 1
+    assert len(glob.glob(f"{run}/reconstructed_images/*")) == 2
+    # a process that fails stops the run with its exit code
+    assert cli._spawn(argv[:-4] + ["--stage", "9"], 2) == 2
