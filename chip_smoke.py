@@ -2565,8 +2565,8 @@ def _train_kernel_bound_ms(mode: str, bf16: bool = False) -> float:
 
 class _StepProbe:
     """Wraps ``Trainer.train_step`` for a CLI run in process: per step its
-    wall time (synchronised), its kernel launches (counters zeroed around
-    it), its losses; keeps the trainer, the last batch, and the first batch
+    wall time (synchronised) and the clock at its end, its kernel launches
+    (counters zeroed around it), its losses; keeps the trainer, the last batch, and the first batch
     with the masters as they were before the first step."""
 
     def __init__(self, torch, kc, trainer_cls):
@@ -2589,7 +2589,7 @@ class _StepProbe:
             t0 = time.perf_counter()
             losses, rec = probe.orig(trainer, batch)
             torch.cuda.synchronize()
-            probe.steps.append({"s": time.perf_counter() - t0,
+            probe.steps.append({"s": time.perf_counter() - t0, "end": time.perf_counter(),
                                 "launches": {k.__name__: k.launches for k in probe.kernels},
                                 "losses": {k: float(v) for k, v in losses.items()}})
             if probe.aux_grad is None:
@@ -3222,6 +3222,338 @@ def train_data_parallel(torch, kc, c512, s512) -> dict:
     return out
 
 
+# ---- phase 8g: JPEG training folders decoded on the card -------------------------
+
+# the folder's (count, H, W): COCO's usual 480 x 640 (denom 1 at shorter side
+# 300), then sizes the reference reads at denom 2, 4 and 8; every other file
+# portrait. Edge files: a size no denom divides (1301 x 1703, denom 4) and a
+# shorter side under 300 (an upscale).
+JPEG_TRAIN_MIX = ((24, 480, 640), (12, 700, 1000), (8, 1300, 1700), (4, 2500, 3300))
+JPEG_TRAIN_EDGE = ((1301, 1703), (257, 383))
+JPEG_TRAIN_SIDE = 300          # cli.train's default --shorter_side
+JPEG_TRAIN_STEPS = 8           # images/s: the median of steps 2-8
+JPEG_TRAIN_FIXTURE = ("d1", "d2", "d4", "d8", "c444", "prog", "up", "coco")
+DATA_META = {
+    "scale_reduce_u8": ("jpeg_resize.cu",
+                        "not a TPU kernel; counterpart of native/imgcodec.cpp:67 (cd_jpeg_decode "
+                        "at 1/scale_denom, libjpeg's scaled IDCT)"),
+    "box_resize_u8": ("jpeg_resize.cu",
+                      "not a TPU kernel; counterpart of native/imgcodec.cpp:441 (cd_resize_rgb)"),
+}
+
+
+def jpeg_train_sizes(n: int) -> list:
+    """(H, W) of ``n`` training JPEGs in JPEG_TRAIN_MIX's proportions (its
+    48 sizes over and over), every other one portrait."""
+    mix = [(h, w) for count, h, w in JPEG_TRAIN_MIX for _ in range(count)]
+    return [(w, h) if i % 2 else (h, w) for i, (h, w) in
+            enumerate(mix[i % len(mix)] for i in range(n))]
+
+
+def write_training_jpegs(torch, c512, s512, folder, sizes) -> dict:
+    """JPEGs of the photo pair reflect-tiled on the card to ``sizes``
+    (content and style in turns, offset crops), encoded there by nvJPEG at
+    quality 95; returns {path: (H, W)}."""
+    from collaborative_distillation_tpu_torch.data import nvjpeg_codec as nj
+    from collaborative_distillation_tpu_torch.ops.pad import reflect_index
+    os.makedirs(folder)
+    photos = [torch.from_numpy(a).cuda() for a in (c512, s512)]
+    out = {}
+    for i, (h, w) in enumerate(sizes):
+        x, off = photos[(i // 2) % 2], (37 * i) % 200
+        rows = reflect_index(x.shape[0], -off, off + h - x.shape[0], x.device)
+        cols = reflect_index(x.shape[1], -off, off + w - x.shape[1], x.device)
+        body = nj.encode_jpeg(x.index_select(0, rows).index_select(1, cols).contiguous(),
+                              quality=95)
+        if body is None:
+            raise AssertionError(f"phase 8g: nvJPEG did not encode {h}x{w}")
+        path = os.path.join(folder, f"{i:03d}.jpg")
+        with open(path, "wb") as f:
+            f.write(body)
+        out[path] = (h, w)
+    return out
+
+
+def _chain_launches(sizes) -> dict:
+    """The resize kernels' launches for decoding files of ``sizes``: the
+    block mean where denom is over 1, the box resize where the size
+    changes."""
+    from collaborative_distillation_tpu_torch.data.jpeg import shorter_side_plan
+    plans = [shorter_side_plan(h, w, JPEG_TRAIN_SIDE) for h, w in sizes]
+    return {"scale_reduce_u8": sum(d > 1 for d, _, _ in plans),
+            "box_resize_u8": sum(scaled != size for _, scaled, size in plans)}
+
+
+def _u8_work(kernel, shape) -> tuple:
+    """(bytes, integer adds) of one resize: each input byte read once, each
+    output byte written once; the block mean adds d * d bytes for each
+    output byte, the box resize its window's."""
+    if kernel == "scale_reduce_u8":
+        h, w, d = shape
+        out = 3 * -(-h // d) * -(-w // d)
+        return 3 * h * w + out, out * d * d
+    sh, sw, dh, dw = shape
+    rows = [max((y + 1) * sh // dh, y * sh // dh + 1) - y * sh // dh for y in range(dh)]
+    cols = [max((x + 1) * sw // dw, x * sw // dw + 1) - x * sw // dw for x in range(dw)]
+    return 3 * (sh * sw + dh * dw), 3 * sum(rows) * sum(cols)
+
+
+def jpeg_kernel_checks(torch, kc, files) -> dict:
+    """8g: each resize kernel bit-equal to its plain version on nvJPEG's
+    decode of every file (the shapes the loader gives it) and at edge shapes
+    (1-pixel outputs, widths not a multiple of 4 or of denom, upscales);
+    then each timed at every distinct shape of the folder (queued, L2
+    flushed: the host's pace taken out) beside its plain version, its
+    library yardstick (``F.avg_pool2d(ceil_mode=True)``,
+    ``F.interpolate(mode="area")`` on the same image as float32 NCHW, made
+    outside the timed call; not bit-equal) and its byte bound, and summed
+    per training batch: ``TRAIN_N`` of the folder's files, the folder's mix."""
+    from collaborative_distillation_tpu_torch.data import nvjpeg_codec as nj
+    from collaborative_distillation_tpu_torch.data.jpeg import shorter_side_plan
+    F = torch.nn.functional
+    worst = {k.__name__: 0 for k in kc.DATA_KERNELS}
+    shapes = {k.__name__: Counter() for k in kc.DATA_KERNELS}
+    n_checks = 0
+
+    def check(kernel, x, *args):
+        nonlocal n_checks
+        fn = getattr(kc, kernel)
+        got, want = fn(x, *args), fn.plain(x, *args)
+        torch.cuda.synchronize()
+        err = int((got.int() - want.int()).abs().max()) if got.shape == want.shape else 256
+        worst[kernel] = max(worst[kernel], err)
+        n_checks += 1
+        if err:
+            raise AssertionError(f"phase 8g: {kernel}{tuple(x.shape)}{args} differs from its "
+                                 f"plain version by {err} levels")
+        return got
+
+    decoded = {}
+    for path, (h, w) in files.items():
+        with open(path, "rb") as f:
+            x = nj.decode_jpeg(f.read())
+        if x is None or tuple(x.shape) != (h, w, 3):
+            raise AssertionError(f"phase 8g: nvJPEG decode of {path}: "
+                                 f"{None if x is None else tuple(x.shape)}")
+        denom, scaled, (dh, dw) = shorter_side_plan(h, w, JPEG_TRAIN_SIDE)
+        if denom > 1:
+            shapes["scale_reduce_u8"][(h, w, denom)] += 1
+            decoded.setdefault((h, w, denom), x)
+            x = check("scale_reduce_u8", x, denom)
+        if scaled != (dh, dw):
+            shapes["box_resize_u8"][(*scaled, dh, dw)] += 1
+            decoded.setdefault((*scaled, dh, dw), x)
+            check("box_resize_u8", x, dw, dh)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    u8 = lambda h, w: (torch.rand((h, w, 3), generator=gen, device="cuda") * 256).to(torch.uint8)
+    for h, w in ((1, 1), (1, 7), (5, 1), (9, 13), (17, 30), (333, 451)):
+        for d in (1, 2, 4, 8):
+            check("scale_reduce_u8", u8(h, w), d)
+    for sh, sw, dh, dw in ((1, 1, 1, 1), (1, 1, 5, 3), (7, 9, 1, 1), (10, 13, 3, 5),
+                           (5, 5, 9, 11), (17, 31, 16, 1), (326, 426, 300, 392),
+                           (257, 383, 300, 447)):
+        check("box_resize_u8", u8(sh, sw), dw, dh)
+    per_batch = TRAIN_N / len(files)
+    rows = {}
+    for kernel, counts in shapes.items():
+        fn, timed = getattr(kc, kernel), []
+        for shape, n in sorted(counts.items()):
+            x = decoded[shape]
+            xf = x.permute(2, 0, 1)[None].float().contiguous()
+            if kernel == "scale_reduce_u8":
+                args, lib = (shape[2],), lambda: F.avg_pool2d(xf, shape[2], ceil_mode=True)
+            else:
+                args, lib = (shape[3], shape[2]), lambda: F.interpolate(
+                    xf, size=shape[2:], mode="area")
+            nbytes, adds = _u8_work(kernel, shape)
+            r = {"shape": shape, "files": n, "ms": queued_ms(torch, lambda: fn(x, *args), 10),
+                 "plain_ms": queued_ms(torch, lambda: fn.plain(x, *args), 10),
+                 "library_ms": queued_ms(torch, lib, 10),
+                 "bytes_ms": nbytes / PEAK_BYTES * 1e3,
+                 # integer adds: 64 INT32 lanes an SM against 128 FP32 ones,
+                 # whose FMA the FP32 peak counts as two operations
+                 "flops_ms": adds / (PEAK_FP32_FLOPS / 4) * 1e3, "calls": n * per_batch}
+            timed.append(r)
+            log(f"phase 8g: {kernel} {shape} x{n} files: {r['ms'] * 1e3:.1f} us, plain "
+                f"{r['plain_ms'] * 1e3:.1f} us, library {r['library_ms'] * 1e3:.1f} us, bound "
+                f"{max(r['bytes_ms'], r['flops_ms']) * 1e3:.2f} us")
+        rows[kernel] = {"max_abs_err": worst[kernel], "per_batch": path_times(timed),
+                        "shapes": timed}
+    log(f"phase 8g: {n_checks} kernel-vs-plain checks bit-equal (every file's decode of "
+        f"{len(files)}, edge shapes); max level difference {worst}")
+    return {"checks": n_checks, "rows": rows}
+
+
+def jpeg_fixture_chain(torch) -> dict:
+    """8g: the card's chain (nvJPEG, then the kernels) on the training
+    fixture's files against the reference's libjpeg scaled decodes in
+    ``data/jpeg_train_fixture.npz``, at PSNR_MIN_DB."""
+    from collaborative_distillation_tpu_torch.data import jpeg
+    out = {}
+    with np.load(os.path.join(HERE, "collaborative_distillation_tpu_torch", "data",
+                              "jpeg_train_fixture.npz")) as d:
+        for name in JPEG_TRAIN_FIXTURE:
+            got = jpeg.decode_jpeg_shorter_side(d[f"{name}_jpeg"].tobytes(),
+                                                int(d[f"{name}_side"]), "cuda")
+            want = d[f"{name}_out"]
+            if got is None or tuple(got.shape) != want.shape:
+                raise AssertionError(f"phase 8g: fixture {name}: "
+                                     f"{None if got is None else tuple(got.shape)} "
+                                     f"!= {want.shape}")
+            got = got.cpu().numpy()
+            out[name] = {"psnr_db": psnr(got / 255.0, want / 255.0),
+                         "max_diff": int(np.abs(got.astype(np.int16) - want).max())}
+    log("phase 8g: the card's chain against the reference's decodes (fixture): " + ", ".join(
+        f"{n} {r['psnr_db']:.2f} dB (max {r['max_diff']})" for n, r in out.items())
+        + f" (min {PSNR_MIN_DB})")
+    if not all(r["psnr_db"] >= PSNR_MIN_DB for r in out.values()):
+        raise AssertionError(f"phase 8g: the card's chain against the fixture: {out}")
+    return out
+
+
+class _LoadProbe:
+    """While a CLI runs in process: the items ``ImageFolderDataset`` loads
+    (their paths) and nvJPEG's decodes, counted from the Loader's threads."""
+
+    def __init__(self):
+        import threading
+
+        from collaborative_distillation_tpu_torch.data import nvjpeg_codec, pipeline
+        self.nj, self.cls = nvjpeg_codec, pipeline.ImageFolderDataset
+        self.lock = threading.Lock()
+        self.paths, self.decodes = [], 0
+
+    def __enter__(self):
+        probe, get, dec = self, self.cls.__getitem__, self.nj.decode_jpeg
+        self.orig = get, dec
+
+        def getitem(ds, idx):
+            item = get(ds, idx)
+            with probe.lock:
+                probe.paths.append(ds.paths[idx])
+            return item
+
+        def decode(*a, **kw):
+            img = dec(*a, **kw)
+            with probe.lock:
+                probe.decodes += 1
+            return img
+
+        self.cls.__getitem__, self.nj.decode_jpeg = getitem, decode
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__getitem__, self.nj.decode_jpeg = self.orig
+
+
+def jpeg_train_cli_runs(torch, kc, tmp, jpegs, pngs) -> dict:
+    """8g: ``cli.train`` wct_se in process at stage 5 x 16 x 256^2 without
+    ``--cache_data`` (every item decoded in its batch), f32 and ``--bf16``,
+    on the JPEG folder ``jpegs`` ({path: (H, W)}) and on 8c's PNG folder
+    ``pngs``, the resize kernels' counts zeroed before each run: each
+    step's launches the step's own, the loss on the first batch falling
+    over 1 + 8 steps, nvJPEG's decodes equal to the items loaded (none for
+    PNGs), the resize kernels' launches equal to the loaded files' plans;
+    images/s from the median step (steps 2-8) and from the median wall
+    between step ends (the loader's waits included), the torch peak and
+    nvJPEG's own memory."""
+    from collaborative_distillation_tpu_torch.cli import train as cli
+    from collaborative_distillation_tpu_torch.data import nvjpeg_codec as nj
+    from collaborative_distillation_tpu_torch.train.trainer import Trainer
+    root = os.path.join(tmp, "train_weights")
+    folders = {"jpeg": os.path.dirname(next(iter(jpegs))), "png": pngs}
+    out = {}
+    cwd = os.getcwd()
+    os.chdir(tmp)   # the CLI writes Experiments/ in its working directory
+    try:
+        for bf16 in (False, True):
+            for fmt, folder in folders.items():
+                tag = f"{fmt}_{'bf16' if bf16 else 'f32'}"
+                argv = ["--mode", "wct_se", "--pretrained_init", "--weights_root", root,
+                        "--stage", str(TRAIN_STAGE), "-b", str(TRAIN_N), "--content_train",
+                        folder, "--device", "cuda", "--print_interval", "1",
+                        "--save_interval", "100", "--max_steps", str(JPEG_TRAIN_STEPS),
+                        "-p", "train_" + tag] + (["--bf16"] if bf16 else [])
+                for k in kc.DATA_KERNELS:
+                    k.launches = 0
+                nj.memory(reset_peak=True)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                with _StepProbe(torch, kc, Trainer) as probe, _LoadProbe() as load:
+                    t0 = time.perf_counter()
+                    cli.main(argv)
+                    wall = time.perf_counter() - t0
+                launches = {k.__name__: k.launches for k in kc.DATA_KERNELS}
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                mem = nj.memory()
+                steps = probe.steps
+                want = {**{k.__name__: 0 for k in probe.kernels},
+                        **_train_launches("wct_se", bf16)}
+                if len(steps) != JPEG_TRAIN_STEPS or any(st["launches"] != want for st in steps):
+                    raise AssertionError(f"phase 8g: {tag}: {len(steps)} steps, launches "
+                                         f"{[st['launches'] for st in steps]} != {want}")
+                want_data = (_chain_launches([jpegs[p] for p in load.paths]) if fmt == "jpeg"
+                             else {k.__name__: 0 for k in kc.DATA_KERNELS})
+                decodes = len(load.paths) if fmt == "jpeg" else 0
+                if (launches != want_data or load.decodes != decodes
+                        or (fmt == "jpeg" and not all(launches.values()))):
+                    raise AssertionError(f"phase 8g: {tag}: {len(load.paths)} items, "
+                                         f"{load.decodes} nvJPEG decodes (want {decodes}), "
+                                         f"resize launches {launches} != {want_data}")
+                totals = _loss_falls(torch, probe.trainer, probe.first)
+                if not (all(np.isfinite(totals)) and min(totals[1:]) < totals[0]):
+                    raise AssertionError(f"phase 8g: {tag}: the loss on the first batch did "
+                                         f"not fall over 1 + 8 steps: {totals}")
+                step_s = statistics.median(st["s"] for st in steps[1:])
+                gap_s = statistics.median(b["end"] - a["end"] for a, b in zip(steps, steps[1:]))
+                out[tag] = {"steps_s": [st["s"] for st in steps], "median_step_s": step_s,
+                            "median_wall_s": gap_s, "images_per_s": TRAIN_N / step_s,
+                            "walls_s": [b["end"] - a["end"] for a, b in zip(steps, steps[1:])],
+                            "images_per_s_wall": TRAIN_N / gap_s, "items": len(load.paths),
+                            "nvjpeg_decodes": load.decodes, "launches": launches,
+                            "peak_gib": peak, "nvjpeg_memory": mem, "wall_s": wall,
+                            "first_batch_totals": totals}
+                each = ", ".join(f"{st['s'] * 1e3:.0f}" for st in steps)
+                walls = ", ".join(f"{(b['end'] - a['end']) * 1e3:.0f}"
+                                  for a, b in zip(steps, steps[1:]))
+                log(f"phase 8g: cli.train wct_se {tag} (no --cache_data) stage {TRAIN_STAGE} x "
+                    f"{TRAIN_N} x {TRAIN_HW}^2: median step {step_s * 1e3:.1f} ms over steps "
+                    f"2-{JPEG_TRAIN_STEPS} ({TRAIN_N / step_s:.2f} images/s), median wall "
+                    f"between steps {gap_s * 1e3:.1f} ms ({TRAIN_N / gap_s:.2f} images/s, the "
+                    f"loader's waits included); steps {each} ms, walls between them {walls} "
+                    f"ms (an epoch is {len(os.listdir(folder)) // TRAIN_N} steps: its first "
+                    f"waits for a new pool's batch); "
+                    f"{len(load.paths)} "
+                    f"items loaded, {load.decodes} nvJPEG decodes, resize launches {launches}; "
+                    f"torch peak {peak:.2f} GiB, nvJPEG memory {mem}; the first batch's loss "
+                    f"over 1 + 8 steps {', '.join(f'{t:.6g}' for t in totals)}; wall {wall:.1f} s")
+    finally:
+        os.chdir(cwd)
+    return out
+
+
+def jpeg_training(torch, kc, c512, s512, tmp, cached) -> dict:
+    """Phase 8g: JPEG training folders decoded on the card, with its own
+    clock; ``cached``: 8c's and 8e's wct_se runs (PNGs, ``--cache_data``),
+    printed beside."""
+    t0 = time.perf_counter()
+    sizes = jpeg_train_sizes(TRAIN_IMAGES) + list(JPEG_TRAIN_EDGE)
+    files = write_training_jpegs(torch, c512, s512, os.path.join(tmp, "train_jpegs"), sizes)
+    out = {"files": len(files), "fixture": jpeg_fixture_chain(torch),
+           "kernels": jpeg_kernel_checks(torch, kc, files),
+           "cli": jpeg_train_cli_runs(torch, kc, tmp, files, os.path.join(tmp, "train_images"))}
+    for dtype in ("f32", "bf16"):
+        r, c = out["cli"], cached[dtype]["wct_se"]
+        log(f"phase 8g: {dtype} images/s, JPEG folder {r[f'jpeg_{dtype}']['images_per_s']:.2f} "
+            f"(wall {r[f'jpeg_{dtype}']['images_per_s_wall']:.2f}), PNG folder "
+            f"{r[f'png_{dtype}']['images_per_s']:.2f} (wall "
+            f"{r[f'png_{dtype}']['images_per_s_wall']:.2f}), both without --cache_data; the "
+            f"cached PNG run {c['images_per_s']:.2f}")
+    out["phase8g_s"] = time.perf_counter() - t0
+    log(f"phase 8g: {out['phase8g_s']:.1f} s")
+    return out
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -3356,26 +3688,31 @@ def dp_processes(torch, setup, single, world: int, tmp) -> dict:
 DP_CLI_STEPS = 10   # one epoch of DP_CLI_STEPS x TRAIN_N images
 
 
-def dp_cli_processes(torch, setup, c512, s512, world: int, tmp) -> dict:
+def dp_cli_processes(torch, setup, c512, s512, world: int, tmp, fmt="png") -> dict:
     """``--cross-card``: ``cli.train`` with its default ``--data_parallel
     0`` on ``world`` (every visible) cards, which starts a process a card
     over NCCL, and with ``--data_parallel 1`` (one card) beside it; wct_se
     at stage 5 x 16 x 256^2, 8f's seeded weights (``--weights_root`` and
-    ``--SE``), one epoch of DP_CLI_STEPS steps over as many batches of PNGs:
-    each exits 0, process 0 alone writes the run (its log says ``DP x world
-    (one process a device)``), one checkpoint. Images/s from the log's
-    MPix/s (a step's wall, the loader's wait and the loss read-back
-    included), the median over steps 3 on: the first line holds the
-    loader's start and the second the grid written after the first."""
+    ``--SE``), one epoch of DP_CLI_STEPS steps over as many batches of PNGs
+    (``fmt="jpeg"``: JPEGs of phase 8g's mix, decoded and resized on each
+    process's card): each exits 0, process 0 alone writes the run (its log
+    says ``DP x world (one process a device)``), one checkpoint. Images/s
+    from the log's MPix/s (a step's wall, the loader's wait and the loss
+    read-back included), the median over steps 3 on: the first line holds
+    the loader's start and the second the grid written after the first."""
     import re
 
     from collaborative_distillation_tpu_torch.models.zoo import save_tree_npz
     student, frozen, _ = setup
-    root, data = os.path.join(tmp, "dp_weights"), os.path.join(tmp, "dp_images")
-    save_tree_npz(frozen["be"], os.path.join(root, "original", f"e{TRAIN_STAGE}.npz"))
-    save_tree_npz(frozen["bd"], os.path.join(root, "original", f"d{TRAIN_STAGE}.npz"))
-    save_tree_npz(student, os.path.join(root, f"se{TRAIN_STAGE}.npz"))
-    _write_training_pngs(torch, c512, s512, data, DP_CLI_STEPS * TRAIN_N)
+    root, data = os.path.join(tmp, "dp_weights"), os.path.join(tmp, f"dp_{fmt}")
+    if not os.path.isdir(root):
+        save_tree_npz(frozen["be"], os.path.join(root, "original", f"e{TRAIN_STAGE}.npz"))
+        save_tree_npz(frozen["bd"], os.path.join(root, "original", f"d{TRAIN_STAGE}.npz"))
+        save_tree_npz(student, os.path.join(root, f"se{TRAIN_STAGE}.npz"))
+    if fmt == "jpeg":
+        write_training_jpegs(torch, c512, s512, data, jpeg_train_sizes(DP_CLI_STEPS * TRAIN_N))
+    else:
+        _write_training_pngs(torch, c512, s512, data, DP_CLI_STEPS * TRAIN_N)
     argv = [sys.executable, "-m", "collaborative_distillation_tpu_torch.cli.train", "--mode",
             "wct_se", "--stage", str(TRAIN_STAGE), "-b", str(TRAIN_N), "--content_train", data,
             "--weights_root", root, "--SE", os.path.join(root, f"se{TRAIN_STAGE}.npz"),
@@ -3384,10 +3721,11 @@ def dp_cli_processes(torch, setup, c512, s512, world: int, tmp) -> dict:
     for cards, dp, want in ((1, "1", "mesh: single device"),
                             (world, "0" if world == torch.cuda.device_count() else str(world),
                              f"mesh: DP x {world} (one process a device)")):
-        run = os.path.join(tmp, f"dp_cli{cards}")
+        run = os.path.join(tmp, f"dp_cli{cards}_{fmt}")
         os.makedirs(run)
         wall = _run_processes([argv + ["-p", f"dp_cli{cards}", "--data_parallel", dp]],
-                              f"cli.train on {cards} cards", cwd=run, envs=[{"PYTHONPATH": HERE}])
+                              f"cli.train on {cards} cards ({fmt})", cwd=run,
+                              envs=[{"PYTHONPATH": HERE}])
         runs = os.listdir(os.path.join(run, "Experiments")) if os.path.isdir(
             os.path.join(run, "Experiments")) else []
         text, ckpts = "", []
@@ -3404,11 +3742,12 @@ def dp_cli_processes(torch, setup, c512, s512, world: int, tmp) -> dict:
         ips = statistics.median(mpix[2:]) * 1e6 / TRAIN_HW ** 2
         out[cards] = {"data_parallel": dp, "wall_s": wall, "mpix_per_s": mpix,
                       "images_per_s": ips}
-        log(f"cross-card: cli.train wct_se stage {TRAIN_STAGE} x {TRAIN_N} x {TRAIN_HW}^2, "
-            f"--data_parallel {dp} on {cards} card(s): exited 0 in {wall:.1f} s, process 0 "
+        log(f"cross-card: cli.train wct_se stage {TRAIN_STAGE} x {TRAIN_N} x {TRAIN_HW}^2 on "
+            f"{fmt.upper()}s, --data_parallel {dp} on {cards} card(s): exited 0 in {wall:.1f} s, "
+            f"process 0 "
             f"wrote the one run ('{want}', one checkpoint); MPix/s a step {mpix}: "
             f"{ips:.2f} images/s (median of steps 3-{DP_CLI_STEPS})")
-    log(f"cross-card: cli.train images/s, default on {world} cards against one: "
+    log(f"cross-card: cli.train images/s on {fmt.upper()}s, default on {world} cards against one: "
         f"{out[world]['images_per_s']:.2f} / {out[1]['images_per_s']:.2f} = "
         f"{out[world]['images_per_s'] / out[1]['images_per_s']:.2f}x")
     return out
@@ -3418,7 +3757,8 @@ def dp_cross_card(torch, kc, c512, s512, tmp) -> dict:
     """``--cross-card``: 8f's check with one replica a card in this process
     at 2 cards and at 4 where present, float32 and bf16; then the same
     numbers of processes, one card each (:func:`dp_processes`); images/s
-    at 1, 2 and 4 cards both ways."""
+    at 1, 2 and 4 cards both ways; ``cli.train`` on every card against one,
+    on a PNG folder and on a JPEG folder (:func:`dp_cli_processes`)."""
     setup = dp_setup(torch, c512, s512)
     counts = [n for n in (2, 4) if n <= torch.cuda.device_count()]
     out = {dtype: {n: dp_compare(torch, kc, setup, dtype, [f"cuda:{i}" for i in range(n)],
@@ -3427,6 +3767,11 @@ def dp_cross_card(torch, kc, c512, s512, tmp) -> dict:
     single = {dtype: out[dtype][counts[0]]["single"] for dtype in out}
     out["processes"] = {n: dp_processes(torch, setup, single, n, tmp) for n in counts}
     out["cli"] = dp_cli_processes(torch, setup, c512, s512, counts[-1], tmp)
+    out["cli_jpeg"] = dp_cli_processes(torch, setup, c512, s512, counts[-1], tmp, "jpeg")
+    for cards in (1, counts[-1]):
+        log(f"cross-card: cli.train images/s on {cards} card(s), JPEG folder "
+            f"{out['cli_jpeg'][cards]['images_per_s']:.2f} (decoded on the card) against PNG "
+            f"folder {out['cli'][cards]['images_per_s']:.2f}")
     for dtype in ("float32", "bfloat16"):
         log(f"cross-card: data-parallel wct_se {dtype} images/s: 1 card "
             f"{single[dtype]['images_per_s']:.2f}; " + "; ".join(
@@ -3437,7 +3782,7 @@ def dp_cross_card(torch, kc, c512, s512, tmp) -> dict:
 
 
 def training(torch, kc, c512, s512, tmp, teachers) -> dict:
-    """Phase 8: the training path (8a, 8b, 8c, 8d, 8e, 8f), with its own clock;
+    """Phase 8: the training path (8a, 8b, 8c, 8d, 8e, 8f, 8g), with its own clock;
     ``teachers``: phase 9c's store."""
     t0 = time.perf_counter()
     out = {"autograd": train_autograd_checks(torch), "card_vs_cpu": train_card_vs_cpu(torch),
@@ -3448,6 +3793,8 @@ def training(torch, kc, c512, s512, tmp, teachers) -> dict:
                              f"wct_se step plan the first kernel")
     out["bf16"] = training_bf16(torch, kc, c512, s512, tmp, teachers, out["cli"])
     out["data_parallel"] = train_data_parallel(torch, kc, c512, s512)
+    out["jpeg"] = jpeg_training(torch, kc, c512, s512, tmp,
+                                {"f32": out["cli"], "bf16": out["bf16"]["cli"]})
     out["phase8_s"] = time.perf_counter() - t0
     log(f"phase 8: {out['phase8_s']:.1f} s")
     return out
@@ -5038,6 +5385,20 @@ def main() -> int:
                               "library_ms")},
         "path": f"wct_se step, stage {TRAIN_STAGE} x {TRAIN_N} x {TRAIN_HW}^2",
         "original_cascade_launches": detail["teacher_widths"]["cascade"]["conv3x3_by_template"]}
+    # the training loader's resize kernels (phase 8g), no TPU kernel's
+    # counterparts: launches from the float32 JPEG folder's cli.train run,
+    # times summed over a training batch of the folder's files
+    jp = detail["training"]["jpeg"]
+    for k in kc.DATA_KERNELS:
+        name = k.__name__
+        src, rep = DATA_META[name]
+        r = jp["kernels"]["rows"][name]
+        table.append({"name": name, "route": "cuda", "source": REPO_PATH + src, "replaces": rep,
+                      "launches": jp["cli"]["jpeg_f32"]["launches"][name],
+                      "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
+                      "max_rel_err": r["max_abs_err"] / 255,
+                      "path": f"cli.train on a JPEG folder, a batch of {TRAIN_N}",
+                      **r["per_batch"]})
     detail["total_s"] = time.perf_counter() - t_start
     log(f"phase 9: {detail['phase9_s']:.1f} s; phase 7: {detail['phase7_s']:.1f} s; phase 8: "
         f"{detail['training']['phase8_s']:.1f} s; chip_smoke.py {detail['total_s']:.1f} s "

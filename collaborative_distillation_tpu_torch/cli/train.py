@@ -23,6 +23,9 @@ loads and trains on its own rows of every batch (one shuffle seed: the
 same batches), and process 0 alone writes the log, the grids (its own
 rows) and the checkpoints. With ``--device cpu`` and no group, N > 1 is
 one process holding N replicas on the CPU (``Trainer(mesh=)``).
+On the card, ``--content_train``'s JPEGs are decoded by nvJPEG and resized
+to ``--shorter_side`` there (``ImageFolderDataset(device=)``); PNGs are
+read on the host.
 """
 
 from __future__ import annotations
@@ -277,8 +280,10 @@ def _train(args, k: int, root: str, exp: Experiment) -> int:
         log(f"resumed from {args.resume} at epoch {start_epoch - 1}")
 
     # uint8 batches: a quarter of the bytes to the card, normalized there
+    # JPEGs decode and resize on the trainer's card (nvJPEG and the resize
+    # kernels), each process on its own
     dataset = ImageFolderDataset(args.content_train, args.shorter_side, cache=args.cache_data,
-                                 uint8=True, aug=args.aug)
+                                 uint8=True, aug=args.aug, device=trainer.device)
     world, rank = process_group()
     loader = Loader(dataset, args.batch_size, shard=(rank, world))
     if len(loader) == 0:

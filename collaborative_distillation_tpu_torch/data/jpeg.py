@@ -12,6 +12,13 @@ over ``max_pixels``) gives None, as the codecs' own functions do.
 Arrays come and go in the device's form: numpy on the host for the CPU,
 torch tensors on the card for CUDA (host arrays given to a CUDA device are
 copied up first).
+
+:func:`decode_jpeg_shorter_side` is the training loader's decode: on the
+CPU libjpeg's DCT-scaled decode and box resize (the reference's, exactly);
+on the card nvJPEG's whole decode, then :func:`to_shorter_side`, which
+reproduces the reference's two steps with the kernels of
+``ops/cuda/resize.py`` (the scaled IDCT by a rounded block mean, within
+~50 dB; the box resize bit for bit).
 """
 
 from __future__ import annotations
@@ -19,11 +26,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.cuda.resize import box_resize_u8, scale_reduce_u8
 from . import native_codec, nvjpeg_codec
+from .native_codec import shorter_side_plan
 
 __all__ = ["CodecUnavailable", "codec", "codec_name", "available",
            "unavailable_reason", "require", "decode_jpeg", "decode_jpeg_yuv420", "encode_jpeg",
-           "encode_jpeg_yuv420"]
+           "encode_jpeg_yuv420", "shorter_side_plan", "to_shorter_side",
+           "decode_jpeg_shorter_side"]
 
 
 class CodecUnavailable(RuntimeError):
@@ -111,3 +121,31 @@ def encode_jpeg_yuv420(y, cbcr, device=None, *, quality: int = 95) -> bytes | No
     if dev.type == "cuda":
         return mod.encode_jpeg_yuv420(_on(y, dev), _on(cbcr, dev), quality=quality)
     return mod.encode_jpeg_yuv420(np.asarray(y), np.asarray(cbcr), quality=quality)
+
+
+def to_shorter_side(rgb: torch.Tensor, shorter_side: int) -> torch.Tensor:
+    """A whole decode, (H, W, 3) uint8 -> the reference's shorter-side image
+    on the same device: the block mean at ``denom`` (where it is over 1),
+    then the box resize (where the size changes). On the card the kernels
+    ``scale_reduce_u8`` and ``box_resize_u8``, on the CPU their plain
+    versions."""
+    denom, scaled, (dh, dw) = shorter_side_plan(rgb.shape[0], rgb.shape[1], shorter_side)
+    if denom > 1:
+        rgb = scale_reduce_u8(rgb, denom)
+    return rgb if (dh, dw) == scaled else box_resize_u8(rgb, dw, dh)
+
+
+def decode_jpeg_shorter_side(data: bytes, shorter_side: int, device=None):
+    """JPEG bytes -> (H, W, 3) uint8 RGB whose shorter side is
+    ``shorter_side``, in the device's form; None where the data does not
+    decode. On the CPU libjpeg decodes at scale 1/denom and box-resizes
+    (the reference's own path); on a CUDA device nvJPEG decodes whole and
+    :func:`to_shorter_side` runs on the card, on the caller's current
+    stream. Raises :class:`CodecUnavailable` where the device's codec
+    cannot load."""
+    dev = _device(device)
+    mod = require(dev, "read a JPEG")
+    if dev.type == "cpu":
+        return mod.decode_jpeg_shorter_side(data, shorter_side)
+    img = mod.decode_jpeg(data, dev)
+    return None if img is None else to_shorter_side(img, shorter_side)

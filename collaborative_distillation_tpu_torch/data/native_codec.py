@@ -24,7 +24,7 @@ import threading
 
 import numpy as np
 
-__all__ = ["available", "unavailable_reason", "jpeg_dims", "decode_jpeg",
+__all__ = ["available", "unavailable_reason", "jpeg_dims", "decode_jpeg", "shorter_side_plan",
            "decode_jpeg_shorter_side", "encode_jpeg", "decode_jpeg_yuv420", "encode_jpeg_yuv420",
            "jpeg_yuv420_reader", "jpeg_yuv420_writer", "rgb_to_yuv420", "yuv420_to_rgb",
            "MAX_DECODE_PIXELS"]
@@ -182,31 +182,41 @@ def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes | None:
                     w, h)
 
 
+def shorter_side_plan(h: int, w: int, shorter_side: int
+                      ) -> tuple[int, tuple[int, int], tuple[int, int]]:
+    """The shorter-side decode of an (h, w) JPEG: the DCT scale ``denom``,
+    the largest of 1, 2, 4, 8 with ``min(h, w) // denom >= shorter_side``
+    (the coarsest that still over-resolves the target); libjpeg's scaled
+    size (ceil(h/denom), ceil(w/denom)); and the size (dh, dw) whose shorter
+    side is ``shorter_side``, the longer one ``round()``ed from the scaled
+    size."""
+    denom = 1
+    while denom < 8 and min(h, w) // (denom * 2) >= shorter_side:
+        denom *= 2
+    sh, sw = -(-h // denom), -(-w // denom)
+    if sw < sh:
+        dw, dh = shorter_side, max(1, round(sh * shorter_side / sw))
+    else:
+        dh, dw = shorter_side, max(1, round(sw * shorter_side / sh))
+    return denom, (sh, sw), (dh, dw)
+
+
 def decode_jpeg_shorter_side(data: bytes, shorter_side: int) -> np.ndarray | None:
-    """Decode and resize so that min(H, W) == ``shorter_side``: the coarsest
-    DCT scale that still over-resolves the target, then a box-filter
-    resize. None when the codec is unavailable or the data does not decode."""
+    """Decode and resize so that min(H, W) == ``shorter_side``: libjpeg's
+    decode at :func:`shorter_side_plan`'s scale, then a box-filter resize.
+    None when the codec is unavailable or the data does not decode."""
     lib = _load()
     if lib is None:
         return None
     dims = _dims(lib, data)
     if dims is None:
         return None
-    denom = 1
-    while denom < 8 and min(dims) // (denom * 2) >= shorter_side:
-        denom *= 2
+    denom, scaled, (dh, dw) = shorter_side_plan(dims[1], dims[0], shorter_side)
     arr = decode_jpeg(data, denom)
-    if arr is None:
-        return None
-    sh, sw = arr.shape[:2]
-    if sw < sh:
-        dw, dh = shorter_side, max(1, round(sh * shorter_side / sw))
-    else:
-        dh, dw = shorter_side, max(1, round(sw * shorter_side / sh))
-    if (dw, dh) == (sw, sh):
+    if arr is None or scaled == (dh, dw):
         return arr
     dst = np.empty((dh, dw, 3), np.uint8)
-    if lib.cd_resize_rgb(_ptr(arr), sw, sh, _ptr(dst), dw, dh) != 0:
+    if lib.cd_resize_rgb(_ptr(arr), arr.shape[1], arr.shape[0], _ptr(dst), dw, dh) != 0:
         return None
     return dst
 

@@ -2,10 +2,12 @@
 
 The port's copy of the reference package's pipeline, with the same names,
 semantics and random streams, reading files through :mod:`..utils.image`
-instead of PIL (JPEG through libjpeg on the host, which raises
-``CodecUnavailable`` where it does not build; :class:`CenterCropDataset` and
-:class:`PairGridDataset` take a ``device`` whose codec reads their JPEGs,
-for the CLIs that run on the card):
+instead of PIL. Every dataset of image files takes a ``device`` whose
+codec reads its JPEGs (``"cpu"``: libjpeg on the host, which raises
+``CodecUnavailable`` where it does not build; a CUDA device: nvJPEG). The
+training datasets on a card decode and resize each JPEG there
+(``jpeg.decode_jpeg_shorter_side``) and fetch the resized image; all after
+the decode is host numpy, as on the CPU:
 
 * :class:`ImageFolderDataset` — training content: shorter-side resize,
   random crop, random hflip (or ``aug="strong"``);
@@ -32,9 +34,11 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 
 from ..utils.image import read_image, resize
-from . import native_codec
+from ..utils.transfer import fetch
+from . import jpeg, native_codec
 
 IMG_EXTENSIONS = (".png", ".jpg", ".jpeg")
 
@@ -110,10 +114,17 @@ class ImageFolderDataset:
     transforms for small corpora, where the target is the input itself.
     ``cache=True`` keeps the decoded, resized arrays in memory (small
     folders only); ``uint8=True`` yields uint8 arrays for the trainer to
-    normalize on the device."""
+    normalize on the device.
+
+    ``device``: the codec that reads the JPEGs. On a CUDA device each JPEG
+    is decoded by nvJPEG and brought to the shorter side by the card's
+    kernels (``shorter_side=0``: decoded whole), on a side stream of the
+    calling thread's own under that device, then fetched; PNGs stay on the
+    host. Where nvJPEG cannot load, a JPEG raises ``CodecUnavailable``
+    (libjpeg is never used)."""
 
     def __init__(self, img_dir: str, shorter_side: int = 300, crop: int = 256, seed: int = 0,
-                 cache: bool = False, uint8: bool = False, aug: str = "flip"):
+                 cache: bool = False, uint8: bool = False, aug: str = "flip", device="cpu"):
         self.paths = sorted(
             os.path.join(img_dir, f) for f in os.listdir(img_dir) if is_img(f))
         if not self.paths:
@@ -126,14 +137,41 @@ class ImageFolderDataset:
         if aug not in ("flip", "strong"):
             raise ValueError(f"unknown aug mode {aug!r}")
         self.aug = aug
+        self.device = torch.device(device)
+        if (self.device.type == "cuda" and self.device.index is None
+                and torch.cuda.is_available()):
+            # the Loader's threads start on card 0: name this one
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self._streams = threading.local()
 
     def __len__(self) -> int:
         return len(self.paths)
 
+    def _decode_on_card(self, path: str) -> np.ndarray:
+        """A JPEG decoded and resized on ``self.device``, fetched as uint8.
+        The work goes on this thread's own side stream: the thread's current
+        stream is the card's default one, which the training step fills."""
+        with open(path, "rb") as fh:
+            data = fh.read()
+        jpeg.require(self.device, f"read JPEG {path}")
+        with torch.cuda.device(self.device):
+            stream = getattr(self._streams, "stream", None)
+            if stream is None:
+                stream = self._streams.stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(stream):
+                img = (jpeg.decode_jpeg_shorter_side(data, self.shorter_side, self.device)
+                       if self.shorter_side else jpeg.decode_jpeg(data, self.device))
+                if img is None:
+                    raise ValueError(f"cannot decode JPEG {path}")
+                return fetch(img)
+
     def _decode(self, path: str) -> np.ndarray:
         img = None
-        if (self.shorter_side and path.lower().endswith((".jpg", ".jpeg"))
-                and native_codec.available()):
+        is_jpeg = path.lower().endswith((".jpg", ".jpeg"))
+        if is_jpeg and self.device.type == "cuda":
+            img = self._decode_on_card(path)
+            return img if self.uint8 else _to_float(img)
+        if self.shorter_side and is_jpeg and native_codec.available():
             # decode with the DCT-domain downscale, the GIL released
             with open(path, "rb") as fh:
                 img = native_codec.decode_jpeg_shorter_side(fh.read(), self.shorter_side)
@@ -235,12 +273,13 @@ class ContentStylePairDataset:
     """Zipped content/style folders with training augmentation: two
     :class:`ImageFolderDataset`s, seeded ``seed`` and ``seed + 1``, as long
     as the longer one; item ``i`` takes each folder's ``i`` modulo its
-    length, as (content, style) float32 arrays."""
+    length, as (content, style) float32 arrays; ``device`` reads both
+    folders' JPEGs, as :class:`ImageFolderDataset`'s does."""
 
     def __init__(self, content_dir: str, style_dir: str, shorter_side: int = 300,
-                 crop: int = 256, seed: int = 0):
-        self.content = ImageFolderDataset(content_dir, shorter_side, crop, seed)
-        self.style = ImageFolderDataset(style_dir, shorter_side, crop, seed + 1)
+                 crop: int = 256, seed: int = 0, device="cpu"):
+        self.content = ImageFolderDataset(content_dir, shorter_side, crop, seed, device=device)
+        self.style = ImageFolderDataset(style_dir, shorter_side, crop, seed + 1, device=device)
 
     def __len__(self) -> int:
         return max(len(self.content), len(self.style))

@@ -1367,3 +1367,118 @@ def test_trainer_bf16_step_on_card_matches_cpu(mode):
             assert gc.dtype == card.params[name][kind].dtype == torch.float32
             err = float((gc.cpu().double() - t.grad.double()).norm())
             assert err <= 2 ** -4 * float(t.grad.double().norm()), (name, kind)
+
+
+# ---- the training loader's JPEG decode on the card --------------------------------------
+# (nvJPEG's whole decode, then ops/cuda/resize.py's kernels; the reference's
+# outputs in collaborative_distillation_tpu_torch/data/jpeg_train_fixture.npz,
+# made on a host with libjpeg by tools/make_jpeg_train_fixture.py)
+
+TRAIN_JPEG_FILES = ["d1", "d2", "d4", "d8", "c444", "prog", "up", "coco"]
+
+
+@pytest.fixture(scope="module")
+def tfix():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+
+    import numpy as np
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with np.load(os.path.join(root, "collaborative_distillation_tpu_torch", "data",
+                              "jpeg_train_fixture.npz")) as d:
+        return {k: d[k] for k in d.files}
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 7), (5, 1), (9, 13), (17, 31), (64, 6),
+                                   (333, 451), (1300, 1703)], ids=str)
+@pytest.mark.parametrize("denom", [1, 2, 4, 8])
+def test_scale_reduce_kernel_is_bit_equal_to_plain(gen, shape, denom):
+    """1-pixel outputs, widths not a multiple of 4 or of ``denom``."""
+    x = (_rand(gen, *shape, 3) * 256).to(torch.uint8)
+    before = kc.scale_reduce_u8.launches
+    got = kc.scale_reduce_u8(x, denom)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kc.scale_reduce_u8.plain(x, denom))
+    assert kc.scale_reduce_u8.launches == before + 1
+
+
+@pytest.mark.parametrize("size", [  # (sh, sw, dh, dw)
+    (1, 1, 1, 1), (1, 1, 5, 3), (7, 9, 1, 1), (10, 13, 3, 5), (5, 5, 9, 11), (17, 31, 16, 1),
+    (350, 500, 300, 429), (413, 313, 396, 300), (257, 383, 300, 447), (480, 640, 300, 400),
+    (325, 427, 300, 394)], ids=str)
+def test_box_resize_kernel_is_bit_equal_to_plain(gen, size):
+    """Downscales, upscales, 1-pixel outputs, widths not a multiple of 4."""
+    sh, sw, dh, dw = size
+    x = (_rand(gen, sh, sw, 3) * 256).to(torch.uint8)
+    got = kc.box_resize_u8(x, dw, dh)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kc.box_resize_u8.plain(x, dw, dh))
+
+
+def test_jpeg_resize_kernels_refuse_what_they_do_not_take(gen):
+    x = (_rand(gen, 8, 8, 3) * 256).to(torch.uint8)
+    with pytest.raises(ValueError, match="contiguous"):
+        kc.box_resize_u8(x.transpose(0, 1), 3, 3)
+    with pytest.raises(ValueError, match="uint8"):
+        kc.scale_reduce_u8(x.float(), 2)
+
+
+@pytest.mark.parametrize("name", TRAIN_JPEG_FILES)
+def test_card_shorter_side_decode_against_the_reference(tfix, name):
+    """nvJPEG's whole decode and the kernels: each kernel bit-equal to its
+    plain version on the decode, the chain within 40 dB of the reference's
+    libjpeg scaled decode (nvJPEG's decode is not libjpeg's, and the block
+    mean is not the scaled IDCT)."""
+    from collaborative_distillation_tpu_torch.data import jpeg, nvjpeg_codec as nj
+    data, side = tfix[f"{name}_jpeg"].tobytes(), int(tfix[f"{name}_side"])
+    whole = nj.decode_jpeg(data)
+    denom, scaled, (dh, dw) = jpeg.shorter_side_plan(whole.shape[0], whole.shape[1], side)
+    reduced = kc.scale_reduce_u8(whole, denom)
+    assert torch.equal(reduced, kc.scale_reduce_u8.plain(whole, denom))
+    assert torch.equal(kc.box_resize_u8(reduced, dw, dh),
+                       kc.box_resize_u8.plain(reduced, dw, dh))
+    got = jpeg.decode_jpeg_shorter_side(data, side, "cuda")
+    assert got.device.type == "cuda" and tuple(got.shape) == tfix[f"{name}_out"].shape
+    assert _psnr_u8(got.cpu().numpy(), tfix[f"{name}_out"]) >= 40.0
+
+
+def test_card_dataset_decodes_on_side_streams_in_a_two_thread_loader(tfix, tmp_path):
+    """``ImageFolderDataset(device="cuda")`` in a 2-thread ``Loader``: each
+    item's decode equals the main thread's, the kernels launch, and a decode
+    does not queue behind work on the card's default stream (a step's)."""
+    import threading
+
+    import numpy as np
+
+    from collaborative_distillation_tpu_torch.data import pipeline as tpipe
+    for name in TRAIN_JPEG_FILES:
+        (tmp_path / f"{name}.jpg").write_bytes(tfix[f"{name}_jpeg"].tobytes())
+    ds = tpipe.ImageFolderDataset(str(tmp_path), 40, 32, uint8=True, device="cuda")
+    assert ds.device == torch.device("cuda", torch.cuda.current_device())
+    want = {p: ds._decode(p) for p in ds.paths}
+    before = (kc.scale_reduce_u8.launches, kc.box_resize_u8.launches)
+    batches = list(tpipe.Loader(ds, 4, num_workers=2, seed=3))
+    assert len(batches) == 2 and all(b.shape == (4, 32, 32, 3) and b.dtype == np.uint8
+                                     for b, _ in batches)
+    assert kc.scale_reduce_u8.launches > before[0] and kc.box_resize_u8.launches > before[1]
+    got = {}
+    threads = [threading.Thread(target=lambda ps: got.update({p: ds._decode(p) for p in ps}),
+                                args=(ds.paths[i::2],)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    for p in ds.paths:
+        np.testing.assert_array_equal(got[p], want[p])
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)   # ~1 s of the default stream
+    out = []
+    t = threading.Thread(target=lambda: out.append(ds._decode(ds.paths[0])))
+    t.start()
+    t.join(timeout=120)
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(out[0], want[ds.paths[0]])
+    assert busy, "the decode waited for the default stream"
