@@ -92,6 +92,17 @@ Phases (any failure raises and the script exits non-zero):
   5d. the warm per-conv sharded cascade (``space=4`` on the one card) at
      2048^2 and at 2000 x 2048: median of 5, device busy and idle share,
      peak memory and launches;
+  5e. ``packed`` (each encoder's ``conv0`` folded into its ``conv1_1``, the
+     engine's default on the slab paths) against ``packed=False``: the UHD
+     slab cascade (``slab_rows=1024``) and the slab-in-shard one (``space=4``,
+     ``slab_rows=512`` on the one card), float32 and bf16, the style's
+     statistics cached: folded vs unfolded PSNR (float32 at PSNR_MIN_DB; bf16
+     each held to the float32 folded output, below), warm medians of 3 in
+     turns, spreads, peaks, idle shares, and the ``conv0`` products the
+     profiler records (``x @ w`` with a 3x3 matrix): none folded, the plan's
+     (20 slab, 80 slab-in-shard) unfolded; conv3x3 and its bf16 ``ck8_*``
+     templates against their plain versions with each stage's folded
+     ``conv1_1`` on its first UHD window;
   6. the host boundary: (a) nvJPEG against libjpeg's decodes in
      ``data/jpeg_fixture.npz`` (4:2:0 planes to NVJPEG_PLANE_MAX levels, RGB
      of 4:2:0, 4:4:4, progressive, odd-sized and grey files at PSNR_MIN_DB),
@@ -224,12 +235,14 @@ Phases (any failure raises and the script exits non-zero):
      ``pwct_path_calls`` on the bf16 kernels, ``bf16_totals``): per-conv
      (``space=4`` on ``cuda:0``) at 2048^2 and 2000 x 2048 against the bf16
      plain cascade, slab-in-shard UHD (``slab_rows=512``) against the bf16
-     slab cascade, photo-WCT 2048^2 against float32 photo-WCT, and 512^2
+     slab cascade (both ``packed=False`` there: the two then differ by the
+     order of sums alone), photo-WCT 2048^2 against float32 photo-WCT, and 512^2
      bf16 photo-WCT card vs CPU with the card's pool indices; each warm
      (median, peak, profile) beside the float32 median of this run; (g)
      ``cli.stylize --bf16 --space 4 --slab_rows 512 --devices
      cuda:0,cuda:0,cuda:0,cuda:0`` on one 2048^2 pair writes the bf16
-     sharded engine's pixels.
+     sharded engine's pixels (``packed=False``: the CLI folds only under
+     ``--packed``, as the reference's CLI).
 
 With ``--cross-card`` (two or more cards) it runs only the halo checks, the
 conv3x3 halo staging with its rows on other cards (float32 and bf16), the
@@ -363,6 +376,16 @@ BF16_CONV_NAMES = {"conv3x3_reflect_bf16": "Ring<9,", "conv1x1_bias_bf16": "Ring
 #     stylization of the pair; it checks no bf16 arithmetic. bf16 photo-WCT
 #     is held by the 512^2 card-vs-CPU comparison with shared pool indices
 #     (each stage within BF16_STAGE_TOL, the cascade BF16_ORDER_MIN_DB).
+#   conv0 folded into conv1_1 (phase 5e) against packed=False: float32
+#     PSNR_MIN_DB (the fold is exact arithmetic; 105.25 dB read at UHD). In
+#     bf16 the folded weights (255x, a permutation) and bias round to bf16
+#     once, as in the reference, and the two bf16 cascades read 38.23 dB
+#     apart at UHD, so each is held to float32 instead: the folded one no
+#     more than BF16_FOLD_COST_DB farther from the float32 folded output than
+#     the unfolded one, the reference's own cost of its fold (its bf16 slab
+#     path 49.44 dB from float32 unfolded, 44.71 folded, on
+#     tests/test_torch_bf16.py's 704 x 64 crop on the CPU:
+#     tools/fold_accuracy.py).
 CONV_TOL = 1e-5
 BF16_ULP = 2.0 ** -7
 BF16_FLOOR = 1e-3
@@ -374,6 +397,7 @@ JAX_BF16_PHOTO_DB = 15.7
 BF16_PWCT_MIN_DB = 9.0
 BF16_ORDER_MIN_DB = 30.0
 BF16_SHARD_MIN_DB = 39.0
+BF16_FOLD_COST_DB = 4.73
 STAGE_TOL = 1e-4
 RELU_FLIP_SHARE = 1e-5
 GRAM_TOL = 2e-5
@@ -1451,6 +1475,172 @@ def per_conv_timing(torch, kc, engine, img, sty, label) -> dict:
         f"the host had enqueued all work after {', '.join(f'{r:.2f}' for r in enqueued)} ms), "
         f"busy {busy}, peak GiB per card {', '.join(f'{p:.2f}' for p in peaks)} ({resident:.2f} "
         f"GiB held before it on the first); launches {launches}")
+    return out
+
+
+# ---- phase 5e: packed, each encoder's conv0 folded into its conv1_1 ------------
+
+def conv0_products(torch, eng, img, sty, **kw) -> int:
+    """The ``conv0`` products one cascade runs: ``x @ w`` with conv0's 3x3
+    matrix (``ops/conv.py:conv1x1``), read from the profiler's recorded
+    input shapes (no other product of the cascades takes a 3x3 matrix)."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU],
+                                         record_shapes=True) as prof:
+        eng.stylize_device(img, sty, **kw)
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.name == "aten::matmul"
+               and len(e.input_shapes) > 1 and list(e.input_shapes[1]) == [3, 3])
+
+
+def conv0_plan(eng, h: int, w: int, itemsize: int) -> int:
+    """``conv0`` products of one unfolded slab or slab-in-shard cascade on an
+    (h, w) content, the style's statistics cached: an encoder run a window
+    in pass 1, and in pass 2 again unless the stage's features are kept
+    (the slab-in-shard path encodes every window again)."""
+    from collaborative_distillation_tpu_torch.parallel.spatial import shard_rows
+    from collaborative_distillation_tpu_torch.wct.slab import FEATURE_CACHE_BYTES
+    if eng.slab is not None:
+        return sum(len(list(eng.slab._slabs(h, k)))
+                   * (1 if eng.slab.feature_bytes(k, h, w, itemsize) <= FEATURE_CACHE_BYTES
+                      else 2)
+                   for k in eng.stages)
+    slab = eng._tiled_slab
+    return len(eng.stages) * 2 * sum(-(-r // slab) for r in shard_rows(h, slab, SHARDS))
+
+
+def folded_conv_checks(torch, kc, eng, img) -> list:
+    """conv3x3 (float32, or the bf16 ring kernel's Cin-3 ``ck8_*`` templates)
+    against its plain version with each stage's folded ``conv1_1`` (weights
+    about 255x conv0's absence, the bias hundreds) on the content's first
+    window of that stage, at the tolerances of phases 2 and 10a."""
+    rows_out = []
+    bf = img.dtype == torch.bfloat16
+    conv = kc.conv3x3_reflect_bf16 if bf else kc.conv3x3_reflect
+    for k in eng.stages:
+        spec = eng.pyramid[k]["enc_spec"]
+        p = eng.slab.packed_params[k]["enc"][spec.layers[0].name]
+        _, rows, _, _ = next(eng.slab._slabs(img.shape[1], k))
+        x = img[:, :rows].contiguous()
+        relu = spec.layers[0].relu
+        got, ref = conv(x, p["w"], p["b"], relu), conv.plain(x, p["w"], p["b"], relu)
+        g, r = got.float(), ref.float()
+        err = float((g - r).abs().max())
+        if bf:
+            bound = torch.clamp(r.abs() * BF16_ULP, min=BF16_FLOOR * float(r.abs().max()))
+            misses = int(((g - r).abs() > bound).sum())
+            tol = None
+        else:
+            tol = CONV_TOL * float(x.abs().max() * p["w"].abs().sum(dim=(0, 1, 2)).max()
+                                   + p["b"].abs().max())
+            misses = int(err > tol)
+        rows_out.append({"stage": k, "shape": list(x.shape) + [int(p["w"].shape[-1])],
+                         "max_abs_err": err, "tol": tol, "misses": misses,
+                         "max_abs_w": float(p["w"].abs().max()),
+                         "max_abs_b": float(p["b"].abs().max())})
+        del got, ref, g, r
+        if misses:
+            raise AssertionError(f"phase 5e: folded conv1_1 of stage {k} {tuple(x.shape)}: "
+                                 f"{misses} outputs past the tolerance (max abs err {err})")
+    return rows_out
+
+
+def packed_phase(torch, kc, WCTEngine, c_uhd, s2k, smi) -> dict:
+    """5e: the UHD slab and slab-in-shard cascades with each encoder's conv0
+    folded into its conv1_1 (``packed``, the engine's default) against
+    ``packed=False``, float32 and bf16, in turns on one card (see the
+    module docstring)."""
+    bf = torch.bfloat16
+    shard_kw = dict(space=SHARDS, slab_rows=SHARD_SLAB, devices=["cuda:0"] * SHARDS)
+    cases = (("UHD slab", torch.float32, dict(slab_rows=UHD_SLAB)),
+             ("UHD slab", bf, dict(slab_rows=UHD_SLAB)),
+             ("UHD slab-in-shard", torch.float32, shard_kw),
+             ("UHD slab-in-shard", bf, shard_kw))
+    out, t0_phase = {}, time.perf_counter()
+    f32_out = {}   # the float32 folded output of each path, the bf16 cases' yardstick
+    for path, dtype, kw in cases:
+        name = f"{path} {'bf16' if dtype == bf else 'f32'}"
+        engs = {p: WCTEngine(mode="16x", dtype=dtype, packed=p, **kw) for p in (True, False)}
+        if not (engs[True].packed and not engs[False].packed):
+            raise AssertionError(f"phase 5e: {name}: packed flags {engs}")
+        img, sty = engs[True]._prep(c_uhd), engs[True]._prep(s2k)
+        h, w = img.shape[1:3]
+        res = {"checks": folded_conv_checks(torch, kc, engs[True], img)
+               if engs[True].slab is not None else []}
+        with torch.inference_mode():
+            # warm, and the style's statistics cached under the key
+            outs = {p: e.stylize_device(img, sty, style_key="5e") for p, e in engs.items()}
+            db = psnr_device(torch, outs[True], outs[False])
+            finite = all(bool(torch.isfinite(o).all()) for o in outs.values())
+            if dtype == bf:
+                vs32 = {p: psnr_device(torch, o, f32_out[path]) for p, o in outs.items()}
+                res["psnr_vs_f32_db"] = {"folded": vs32[True], "unfolded": vs32[False]}
+                ok_db = (vs32[True] >= vs32[False] - BF16_FOLD_COST_DB
+                         and min(vs32.values()) >= BF16_PSNR_MIN_DB)
+                del f32_out[path]
+            else:
+                f32_out[path] = outs[True]
+                ok_db = db >= PSNR_MIN_DB
+            del outs
+            runs = {True: [], False: []}
+            for p in (True, False, False, True, True, False):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engs[p].stylize_device(img, sty, style_key="5e")
+                torch.cuda.synchronize()
+                runs[p].append((time.perf_counter() - t0) * 1e3)
+            for p, e in engs.items():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated() / 2**30
+                e.stylize_device(img, sty, style_key="5e")
+                torch.cuda.synchronize()
+                res[p] = {"runs_ms": runs[p], "median_ms": statistics.median(runs[p]),
+                          "spread_ms": max(runs[p]) - min(runs[p]),
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                          "held_before_gib": held}
+        for p, e in engs.items():
+            prof = profile_cascade(torch, e, img, sty, f"phase 5e: {name} packed={p}",
+                                   style_key="5e")
+            res[p].update(idle_share=prof.get("idle_share"), busy_ms=prof["busy_ms"],
+                          conv3x3_ms=prof.get("conv3x3_ms"),
+                          bf16_conv_ms=prof.get("bf16_conv_ms"),
+                          conv0_products=conv0_products(torch, e, img, sty, style_key="5e"))
+        want0 = conv0_plan(engs[False], h, w, img.element_size())
+        res.update(psnr_folded_vs_unfolded_db=db, conv0_predicted_unfolded=want0)
+        out[name] = res
+        idle = lambda r: "not measured" if r["idle_share"] is None else f"{r['idle_share']:.3f}"
+        held = (f"folded vs packed=False PSNR {db:.2f} dB (min {PSNR_MIN_DB})" if dtype != bf
+                else f"folded vs packed=False PSNR {db:.2f} dB; against the float32 folded "
+                     f"output folded {res['psnr_vs_f32_db']['folded']:.2f} dB, unfolded "
+                     f"{res['psnr_vs_f32_db']['unfolded']:.2f} dB (the folded at most "
+                     f"{BF16_FOLD_COST_DB} dB below the unfolded, both above "
+                     f"{BF16_PSNR_MIN_DB})")
+        log(f"phase 5e: {name} {h}x{w} ({smi}): {held}; warm, style statistics cached, in "
+            f"turns: folded "
+            f"{res[True]['median_ms']:.2f} ms (runs "
+            f"{', '.join(f'{r:.2f}' for r in res[True]['runs_ms'])}, spread "
+            f"{res[True]['spread_ms']:.2f}) against {res[False]['median_ms']:.2f} ms (runs "
+            f"{', '.join(f'{r:.2f}' for r in res[False]['runs_ms'])}, spread "
+            f"{res[False]['spread_ms']:.2f}); peaks {res[True]['peak_gib']:.2f} / "
+            f"{res[False]['peak_gib']:.2f} GiB; idle shares {idle(res[True])} / "
+            f"{idle(res[False])}; conv0 products {res[True]['conv0_products']} / "
+            f"{res[False]['conv0_products']} (predicted 0 / {want0})"
+            + (f"; folded conv1_1 kernel vs plain at stages {[c['stage'] for c in res['checks']]}"
+               f" (|w| to {max(c['max_abs_w'] for c in res['checks']):.1f}, |b| to "
+               f"{max(c['max_abs_b'] for c in res['checks']):.1f}): max abs err "
+               f"{max(c['max_abs_err'] for c in res['checks']):.3e}, none past the "
+               f"tolerance" if res["checks"] else ""))
+        if not (ok_db and finite and res[True]["conv0_products"] == 0
+                and res[False]["conv0_products"] == want0 > 0):
+            raise AssertionError(
+                f"phase 5e: {name}: {held}, finite {finite}, conv0 products "
+                f"{res[True]['conv0_products']} / {res[False]['conv0_products']} (want 0 / "
+                f"{want0})")
+        del engs, img, sty
+        torch.cuda.empty_cache()
+    out["phase5e_s"] = time.perf_counter() - t0_phase
+    log(f"phase 5e: {out['phase5e_s']:.1f} s")
     return out
 
 
@@ -4511,8 +4701,16 @@ def bf16_sharded_phase(torch, kc, WCTEngine, bench, eng, eng16, c2k, s2k, c_uhd,
         o, launches_sh, _ = counted(lambda: sh16.stylize_device(img_u, sty16))
         _check_counts(f"phase 10f: bf16 sharded UHD (space={SHARDS}, slab_rows={SHARD_SLAB})",
                       launches_sh, bf16_totals(kc, calls_sh))
-        slab16 = WCTEngine(mode="16x", dtype=bf, slab_rows=SHARD_SLAB)
-        db_sh = psnr_device(torch, o, slab16.stylize_device(img_u, sty16))
+        # the sharded path's style statistics come from the unfolded
+        # encoders (as the reference's), the single-card slab path's from
+        # its folded ones: the two cascades that differ by the order of sums
+        # alone are the ones with conv0 run (packed=False); phase 5e holds
+        # the folded ones to them
+        del o
+        o = WCTEngine(mode="16x", dtype=bf, space=SHARDS, slab_rows=SHARD_SLAB, devices=devs,
+                      packed=False).stylize_device(img_u, sty16)
+        db_sh = psnr_device(torch, o, WCTEngine(mode="16x", dtype=bf, slab_rows=SHARD_SLAB,
+                                                packed=False).stylize_device(img_u, sty16))
         del o
         want_pw = {k.__name__: 0 for k in every}
         for name, n in pwct_path_calls(pyr, stages, 2048, 2048).items():
@@ -4532,7 +4730,7 @@ def bf16_sharded_phase(torch, kc, WCTEngine, bench, eng, eng16, c2k, s2k, c_uhd,
         f"{pc[PC_AWK_H]['psnr_vs_bf16_plain_db']:.2f} dB (bf16 plain vs float32 plain "
         f"{db_ref:.2f} dB; min {BF16_SHARD_MIN_DB}), halo convs {pc[2048]['halo_launches']} "
         f"and {pc[PC_AWK_H]['halo_launches']}; bf16 sharded UHD vs the bf16 slab cascade at "
-        f"slab_rows={SHARD_SLAB} {db_sh:.2f} dB (min {BF16_SHARD_MIN_DB}); bf16 photo-WCT 2048^2 vs "
+        f"slab_rows={SHARD_SLAB}, both packed=False, {db_sh:.2f} dB (min {BF16_SHARD_MIN_DB}); bf16 photo-WCT 2048^2 vs "
         f"float32 photo-WCT {db_pw:.2f} dB (min {BF16_PWCT_MIN_DB}); 512^2 bf16 photo-WCT card "
         f"vs cpu with the card's pool indices: encoders max rel err "
         f"{shared['encoder_max_rel_err']:.3e}, decoders {shared['decoder_max_rel_err']:.3e} "
@@ -4586,8 +4784,10 @@ def bf16_sharded_phase(torch, kc, WCTEngine, bench, eng, eng16, c2k, s2k, c_uhd,
             f"held before it); idle share {idle(w)}")
 
     # (g) cli.stylize --bf16 --space --slab_rows on one 2048^2 pair, the shards
-    # on the one card: the bf16 sharded engine's pixels
-    cli_eng = WCTEngine(mode="16x", dtype=bf, space=SHARDS, slab_rows=SHARD_SLAB, devices=devs)
+    # on the one card: the bf16 sharded engine's pixels (without --packed the
+    # CLI keeps conv0, as the reference's does: packed=False)
+    cli_eng = WCTEngine(mode="16x", dtype=bf, space=SHARDS, slab_rows=SHARD_SLAB, devices=devs,
+                        packed=False)
     calls_cli, _ = sharded_path_calls(pyr, stages, margins, cli_eng._tiled_slab, SHARDS, 2048,
                                       2048, 2048, 2048)
     with tempfile.TemporaryDirectory() as tmp:
@@ -5334,6 +5534,8 @@ def main() -> int:
     detail["per_conv_timed"] = [per_conv_timing(torch, kc, per_conv, img2k[:, :h], sty2k,
                                                 f"phase 5d ({h}x2048)")
                                 for h in (2048, PC_AWK_H)]
+    # ---- phase 5e: packed (conv0 folded into conv1_1) against packed=False -------
+    detail["packed"] = packed_phase(torch, kc, WCTEngine, c_uhd, s2k, smi)
     detail["host_boundary"] = host_boundary(torch, kc, slab_eng, eng, c_uhd, c2k, s2k,
                                             expect_uhd)
     # ---- phase 10: bf16 inference ------------------------------------------------

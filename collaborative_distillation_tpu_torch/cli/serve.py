@@ -25,7 +25,9 @@ happen outside it, except on the JPEG-to-JPEG path
 (``engine.stylize_jpeg``), which decodes and encodes inside (on the CPU its
 banded entropy decode and encode overlap the locked transfers). Per-style
 statistics are cached inside the engine under a generation-keyed name, so
-the steady-state cost of a request is one content cascade.
+the steady-state cost of a request is one content cascade. The engine takes
+its defaults, as the reference's server does: with ``--slab_rows`` it folds
+each encoder's ``conv0`` into its ``conv1_1`` (``WCTEngine(packed=None)``).
 """
 
 from __future__ import annotations

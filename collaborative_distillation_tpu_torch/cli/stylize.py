@@ -17,8 +17,11 @@ libjpeg on the CPU); where it cannot load the same stem is written as
 (``WCTEngine(dtype=torch.bfloat16)``), on every path: plain, ``--slab_rows``,
 ``--space`` with and without ``--slab_rows``. ``--devices`` places the
 ``--space`` shards on the cards named (the reference's CLI takes its mesh's
-devices whole and has no such flag). ``--packed`` and ``--halo pallas``
-have no counterpart in the port and are refused.
+devices whole and has no such flag). ``--packed`` folds each encoder's
+``conv0`` into its ``conv1_1`` on the slab paths (``WCTEngine(packed=True)``);
+without it the CLI keeps ``conv0``, as the reference's CLI does
+(``packed=False``). ``--halo pallas`` has no counterpart in the port and is
+refused.
 """
 
 from __future__ import annotations
@@ -29,8 +32,7 @@ import sys
 import time
 from collections import deque
 
-NO_COUNTERPART = ("has no counterpart in the PyTorch port (unpacked NHWC kernels; the "
-                  "row halos are the hand-written CUDA kernel)")
+NO_COUNTERPART = "has no counterpart in the PyTorch port (the row halos are the CUDA kernel)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -71,7 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--slab_rows", type=int, default=0,
                     help="stream in row slabs of N rows (single-card UHD)")
     ap.add_argument("--packed", action="store_true",
-                    help="refused: the width-packed pipeline " + NO_COUNTERPART)
+                    help="fold each encoder's conv0 into its conv1_1 on the slab paths "
+                         "(--slab_rows); the reference's width layout is not ported")
     ap.add_argument("--transport", default="auto", choices=["auto", "rgb", "yuv420"],
                     help="host<->device image transport; yuv420 moves JPEG-native "
                          "4:2:0 planes (half the link bytes)")
@@ -89,9 +92,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
-    for flag, refused in (("--packed", args.packed), ("--halo pallas", args.halo == "pallas")):
-        if refused:
-            ap.error(f"{flag} {NO_COUNTERPART}")
+    if args.halo == "pallas":
+        ap.error(f"--halo pallas {NO_COUNTERPART}")
 
     from ..wct.engine import WCTEngine, resolve_device
     device = resolve_device(args.device)   # before any work: no CUDA, no run
@@ -122,7 +124,7 @@ def main(argv=None) -> int:
     engine = WCTEngine(mode=args.mode, weights_root=args.weights_root or None,
                        method=args.method, space=args.space, slab_rows=args.slab_rows,
                        devices=args.devices.split(",") if args.devices else None,
-                       transport=args.transport, device=device,
+                       transport=args.transport, device=device, packed=args.packed,
                        dtype=torch.bfloat16 if args.bf16 else torch.float32)
     tp = Throughput()
     total_t = 0.0

@@ -21,8 +21,8 @@ from ..ops.conv import (conv1x1, conv3x3, max_pool_2x2, max_pool_2x2_with_argmax
                         max_unpool_2x2, upsample_nearest_2x)
 from .specs import StageSpec
 
-__all__ = ["init_params", "apply_encoder", "apply_decoder", "apply_decoder_pwct", "Encoder",
-           "Decoder"]
+__all__ = ["init_params", "runs_conv0", "apply_encoder", "apply_decoder", "apply_decoder_pwct",
+           "Encoder", "Decoder"]
 
 Params = dict[str, dict[str, torch.Tensor]]
 
@@ -43,6 +43,20 @@ def init_params(spec: StageSpec, generator: torch.Generator,
     return params
 
 
+def runs_conv0(params: Params, spec: StageSpec) -> bool:
+    """Whether an encoder over ``params`` runs ``conv0``: where the spec has
+    one, unless the tree was folded by :func:`.packed_vgg.pack_stage_params`
+    (the fold is in its ``conv1_1``). A tree that lacks ``conv0`` and was
+    never folded raises: the loader fills a missing ``conv0`` in, so a
+    missing one here is a fault, never a step to skip."""
+    if not spec.has_conv0 or "conv0" in params:
+        return spec.has_conv0
+    if getattr(params, "conv0_folded", False):
+        return False
+    raise KeyError(f"the {spec.family} stage-{spec.stage} encoder's params have no 'conv0' "
+                   f"and were not folded by models.packed_vgg.pack_stage_params")
+
+
 def apply_encoder(params: Params, x: torch.Tensor, spec: StageSpec, *,
                   aux_relu: bool = False, aux: bool = True,
                   with_pool_argmax: bool = False) -> dict[str, torch.Tensor]:
@@ -61,7 +75,7 @@ def apply_encoder(params: Params, x: torch.Tensor, spec: StageSpec, *,
     if spec.kind != "encoder":
         raise ValueError(f"apply_encoder needs an encoder spec, got {spec.kind!r}")
     outs: dict[str, torch.Tensor] = {}
-    if spec.has_conv0:
+    if runs_conv0(params, spec):
         p = params["conv0"]
         x = conv1x1(x, p["w"], p["b"], relu=False)
     n_pool = 0

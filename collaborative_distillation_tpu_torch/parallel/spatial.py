@@ -20,6 +20,12 @@ lists take the place of its ``axis_name``). Two paths:
   through its windows of the single-card slab plan on its own, so its peak
   memory is bounded by the slab size whatever the image's height.
 
+With ``packed`` the slab path folds each encoder's ``conv0`` into its
+``conv1_1`` once (:func:`..models.packed_vgg.pack_stage_params`) and copies
+the folded trees to every device; :func:`build_tiled_stylize_fn_packed` is
+the per-conv path over folded encoders, as the reference's function of that
+name (without its width layout).
+
 The per-conv halos go into no map of their own: ``conv3x3_reflect``
 (:mod:`..ops.cuda.conv`) reads the neighbours' boundary rows in place while
 it stages its tiles. The slab path extends the caller's shards once, at its
@@ -35,7 +41,9 @@ from __future__ import annotations
 
 import torch
 
+from ..models.packed_vgg import pack_stage_params
 from ..models.specs import StageSpec
+from ..models.vgg import runs_conv0
 from ..ops.conv import conv1x1, conv3x3, max_pool_2x2, on_card, upsample_nearest_2x
 from ..ops.cuda import halo as _khalo
 from ..ops.cuda import peer as _peer
@@ -48,10 +56,12 @@ __all__ = [
     "halo_rows",
     "conv3x3_halo",
     "apply_encoder_spatial",
+    "apply_encoder_spatial_packed",
     "apply_decoder_spatial",
     "feature_stats_psum",
     "wct_transform_spatial",
     "build_tiled_stylize_fn",
+    "build_tiled_stylize_fn_packed",
     "shard_rows",
     "slab_coords",
     "build_tiled_slab_cascade",
@@ -59,11 +69,11 @@ __all__ = [
 
 
 def _to(tree, device):
-    """A parameter tree (or a tensor) on ``device``; what lies there already
-    is not copied."""
+    """A parameter tree (or a tensor) on ``device``, of the same dict types
+    (a folded tree stays one); what lies there already is not copied."""
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
-    return {k: _to(v, device) for k, v in tree.items()}
+    return type(tree)((k, _to(v, device)) for k, v in tree.items())
 
 
 def _alpha_on(alpha, device) -> torch.Tensor:
@@ -123,11 +133,11 @@ def _layer(params, name: str, kind: str):
 def apply_encoder_spatial(params, xs, spec: StageSpec, *, aux_relu: bool = False):
     """Row-sharded mirror of :func:`..models.vgg.apply_encoder`: ``params``
     is the stage's parameter tree per shard, each named feature a list of
-    shards."""
+    shards. Folded trees skip ``conv0``, as there."""
     if spec.kind != "encoder":
         raise ValueError(f"apply_encoder_spatial needs an encoder spec, got {spec.kind!r}")
     outs = {}
-    if spec.has_conv0:
+    if any([runs_conv0(p, spec) for p in params]):
         xs = [conv1x1(x, p["conv0"]["w"], p["conv0"]["b"]) for x, p in zip(xs, params)]
     for layer in spec.layers:
         xs = conv3x3_halo(xs, _layer(params, layer.name, "w"),
@@ -142,6 +152,14 @@ def apply_encoder_spatial(params, xs, spec: StageSpec, *, aux_relu: bool = False
         outs[layer.tap] = [conv1x1(x, p[layer.name]["w"], p[layer.name]["b"], relu=aux_relu)
                            for x, p in zip(src, params)]
     return outs
+
+
+def apply_encoder_spatial_packed(params, xs, spec: StageSpec, **kw):
+    """:func:`apply_encoder_spatial` over folded trees (no ``conv0`` step);
+    any other tree raises."""
+    if not all(getattr(p, "conv0_folded", False) for p in params):
+        raise TypeError("apply_encoder_spatial_packed needs trees folded by pack_stage_params")
+    return apply_encoder_spatial(params, xs, spec, **kw)
 
 
 def apply_decoder_spatial(params, xs, spec: StageSpec) -> list[torch.Tensor]:
@@ -224,6 +242,48 @@ def build_tiled_stylize_fn(pyramid, mesh: Mesh, *, stages=(5, 4, 3, 2, 1),
             s_mean, s_cov = style_stats[k]
             c_out = apply_encoder_spatial(enc, img, enc_spec)["out"]
             csf = wct_transform_spatial(c_out, s_mean, s_cov, alpha, method=method,
+                                        newton_iters=newton_iters)
+            img = apply_decoder_spatial(dec, csf, dec_spec)
+        return img
+
+    return fn
+
+
+def build_tiled_stylize_fn_packed(pyramid, mesh: Mesh, *, stages=(5, 4, 3, 2, 1),
+                                  method: str = "eigh", newton_iters: int = 24,
+                                  eps: float = 1e-8):
+    """:func:`build_tiled_stylize_fn` over encoders whose ``conv0`` is folded
+    into ``conv1_1``, folded once here and copied to each device; the
+    reference's ``build_tiled_stylize_fn_packed`` without its width layout.
+
+    Returns ``f(content, style, alpha)``: content and style are lists of
+    row shards, one per ``space`` device and on it, each a positive multiple
+    of the deepest stage's downsample factor high; the style is encoded in
+    its shards as the content is (per-conv halos), its statistics added up
+    over them. The output is sharded like the content."""
+    devices = mesh.devices[0]
+    n_space = len(devices)
+    params = {k: (_per_device(pack_stage_params(pyramid[k]["enc"], pyramid[k]["enc_spec"]),
+                              devices),
+                  _per_device(pyramid[k]["dec"], devices)) for k in stages}
+    down_max = 2 ** (max(stages) - 1)
+
+    def fn(content, style, alpha):
+        for name, xs in (("content", content), ("style", style)):
+            if len(xs) != n_space:
+                raise ValueError(f"need {n_space} {name} shards, got {len(xs)}")
+            if any(x.shape[1] % down_max or not x.shape[1] for x in xs):
+                raise ValueError(
+                    f"per-shard {name} H {[x.shape[1] for x in xs]} must be positive "
+                    f"multiples of the deepest stage's downsample factor {down_max}")
+        img = content
+        for k in stages:
+            enc, dec = params[k]
+            enc_spec, dec_spec = pyramid[k]["enc_spec"], pyramid[k]["dec_spec"]
+            s_mean, s_cov = feature_stats_psum(
+                apply_encoder_spatial_packed(enc, style, enc_spec)["out"])
+            c_out = apply_encoder_spatial_packed(enc, img, enc_spec)["out"]
+            csf = wct_transform_spatial(c_out, s_mean, s_cov, alpha, method=method, eps=eps,
                                         newton_iters=newton_iters)
             img = apply_decoder_spatial(dec, csf, dec_spec)
         return img
@@ -332,7 +392,7 @@ def slab_coords(i: int, *, slab: int, m: int, hm: int, h_loc: int,
 def build_tiled_slab_cascade(pyramid, mesh: Mesh, *, stages=(5, 4, 3, 2, 1),
                              slab_rows: int = 1024, method: str = "eigh",
                              newton_iters: int = 24, eps: float = 1e-8,
-                             data_axis: str | None = None,
+                             packed: bool = False, data_axis: str | None = None,
                              external_style_stats: bool = False):
     """Row shards over ``space``, slab streaming inside each shard, WCT
     statistics added up across the mesh.
@@ -365,6 +425,10 @@ def build_tiled_slab_cascade(pyramid, mesh: Mesh, *, stages=(5, 4, 3, 2, 1),
     ``external_style_stats``, ``{stage: (mean, cov)}``. The result is sharded like the input. With
     ``data_axis="data"`` ``shards`` and ``style`` are lists over the mesh's
     ``data`` rows, each row an independent image with its own statistics.
+
+    ``packed``: every encoder's ``conv0`` folded into its ``conv1_1``, once,
+    and the folded trees copied to each device, so that every shard runs the
+    same weights (the style image, where it is encoded here, too).
     """
     n_space = mesh.shape["space"]
     if n_space < 2:
@@ -375,19 +439,20 @@ def build_tiled_slab_cascade(pyramid, mesh: Mesh, *, stages=(5, 4, 3, 2, 1),
         raise ValueError("external_style_stats needs a space-only mesh (each data row "
                          "would need its own statistics)")
     kw = dict(stages=stages, method=method, newton_iters=newton_iters, eps=eps)
-    plan = SlabCascade(pyramid, slab_rows=slab_rows, **kw)
+    plan = SlabCascade(pyramid, slab_rows=slab_rows, packed=packed, **kw)
     # edge slabs must share the mid-slab shape: round the request up to the
     # geometric minimum (callers read the effective size from fn.slab_rows)
     slab = max(plan.slab_rows, 2 * plan.margin)
-    # one SlabCascade per distinct device, over that device's parameters
+    # one SlabCascade per distinct device, over that device's copy of the
+    # plan's trees (folded once, by the plan, with ``packed``)
     helpers: dict = {}
     for row in mesh.devices:
         for dev in row:
             if dev not in helpers:
-                helpers[dev] = SlabCascade(
-                    {k: {**pyramid[k], "enc": _to(pyramid[k]["enc"], dev),
-                         "dec": _to(pyramid[k]["dec"], dev)} for k in stages},
-                    slab_rows=slab, **kw)
+                trees = _to(plan.params, dev)
+                helpers[dev] = SlabCascade({k: {**pyramid[k], **trees[k]} for k in stages},
+                                           slab_rows=slab, packed=packed,
+                                           packed_params=trees if packed else None, **kw)
 
     def run_row(devices, shards, style, alpha):
         if len(shards) != n_space:

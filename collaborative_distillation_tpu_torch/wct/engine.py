@@ -214,6 +214,17 @@ class WCTEngine:
     (default): ``"yuv420"`` for uint8 images of at least ``_YUV_AUTO_PIX``
     pixels, else ``"rgb"``; float input always goes as it is.
 
+    ``packed``: fold each encoder's ``conv0`` (RGB -> BGR x255 - mean) into
+    its ``conv1_1`` on the slab paths (``slab_rows``, with and without
+    ``space``), as the reference's engine does by default
+    (:mod:`..models.packed_vgg`; its width layout has no counterpart).
+    ``None`` (default) means on: the reference turns it on while its conv
+    kernels are live, and the port's always are. ``False`` keeps ``conv0``.
+    The plain path, photo-WCT and the per-conv sharded path run ``conv0``
+    either way, as in the reference. Style statistics follow the
+    reference per path: the slab cascades' own (folded) encoders on the
+    single-card slab path, the unfolded encoders on the others.
+
     ``dtype``: ``torch.float32`` (default) or ``torch.bfloat16``. In bf16 the
     pyramid (loaded or given) is cast to bf16, bias included; inputs are
     converted to float and then to bf16 on the device; every conv sums in
@@ -231,7 +242,7 @@ class WCTEngine:
                  stages=(5, 4, 3, 2, 1), pyramid=None, device=None,
                  slab_rows: int = 0, fused: bool = True,
                  stream_min_pix: int = 8 * 1024 * 1024, space: int = 0, devices=None,
-                 transport: str = "auto", dtype=torch.float32):
+                 transport: str = "auto", dtype=torch.float32, packed: bool | None = None):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
         if method not in ("eigh", "newton"):
@@ -262,6 +273,7 @@ class WCTEngine:
         # insert and evict; unsynchronized OrderedDict mutation corrupts it
         self._cache_lock = threading.Lock()
         self.stream_min_pix = stream_min_pix
+        self.packed = True if packed is None else bool(packed)
         self.slab = None
         self.space = space if space and space > 1 else 0
         if devices is not None and not self.space:
@@ -274,7 +286,7 @@ class WCTEngine:
         if slab_rows and not self.space:
             self.slab = SlabCascade(self.pyramid, stages=self.stages,
                                     slab_rows=slab_rows, method=method,
-                                    newton_iters=newton_iters)
+                                    newton_iters=newton_iters, packed=self.packed)
         if self.space:
             # imported here: parallel/spatial.py builds on this package's slab.py
             from ..parallel.mesh import make_mesh
@@ -284,7 +296,7 @@ class WCTEngine:
             if slab_rows:
                 # memory-bounded path: slab streaming inside each row shard
                 self._tiled_fn = build_tiled_slab_cascade(
-                    self.pyramid, self.mesh, slab_rows=slab_rows,
+                    self.pyramid, self.mesh, slab_rows=slab_rows, packed=self.packed,
                     external_style_stats=True, **kw)
                 self._tiled_slab = self._tiled_fn.slab_rows
             else:
@@ -325,10 +337,11 @@ class WCTEngine:
                             lambda: stage_style_stats(p["enc"], p["enc_spec"], style))
 
     def _fused_style_stats(self, style: torch.Tensor, style_key=None):
-        """Per-stage {k: (mean, cov)} for the fused slab cascade, LRU-cached
-        under ``("fused", style_key, shape)``."""
+        """Per-stage {k: (mean, cov)} for the fused slab cascade, from the
+        slab cascade's own (folded, when packed) encoders, LRU-cached under
+        ``("fused", style_key, shape)``."""
         return self._cached("fused", style_key, style,
-                            lambda: {k: self._style_stats(k, style) for k in self.stages})
+                            lambda: {k: self.slab.style_stats(k, style) for k in self.stages})
 
     @torch.inference_mode()
     def blend_styles(self, styles, weights=None, *, style_keys=None):
@@ -367,16 +380,20 @@ class WCTEngine:
         proxy = np.zeros((16, 16, 3), np.float32)
         proxy_shape = (1, 16, 16, 3)
         dev = [self._prep(s) for s in styles]
-        blends = {}
-        for k in self.stages:
-            per_k = [self._style_stats(k, d, cache_key=sk)
-                     for d, sk in zip(dev, style_keys)]
-            m = sum(float(wi) * p[0] for wi, p in zip(w, per_k))
-            c = sum(float(wi) * p[1] for wi, p in zip(w, per_k))
-            blends[k] = (m, c)
-            self._cache_put((k, blend_key, proxy_shape), (m, c))
+
+        def blend(pairs):
+            return (sum(float(wi) * p[0] for wi, p in zip(w, pairs)),
+                    sum(float(wi) * p[1] for wi, p in zip(w, pairs)))
+
         if self.fused:
-            self._cache_put(("fused", blend_key, proxy_shape), blends)
+            # the fused path's statistics, from its own (folded) encoders
+            per = [self._fused_style_stats(d, sk) for d, sk in zip(dev, style_keys)]
+            self._cache_put(("fused", blend_key, proxy_shape),
+                            {k: blend([p[k] for p in per]) for k in self.stages})
+        for k in self.stages:
+            self._cache_put((k, blend_key, proxy_shape),
+                            blend([self._style_stats(k, d, cache_key=sk)
+                                   for d, sk in zip(dev, style_keys)]))
         return blend_key, proxy
 
     def stylize_multi(self, content, styles, weights=None, alpha: float = 1.0,
@@ -815,7 +832,8 @@ class WCTEngine:
         if key not in self._fused_fns:
             self._fused_fns[key] = build_fused_slab_cascade(
                 self.pyramid, stages=self.stages, slab_rows=slab, method=self.method,
-                newton_iters=self.newton_iters, external_style_stats=True,
+                newton_iters=self.newton_iters, packed=self.slab.packed,
+                params=self.slab.packed_params, external_style_stats=True,
                 tail_stats=tail)
         return self._fused_fns[key]
 

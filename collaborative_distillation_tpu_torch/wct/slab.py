@@ -32,6 +32,11 @@ uint8 while the next one computes. Both share one stage loop,
 compiled; the reference's fusion into one program has no counterpart beyond
 what changes the work and the results.
 
+``packed=True`` folds each encoder's ``conv0`` into its ``conv1_1``
+(:func:`..models.packed_vgg.pack_stage_params`), as the reference's packed
+slab paths do; the style statistics then come from the folded encoders too.
+The reference's width layout has no counterpart.
+
 A bfloat16 pyramid and image run in bf16: bf16 slabs and feature cache (half
 the bytes), the folded WCT in bf16 (``M`` bf16, ``beta`` float32); the sums
 and Grams of pass 1 are taken in float32 over a float32 copy of each slab's
@@ -43,6 +48,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.packed_vgg import pack_stage_params
 from ..models.vgg import apply_decoder, apply_encoder
 from ..ops.pad import reflect_index
 from ..ops.wct_transform import (coloring_matrix, feature_stats, gram_shift,
@@ -100,12 +106,28 @@ class SlabCascade:
     ``slab_rows`` interior rows per slab, rounded up to the deepest stage's
     downsample factor so that feature-scale slicing is integral; each stage's
     margin is its own enc+dec receptive radius, rounded the same way.
+
+    ``packed``: run the encoders with ``conv0`` folded into ``conv1_1``, the
+    trees ``packed_params`` (``{stage: {"enc", "dec"}}``, folded once and
+    shared by the cascades over one set of weights) or folded here.
     """
 
     def __init__(self, pyramid, *, stages=(5, 4, 3, 2, 1), slab_rows: int = 1024,
-                 method: str = "eigh", newton_iters: int = 24, eps: float = 1e-8):
+                 method: str = "eigh", newton_iters: int = 24, eps: float = 1e-8,
+                 packed: bool = False, packed_params=None):
         self.pyramid = pyramid
         self.stages = tuple(stages)
+        self.packed = packed
+        self.packed_params = None
+        if packed:
+            self.packed_params = packed_params if packed_params is not None else {
+                k: {"enc": pack_stage_params(pyramid[k]["enc"], pyramid[k]["enc_spec"]),
+                    "dec": pack_stage_params(pyramid[k]["dec"], pyramid[k]["dec_spec"])}
+                for k in self.stages}
+        # the trees the slabs run (a pyramid of specs alone plans slabs)
+        self.params = self.packed_params if packed else {
+            k: {"enc": pyramid[k].get("enc"), "dec": pyramid[k].get("dec")}
+            for k in self.stages}
         self.method = method
         self.newton_iters = newton_iters
         self.eps = eps
@@ -160,16 +182,15 @@ class SlabCascade:
             yield start, rows, row - start, min(slab, h - row)
 
     def style_stats(self, k, style: torch.Tensor):
-        """(mean, cov) of the whole style image's stage-``k`` features."""
-        p = self.pyramid[k]
-        return feature_stats(_encode(p["enc"], p["enc_spec"], style))
+        """(mean, cov) of the whole style image's stage-``k`` features, from
+        the cascade's own (folded, with ``packed``) encoder."""
+        return feature_stats(_encode(self.params[k]["enc"], self.pyramid[k]["enc_spec"], style))
 
     def _color_decode(self, k, feats, t, c_mean, s_mean, alpha, offset: int,
                       interior: int) -> torch.Tensor:
         """Folded WCT + decoder on one slab's features; its interior rows."""
-        p = self.pyramid[k]
         csf = wct_apply_folded(feats, t, c_mean, s_mean, alpha)
-        dec = apply_decoder(p["dec"], csf, p["dec_spec"])["out"]
+        dec = apply_decoder(self.params[k]["dec"], csf, self.pyramid[k]["dec_spec"])["out"]
         return dec[:, offset:offset + interior]
 
     def slab_sums(self, k, img: torch.Tensor, slabs, *, shift=None, keep: bool = False):
@@ -184,13 +205,12 @@ class SlabCascade:
         if img.shape[0] != 1:
             raise ValueError("the slab path is per-image (N = 1): WCT statistics "
                              "would pool the batch")
-        p = self.pyramid[k]
-        spec = p["enc_spec"]
+        enc, spec = self.params[k]["enc"], self.pyramid[k]["enc_spec"]
         down = 2 ** (k - 1)
         c = spec.out_channels
         kept, s_sum, g_sum, count = [], 0.0, 0.0, 0
         for start, rows, off, n in slabs:
-            feats = _encode(p["enc"], spec, img[:, start:start + rows])
+            feats = _encode(enc, spec, img[:, start:start + rows])
             x = feats[:, off // down:(off + n) // down].reshape(-1, c).float()
             if shift is None:
                 shift = gram_shift(x)
@@ -249,7 +269,7 @@ class SlabCascade:
         the folded WCT. ``slabs``: ``(start, rows, offset, interior)``
         windows into ``img``'s rows instead of :meth:`_slabs`'s (a row shard
         extended by its neighbours' halos)."""
-        p = self.pyramid[k]
+        enc, spec = self.params[k]["enc"], self.pyramid[k]["enc_spec"]
         if slabs is None:
             slabs = self._slabs(img.shape[1], k)
         row = 0
@@ -257,7 +277,7 @@ class SlabCascade:
             if kept is not None:
                 feats, kept[i] = kept[i], None
             else:
-                feats = _encode(p["enc"], p["enc_spec"], img[:, start:start + rows])
+                feats = _encode(enc, spec, img[:, start:start + rows])
             yield row, self._color_decode(k, feats, t, c_mean, s_mean, alpha, off, n)
             row += n
             del feats
@@ -384,10 +404,10 @@ class SlabCascade:
 
 def build_fused_slab_cascade(pyramid, *, stages=(5, 4, 3, 2, 1), slab_rows: int = 1024,
                              method: str = "eigh", newton_iters: int = 24,
-                             eps: float = 1e-8,
+                             eps: float = 1e-8, packed: bool = False,
                              feature_cache_bytes: int = FEATURE_CACHE_BYTES,
                              external_style_stats: bool = False,
-                             tail_stats: bool = False):
+                             tail_stats: bool = False, params=None):
     """The production slab cascade: ``fn(img, style, alpha) -> img``.
 
     ``img`` is (1, H, W, 3) with H a multiple of the pyramid's granularity
@@ -403,9 +423,14 @@ def build_fused_slab_cascade(pyramid, *, stages=(5, 4, 3, 2, 1), slab_rows: int 
     ``tail_stats``: stop before the LAST stage's pass 2 and return ``(img,
     t, c_mean, s_mean, kept)``, the image entering that stage and its pass-1
     results, for :meth:`SlabCascade.stream_last_stage`.
+
+    ``packed``: the encoders with ``conv0`` folded into ``conv1_1``;
+    ``params`` shares a folded tree (:attr:`SlabCascade.packed_params`)
+    instead of folding anew.
     """
     helper = SlabCascade(pyramid, stages=stages, slab_rows=slab_rows, method=method,
-                         newton_iters=newton_iters, eps=eps)
+                         newton_iters=newton_iters, eps=eps, packed=packed,
+                         packed_params=params if packed else None)
 
     def fn(img, style, alpha):
         h = img.shape[1]

@@ -400,10 +400,11 @@ def test_bf16_slab_in_shard_engine_on_the_photo_pair(engines, weights_root, phot
     tall = np.concatenate([c, c[::-1], c])[:1152, :32]
     sty = s[:64, :64]
     eng = WCTEngine(pyramid=port.pyramid, device="cpu", dtype=BF16, space=4, slab_rows=288,
-                    devices=["cpu"] * 4)
+                    devices=["cpu"] * 4, packed=False)
     got = eng.stylize(tall, sty)
     assert got.shape == tall.shape and np.isfinite(got).all()
-    single = WCTEngine(pyramid=port.pyramid, device="cpu", dtype=BF16, slab_rows=288)
+    single = WCTEngine(pyramid=port.pyramid, device="cpu", dtype=BF16, slab_rows=288,
+                       packed=False)
     np.testing.assert_array_equal(got, single.stylize(tall, sty))
     jss = np.asarray(JaxEngine(mode="16x", weights_root=weights_root, dtype=jnp.bfloat16,
                                space=4, slab_rows=288, packed=False).stylize(tall, sty),
@@ -472,7 +473,8 @@ def test_cli_bf16_space_writes_the_bf16_sharded_engines_pixels(weights_root, pho
                                                                monkeypatch, slab_rows):
     """``cli.stylize --bf16 --space 4 --devices cpu,cpu,cpu,cpu`` (with and
     without ``--slab_rows``) writes the bf16 sharded engine's uint8 pixels
-    (PNG: no codec, so nothing lossy between)."""
+    (PNG: no codec, so nothing lossy between); without ``--packed`` the CLI
+    keeps conv0, so its engine is ``packed=False``."""
     monkeypatch.setattr(tnc, "_lib", None)
     monkeypatch.setattr(tnc, "_reason", "native codec unavailable: forced off")
     c = (photo[0][:576, :64] * 255).astype(np.uint8)
@@ -489,7 +491,7 @@ def test_cli_bf16_space_writes_the_bf16_sharded_engines_pixels(weights_root, pho
     assert len(files) == 1 and files[0].endswith(".png")
     got = decode_png((tmp_path / "out" / files[0]).read_bytes())
     eng = WCTEngine(mode="16x", weights_root=weights_root, device="cpu", dtype=BF16, space=4,
-                    slab_rows=slab_rows, devices=["cpu"] * 4)
+                    slab_rows=slab_rows, devices=["cpu"] * 4, packed=False)
     np.testing.assert_array_equal(got, eng.stylize(c, s, as_uint8=True))
     with pytest.raises(ValueError, match="needs 4 devices"):
         tstylize.main(args[:-6] + args[-4:])   # no --devices: a card per shard

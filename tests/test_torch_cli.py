@@ -114,18 +114,47 @@ def test_one_pair_writes_png_where_the_codec_is_unavailable(grid, tmp_path, monk
     np.testing.assert_array_equal(decode_png(out.read_bytes()), want)
 
 
-# --bf16 has a counterpart (WCTEngine(dtype=torch.bfloat16); tests/test_torch_bf16.py);
-# with --packed it is still refused, for --packed
-@pytest.mark.parametrize("flags", [["--packed", "--bf16"], ["--packed"], ["--halo", "pallas"]])
+# --bf16 and --packed have counterparts (WCTEngine(dtype=torch.bfloat16),
+# WCTEngine(packed=True); tests/test_torch_bf16.py, tests/test_torch_packed.py):
+# with either, --halo pallas is still refused
+@pytest.mark.parametrize("flags", [["--packed", "--bf16", "--halo", "pallas"],
+                                   ["--packed", "--halo", "pallas"], ["--halo", "pallas"]])
 def test_flags_without_a_counterpart_are_refused(flags, capsys):
     with pytest.raises(SystemExit) as e:
         tstylize.main(["--device", "cpu", *flags])
     assert e.value.code == 2
-    assert "has no counterpart in the PyTorch port" in capsys.readouterr().err
+    assert "--halo pallas has no counterpart in the PyTorch port" in capsys.readouterr().err
     text = " ".join(tstylize.build_parser().format_help().split())
-    for said in ("refused: the width-packed", "pallas is refused"):
-        assert said in text
-    assert "refused: bfloat16" not in text
+    assert "pallas is refused" in text
+    assert "refused: bfloat16" not in text and "refused: the width-packed" not in text
+
+
+@pytest.mark.parametrize("flags", [["--packed", "--bf16"], ["--packed"]])
+def test_packed_flag_folds_conv0_on_the_slab_path(grid, tmp_path, flags, monkeypatch):
+    """``--packed`` is the engine's ``packed=True``, as the reference's CLI
+    passes it: the file is the folded slab engine's pixels (a 320-row
+    content, two windows of ``--slab_rows 288``); without it the CLI keeps
+    conv0 (``packed=False``), as the reference's does. PNG output (codec
+    made unavailable), so the pixels compare bit for bit."""
+    monkeypatch.setattr(tnc, "_lib", None)
+    monkeypatch.setattr(tnc, "_reason", "native codec unavailable: no jpeglib.h")
+    a = _read(grid / "one" / "a.png")
+    img = np.ascontiguousarray(np.concatenate([a, a[::-1]] * 2)[:320, :32])
+    (tmp_path / "c").mkdir()
+    Image.fromarray(img).save(tmp_path / "c" / "t.png")
+    sty = _read(grid / "style" / "x.png")
+    dtype = torch.bfloat16 if "--bf16" in flags else torch.float32
+    for packed in (True, False):
+        mark = "p" if packed else "u"
+        args = ["--mode", "16x", "--contentPath", str(tmp_path / "c"), "--stylePath",
+                str(grid / "style"), "--picked_style_mark", "x", "--outf",
+                str(tmp_path / "o"), "--log_mark", mark, "--slab_rows", "288", "--device",
+                "cpu", *(flags if packed else [f for f in flags if f != "--packed"])]
+        assert tstylize.main(args) == 0
+        got = decode_png((tmp_path / "o" / f"{mark}_mode=16x_alpha=1.0_t+x.png").read_bytes())
+        eng = WCTEngine(mode="16x", device="cpu", slab_rows=288, packed=packed, dtype=dtype)
+        assert eng.slab.packed is packed
+        np.testing.assert_array_equal(got, eng.stylize(img, sty, as_uint8=True))
 
 
 def test_space_wants_a_card_per_shard(grid, tmp_path):

@@ -166,16 +166,21 @@ def test_engine_runs_on_the_card_unless_asked(monkeypatch):
         WCTEngine(device="meta")
     with pytest.raises(ValueError):
         WCTEngine(device="cpu", method="svd")
-    # the single-card UHD path, the row-sharded one and the transports are
-    # ported, with the reference's validation; packing (a TPU lane layout)
-    # and the choice of halo implementation have no counterpart
+    # the single-card UHD path, the row-sharded one, the transports and
+    # packed (the conv0 fold, on by default as in the reference) are ported,
+    # with the reference's validation; the choice of halo implementation has
+    # no counterpart
     assert WCTEngine(device="cpu", slab_rows=256).slab.slab_rows == 256
     assert WCTEngine(device="cpu", transport="yuv420").transport == "yuv420"
     with pytest.raises(ValueError, match="transport"):
         WCTEngine(device="cpu", transport="cmyk")
-    for kw in ({"packed": True}, {"halo": "pallas"}):
-        with pytest.raises(TypeError):
-            WCTEngine(device="cpu", **kw)
+    for packed, folded in ((None, True), (True, True), (False, False)):
+        eng = WCTEngine(device="cpu", slab_rows=256, packed=packed)
+        assert eng.packed is eng.slab.packed is folded
+        assert all(getattr(eng.slab.params[k]["enc"], "conv0_folded", False) is folded
+                   for k in eng.stages)
+    with pytest.raises(TypeError):
+        WCTEngine(device="cpu", halo="pallas")
     # row shards want one CUDA device each unless the caller lists devices
     if torch.cuda.device_count() < 2:
         with pytest.raises(ValueError, match="needs 2 devices"):

@@ -1238,11 +1238,16 @@ def test_bf16_sharded_and_pwct_engines_on_one_card():
         return float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
 
     before = (kc.halo_exchange_rows.launches, kc.halo_fill_rows.launches)
+    # conv0 run on both (packed=False): the sharded path takes the style's
+    # statistics from the unfolded encoders, the single-card slab path from
+    # its folded ones, and in bf16 the two roundings differ by more than the
+    # order of sums (chip_smoke.py phase 5e holds the folded paths)
     sharded = WCTEngine(mode="16x", space=4, slab_rows=288, devices=["cuda:0"] * 4,
-                        dtype=bf).stylize(tall, s)
+                        dtype=bf, packed=False).stylize(tall, s)
     assert (kc.halo_exchange_rows.launches - before[0],
             kc.halo_fill_rows.launches - before[1]) == (1, 4)
-    assert psnr(sharded, WCTEngine(mode="16x", slab_rows=288, dtype=bf).stylize(tall, s)) >= 40
+    assert psnr(sharded, WCTEngine(mode="16x", slab_rows=288, dtype=bf,
+                                   packed=False).stylize(tall, s)) >= 40
     before = (kc.conv3x3_reflect.halo_launches, kc.conv3x3_reflect_bf16.halo_launches)
     per_conv = WCTEngine(mode="16x", space=4, devices=["cuda:0"] * 4, dtype=bf).stylize(c, s)
     assert kc.conv3x3_reflect.halo_launches == before[0]

@@ -74,7 +74,8 @@ def engines(pyramids):
     jp, tp = pyramids
     je = JaxEngine(mode="16x", pyramid=jp, stages=STAGES, slab_rows=32, fused=True,
                    packed=False, stream_min_pix=0)
-    te = WCTEngine(pyramid=tp, stages=STAGES, device="cpu", slab_rows=32, stream_min_pix=0)
+    te = WCTEngine(pyramid=tp, stages=STAGES, device="cpu", slab_rows=32, stream_min_pix=0,
+                   packed=False)
     return je, te
 
 
@@ -215,7 +216,7 @@ def test_endpoints_return_none_like_the_reference(pyramids, engines, pair, monke
             kw = dict(slab_rows=32, space=2, devices=["cpu"] * 2)
             jkw = dict(slab_rows=32, space=2)
         je = JaxEngine(mode="16x", pyramid=jp, stages=STAGES, packed=False, **jkw)
-        te = WCTEngine(pyramid=tp, stages=STAGES, device="cpu", **kw)
+        te = WCTEngine(pyramid=tp, stages=STAGES, device="cpu", packed=False, **kw)
     assert te.supports_streamed_jpeg() == je.supports_streamed_jpeg()
     assert je.stylize_jpeg(data, s) is None
     assert te.stylize_jpeg(data, s) is None

@@ -176,11 +176,11 @@ def test_slab_cascades_match_reference_two_stages(pyramids):
     s = _photo("in3+in2_16x.jpg", 64, 64)[None]
     want = np.asarray(jslab.SlabCascade(jp, stages=(2, 1), slab_rows=32, packed=False)
                       .stylize(jnp.asarray(c), jnp.asarray(s), 0.9))
-    got = tslab.SlabCascade(tp, stages=(2, 1), slab_rows=32).stylize(
+    got = tslab.SlabCascade(tp, stages=(2, 1), slab_rows=32, packed=False).stylize(
         torch.from_numpy(c), torch.from_numpy(s), 0.9).numpy()
     assert got.shape == want.shape == c.shape
     assert _psnr(got, want) >= PSNR_MIN_DB
-    fused = tslab.build_fused_slab_cascade(tp, stages=(2, 1), slab_rows=32)
+    fused = tslab.build_fused_slab_cascade(tp, stages=(2, 1), slab_rows=32, packed=False)
     assert _psnr(fused(torch.from_numpy(c), torch.from_numpy(s), 0.9).numpy(),
                  want) >= PSNR_MIN_DB
 
@@ -190,10 +190,10 @@ def test_slab_cascades_match_reference_five_stages(pyramids, tall):
     c, s = tall[0][None], tall[1][None]
     jfn, jparams = jslab.build_fused_slab_cascade(jp, slab_rows=288, packed=False)
     want = np.asarray(jfn(jparams, jnp.asarray(c), jnp.asarray(s), 1.0))
-    per_stage = tslab.SlabCascade(tp, slab_rows=288)
+    per_stage = tslab.SlabCascade(tp, slab_rows=288, packed=False)
     assert len(list(per_stage._slabs(864, 5))) == 3
     got = per_stage.stylize(torch.from_numpy(c), torch.from_numpy(s), 1.0).numpy()
-    fused = tslab.build_fused_slab_cascade(tp, slab_rows=288)(
+    fused = tslab.build_fused_slab_cascade(tp, slab_rows=288, packed=False)(
         torch.from_numpy(c), torch.from_numpy(s), 1.0).numpy()
     assert _psnr(got, want) >= PSNR_MIN_DB and _psnr(fused, want) >= PSNR_MIN_DB
     assert np.abs(got - c).mean() > 0.05  # restyled
@@ -205,7 +205,7 @@ def test_slab_cascades_match_reference_five_stages(pyramids, tall):
 def engines(weights_root, pyramids):
     _, tp = pyramids
     je = JaxEngine(mode="16x", weights_root=weights_root, slab_rows=288, packed=False)
-    return je, WCTEngine(pyramid=tp, device="cpu", slab_rows=288)
+    return je, WCTEngine(pyramid=tp, device="cpu", slab_rows=288, packed=False)
 
 
 def test_slab_engine_matches_reference_engine(weights_root, engines, tall):
@@ -337,7 +337,7 @@ def test_one_pixel_cascade_is_nan_like_reference(weights_root, pyramids, slab_ro
     c, s = rng.random((16, 16, 3), np.float32), rng.random((16, 16, 3), np.float32)
     want = JaxEngine(mode="16x", weights_root=weights_root, slab_rows=slab_rows,
                      packed=False).stylize(c, s)
-    got = WCTEngine(pyramid=tp, device="cpu", slab_rows=slab_rows).stylize(c, s)
+    got = WCTEngine(pyramid=tp, device="cpu", slab_rows=slab_rows, packed=False).stylize(c, s)
     assert np.isnan(want).all() and np.isnan(got).all()
     mean, cov = tw.feature_stats(torch.from_numpy(c[:1, :1]))
     assert torch.isfinite(mean).all() and torch.isnan(cov).all()

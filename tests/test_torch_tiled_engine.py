@@ -75,7 +75,7 @@ def engines(pyramids):
     jp, tp = pyramids
     je = JaxEngine(mode="16x", pyramid=jp, stages=STAGES, space=4, slab_rows=48, packed=False)
     te = WCTEngine(pyramid=tp, stages=STAGES, device="cpu", space=4, slab_rows=48,
-                   devices=["cpu"] * 4)
+                   devices=["cpu"] * 4, packed=False)
     return je, te
 
 
@@ -99,7 +99,8 @@ def test_engine_cached_style_key_matches_single_device_slab_engine(engines, pyra
     _, te = engines
     _, tp = pyramids
     c, s = imgs[0][0], imgs[1][0]
-    single = WCTEngine(pyramid=tp, stages=STAGES, device="cpu", slab_rows=te._tiled_slab)
+    single = WCTEngine(pyramid=tp, stages=STAGES, device="cpu", slab_rows=te._tiled_slab,
+                       packed=False)
     ref = single.stylize(c, s, alpha=0.8, style_key="k")
     out1 = te.stylize(c, s, alpha=0.8, style_key="k")
     assert (1, "k", (1, 64, 48, 3)) in te._style_cache
