@@ -203,7 +203,20 @@ Phases (any failure raises and the script exits non-zero):
      (stages 1-5), timed, each stage's calibration re-run on the store (mean
      activation 1), a stage-2 ``normalize_encoder`` card vs CPU; (d)
      ``apply_mobilenet_encoder`` (stages 1-5, 512^2, a seeded state dict),
-     ``gram_matrix`` and ``adain`` card vs CPU.
+     ``gram_matrix`` and ``adain`` card vs CPU; (e) the model-asset tools on
+     (c)'s store, at full widths: its e5 and d5 as the reference's
+     legacy-format ``.pth`` files, ``cli.convert`` back to the store bit for
+     bit; ``cli.prune`` of the encoders and decoders of stages 1-5 into
+     ``16x_base/`` (the 16x specs' shapes, each call timed); ``cli.train
+     --pretrained_init`` wct_se and then wct_sd on the trained encoder, six
+     steps each at stage 5 x 16 x 256^2 on 8c's PNGs (launches per step the
+     specs', finite losses that fall on the first batch, median step and
+     images/s); the wct_se trainer's state through ``save_checkpoint_dcp``
+     and ``save_checkpoint``, one step resumed from each bit-equal;
+     ``cli.export`` of the trained pair and ``WCTEngine(stages=(5,))`` on the
+     512^2 pair (the plain path's launch counts); ``cli.imgtools
+     crop-center`` and ``resize`` on the card over 2048^2 PNGs and nvJPEG
+     JPEGs, timed.
   10. bfloat16 inference, run after phase 5d and before phase 9: (a) each
      bf16 kernel (``conv3x3_reflect_bf16``, ``conv1x1_bias_bf16``,
      ``max_pool_2x2_bf16``, ``upsample_nearest_2x_bf16``) against its plain
@@ -2676,12 +2689,14 @@ def train_card_vs_cpu(torch) -> dict:
 
 
 def _train_runs(mode: str) -> list:
-    """The stage-5 encoder and decoder passes of one training step, in order."""
+    """The stage-5 encoder and decoder passes of one training step, in order
+    (``wct_sd`` with ``--lw_perc 0``; ``wct_sd_perc`` with its perceptual
+    loss, the teacher encoder on the content and on the reconstruction)."""
     from collaborative_distillation_tpu_torch.models.specs import decoder_spec, encoder_spec
     k = TRAIN_STAGE
     be, bd = encoder_spec("original", k), decoder_spec("original", k)
     se, sd = encoder_spec("16x", k, aux=True), decoder_spec("16x", k)   # aux: 1x1, no kernel
-    return {"wct_se": [se, bd, be, be], "wct_sd": [se, sd],
+    return {"wct_se": [se, bd, be, be], "wct_sd": [se, sd], "wct_sd_perc": [se, sd, be, be],
             "wct_sd_kd2sd": [be, se, bd, sd, be]}[mode]
 
 
@@ -4355,6 +4370,291 @@ def small_modules(torch, eng, c512) -> dict:
     return out
 
 
+# ---- phase 9e: the model-asset tools ----------------------------------------------
+
+ASSET_RESIZE = (1024, 768)     # 9e(f): imgtools resize --size W H
+# 9e(f): a JPEG written by imgtools (quality 75, PIL's default) against the
+# same pixels before the encode; a q75 encode of these photos reads ~35-40 dB
+# on the CPU (libjpeg), so the floor only refuses a wrong image
+ASSET_JPEG_MIN_DB = 30.0
+
+
+def _legacy_pth(torch, tree, path) -> None:
+    """A store tree as the reference's ``.pth``: the OIHW state dict wrapped
+    as ``{"epoch": 0, "model": sd}``, in torch 0.4.1's legacy (non-zip)
+    format."""
+    sd = {}
+    for name, leaf in tree.items():
+        sd[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(
+            leaf["w"].transpose(3, 2, 0, 1)))
+        sd[f"{name}.bias"] = torch.from_numpy(leaf["b"])
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({"epoch": 0, "model": sd}, path, _use_new_zipfile_serialization=False)
+
+
+def _same_tree(a, b) -> bool:
+    """Two ``{layer: {"w", "b"}}`` numpy trees equal bit for bit."""
+    return sorted(a) == sorted(b) and all(
+        sorted(a[n]) == sorted(b[n]) and all(
+            a[n][kk].dtype == b[n][kk].dtype and a[n][kk].shape == b[n][kk].shape
+            and a[n][kk].tobytes() == b[n][kk].tobytes() for kk in a[n]) for n in a)
+
+
+def _quiet(fn, *args):
+    """``fn(*args)`` with its standard output kept; -> (result, seconds, text)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args)
+    return rc, time.perf_counter() - t0, buf.getvalue()
+
+
+def _asset_train_run(torch, kc, argv, tag, mode_key) -> tuple:
+    """9e(c): one ``cli.train`` run in process (``argv`` + ``-p tag``),
+    each step's launches held to the specs' (``_train_launches(mode_key)``)
+    and its losses finite. -> (probe, checkpoint path, wall s)."""
+    from collaborative_distillation_tpu_torch.cli import train as cli
+    from collaborative_distillation_tpu_torch.train.trainer import Trainer
+    with _StepProbe(torch, kc, Trainer) as probe:
+        _, wall, _ = _quiet(cli.main, argv + ["-p", tag])
+    want = {**{kk.__name__: 0 for kk in probe.kernels}, **_train_launches(mode_key)}
+    _check_counts(f"phase 9e(c): {tag}, one step", probe.steps[0]["launches"], want)
+    for i, st in enumerate(probe.steps):
+        if st["launches"] != want or not all(np.isfinite(v) for v in st["losses"].values()):
+            raise AssertionError(f"phase 9e(c): {tag} step {i + 1}: launches {st['launches']} "
+                                 f"(want {want}), losses {st['losses']}")
+    if len(probe.steps) != TRAIN_STEPS:
+        raise AssertionError(f"phase 9e(c): {tag} took {len(probe.steps)} steps")
+    (run,) = [d for d in os.listdir("Experiments") if d.endswith("_" + tag)]
+    wdir = os.path.join("Experiments", run, "weights")
+    (ckpt,) = [os.path.join(wdir, f) for f in os.listdir(wdir) if f.endswith(".npz")]
+    return probe, os.path.abspath(ckpt), wall
+
+
+def _dcp_resume(torch, trainer, batch, base) -> dict:
+    """9e(d): ``trainer``'s state saved through ``save_checkpoint_dcp`` and
+    ``save_checkpoint``; each loaded back into it (params and Adam state
+    bit-equal to the saved ones), then one step on ``batch``: the two
+    steps' masters must be bit-equal (cuDNN's deterministic algorithms for
+    the backward convs, as in both resumed steps)."""
+    from collaborative_distillation_tpu_torch.utils.checkpoint import (
+        _flatten, load_checkpoint, load_checkpoint_dcp, save_checkpoint, save_checkpoint_dcp)
+    state = trainer.state(epoch=2, step=TRAIN_STEPS)
+    saved = {kk: v for kk, v in _flatten(state).items() if not kk.startswith("meta/")}
+    dcp_dir, npz = os.path.join(base, "state_dcp"), os.path.join(base, "state.npz")
+    _, dcp_save_s, _ = _quiet(save_checkpoint_dcp, dcp_dir, state)
+    _, npz_save_s, _ = _quiet(save_checkpoint, npz, state)
+    loads = {"dcp": lambda: load_checkpoint_dcp(dcp_dir, trainer.state()),
+             "npz": lambda: load_checkpoint(npz, trainer.state())}
+    masters, load_s = {}, {}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for how in ("dcp", "npz"):
+            t0 = time.perf_counter()
+            meta = trainer.load_state(loads[how]())
+            load_s[how] = time.perf_counter() - t0
+            now = {kk: v for kk, v in _flatten(trainer.state()).items()
+                   if not kk.startswith("meta/")}
+            if (sorted(now) != sorted(saved) or int(meta["step"]) != TRAIN_STEPS
+                    or any(now[kk].tobytes() != saved[kk].tobytes() for kk in saved)):
+                raise AssertionError(f"phase 9e(d): the {how} checkpoint did not restore the "
+                                     f"saved params and Adam state bit for bit")
+            trainer.train_step(batch)
+            masters[how] = _flatten(trainer.params)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    differ = [kk for kk in masters["dcp"]
+              if masters["dcp"][kk].tobytes() != masters["npz"][kk].tobytes()]
+    dcp_bytes = sum(os.path.getsize(os.path.join(dcp_dir, f)) for f in os.listdir(dcp_dir))
+    log(f"phase 9e(d): wct_se trainer state ({len(saved)} leaves, params and Adam state) "
+        f"through save_checkpoint_dcp in {dcp_save_s * 1e3:.1f} ms ({dcp_bytes} bytes, "
+        f"{len(os.listdir(dcp_dir))} files) and save_checkpoint in {npz_save_s * 1e3:.1f} ms; "
+        f"loads {load_s['dcp'] * 1e3:.1f} / {load_s['npz'] * 1e3:.1f} ms, both bit-equal to the "
+        f"saved state; one step resumed from each: {len(differ)} of {len(masters['dcp'])} "
+        f"master leaves differ")
+    if differ:
+        raise AssertionError(f"phase 9e(d): one step resumed from the DCP and the npz "
+                             f"checkpoints gives other masters: {differ}")
+    return {"leaves": len(saved), "dcp_save_s": dcp_save_s, "npz_save_s": npz_save_s,
+            "load_s": load_s, "dcp_bytes": dcp_bytes, "masters_differ": len(differ)}
+
+
+def _asset_imgtools(torch, c2k, s2k, base) -> dict:
+    """9e(f): ``cli.imgtools crop-center`` and ``resize`` on the card (its
+    default device) over a folder of two 2048^2 PNGs and two 2048^2 JPEGs
+    written by nvJPEG: each command's wall; the PNG outputs equal to the
+    square crop (the whole image) and to ``utils/image.py:resize`` of the
+    source exactly, the JPEG outputs (quality 75) within ASSET_JPEG_MIN_DB of
+    the same pixels, decoded by nvJPEG."""
+    from collaborative_distillation_tpu_torch.cli import imgtools
+    from collaborative_distillation_tpu_torch.utils.image import read_image, resize, save_image
+    folder = os.path.join(base, "imgtools")
+    os.makedirs(folder)
+    for name, img in (("c.png", c2k), ("s.png", s2k), ("c.jpg", c2k), ("s.jpg", s2k)):
+        save_image(img, os.path.join(folder, name), device="cuda")
+    src = {n: read_image(os.path.join(folder, n), device="cuda") for n in os.listdir(folder)}
+    rc_c, crop_s, _ = _quiet(imgtools.main, ["crop-center", folder])
+    rc_r, resize_s, _ = _quiet(imgtools.main, ["resize", folder, "--size",
+                                               *map(str, ASSET_RESIZE)])
+    files = sorted(os.listdir(folder))
+    if rc_c or rc_r or len(files) != 4 + 4 + 8:
+        raise AssertionError(f"phase 9e(f): imgtools exited {rc_c}, {rc_r}; files {files}")
+    worst = float("inf")
+    for n, img in src.items():
+        stem, ext = os.path.splitext(n)
+        for suffix, want in (("_cropped", img), ("_resized", resize(img, *ASSET_RESIZE)),
+                             ("_cropped_resized", resize(img, *ASSET_RESIZE))):
+            got = read_image(os.path.join(folder, stem + suffix + ext), device="cuda")
+            if got.shape != want.shape:
+                raise AssertionError(f"phase 9e(f): {stem + suffix + ext} {got.shape}")
+            if ext == ".png":
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"phase 9e(f): {stem + suffix + ext} differs")
+            else:
+                worst = min(worst, _psnr_u8(torch, got, want))
+    if not worst >= ASSET_JPEG_MIN_DB:
+        raise AssertionError(f"phase 9e(f): a q75 JPEG output reads {worst:.2f} dB")
+    log(f"phase 9e(f): cli.imgtools on the card over 2 PNGs + 2 nvJPEG JPEGs at 2048^2: "
+        f"crop-center {crop_s:.3f} s (4 files), resize --size {ASSET_RESIZE[0]} "
+        f"{ASSET_RESIZE[1]} {resize_s:.3f} s (8 files: the crops too); PNG outputs exact, "
+        f"q75 JPEG outputs >= {worst:.2f} dB (min {ASSET_JPEG_MIN_DB})")
+    return {"crop_center_s": crop_s, "resize_s": resize_s, "jpeg_min_db": worst}
+
+
+def asset_tools(torch, kc, c512, s512, c2k, s2k, tmp, teachers) -> dict:
+    """Phase 9e: the model-asset tools on phase 9c's teacher store
+    (``teachers``), at full widths: (a) its e5 and d5 as the reference's
+    legacy ``.pth`` files in a ``trained_models/`` layout, ``cli.convert``
+    back to the store bit for bit; (b) ``cli.prune`` of the encoders and
+    decoders of stages 1-5 into ``16x_base/``, shapes the 16x specs', each
+    timed; (c) ``cli.train --mode wct_se --stage 5 --pretrained_init`` on
+    the pruned init and 8c's 48 PNGs, then ``wct_sd`` on the trained
+    encoder (``cli.export``), six steps each at stage 5 x 16 x 256^2,
+    launches per step the specs', losses finite and falling on the first
+    batch over 1 + 8 steps (``_loss_falls``), the median step and images/s;
+    (d) the wct_se trainer's state through ``save_checkpoint_dcp`` and
+    ``save_checkpoint``, one step resumed from each bit-equal (``_dcp_resume``);
+    (e) ``cli.export`` of the trained stage-5 pair and
+    ``WCTEngine(stages=(5,))`` on the 512^2 pair with the counters zeroed:
+    the plain path's counts, output finite; (f) ``cli.imgtools`` on the card
+    (``_asset_imgtools``)."""
+    import shutil
+
+    from collaborative_distillation_tpu_torch.cli import convert, export, prune
+    from collaborative_distillation_tpu_torch.models.specs import decoder_spec, encoder_spec
+    from collaborative_distillation_tpu_torch.models.zoo import load_stage_params, load_tree_npz
+    from collaborative_distillation_tpu_torch.wct.engine import WCTEngine
+    k = TRAIN_STAGE
+    base = os.path.join(tmp, "assets")
+    out = {}
+    # (a) the reference's .pth files back into the store
+    ref = os.path.join(base, "trained_models")
+    store = {kind: load_tree_npz(os.path.join(teachers, "original", f"{kind}{k}.npz"))
+             for kind in "ed"}
+    _legacy_pth(torch, store["e"], os.path.join(ref, "wct_se_16x_new", f"{k}SE.pth"))
+    _legacy_pth(torch, store["d"], os.path.join(ref, "our_BD", f"{k}BD_E30S0.pth"))
+    conv_root = os.path.join(base, "converted")
+    rc, convert_s, text = _quiet(convert.main, ["--reference", ref, "--out", conv_root])
+    got = {"e": load_tree_npz(os.path.join(conv_root, "16x", f"e{k}.npz")),
+           "d": load_tree_npz(os.path.join(conv_root, "original", f"d{k}.npz"))}
+    missing = text.count("[missing]")
+    if rc or missing != 33 or not all(_same_tree(got[x], store[x]) for x in "ed"):
+        raise AssertionError(f"phase 9e(a): cli.convert exited {rc}, {missing} missing, "
+                             f"e{k}/d{k} equal: {[_same_tree(got[x], store[x]) for x in 'ed']}")
+    log(f"phase 9e(a): 9c's e{k} and d{k} as legacy-format {{'epoch', 'model'}} .pth files "
+        f"(wct_se_16x_new/{k}SE.pth, our_BD/{k}BD_E30S0.pth): cli.convert in "
+        f"{convert_s:.3f} s, both back to the store bit for bit ({missing} [missing] lines)")
+    out["convert_s"] = convert_s
+    # (b) L1-pruned student inits of stages 1-5
+    root = os.path.join(base, "weights")
+    shutil.copytree(os.path.join(teachers, "original"), os.path.join(root, "original"))
+    prune_s = {}
+    for kk in range(1, 6):
+        for kind, spec in (("encoder", encoder_spec("16x", kk, aux=True)),
+                           ("decoder", decoder_spec("16x", kk))):
+            name = f"{kind[0]}{kk}"
+            dst = os.path.join(root, "16x_base", f"{name}.npz")
+            rc, prune_s[name], _ = _quiet(prune.main, [
+                "--teacher", os.path.join(root, "original", f"{name}.npz"), "--kind", kind,
+                "--stage", str(kk), "--output", dst])
+            if rc:
+                raise AssertionError(f"phase 9e(b): cli.prune {name} exited {rc}")
+            load_stage_params(dst, spec)   # raises where a shape is not the 16x spec's
+    log(f"phase 9e(b): cli.prune stages 1-5 into 16x_base/, every shape the 16x specs': "
+        + ", ".join(f"{n} {s * 1e3:.1f}" for n, s in prune_s.items()) + " ms")
+    out["prune_s"] = prune_s
+    # (c) pruned-init training, (d) its state through both checkpoint backends
+    data = os.path.join(base, "train_images")
+    _write_training_pngs(torch, c512, s512, data)
+    common = ["--stage", str(k), "-b", str(TRAIN_N), "--content_train", data, "--cache_data",
+              "--device", "cuda", "--print_interval", "1", "--save_interval", "100",
+              "--max_steps", str(TRAIN_STEPS), "--pretrained_init", "--weights_root", root]
+    exported = os.path.join(base, "exported", "16x")
+    cwd = os.getcwd()
+    os.chdir(base)   # the CLI writes Experiments/ in its working directory
+    try:
+        runs = {}
+        for mode, key in (("wct_se", "wct_se"), ("wct_sd", "wct_sd_perc")):
+            extra = ["--SE", os.path.join(exported, f"e{k}.npz")] if mode == "wct_sd" else []
+            probe, ckpt, wall = _asset_train_run(torch, kc, ["--mode", mode] + common + extra,
+                                                 f"pruned_{mode}", key)
+            rc, _, _ = _quiet(export.main, [ckpt, "--out", os.path.join(
+                exported, f"{'e' if mode == 'wct_se' else 'd'}{k}.npz")])
+            if rc:
+                raise AssertionError(f"phase 9e(e): cli.export of {ckpt} exited {rc}")
+            if mode == "wct_se":
+                out["dcp"] = _dcp_resume(torch, probe.trainer, probe.batch, base)
+            totals = _loss_falls(torch, probe.trainer, probe.first)
+            if not (all(np.isfinite(totals)) and min(totals[1:]) < totals[0]):
+                raise AssertionError(f"phase 9e(c): {mode}: the first batch's loss did not "
+                                     f"fall over 1 + 8 steps from the pruned init: {totals}")
+            times = [st["s"] for st in probe.steps[1:]]
+            med = statistics.median(times)
+            runs[mode] = {"median_s": med, "images_per_s": TRAIN_N / med, "wall_s": wall,
+                          "steps_s": [st["s"] for st in probe.steps],
+                          "losses_first": probe.steps[0]["losses"],
+                          "losses_last": probe.steps[-1]["losses"],
+                          "first_batch_totals": totals,
+                          "launches_per_step": _train_launches(key)}
+            log(f"phase 9e(c): cli.train {mode} --pretrained_init (cli.prune's 16x_base"
+                f"{', the trained encoder' if extra else ''}) stage {k} x {TRAIN_N} x "
+                f"{TRAIN_HW}^2: median step {med * 1e3:.1f} ms over steps 2-{TRAIN_STEPS} "
+                f"({TRAIN_N / med:.2f} images/s; steps "
+                f"{', '.join(f'{t * 1e3:.0f}' for t in times)} ms), wall {wall:.1f} s; "
+                f"launches per step {_train_launches(key)}; losses first "
+                f"{probe.steps[0]['losses']}, last {probe.steps[-1]['losses']}; the first "
+                f"batch's weighted loss over 1 + 8 steps {', '.join(f'{t:.6g}' for t in totals)}")
+        out["train"] = runs
+    finally:
+        os.chdir(cwd)
+    # (e) the exported pair stylizes through the engine's plain path
+    eng5 = WCTEngine(mode="16x", weights_root=os.path.dirname(exported), stages=(k,))
+    calls, _ = path_calls(eng5.pyramid, eng5.stages, *c512.shape[:2])
+    want = _totals(kc, calls)
+    _zero(kc)
+    t0 = time.perf_counter()
+    img = eng5.stylize(c512, s512)
+    stylize_s = time.perf_counter() - t0
+    counts = _counts(kc)
+    _check_counts(f"phase 9e(e): WCTEngine(stages=({k},)) on the exported pair, 512^2", counts,
+                  want)
+    plain = ("conv3x3_reflect", "sum_gram", "max_pool_2x2", "upsample_nearest_2x")
+    change = float(np.abs(img - c512.astype(np.float32) / 255.0).mean())
+    if not (img.shape == c512.shape and np.isfinite(img).all() and all(
+            counts[n] > 0 for n in plain)):
+        raise AssertionError(f"phase 9e(e): output {img.shape}, finite "
+                             f"{bool(np.isfinite(img).all())}, launches {counts}")
+    log(f"phase 9e(e): cli.export of the trained e{k}/d{k}, WCTEngine(stages=({k},)) 512^2 in "
+        f"{stylize_s:.3f} s (first call), output finite, mean |out - content| {change:.4f}")
+    out["stylize"] = {"s": stylize_s, "launches": counts, "mean_change": change}
+    # (f) imgtools on the card
+    out["imgtools"] = _asset_imgtools(torch, c2k, s2k, base)
+    return out
+
+
 # ---- phase 10: bfloat16 inference -----------------------------------------------
 
 def _bf16_plan(calls) -> Counter:
@@ -5560,6 +5860,8 @@ def main() -> int:
         detail["cascade_fn"] = cascade_fn_check(torch, eng, c2k, s2k)
         detail["teacher_store"] = teacher_store(torch, tmp)
         detail["small_modules"] = small_modules(torch, eng, c512)
+        detail["asset_tools"] = asset_tools(torch, kc, c512, s512, c2k, s2k, tmp,
+                                            detail["teacher_store"]["root"])
         detail["phase9_s"] = time.perf_counter() - t9
         # ---- phase 7: the CLIs and the server --------------------------------------
         t7 = time.perf_counter()

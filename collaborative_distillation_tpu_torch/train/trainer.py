@@ -310,16 +310,25 @@ class Trainer:
     def _meta(self, epoch: int, step: int) -> dict:
         return {"epoch": epoch, "step": step, "mode": self.cfg.mode, "stage": self.cfg.stage}
 
+    def state(self, *, epoch: int = 0, step: int = 0) -> dict:
+        """The checkpoint's tree: ``params``, ``opt_state`` (Adam's count, mu
+        and nu, and the schedule's count) and ``meta``, what :meth:`save`
+        writes; ``utils.checkpoint.save_checkpoint_dcp`` takes it too."""
+        return {"params": self.params, "opt_state": self._opt_tree(),
+                "meta": self._meta(epoch, step)}
+
     def save(self, path: str, *, epoch: int = 0, step: int = 0) -> None:
-        save_checkpoint(path, {"params": self.params, "opt_state": self._opt_tree(),
-                               "meta": self._meta(epoch, step)})
+        save_checkpoint(path, self.state(epoch=epoch, step=step))
 
     def restore(self, path: str) -> dict:
         """Load a checkpoint of either package into this trainer (every
         replica); returns its meta (``epoch``, ``step``, ``mode``,
         ``stage``)."""
-        tree = load_checkpoint(path, {"params": self.params, "opt_state": self._opt_tree(),
-                                      "meta": self._meta(0, 0)})
+        return self.load_state(load_checkpoint(path, self.state()))
+
+    def load_state(self, tree) -> dict:
+        """Load a tree shaped as :meth:`state`'s (numpy leaves, as the
+        checkpoint loaders return it) into this trainer; returns its meta."""
         with torch.no_grad():
             for name, leaf in self.params.items():
                 for kind, t in leaf.items():
