@@ -36,12 +36,19 @@ Phases (any failure raises and the script exits non-zero):
      (phase 8d) and of the original cascade at 512^2 and 1024^2 (phase 7f),
      and with halo rows at their pairs; the SHA-256 of the conv3x3 outputs
      at the 2048^2 path's shapes (seeded inputs: equal across checkouts
-     whose kernels compute the same bits there); a 16x16 image (relu5_1 at 1x1) stylizes to all-NaN
+     whose kernels compute the same bits there); the fused conv + pool and
+     upsample + conv (``ops/cuda/fused.py``) bit for bit the conv and pool
+     (upsample and conv) kernels in sequence at every fused shape of the
+     512^2, 2048^2 and UHD slab paths and at ``FUSED_EDGE``'s edge shapes; a
+     16x16 image (relu5_1 at 1x1) stylizes to all-NaN
      without raising, as the reference does; the 2048^2 and the UHD
      (slab-summed) stage-1 covariances against float64 centred ones;
   3. the main path: ``WCTEngine(mode="16x").stylize`` on a 2048^2 photo pair,
      with every launch counter set to 0 before it and read after it; the
-     counts must equal what the cascade's specs predict;
+     counts must equal what the cascade's specs predict: every pool and
+     upsample fused into the conv beside it (0 ``max_pool_2x2`` and
+     ``upsample_nearest_2x`` launches, as many conv launches as the
+     separate kernels' plan, here and in 3b, 3c and 10b);
   3b. the UHD path: ``WCTEngine(mode="16x", slab_rows=1024).stylize`` on the
      photo pair reflect-tiled to 4096 x 10240 content and 2048^2 style, one
      warm cascade with the counters zeroed; the counts must equal the slab
@@ -76,7 +83,10 @@ Phases (any failure raises and the script exits non-zero):
      launch plan chose); the warm 2048^2 cascade and its stages, its FLOPs
      (``utils/flops.py:cascade_flops``, no style leg) over the warm median
      of the cascade with the style's statistics cached, against the card's
-     FP32 peak (``card_peak_flops``);
+     FP32 peak (``card_peak_flops``); the fused route against the separate
+     kernels (``ops.conv.FUSE_DEVICES`` empty) in turns, warm medians, busy,
+     idle shares and peaks, outputs bit-equal (SHA-256), here, in 5b, in
+     5e's slab-in-shard cases and in 10b;
   5b. the same for ``conv1x1_bias`` and ``sum_gram`` at the UHD slab shapes
      (``sum_gram``'s as a second summary on its row); the warm UHD
      slab cascade (median of 3), split by stage and into pass 1 and pass 2,
@@ -193,7 +203,8 @@ Phases (any failure raises and the script exits non-zero):
      host enqueue, images/s and peak of both;
   9. run before phases 7 and 8: (a) photo-WCT, ``stylize(pwct=True)`` at
      2048^2 with the counters zeroed (the plain path's conv3x3 and sum_gram
-     launches, ``max_pool_2x2`` for the style only, no upsample), finite and
+     launches, the style encoders' pools fused, no pool or upsample kernel),
+     finite and
      unlike ``pwct=False``, the 512^2 pair card vs CPU with the card's pool
      indices shared (each stage's encoder and decoder to STAGE_TOL, the
      cascade as PSNR; without sharing, a printed figure), the warm
@@ -310,14 +321,55 @@ KERNEL_META = {
     "max_pool_2x2_bf16": ("pool.cu", "collaborative_distillation_tpu/ops/pallas/pool.py:96"),
     "upsample_nearest_2x_bf16": ("pool.cu",
                                  "collaborative_distillation_tpu/ops/pallas/pool.py:141"),
+    # the conv with the pool after it or the upsample before it in one launch
+    # (ops/cuda/fused.py): the pool or upsample kernel it folds in
+    "conv3x3_pool": ("conv3x3.cu", "collaborative_distillation_tpu/ops/pallas/pool.py:96"),
+    "conv3x3_up": ("conv3x3.cu", "collaborative_distillation_tpu/ops/pallas/pool.py:141"),
+    "conv3x3_pool_bf16": ("conv3x3_bf16.cu",
+                          "collaborative_distillation_tpu/ops/pallas/pool.py:96"),
+    "conv3x3_up_bf16": ("conv3x3_bf16.cu",
+                        "collaborative_distillation_tpu/ops/pallas/pool.py:141"),
 }
 # the bf16 engine's kernel for each float32 one (sum_gram runs on a float32
 # copy of the features, as the reference upcasts before its kernel)
 BF16_OF = {"conv3x3_reflect": "conv3x3_reflect_bf16", "conv1x1_bias": "conv1x1_bias_bf16",
-           "max_pool_2x2": "max_pool_2x2_bf16", "upsample_nearest_2x": "upsample_nearest_2x_bf16"}
+           "max_pool_2x2": "max_pool_2x2_bf16", "upsample_nearest_2x": "upsample_nearest_2x_bf16",
+           "conv3x3_pool": "conv3x3_pool_bf16", "conv3x3_up": "conv3x3_up_bf16"}
+# the fused conv + pool and upsample + conv, keyed in a plan by the conv's
+# (N, H, W, Cin, Cout, relu) as conv3x3_reflect is: H, W the conv's map (the
+# pooled map's input, the upsampled map); every conv3x3 launch of a plan is
+# one of CONV_KERNELS. POOL_OF: the separate kernel each one folds in
+FUSED_KERNELS = ("conv3x3_pool", "conv3x3_up")
+CONV_KERNELS = ("conv3x3_reflect", *FUSED_KERNELS)
+POOL_OF = {"conv3x3_pool": "max_pool_2x2", "conv3x3_up": "upsample_nearest_2x"}
 # the kernels that only the slab-in-shard path launches
 SHARDED_ONLY = ("halo_exchange_rows", "halo_fill_rows")
-KERNEL_PATH = {"conv1x1_bias": "UHD slab", **{k: "UHD sharded" for k in SHARDED_ONLY}}
+# where a kernel the 2048^2 plain path does not launch is counted and timed:
+# the slab 1x1, the halo kernels, and the pool and upsample, whose launches
+# on the plain, slab and slab-in-shard paths the fused conv took (the
+# per-conv sharded path keeps them, a pool or upsample a shard)
+PER_CONV_2048 = "per-conv sharded 2048^2"
+KERNEL_PATH = {"conv1x1_bias": "UHD slab", **{k: "UHD sharded" for k in SHARDED_ONLY},
+               **{k: PER_CONV_2048 for k in POOL_OF.values()}}
+# (N, H, W, Cin, Cout, relu[, offset[, "nan"]]) of the fused convs' edge
+# checks, (H, W) the conv's map: one past each fused template's pixel tile
+# (float32 32x32 at Cout 16, 16x32 at 32, 16x16 at 64, 8x16 at 128; bf16
+# 32x32, 16x32, 16x16, 16x16), odd H or W (the pool's dropped row and column;
+# the upsample's odd half-resolution input), 1-pixel pooled outputs and
+# upsampled inputs, N = 2, x off 16-byte alignment, NaN inputs (a NaN wins
+# the max, as in pool.cu)
+FUSED_EDGE = {
+    "conv3x3_pool": [(1, 33, 33, 16, 16, True), (2, 17, 33, 32, 32, True),
+                     (1, 17, 17, 64, 64, False), (1, 9, 17, 128, 128, True),
+                     (1, 7, 9, 16, 16, True), (2, 13, 5, 128, 128, True),
+                     (1, 3, 2, 64, 64, True), (1, 2, 3, 32, 32, True),
+                     (1, 17, 33, 32, 32, True, 1), (1, 16, 16, 16, 16, True, 0, "nan"),
+                     (2, 9, 17, 64, 64, True, 0, "nan")],
+    "conv3x3_up": [(1, 34, 34, 16, 16, True), (2, 18, 34, 32, 32, True),
+                   (1, 18, 18, 64, 64, False), (1, 10, 18, 128, 128, True),
+                   (1, 2, 2, 16, 16, True), (1, 2, 2, 128, 128, True), (2, 14, 6, 64, 64, True),
+                   (1, 18, 34, 32, 32, True, 1), (1, 16, 16, 16, 16, True, 0, "nan"),
+                   (2, 10, 18, 128, 128, True, 0, "nan")]}
 # conv3x3_reflect with halo rows (the per-conv sharded path): its own rows in
 # the checks, the kernel's in the table; the same in bf16, and the halo
 # exchange and fill on bf16 shards (phase 10e)
@@ -443,76 +495,106 @@ def log(*a):
     print(*a, flush=True)
 
 
-def _encoder_calls(calls, layer_of, k, spec, hh, ww):
-    """Add one encoder run on an (hh, ww) map; returns its output size."""
+def fused_layer(cin: int, cout: int) -> bool:
+    """Whether the route folds a (cin -> cout) conv's pool or upsample into
+    its launch (``ops/cuda/conv.py:has_fused``; the float32 and bf16 plans
+    agree at every width of the paths: 16, 32, 64 and 128 fuse, the
+    teachers' 256 and 512 do not)."""
+    import torch
+    from collaborative_distillation_tpu_torch.ops.cuda.conv import has_fused
+    return has_fused(cin, cout, torch.float32)
+
+
+def _encoder_calls(calls, layer_of, k, spec, hh, ww, fused=True):
+    """Add one encoder run on an (hh, ww) map; returns its output size. A
+    conv with a pool after it and no tap is one ``conv3x3_pool`` launch where
+    the route fuses it (``fused``: the map is on the card and nothing
+    records a gradient), else a conv and a ``max_pool_2x2``."""
     for l in spec.layers:
         shape = (1, hh, ww, l.in_ch, l.out_ch, l.relu)
-        calls[("conv3x3_reflect", shape)] += 1
+        if fused and l.pool_after and not l.tap and fused_layer(l.in_ch, l.out_ch):
+            calls[("conv3x3_pool", shape)] += 1
+        else:
+            calls[("conv3x3_reflect", shape)] += 1
+            if l.pool_after:
+                calls[("max_pool_2x2", (1, hh, ww, l.out_ch))] += 1
         layer_of.setdefault(shape, (k, "enc", l.name))
         if l.pool_after:
-            calls[("max_pool_2x2", (1, hh, ww, l.out_ch))] += 1
             hh, ww = hh // 2, ww // 2
     return hh, ww
 
 
-def _decoder_calls(calls, layer_of, k, spec, hh, ww):
-    """Add one decoder run on an (hh, ww) map; returns its output size."""
-    for l in spec.layers:
+def _decoder_calls(calls, layer_of, k, spec, hh, ww, fused=True):
+    """Add one decoder run on an (hh, ww) map (no taps asked for); returns
+    its output size. With ``fused`` the conv after an upsample is one
+    ``conv3x3_up`` launch on the half-resolution map where the route fuses
+    it, keyed by the upsampled map it convolves."""
+    half = False
+    for i, l in enumerate(spec.layers):
         shape = (1, hh, ww, l.in_ch, l.out_ch, l.relu)
-        calls[("conv3x3_reflect", shape)] += 1
+        calls[("conv3x3_up" if half else "conv3x3_reflect", shape)] += 1
         layer_of.setdefault(shape, (k, "dec", l.name))
+        half = False
         if l.unpool_after:
-            calls[("upsample_nearest_2x", (1, hh, ww, l.out_ch))] += 1
+            nxt = spec.layers[i + 1] if i + 1 < len(spec.layers) else None
+            if fused and nxt is not None and fused_layer(nxt.in_ch, nxt.out_ch):
+                half = True
+            else:
+                calls[("upsample_nearest_2x", (1, hh, ww, l.out_ch))] += 1
             hh, ww = hh * 2, ww * 2
     assert spec.layers[-1].out_ch == 3
     return hh, ww
 
 
-def path_calls(pyramid, stages, h, w, style=True):
+def path_calls(pyramid, stages, h, w, style=True, fused=True):
     """Kernel calls of one cascade on an (h, w) content and style of the same
     size: {(kernel, shape): count}, plus {shape: (stage, part, layer)} naming
     the first layer that runs each conv shape. ``style=False``: the style's
-    statistics are cached (no style encode)."""
+    statistics are cached (no style encode). ``fused=False``: the separate
+    pool and upsample kernels everywhere (``ops.conv.FUSE_DEVICES`` empty)."""
     calls, layer_of = Counter(), {}
     for k in stages:
         es, ds = pyramid[k]["enc_spec"], pyramid[k]["dec_spec"]
         for _ in ("style", "content") if style else ("content",):
-            hh, ww = _encoder_calls(calls, layer_of, k, es, h, w)
+            hh, ww = _encoder_calls(calls, layer_of, k, es, h, w, fused)
             calls[("sum_gram", (hh * ww, es.out_channels))] += 1
-        assert _decoder_calls(calls, layer_of, k, ds, hh, ww) == (h, w)
+        assert _decoder_calls(calls, layer_of, k, ds, hh, ww, fused) == (h, w)
     return calls, layer_of
 
 
-def slab_path_calls(pyramid, stages, margins, slab, h, w, sh, sw, cache_bytes, style=True):
+def slab_path_calls(pyramid, stages, margins, slab, h, w, sh, sw, cache_bytes, style=True,
+                    fused=True):
     """Kernel calls of one fused slab cascade (no style key: the style is
     encoded whole at every stage; ``style=False``: its statistics are
     cached) on an (h, w) content, h a multiple of ``slab``, and an (sh, sw)
     style, from the stage margins: per stage, pass 1 encodes every extended
     slab and sums its interior feature rows; pass 2 re-encodes unless the
     stage's stacked features fit in ``cache_bytes``, applies the folded WCT
-    (``conv1x1_bias``) and decodes."""
+    (``conv1x1_bias``) and decodes. ``fused=False``: the separate pool and
+    upsample kernels everywhere."""
     calls, layer_of = Counter(), {}
     n_slabs = h // slab
     for k in stages:
         es, ds = pyramid[k]["enc_spec"], pyramid[k]["dec_spec"]
         c, down = es.out_channels, 2 ** (k - 1)
         if style:
-            hh, ww = _encoder_calls(calls, layer_of, k, es, sh, sw)
+            hh, ww = _encoder_calls(calls, layer_of, k, es, sh, sw, fused)
             calls[("sum_gram", (hh * ww, c))] += 1
         rows = slab + 2 * margins[k] if n_slabs > 1 else h
         cache = n_slabs * (rows // down) * (w // down) * c * 4 <= cache_bytes
         for _ in range(n_slabs):
-            fh, fw = _encoder_calls(calls, layer_of, k, es, rows, w)
+            fh, fw = _encoder_calls(calls, layer_of, k, es, rows, w, fused)
             calls[("sum_gram", (slab // down * fw, c))] += 1
         for _ in range(n_slabs):
             if not cache:
-                _encoder_calls(calls, layer_of, k, es, rows, w)
+                _encoder_calls(calls, layer_of, k, es, rows, w, fused)
             calls[("conv1x1_bias", (1, fh, fw, c, c, False, True, 0))] += 1
-            assert _decoder_calls(calls, layer_of, k, ds, fh, fw) == (rows, w)
+            assert _decoder_calls(calls, layer_of, k, ds, fh, fw, fused) == (rows, w)
     return calls, layer_of
 
 
-def sharded_path_calls(pyramid, stages, margins, slab, space, h, w, sh, sw, devices=None):
+def sharded_path_calls(pyramid, stages, margins, slab, space, h, w, sh, sw, devices=None,
+                       fused=True):
     """Kernel calls of one sharded slab cascade (no style key) on an (h, w)
     content cut into ``space`` row shards of a multiple of ``slab`` rows,
     and an (sh, sw) style: per stage the style's encode and statistics on
@@ -523,7 +605,8 @@ def sharded_path_calls(pyramid, stages, margins, slab, space, h, w, sh, sw, devi
     stage before decoded into; then per shard pass 1 over its slabs of
     ``slab + 2 * margin`` rows and pass 2, which encodes each slab again.
     ``devices``: the shards' devices (default: all on one card). The halos'
-    shapes are (1, h_loc, w, 3, hm, shards on the card, 0)."""
+    shapes are (1, h_loc, w, 3, hm, shards on the card, 0). ``fused=False``:
+    the separate pool and upsample kernels everywhere."""
     calls, layer_of = Counter(), {}
     h_loc = h // space
     n_slabs = h_loc // slab
@@ -531,7 +614,7 @@ def sharded_path_calls(pyramid, stages, margins, slab, space, h, w, sh, sw, devi
     for i, k in enumerate(stages):
         es, ds = pyramid[k]["enc_spec"], pyramid[k]["dec_spec"]
         c, down = es.out_channels, 2 ** (k - 1)
-        hh, ww = _encoder_calls(calls, layer_of, k, es, sh, sw)
+        hh, ww = _encoder_calls(calls, layer_of, k, es, sh, sw, fused)
         calls[("sum_gram", (hh * ww, c))] += 1
         hm = 2 * margins[k]
         rows = slab + hm
@@ -540,13 +623,32 @@ def sharded_path_calls(pyramid, stages, margins, slab, space, h, w, sh, sw, devi
                    (1, h_loc, w, 3, hm, n_shards, 0))] += 1
         for d in range(space):
             for _ in range(n_slabs):
-                fh, fw = _encoder_calls(calls, layer_of, k, es, rows, w)
+                fh, fw = _encoder_calls(calls, layer_of, k, es, rows, w, fused)
                 calls[("sum_gram", (slab // down * fw, c))] += 1
             for _ in range(n_slabs):
-                _encoder_calls(calls, layer_of, k, es, rows, w)
+                _encoder_calls(calls, layer_of, k, es, rows, w, fused)
                 calls[("conv1x1_bias", (1, fh, fw, c, c, False, True, 0))] += 1
-                assert _decoder_calls(calls, layer_of, k, ds, fh, fw) == (rows, w)
+                assert _decoder_calls(calls, layer_of, k, ds, fh, fw, fused) == (rows, w)
     return calls, layer_of
+
+
+def fused_route_counts(label, launches, unfused) -> dict:
+    """The fused route's launches (float32 or bf16 names) against the plan
+    of the separate kernels ``unfused``: as many conv3x3 launches, plain and
+    fused, as that plan's convs, and no pool or upsample launch (on the
+    paths where every pooled and upsampled conv fuses)."""
+    both = lambda k: launches.get(k, 0) + launches.get(BF16_OF[k], 0)
+    got = {k: both(k) for k in CONV_KERNELS + tuple(POOL_OF.values())}
+    want_convs = sum(n for (k, _), n in unfused.items() if k == "conv3x3_reflect")
+    was = {k: sum(n for (kk, _), n in unfused.items() if kk == k) for k in POOL_OF.values()}
+    log(f"{label}: conv3x3 launches {sum(got[k] for k in CONV_KERNELS)} ("
+        + ", ".join(f"{got[k]} {k}" for k in CONV_KERNELS) + f"), the separate kernels' plan "
+        f"{want_convs}; pool and upsample {[got[k] for k in POOL_OF.values()]} (that plan "
+        f"{list(was.values())})")
+    if sum(got[k] for k in CONV_KERNELS) != want_convs or any(got[k] for k in POOL_OF.values()):
+        raise AssertionError(f"{label}: the fused route launched {got}; the separate kernels' "
+                             f"plan has {want_convs} convs")
+    return {"conv3x3": want_convs, **got, "unfused_pool_upsample": was}
 
 
 def per_conv_calls(pyramid, stages, rows, w):
@@ -622,13 +724,25 @@ def pwct_path_calls(pyramid, stages, h, w) -> dict:
     """Launches per kernel of one photo-WCT cascade (no style key) on an (h,
     w) content and style: the plain path's conv3x3 and sum_gram launches;
     ``max_pool_2x2`` only for the style's encoder (the content's pools take
-    the argmax pool, plain torch), and no upsample (the decoder unpools)."""
-    calls, _ = path_calls(pyramid, stages, h, w)
+    the argmax pool, plain torch), and no upsample (the decoder unpools);
+    the style encoder's pools that fuse are ``conv3x3_pool`` launches
+    instead of a conv and a pool each."""
+    calls, _ = path_calls(pyramid, stages, h, w, fused=False)
     counts = Counter()
     for (kernel, _), n in calls.items():
         counts[kernel] += n
     counts["max_pool_2x2"] //= 2
     counts["upsample_nearest_2x"] = 0
+    # the style's encoders take the fused conv + pool where the route has it
+    # (the content's argmax pools and the unpooling decoders never do)
+    style = Counter()
+    for k in stages:
+        _encoder_calls(style, {}, k, pyramid[k]["enc_spec"], h, w)
+    counts["conv3x3_pool"] = sum(n for (kernel, _), n in style.items()
+                                 if kernel == "conv3x3_pool")
+    counts["conv3x3_reflect"] -= counts["conv3x3_pool"]
+    counts["max_pool_2x2"] -= counts["conv3x3_pool"]
+    counts["conv3x3_up"] = 0
     return counts
 
 
@@ -641,6 +755,12 @@ def work(kernel, shape, itemsize=4):
         n, h, w, ci, co = shape[:5]
         px = n * h * w
         return e * (px * ci + 9 * ci * co + co + px * co), 2 * 9 * ci * co * px
+    if kernel in FUSED_KERNELS:
+        # the conv's (N, H, W): the pooled output or the half-resolution input
+        n, h, w, ci, co = shape[:5]
+        px, quarter = n * h * w, n * (h // 2) * (w // 2)
+        moved = (px * ci + quarter * co if kernel == "conv3x3_pool" else quarter * ci + px * co)
+        return e * (moved + 9 * ci * co + co), 2 * 9 * ci * co * px
     if kernel == "conv1x1_bias":
         n, h, w, ci, co, _, bias, _ = shape
         px = n * h * w
@@ -756,11 +876,92 @@ class Bench:
 
     def run(self, kernel, shape, layer=None, timed=False, reps=10):
         with self.torch.no_grad():
+            if kernel.removesuffix("_bf16") in FUSED_KERNELS:
+                return self._run_fused(kernel, shape, layer, timed, reps)
             if KERNEL_OF.get(kernel, kernel) in SHARDED_ONLY:
                 return self._run_halo(kernel, shape, timed, reps)
             if kernel in F32_OF:
                 return self._run_bf16(kernel, shape, layer, timed, reps)
             return self._run(kernel, shape, layer, timed, reps)
+
+    def _run_fused(self, kernel, shape, layer, timed, reps):
+        """``conv3x3_pool`` or ``conv3x3_up`` (``_bf16``: on bf16 maps) at
+        (N, H, W, Cin, Cout, relu[, offset[, "nan"]]), (H, W) the conv's map:
+        bit for bit the two-kernel sequence it replaces (``conv3x3_reflect``
+        then ``max_pool_2x2``, or ``upsample_nearest_2x`` then the conv, on
+        the card), and the plain version within the conv's tolerance (bf16:
+        one ulp). ``offset`` elements start x off 16-byte alignment; "nan"
+        puts NaN into every 4099th input (most outputs stay finite). Timed: ``pair_ms`` is the sequence,
+        ``library_ms`` cuDNN's reflect conv with ``F.max_pool2d`` after it
+        or ``F.interpolate`` before it."""
+        torch, F = self.torch, self.F
+        from collaborative_distillation_tpu_torch.ops import cuda as kc
+        bf = kernel.endswith("_bf16")
+        base = kernel.removesuffix("_bf16")
+        pool = base == "conv3x3_pool"
+        dt = torch.bfloat16 if bf else torch.float32
+        k = getattr(kc, kernel)
+        n, h, w, ci, co, relu, *rest = shape
+        offset = rest[0] if rest else 0
+        xh, xw = (h, w) if pool else (h // 2, w // 2)
+        x = self.rand(n * xh * xw * ci + offset).to(dt)[offset:].view(n, xh, xw, ci)
+        if "nan" in rest[1:]:
+            x.view(-1)[::4099] = float("nan")
+        if layer is not None:
+            stage, part, name = layer
+            p = self.pyramid[stage][part][name]
+            wt, b = p["w"].to(dt).contiguous(), p["b"].to(dt).contiguous()
+        else:
+            wt = ((self.rand(3, 3, ci, co) - 0.5) * (2 / (9 * ci) ** 0.5)).to(dt)
+            b = (self.rand(co) - 0.5).to(dt)
+        if pool:
+            pair = lambda: kc.max_pool_2x2(kc.conv3x3_reflect(x, wt, b, relu))
+        else:
+            pair = lambda: kc.conv3x3_reflect(kc.upsample_nearest_2x(x), wt, b, relu)
+        call = lambda: k(x, wt, b, relu)
+        plain = lambda: k.plain(x, wt, b, relu)
+        got, seq, ref = call(), pair(), plain()
+        torch.cuda.synchronize()
+        bits = torch.int16 if bf else torch.int32
+        same = got.shape == seq.shape and got.dtype == dt and torch.equal(got.view(bits),
+                                                                          seq.view(bits))
+        g, r = got.float(), ref.float()
+        nan_ok = torch.equal(torch.isnan(g), torch.isnan(r))
+        fin = ~torch.isnan(r)
+        err = float((g - r)[fin].abs().max()) if bool(fin.any()) else 0.0
+        scale = float(r[fin].abs().max()) if bool(fin.any()) else 1.0
+        if bf:
+            bound = torch.clamp(r.abs() * BF16_ULP, min=BF16_FLOOR * scale)
+            misses = int(((g - r).abs() > bound)[fin].sum())
+            tol = None
+        else:
+            xs = x.float().nan_to_num(0.0)
+            tol = CONV_TOL * float(xs.abs().max() * wt.abs().sum(dim=(0, 1, 2)).max()
+                                   + b.abs().max())
+            misses = int(((g - r).abs() > tol)[fin].sum())
+        del got, seq, ref, g, r, fin
+        row = {"kernel": kernel, "shape": list(shape), "max_abs_err": err,
+               "max_rel_err": err / max(scale, 1e-30), "tol": tol, "bit_equal_to_pair": same,
+               "ok": same and nan_ok and misses == 0}
+        if not row["ok"]:
+            raise AssertionError(f"{kernel}{shape}: bit-equal to the two-kernel sequence "
+                                 f"{same}, NaN where the plain version's {nan_ok}, {misses} "
+                                 f"outputs past the plain version's tolerance (max abs err "
+                                 f"{err})")
+        if timed:
+            lib = torch.nn.Conv2d(ci, co, 3, padding=1, padding_mode="reflect", device="cuda",
+                                  dtype=dt)
+            lib.weight.copy_(wt.permute(3, 2, 0, 1))
+            lib.bias.copy_(b)
+            xn = x.permute(0, 3, 1, 2)   # NHWC memory as a channels-last NCHW view
+            library = ((lambda: F.max_pool2d(lib(xn), 2)) if pool
+                       else (lambda: lib(F.interpolate(xn, scale_factor=2, mode="nearest"))))
+            nbytes, flops = work(base, shape, 2 if bf else 4)
+            row.update(ms=cuda_ms(torch, call, reps), plain_ms=cuda_ms(torch, plain, reps),
+                       pair_ms=cuda_ms(torch, pair, reps), library_ms=cuda_ms(torch, library, reps),
+                       bytes_ms=nbytes / PEAK_BYTES * 1e3,
+                       flops_ms=flops / (PEAK_BF16_FLOPS if bf else PEAK_FP32_FLOPS) * 1e3)
+        return row
 
     def _run_bf16(self, kernel, shape, layer, timed, reps):
         """A bf16 kernel at a float32 plan's shape: bf16 inputs (a layer's
@@ -1122,16 +1323,15 @@ def halo_in_cascade(prof, launches) -> dict:
 
 def conv3x3_sha256(torch, kc, calls) -> str:
     """SHA-256 of the conv3x3 kernel's outputs at every conv shape of
-    ``calls`` (a path's {(kernel, shape): count}), in sorted order, on inputs
+    ``calls`` (a path's {(kernel, shape): count}; a fused conv's shape is
+    its conv's), in sorted order, on inputs
     made from one seed: equal across two checkouts whose kernels compute
     the same bits at those shapes."""
     import hashlib
     gen = torch.Generator(device="cuda").manual_seed(0)
     sha = hashlib.sha256()
     with torch.no_grad():
-        for kernel, shape in sorted(calls, key=str):
-            if kernel != "conv3x3_reflect":
-                continue
+        for shape in sorted({s for kernel, s in calls if kernel in CONV_KERNELS}, key=str):
             n, h, w, ci, co, relu = shape[:6]
             x = torch.rand((n, h, w, ci), generator=gen, device="cuda")
             wt = (torch.rand((3, 3, ci, co), generator=gen, device="cuda") - 0.5) * 0.1
@@ -1153,17 +1353,17 @@ def path_times(mine) -> dict:
            "bound_bytes_ms": by_bytes, "bound_ops_ms": by_ops,
            "library_ms": tot("library_ms")}
     for key in ("library_conv_ms", "copy_ms", "event_ms", "library_event_ms", "copy_event_ms",
-                "l2_warm_ms"):
+                "l2_warm_ms", "pair_ms"):
         if mine and all(key in r for r in mine):
             out[key] = tot(key)
     return out
 
 
-def profile_cascade(torch, eng, img, sty, label="phase 5", **kw) -> dict:
+def profile_cascade(torch, eng, img, sty, label="phase 5", fn=None, **kw) -> dict:
     """One warm cascade under torch.profiler: device time by kernel name, and
     the card's idle share of that same cascade, 1 - busy / span, with the
     span taken by CUDA events around it (profiler on in both); ``kw`` goes
-    to ``stylize_device``."""
+    to ``stylize_device``, or ``fn()`` runs the cascade instead."""
     from torch.profiler import ProfilerActivity, profile
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with torch.inference_mode(), profile(
@@ -1171,7 +1371,7 @@ def profile_cascade(torch, eng, img, sty, label="phase 5", **kw) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         a.record()
-        eng.stylize_device(img, sty, **kw)
+        fn() if fn is not None else eng.stylize_device(img, sty, **kw)
         b.record()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1221,6 +1421,70 @@ def profile_cascade(torch, eng, img, sty, label="phase 5", **kw) -> dict:
             "halo_ms": halo, "halo_calls": halo_calls, "halo_launch_ms": halo_launch_ms,
             "bf16_conv_ms": dict(bf16),
             "by_kernel_ms": dict(top), "calls": {n: calls[n] for n, _ in top}}
+
+
+def route_turns(torch, label, run, smi, order=(True, False, False, True, True, False)) -> dict:
+    """A cascade ``run()`` (device maps in, its output out) on the fused
+    route (conv + pool and upsample + conv in one launch each) against the
+    separate kernels (``ops.conv.FUSE_DEVICES`` empty), in turns on one
+    card: a warm run of each, whose outputs must be equal bit for bit (and
+    their SHA-256 are kept), then ``order``'s timed runs (median, spread,
+    each run's peak memory) and one profiled run of each (device busy, idle
+    share)."""
+    import hashlib
+
+    from collaborative_distillation_tpu_torch.ops import conv as tconv
+    on = tconv.FUSE_DEVICES
+    route = lambda fused: on if fused else frozenset()
+    res = {True: {"runs_ms": [], "peaks_gib": []}, False: {"runs_ms": [], "peaks_gib": []}}
+    try:
+        outs = {}
+        with torch.inference_mode():
+            for fused in (True, False):
+                tconv.FUSE_DEVICES = route(fused)
+                outs[fused] = run()
+                res[fused]["sha256"] = hashlib.sha256(
+                    outs[fused].contiguous().view(torch.uint8).cpu().numpy()).hexdigest()
+            o = outs[True]
+            bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[o.dtype]
+            same = o.shape == outs[False].shape and torch.equal(o.view(bits), outs[False].view(bits))
+            del outs, o
+            for fused in order:
+                tconv.FUSE_DEVICES = route(fused)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                res[fused]["runs_ms"].append((time.perf_counter() - t0) * 1e3)
+                res[fused]["peaks_gib"].append(torch.cuda.max_memory_allocated() / 2**30)
+        for fused in (True, False):
+            tconv.FUSE_DEVICES = route(fused)
+            prof = profile_cascade(torch, None, None, None,
+                                   f"{label} ({'fused' if fused else 'separate kernels'})",
+                                   fn=run)
+            r = res[fused]
+            r.update(median_ms=statistics.median(r["runs_ms"]),
+                     spread_ms=max(r["runs_ms"]) - min(r["runs_ms"]),
+                     peak_gib=max(r["peaks_gib"]), busy_ms=prof["busy_ms"],
+                     idle_share=prof.get("idle_share"), conv3x3_ms=prof.get("conv3x3_ms"),
+                     bf16_conv_ms=prof.get("bf16_conv_ms"))
+    finally:
+        tconv.FUSE_DEVICES = on
+    out = {"fused": res[True], "separate": res[False], "bit_equal": same, "card": smi}
+    idle = lambda r: ("not measured" if r["idle_share"] is None else
+                      f"busy {r['busy_ms']:.2f} ms, idle share {r['idle_share']:.3f}")
+    log(f"{label} ({smi}): fused route vs separate kernels in turns: "
+        + "; ".join(f"{name} {r['median_ms']:.2f} ms (runs "
+                    f"{', '.join(f'{x:.2f}' for x in r['runs_ms'])}), peak {r['peak_gib']:.2f} "
+                    f"GiB, {idle(r)}" for name, r in (("fused", res[True]),
+                                                       ("separate", res[False])))
+        + f"; outputs bit-equal {same} (SHA-256 {res[True]['sha256'][:16]}.. / "
+        f"{res[False]['sha256'][:16]}..)")
+    if not (same and res[True]["sha256"] == res[False]["sha256"]):
+        raise AssertionError(f"{label}: the fused route's output differs from the separate "
+                             f"kernels' ({res[True]['sha256']} != {res[False]['sha256']})")
+    return out
 
 
 def reflect_tile(torch, img_u8: np.ndarray, size: int, width: int | None = None) -> np.ndarray:
@@ -1276,7 +1540,7 @@ def sharded_main_path(torch, kc, engine, c_uhd, s2k, calls_sh, label) -> dict:
         f"on {[str(d) for d in engine.mesh.devices[0]]} in {secs:.3f} s warm "
         f"({cold:.3f} s first call; host transfer included); launches {counts}, "
         f"predicted {expect}")
-    if counts != expect or any(v <= 0 for v in counts.values()):
+    if counts != expect or any(v <= 0 for n, v in counts.items() if n not in POOL_OF.values()):
         raise AssertionError(f"{label}: launch counts {counts} != predicted {expect}")
     change = float(np.abs(out - c_uhd.astype(np.float32) / 255.0).mean())
     if not (out.shape == c_uhd.shape and np.isfinite(out).all()
@@ -1612,6 +1876,10 @@ def packed_phase(torch, kc, WCTEngine, c_uhd, s2k, smi) -> dict:
                           "spread_ms": max(runs[p]) - min(runs[p]),
                           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                           "held_before_gib": held}
+        if path == "UHD slab-in-shard":   # the UHD slab ones: phases 5b and 10b
+            res["route"] = route_turns(
+                torch, f"phase 5e: {name}",
+                lambda: engs[True].stylize_device(img, sty, style_key="5e"), smi)
         for p, e in engs.items():
             prof = profile_cascade(torch, e, img, sty, f"phase 5e: {name} packed={p}",
                                    style_key="5e")
@@ -1821,7 +2089,7 @@ def host_boundary(torch, kc, slab_eng, eng, c_uhd, c2k, s2k, expect_uhd) -> dict
         f"predicted {expect_uhd}; bytes equal to stylize_planes(on_device=True) + "
         f"encode_jpeg_yuv420: {body == whole}; stylize_planes_jpeg's: {planes_body == whole}")
     if counts != expect_uhd or any(v <= 0 for n, v in counts.items()
-                                   if n not in SHARDED_ONLY):
+                                   if n not in SHARDED_ONLY + tuple(POOL_OF.values())):
         raise AssertionError(f"stylize_jpeg launches {counts} != predicted {expect_uhd}")
     if body is None or body != whole or planes_body != whole:
         raise AssertionError("stylize_jpeg bytes differ from stylize_planes + encode")
@@ -2724,19 +2992,40 @@ def original_conv_calls(size: int) -> Counter:
     stages = (5, 4, 3, 2, 1)
     pyr = {k: dict(zip(("enc_spec", "dec_spec"), stage_specs("original", k))) for k in stages}
     calls, _ = path_calls(pyr, stages, size, size)
-    return Counter({s: n for (k, s), n in calls.items() if k == "conv3x3_reflect"})
+    out = Counter()
+    for (k, s), n in calls.items():
+        if k in CONV_KERNELS:   # fused or not, a conv at the conv's shape
+            out[s] += n
+    return out
+
+
+def _train_frozen_encodes(mode: str) -> list:
+    """The encoder passes of one step that record no gradient: the frozen
+    encoders on the batch, under ``torch.no_grad`` (train/losses.py). They
+    take the fused conv + pool where the plan has one; the passes that
+    record, and the frozen BD whose ``dec{j}1`` taps kd2sd reads, keep the
+    separate kernels."""
+    from collaborative_distillation_tpu_torch.models.specs import encoder_spec
+    k = TRAIN_STAGE
+    be, se = encoder_spec("original", k), encoder_spec("16x", k, aux=True)
+    return {"wct_se": [be], "wct_sd": [se], "wct_sd_perc": [se, be],
+            "wct_sd_kd2sd": [be, se]}[mode]
 
 
 def _train_launches(mode: str, bf16: bool = False) -> dict:
     """Kernel launches of one training step at stage 5, from the specs: every
-    forward conv3x3, pool and upsample (the backward launches none); in
-    bf16 on the bf16 kernels."""
+    forward conv3x3, pool and upsample (the backward launches none), the
+    frozen encoders' pools that fuse as ``conv3x3_pool`` launches; in bf16
+    on the bf16 kernels."""
     runs = _train_runs(mode)
     name = (lambda k: BF16_OF[k]) if bf16 else (lambda k: k)
-    return {name("conv3x3_reflect"): sum(len(s.layers) for s in runs),
-            name("max_pool_2x2"): sum(sum(l.pool_after for l in s.layers) for s in runs),
+    fused = sum(l.pool_after and not l.tap and fused_layer(l.in_ch, l.out_ch)
+                for s in _train_frozen_encodes(mode) for l in s.layers)
+    return {name("conv3x3_reflect"): sum(len(s.layers) for s in runs) - fused,
+            name("max_pool_2x2"): sum(sum(l.pool_after for l in s.layers) for s in runs) - fused,
             name("upsample_nearest_2x"): sum(sum(l.unpool_after for l in s.layers)
-                                             for s in runs)}
+                                             for s in runs),
+            name("conv3x3_pool"): fused}
 
 
 def train_pool_calls(mode: str) -> dict:
@@ -4641,7 +4930,7 @@ def asset_tools(torch, kc, c512, s512, c2k, s2k, tmp, teachers) -> dict:
     counts = _counts(kc)
     _check_counts(f"phase 9e(e): WCTEngine(stages=({k},)) on the exported pair, 512^2", counts,
                   want)
-    plain = ("conv3x3_reflect", "sum_gram", "max_pool_2x2", "upsample_nearest_2x")
+    plain = ("conv3x3_reflect", "sum_gram", "conv3x3_pool", "conv3x3_up")
     change = float(np.abs(img - c512.astype(np.float32) / 255.0).mean())
     if not (img.shape == c512.shape and np.isfinite(img).all() and all(
             counts[n] > 0 for n in plain)):
@@ -4667,7 +4956,7 @@ def _bf16_plan(calls) -> Counter:
 
 
 def bf16_phase(torch, kc, WCTEngine, bench, eng, slab_eng, c2k, s2k, c_uhd, calls2k, layers2k,
-               calls_uhd, layers_uhd, f32_ms) -> tuple[dict, list]:
+               calls_uhd, layers_uhd, f32_ms, calls_uhd_sep, smi) -> tuple[dict, list]:
     """Phase 10 (see the module docstring): the bf16 kernels against their
     plain versions at every shape of the bf16 2048^2 plain and UHD slab
     paths, timed; both paths driven with every count zeroed before and read
@@ -4684,6 +4973,7 @@ def bf16_phase(torch, kc, WCTEngine, bench, eng, slab_eng, c2k, s2k, c_uhd, call
     bf = torch.bfloat16
     out: dict = {}
     calls16, calls16_uhd = _bf16_plan(calls2k), _bf16_plan(calls_uhd)
+    calls2k_sep = path_calls(eng.pyramid, eng.stages, 2048, 2048, fused=False)[0]
     names16 = set(BF16_OF.values())
     # (a) kernel vs plain: every shape of both paths (timed), and edge shapes
     rows = [{**bench.run(kernel, shape, layers2k.get(shape), timed=True), "calls": n}
@@ -4703,7 +4993,16 @@ def bf16_phase(torch, kc, WCTEngine, bench, eng, slab_eng, c2k, s2k, c_uhd, call
               (1, 5, 31, 128, 128, False, True, 3), (1, 7, 13, 96, 96, True, False, 0)]]
     edge += [bench.run(kernel, sh) for kernel in ("max_pool_2x2_bf16", "upsample_nearest_2x_bf16")
              for sh in [(1, 7, 9, 16), (2, 5, 4, 3), (1, 1, 5, 8)]]
-    checks = rows + rows_uhd + edge
+    # the fused conv + pool and upsample + conv (FUSED_EDGE), each bit for
+    # bit the bf16 two-kernel sequence
+    edge += [bench.run(BF16_OF[kernel], sh) for kernel, shapes in FUSED_EDGE.items()
+             for sh in shapes]
+    # the separate pool and upsample at the UHD slab path's shapes that the
+    # fused route no longer launches
+    rows_sep_uhd = [{**bench.run(kernel, shape, timed=True, reps=3), "calls": n}
+                    for (kernel, shape), n in sorted(_bf16_plan(calls_uhd_sep).items(), key=str)
+                    if kernel in ("max_pool_2x2_bf16", "upsample_nearest_2x_bf16")]
+    checks = rows + rows_uhd + edge + rows_sep_uhd
     out["checks"] = len(checks)
     log(f"phase 10a: {len(checks)} bf16 kernel-vs-plain checks passed ({len(rows)} shapes of "
         f"the bf16 2048^2 path, {len(rows_uhd)} of the UHD slab path, {len(edge)} edge): no "
@@ -4726,9 +5025,11 @@ def bf16_phase(torch, kc, WCTEngine, bench, eng, slab_eng, c2k, s2k, c_uhd, call
 
     eng16 = WCTEngine(mode="16x", dtype=bf)
     slab16 = WCTEngine(mode="16x", dtype=bf, slab_rows=UHD_SLAB)
+    pools16 = {BF16_OF[k] for k in POOL_OF.values()}   # fused into the convs on these paths
     for label, e, c, calls, must in (
-            ("2048^2 plain", eng16, c2k, calls16, names16 - {"conv1x1_bias_bf16"}),
-            (f"{UHD_H}x{UHD_W} slab_rows={UHD_SLAB}", slab16, c_uhd, calls16_uhd, names16)):
+            ("2048^2 plain", eng16, c2k, calls16, names16 - {"conv1x1_bias_bf16"} - pools16),
+            (f"{UHD_H}x{UHD_W} slab_rows={UHD_SLAB}", slab16, c_uhd, calls16_uhd,
+             names16 - pools16)):
         t0 = time.perf_counter()
         img, launches = counted(lambda: e.stylize(c, s2k))
         wall = time.perf_counter() - t0
@@ -4742,7 +5043,10 @@ def bf16_phase(torch, kc, WCTEngine, bench, eng, slab_eng, c2k, s2k, c_uhd, call
                                  f"range [{img.min()}, {img.max()}], mean change {change}")
         by_template = dict(kc.conv3x3_reflect_bf16.by_template)
         out[label] = {"launches": launches, "first_s": wall, "mean_change": change,
-                      "conv3x3_bf16_by_template": by_template}
+                      "conv3x3_bf16_by_template": by_template,
+                      "fused_route": fused_route_counts(
+                          f"phase 10b: bf16 {label}", launches,
+                          calls2k_sep if calls is calls16 else calls_uhd_sep)}
         log(f"phase 10b: bf16 {label}: {wall:.3f} s (first call, host transfer included), "
             f"float32 output finite, in [0, 1], mean |out - content| {change:.4f}; "
             f"conv3x3_reflect_bf16 launches by template {by_template}")
@@ -4770,6 +5074,8 @@ def bf16_phase(torch, kc, WCTEngine, bench, eng, slab_eng, c2k, s2k, c_uhd, call
                            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                            "resident_before_gib": resident, "f32_median": f32_ms[label]}
             warm[label]["profile"] = profile_cascade(torch, e, img, sty16, f"phase 10b ({label})")
+            warm[label]["route"] = route_turns(torch, f"phase 10b: bf16 {label} cascade",
+                                               lambda: e.stylize_device(img, sty16), smi)
             del img
     out["warm"] = warm
     for label, w in warm.items():
@@ -4837,22 +5143,28 @@ def bf16_phase(torch, kc, WCTEngine, bench, eng, slab_eng, c2k, s2k, c_uhd, call
                "max_rel_err": max(r["max_rel_err"] for r in mine),
                "path": "bf16 UHD slab" if uhd_only else "bf16 2048^2 plain",
                **path_times([r for r in (rows_uhd if uhd_only else rows) if r["kernel"] == name])}
-        if not uhd_only:
+        if not uhd_only and name not in pools16:
             row["uhd_slab"] = {"launches": launches16_uhd[name],
                                **path_times([r for r in rows_uhd if r["kernel"] == name])}
+        if name in pools16:   # the UHD slab path no longer launches them: its old shapes
+            row["uhd_slab_separate"] = {
+                "launches": sum(n for (k, _), n in _bf16_plan(calls_uhd_sep).items() if k == name),
+                **path_times([r for r in rows_sep_uhd if r["kernel"] == name])}
         table.append(row)
+        if name in pools16:   # their path is the per-conv one: phase 10f's row
+            continue
         conv_alone = lambda r: (f", cuDNN bf16 conv alone {r['library_conv_ms']:.3f}"
                                 if "library_conv_ms" in r else "")
         log(f"phase 10: {name}: {row['ms']:.3f} ms a {row['path']} cascade over "
             f"{row['launches']} launches, plain {row['plain_ms']:.3f}, library "
             f"{row['library_ms']:.3f}{conv_alone(row)}, bound {row['bound_ms']:.3f} "
             f"({row['bound_by']})"
-            + ("" if uhd_only else
+            + ("" if "uhd_slab" not in row else
                f"; UHD slab {row['uhd_slab']['ms']:.3f} ms over {row['uhd_slab']['launches']}, "
                f"plain {row['uhd_slab']['plain_ms']:.3f}, library "
                f"{row['uhd_slab']['library_ms']:.3f}{conv_alone(row['uhd_slab'])}, bound "
                f"{row['uhd_slab']['bound_ms']:.3f}"))
-    out["shapes_timed"] = rows + rows_uhd
+    out["shapes_timed"] = rows + rows_uhd + rows_sep_uhd
     out["phase10_s"] = time.perf_counter() - t10
     log(f"phase 10: {out['phase10_s']:.1f} s")
     return out, table
@@ -4927,6 +5239,11 @@ def bf16_sharded_phase(torch, kc, WCTEngine, bench, eng, eng16, c2k, s2k, c_uhd,
                 shard_shapes.setdefault(("conv3x3_halo_bf16", shape), None)
     shard_checks = [bench.run(kernel, shape, layer)
                     for (kernel, shape), layer in sorted(shard_shapes.items(), key=str)]
+    # the bf16 pool and upsample on their path (the per-conv 2048^2 shards),
+    # timed for the kernel table
+    pc_pool_rows = [{**bench.run(BF16_OF[kernel], shape, timed=True), "calls": n}
+                    for (kernel, shape), n in sorted(pc2k.items(), key=str)
+                    if kernel in POOL_OF.values()]
     unpooled = unpooled_conv_checks(torch, kc, eng16.pyramid, stages, 2048, 2048)
     xch = [{**bench.run(kernel + "_bf16", shape, timed=True), "calls": n}
            for (kernel, shape), n in sorted(calls_sh.items(), key=str)
@@ -5121,7 +5438,11 @@ def bf16_sharded_phase(torch, kc, WCTEngine, bench, eng, eng16, c2k, s2k, c_uhd,
            **{k: {"bf16_sharded": {"path": "bf16 UHD sharded",
                                    "launches_counted": launches_sh[k], **xch_by[k],
                                    "in_cascade_ms": in_cascade[k]}}
-              for k in SHARDED_ONLY}}
+              for k in SHARDED_ONLY},
+           **{BF16_OF[k]: {"launches": pc[2048]["launches"][BF16_OF[k]],
+                           "path": f"bf16 {PER_CONV_2048}",
+                           **path_times([r for r in pc_pool_rows if r["kernel"] == BF16_OF[k]])}
+              for k in POOL_OF.values()}}
     return out, sub
 
 
@@ -5192,12 +5513,18 @@ def main() -> int:
     cas = slab_eng.slab
     calls_uhd, layers_uhd = slab_path_calls(pyr, eng.stages, cas.margins, cas.slab_rows,
                                             UHD_H, UHD_W, 2048, 2048, FEATURE_CACHE_BYTES)
+    # the same plans with the separate pool and upsample kernels (the fused
+    # route's conv count and the separate kernels' own shapes)
+    calls_uhd_sep, _ = slab_path_calls(pyr, eng.stages, cas.margins, cas.slab_rows, UHD_H,
+                                       UHD_W, 2048, 2048, FEATURE_CACHE_BYTES, fused=False)
     shard_eng = WCTEngine(mode="16x", space=SHARDS, slab_rows=SHARD_SLAB,
                           devices=["cuda:0"] * SHARDS)
     per_conv = WCTEngine(mode="16x", space=SHARDS, devices=["cuda:0"] * SHARDS)
     calls_sh, layers_sh = sharded_path_calls(pyr, eng.stages, cas.margins,
                                              shard_eng._tiled_slab, SHARDS, UHD_H, UHD_W,
                                              2048, 2048)
+    calls_sh_sep, _ = sharded_path_calls(pyr, eng.stages, cas.margins, shard_eng._tiled_slab,
+                                         SHARDS, UHD_H, UHD_W, 2048, 2048, fused=False)
     # the same path one shard a card where there are several (cross_card's
     # spread): one exchange and one fill a stage on each card
     calls_x, _ = sharded_path_calls(pyr, eng.stages, cas.margins, shard_eng._tiled_slab,
@@ -5225,6 +5552,7 @@ def main() -> int:
     # ---- phase 2: kernel vs plain at the path's shapes ---------------------
     calls512, layers512 = path_calls(pyr, eng.stages, 512, 512)
     calls2k, layers2k = path_calls(pyr, eng.stages, 2048, 2048)
+    calls2k_sep, _ = path_calls(pyr, eng.stages, 2048, 2048, fused=False)
     checks = []
     for (kernel, shape) in sorted(calls512, key=str):
         checks.append(bench.run(kernel, shape, layers512.get(shape)))
@@ -5243,6 +5571,7 @@ def main() -> int:
              (1, 37, 45, 64, 128, True, 1)]]
     edge += [("max_pool_2x2", s) for s in [(1, 7, 9, 16), (2, 8, 8, 3), (1, 1, 5, 8)]]
     edge += [("upsample_nearest_2x", s) for s in [(1, 3, 5, 16), (2, 4, 4, 3)]]
+    edge += [(kernel, s) for kernel, shapes in FUSED_EDGE.items() for s in shapes]
     # sum_gram: (P, C) or (P, C, float offset): a stage-1 row count, odd and
     # tiled widths, one row, one past a staging block (300, 250, 126 and 64
     # rows at C = 24, 32, 64, 128) and a fold chunk (6300 and 6250 rows per
@@ -5299,10 +5628,21 @@ def main() -> int:
     for kernel, shape in only_sh:
         checks.append(bench.run(kernel, shape, layers_sh.get(shape)))
     n_halo = sum(kernel in SHARDED_ONLY for kernel, _ in only_sh)
+    # the fused convs at the 2048^2 path's shapes too (phase 5 times them)
+    fused2k = sorted({key for key in calls2k if key[0] in FUSED_KERNELS}
+                     - set(calls512) - set(calls_uhd), key=str)
+    for kernel, shape in fused2k:
+        checks.append(bench.run(kernel, shape, layers2k.get(shape)))
+    fused_checks = [r for r in checks if r["kernel"] in FUSED_KERNELS]
     log(f"phase 2: {len(checks)} kernel-vs-plain checks passed at the 512^2 path, edge, "
         f"all {len(calls_uhd)} UHD slab path, the plain UHD {biggest} and the "
         f"{len(only_sh)} further sharded UHD path shapes ({n_halo} of the halo, exact; "
-        f"UHD ones in {time.perf_counter() - t0:.1f} s)")
+        f"UHD ones in {time.perf_counter() - t0:.1f} s); the fused conv + pool and "
+        f"upsample + conv at {len(fused_checks)} shapes ("
+        + ", ".join(f"{sum(r['kernel'] == k for r in fused_checks)} {k}" for k in FUSED_KERNELS)
+        + "; every fused shape of the 512^2, 2048^2 and UHD slab paths and the edge ones) bit "
+        f"for bit the two-kernel sequence, max rel err against the plain version "
+        f"{max(r['max_rel_err'] for r in fused_checks):.3e} (tol {CONV_TOL})")
     # the per-conv sharded path at 2000 rows: shards of unequal heights (whole
     # 16-row blocks, the remainder on the last), every conv staging its
     # neighbours' rows, timed against the same conv reflecting its own (row
@@ -5457,6 +5797,7 @@ def main() -> int:
         f"included); launches {launches}, predicted {expect}")
     if launches != expect or any(launches[n] <= 0 for n in names if n not in KERNEL_PATH):
         raise AssertionError(f"launch counts {launches} != predicted {expect}")
+    detail["fused_route_2048"] = fused_route_counts("phase 3", launches, calls2k_sep)
     content_f = c2k.astype(np.float32) / 255.0
     change = float(np.abs(out - content_f).mean())
     if not (out.shape == c2k.shape and np.isfinite(out).all()
@@ -5482,8 +5823,9 @@ def main() -> int:
         f"({cold_s:.3f} s first call; host transfer included); margins {cas.margins}; "
         f"launches {launches_uhd}, predicted {expect_uhd}")
     if launches_uhd != expect_uhd or any(v <= 0 for n, v in launches_uhd.items()
-                                         if n not in SHARDED_ONLY):
+                                         if n not in SHARDED_ONLY + tuple(POOL_OF.values())):
         raise AssertionError(f"UHD launch counts {launches_uhd} != predicted {expect_uhd}")
+    detail["fused_route_uhd"] = fused_route_counts("phase 3b", launches_uhd, calls_uhd_sep)
     change = float(np.abs(out_uhd - c_uhd.astype(np.float32) / 255.0).mean())
     if not (out_uhd.shape == c_uhd.shape and np.isfinite(out_uhd).all()
             and out_uhd.min() >= 0.0 and out_uhd.max() <= 1.0 and change > 0.02):
@@ -5498,6 +5840,8 @@ def main() -> int:
     # ---- phase 3c: the sharded UHD path, four row shards on the one card --------
     detail["sharded_main"] = sharded_main_path(torch, kc, shard_eng, c_uhd, s2k, calls_sh,
                                                "phase 3c")
+    detail["fused_route_sharded"] = fused_route_counts(
+        "phase 3c", detail["sharded_main"]["launches"], calls_sh_sep)
     launches_sh = detail["sharded_main"]["launches"]
     if torch.cuda.device_count() >= 2:
         detail["cross_card"] = cross_card(torch, kc, WCTEngine, bench, c_uhd, c2k, s2k, calls_x)
@@ -5556,6 +5900,8 @@ def main() -> int:
         # content and in the style: whole 16-row blocks, the style's
         # statistics taken whole
         pc_out, pc_counts = per_conv_run(kc, per_conv, img2k, sty2k)
+        # the pool and upsample kernels' path: a pool or upsample a shard
+        pc_pools = {k: getattr(kc, k).launches for k in POOL_OF.values()}
         db_pc = psnr_device(torch, pc_out, eng.stylize_device(img2k, sty2k))
         pc_out, awk_counts = per_conv_run(kc, per_conv, img2k[:, :PC_AWK_H], sty2k)
         db_awk_c = psnr_device(torch, pc_out, eng.stylize_device(img2k[:, :PC_AWK_H], sty2k))
@@ -5567,6 +5913,15 @@ def main() -> int:
         per_conv_calls(pyr, eng.stages, [2048 // SHARDS] * SHARDS, 2048).values())}
     awk_expect = {"halo_exchange_rows": 0, "halo_fill_rows": 0, "conv3x3_halo": sum(per_conv_calls(
         pyr, eng.stages, per_conv._block_rows(PC_AWK_H), 2048).values())}
+    pc_calls2k = per_conv_path_calls(pyr, eng.stages, per_conv._block_rows(2048), 2048, 2048,
+                                     2048)
+    pc_pools_expect = {k: sum(n for (kk, _), n in pc_calls2k.items() if kk == k)
+                       for k in POOL_OF.values()}
+    log(f"phase 4c: per-conv 2048^2 pool and upsample launches {pc_pools}, predicted "
+        f"{pc_pools_expect} (the shards' own; the style's encoders fuse theirs)")
+    if pc_pools != pc_pools_expect or not all(pc_pools.values()):
+        raise AssertionError(f"phase 4c: per-conv pool and upsample launches {pc_pools} != "
+                             f"{pc_pools_expect}")
     log(f"phase 4c: UHD sharded (space={SHARDS}, slab_rows={SHARD_SLAB}) vs the single-card "
         f"slab cascade at the same slab size PSNR {db_sh:.2f} dB; 2048^2 per-conv sharded "
         f"vs plain {db_pc:.2f} dB; {PC_AWK_H}x2048 content {db_awk_c:.2f} dB, {PC_AWK_H}x2048 "
@@ -5644,8 +5999,22 @@ def main() -> int:
             r = bench.run(kernel, shape, timed=True)
             r["calls"] = n
             rows.append(r)
+    # the pool and upsample on their own path, the per-conv 2048^2 shards
+    # (phase 4c's launches); and at the UHD slab path's shapes of the
+    # separate kernels, what the fused route no longer launches there
+    for (kernel, shape), n in sorted(pc_calls2k.items(), key=str):
+        if kernel in POOL_OF.values():
+            rows.append({**bench.run(kernel, shape, timed=True), "calls": n})
+    rows_sep_uhd = [{**bench.run(kernel, shape, timed=True, reps=3), "calls": n}
+                    for (kernel, shape), n in sorted(calls_uhd_sep.items(), key=str)
+                    if kernel in POOL_OF.values()]
+    # the fused convs at the UHD slab path's shapes: a second summary
+    rows_fused_uhd = [{**bench.run(kernel, shape, layers_uhd.get(shape), timed=True, reps=3),
+                       "calls": n}
+                      for (kernel, shape), n in sorted(calls_uhd.items(), key=str)
+                      if kernel in FUSED_KERNELS]
     path_launches = {**launches, "conv1x1_bias": launches_uhd["conv1x1_bias"],
-                     **{k: launches_sh[k] for k in SHARDED_ONLY}}
+                     **{k: launches_sh[k] for k in SHARDED_ONLY}, **pc_pools}
     detail["halo_per_cascade"] = halo_per_cascade(
         [r for r in rows if r["kernel"] in SHARDED_ONLY], "phase 5c: float32")
     sg_uhd = {"launches": launches_uhd["sum_gram"], **path_times(rows_sg_uhd)}
@@ -5670,8 +6039,15 @@ def main() -> int:
             "max_rel_err": max(rel),
             **path_times([r for r in rows if r["kernel"] == name]),
             **({"uhd_slab": sg_uhd} if name == "sum_gram" else {}),
+            **({"uhd_slab": {"launches": launches_uhd[name],
+                             **path_times([r for r in rows_fused_uhd if r["kernel"] == name])}}
+               if name in FUSED_KERNELS else {}),
+            **({"uhd_slab_separate": {
+                "launches": sum(n for (k, _), n in calls_uhd_sep.items() if k == name),
+                **path_times([r for r in rows_sep_uhd if r["kernel"] == name])}}
+               if name in POOL_OF.values() else {}),
             **({"by_plan_ms": dict(by_plan)} if name == "conv3x3_reflect" else {})})
-    detail["shapes_timed"] = rows + rows_sg_uhd
+    detail["shapes_timed"] = rows + rows_sg_uhd + rows_sep_uhd + rows_fused_uhd
     detail["checks"] = checks
 
     # warm cascade: median of 5, and one run split by stage
@@ -5731,6 +6107,8 @@ def main() -> int:
         f"that median: {tflops:.2f} TFLOP/s, {tflops * 1e12 / PEAK_FP32_FLOPS:.1%} of the "
         f"card's FP32 peak ({peak_label}, {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s)")
     detail["profile_2048"] = profile_cascade(torch, eng, img, sty)
+    detail["route_2048"] = route_turns(torch, "phase 5: 2048^2 plain cascade",
+                                       lambda: eng.stylize_device(img, sty), smi)
     del img, x
 
     # ---- phase 5b: the warm UHD slab cascade -----------------------------------
@@ -5776,6 +6154,8 @@ def main() -> int:
         f"pass 2 ms): "
         + ", ".join(f"{k}: {v['pass1_ms']:.2f} / {v['pass2_ms']:.2f}" for k, v in split.items()))
     detail["profile_uhd"] = profile_cascade(torch, slab_eng, img_uhd, sty2k, "phase 5b")
+    detail["route_uhd"] = route_turns(torch, f"phase 5b: UHD slab cascade (slab_rows={UHD_SLAB})",
+                                      lambda: slab_eng.stylize_device(img_uhd, sty2k), smi)
     # uint8 host to host: the streamed last stage against the whole cascade
     # then one copy, in turns on one card; the tail decodes stage 1 from pass
     # 1's kept features, so both launch what the slab plan predicts
@@ -5842,7 +6222,7 @@ def main() -> int:
     detail["bf16"], table_bf16 = bf16_phase(
         torch, kc, WCTEngine, bench, eng, slab_eng, c2k, s2k, c_uhd, calls2k, layers2k,
         calls_uhd, layers_uhd, {"2048": detail["cascade_2048_ms"]["median"],
-                                "uhd": detail["cascade_uhd_ms"]["median"]})
+                                "uhd": detail["cascade_uhd_ms"]["median"]}, calls_uhd_sep, smi)
     table += table_bf16
     detail["bf16_sharded"], sub_rows = bf16_sharded_phase(
         torch, kc, WCTEngine, bench, eng, WCTEngine(mode="16x", dtype=torch.bfloat16), c2k,

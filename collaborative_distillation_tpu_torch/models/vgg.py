@@ -17,8 +17,9 @@ import math
 import torch
 from torch import nn
 
-from ..ops.conv import (conv1x1, conv3x3, max_pool_2x2, max_pool_2x2_with_argmax,
-                        max_unpool_2x2, upsample_nearest_2x)
+from ..ops import conv as _ops
+from ..ops.conv import (conv1x1, conv3x3, conv3x3_pool, conv3x3_upsampled, max_pool_2x2,
+                        max_pool_2x2_with_argmax, max_unpool_2x2, upsample_nearest_2x)
 from .specs import StageSpec
 
 __all__ = ["init_params", "runs_conv0", "apply_encoder", "apply_decoder", "apply_decoder_pwct",
@@ -71,6 +72,11 @@ def apply_encoder(params: Params, x: torch.Tensor, spec: StageSpec, *,
     ``with_pool_argmax`` pools with :func:`..ops.conv.max_pool_2x2_with_argmax`
     and adds ``pool{p}_idx`` (the argmax map) and ``pool{p}_hw`` (the
     pooled map's input H, W) for photo-WCT's :func:`apply_decoder_pwct`.
+
+    A conv with a pool after it and no tap of its own takes
+    :func:`..ops.conv.conv3x3_pool` (one launch, the full-resolution map
+    never written) where :func:`..ops.conv.fuses` allows it and the pool is
+    not the argmax one; the features are the same bits either way.
     """
     if spec.kind != "encoder":
         raise ValueError(f"apply_encoder needs an encoder spec, got {spec.kind!r}")
@@ -81,6 +87,11 @@ def apply_encoder(params: Params, x: torch.Tensor, spec: StageSpec, *,
     n_pool = 0
     for layer in spec.layers:
         p = params[layer.name]
+        if (layer.pool_after and not layer.tap and not with_pool_argmax
+                and _ops.fuses(x, p["w"], p["b"])):
+            n_pool += 1
+            x = conv3x3_pool(x, p["w"], p["b"], relu=layer.relu)
+            continue
         x = conv3x3(x, p["w"], p["b"], relu=layer.relu)
         if layer.tap:
             outs[layer.tap] = x
@@ -100,28 +111,42 @@ def apply_encoder(params: Params, x: torch.Tensor, spec: StageSpec, *,
 
 
 def apply_decoder(params: Params, x: torch.Tensor, spec: StageSpec, *,
-                  aux_relu: bool = False, final_relu: bool = True) -> dict[str, torch.Tensor]:
+                  aux_relu: bool = False, final_relu: bool = True,
+                  taps: bool = True) -> dict[str, torch.Tensor]:
     """Run a decoder stage; returns named features.
 
     Keys: ``out`` (reconstructed image, ReLU'd like the reference), ``dec{j}1``
     taps (the upsampled conv{j}1 features) and kd2sd ``dec_aux{j}1`` adapter
     outputs when present. ``final_relu=False`` is the reference's
     ``Decoder4.forward_norule`` variant (no ReLU on the last conv).
+
+    ``taps=False`` returns ``out`` alone (no taps, no adapters): then no
+    upsampled map is needed as a feature, and where :func:`..ops.conv.fuses`
+    allows it the conv after each upsample takes the half-resolution map
+    itself (:func:`..ops.conv.conv3x3_upsampled`, one launch, the upsampled
+    map never written). ``out`` is the same bits either way.
     """
     if spec.kind != "decoder":
         raise ValueError(f"apply_decoder needs a decoder spec, got {spec.kind!r}")
     outs: dict[str, torch.Tensor] = {}
-    last = spec.layers[-1]
-    for layer in spec.layers:
+    layers = spec.layers
+    last = layers[-1]
+    half = False   # x is the map an upsample not yet run would double
+    for i, layer in enumerate(layers):
         p = params[layer.name]
         relu = layer.relu and (final_relu or layer is not last)
-        x = conv3x3(x, p["w"], p["b"], relu=relu)
+        x = (conv3x3_upsampled if half else conv3x3)(x, p["w"], p["b"], relu=relu)
+        half = False
         if layer.unpool_after:
-            x = upsample_nearest_2x(x)
-        if layer.tap:
+            nxt = params[layers[i + 1].name] if i + 1 < len(layers) else None
+            if not taps and nxt is not None and _ops.fuses(x, nxt["w"], nxt["b"]):
+                half = True
+            else:
+                x = upsample_nearest_2x(x)
+        if layer.tap and taps:
             outs[layer.tap] = x
     outs["out"] = x
-    for layer in spec.aux:
+    for layer in spec.aux if taps else ():
         src = outs[f"dec{layer.name[3]}1"]
         p = params[layer.name]
         outs[layer.tap] = conv1x1(src, p["w"], p["b"], relu=aux_relu)

@@ -11,6 +11,14 @@ its ``torch.autograd.Function`` (``ops/cuda/autograd.py``), whose forward is
 the same kernel or plain version and whose backward has JAX's subgradients;
 otherwise it takes the launch as it is, so inference counts and computes
 exactly what it did.
+
+:func:`conv3x3_pool` and :func:`conv3x3_upsampled` are a conv with the 2x2
+max pool after it or the nearest 2x upsample before it, in one launch on the
+card (``ops/cuda/fused.py``) and as the two plain versions on the CPU, bit
+for bit what the two ops give. Inference only. :func:`fuses` is the route
+rule the model functions apply before taking them: the map on a device of
+``FUSE_DEVICES``, autograd not recording, and a fused instantiation in the
+conv's launch plan; nothing falls back from a fused launch to the two ops.
 """
 
 from __future__ import annotations
@@ -20,12 +28,19 @@ import torch.nn.functional as F
 
 from .cuda import autograd as _grad
 from .cuda import conv as _kconv
+from .cuda import fused as _kfused
 from .cuda import pool as _kpool
 from .pad import reflect_pad
 from .precision import bf16_full_reduction
 
 __all__ = ["reflect_pad", "conv2d", "conv3x3", "conv1x1", "max_pool_2x2",
-           "max_pool_2x2_with_argmax", "max_unpool_2x2", "upsample_nearest_2x", "on_card"]
+           "max_pool_2x2_with_argmax", "max_unpool_2x2", "upsample_nearest_2x", "on_card",
+           "conv3x3_pool", "conv3x3_upsampled", "fuses", "FUSE_DEVICES"]
+
+# The device types whose maps take the fused conv + pool and upsample + conv
+# launches (:func:`fuses`). Empty: the separate kernels everywhere, the
+# baseline a measurement of the fused route runs beside it.
+FUSE_DEVICES = frozenset({"cuda"})
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
@@ -135,3 +150,38 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     if on_card(x):
         return _kpool.upsample_nearest_2x(x)
     return _kpool.upsample_nearest_2x_plain(x)
+
+
+def fuses(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> bool:
+    """Whether a conv of ``x`` by ``w`` (HWIO) may take its pool or upsample
+    into its own launch (:func:`conv3x3_pool`, :func:`conv3x3_upsampled`;
+    ``x`` the map the conv reads or its half-resolution source): ``x`` lies
+    on a device of ``FUSE_DEVICES``, autograd is not recording (training's
+    backward needs the full-resolution map), and the conv's launch plan has
+    a fused instantiation for (Cin, Cout) in ``x``'s dtype. A rule of shape,
+    device and flags, fixed before any launch."""
+    return (x.device.type in FUSE_DEVICES and not _records_grad(x, w, b)
+            and _kconv.has_fused(w.shape[2], w.shape[3], x.dtype))
+
+
+def _inference_only(name: str, *tensors) -> None:
+    if _records_grad(*tensors):
+        raise ValueError(f"{name}: inference only; autograd is recording and an input "
+                         f"requires grad (take the separate ops)")
+
+
+def conv3x3_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
+                 relu: bool = True) -> torch.Tensor:
+    """:func:`conv3x3` then :func:`max_pool_2x2` (floor), one launch on the
+    card: only the pooled map is written. Inference only."""
+    _inference_only("conv3x3_pool", x, w, b)
+    return (_kfused.conv3x3_pool if on_card(x) else _kfused.conv3x3_pool_plain)(x, w, b, relu)
+
+
+def conv3x3_upsampled(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
+                      relu: bool = True) -> torch.Tensor:
+    """:func:`conv3x3` of :func:`upsample_nearest_2x` of ``x``, one launch on
+    the card: the conv stages its tile from ``x`` itself, and the upsampled
+    map is never written. Inference only."""
+    _inference_only("conv3x3_upsampled", x, w, b)
+    return (_kfused.conv3x3_up if on_card(x) else _kfused.conv3x3_up_plain)(x, w, b, relu)

@@ -49,6 +49,8 @@ _SIGNATURES = {
     "cd_conv1x1_bias_bf16": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
     "cd_max_pool_2x2_bf16": [_P, _P, _I, _I, _I, _I, _P],
     "cd_upsample_nearest_2x_bf16": [_P, _P, _I, _I, _I, _I, _P],
+    "cd_conv3x3_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "cd_conv3x3_bf16_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "cd_scale_reduce_u8": [_P, _P, _I, _I, _I, _P],
     "cd_box_resize_u8": [_P, _P, _I, _I, _I, _I, _P],
 }

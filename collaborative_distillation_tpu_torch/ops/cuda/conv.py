@@ -23,6 +23,14 @@ read in place by its staging as the float32 kernel reads them);
 :func:`conv3x3_plain` computes it in float32 and rounds once.
 :func:`launch_plan_bf16` picks the template of its persistent ring kernel
 (``csrc/bf16_igemm.cuh``), and that of the bf16 1x1's.
+
+Both plans take ``fuse``: ``"pool"`` for the conv with the 2x2 max pool
+after it, ``"up"`` for the conv with the nearest 2x upsample before it (the
+kernels' POOL and UP instantiations, :mod:`.fused`). Those exist only at the
+ring templates of ``FUSED_TEMPLATES`` and ``BF16_FUSED_TEMPLATES`` (bf16:
+with resident weights), the ones the plans pick at the cascade's widths 16,
+32, 64 and 128; elsewhere the plan raises, and :func:`has_fused` says so
+beforehand.
 """
 
 from __future__ import annotations
@@ -40,7 +48,8 @@ from . import _build
 from .peer import batch_stride, ptr, reachable, release
 
 __all__ = ["conv3x3_plain", "conv3x3_reflect", "conv3x3_reflect_bf16", "launch_plan",
-           "device_plan", "ConvPlan", "launch_plan_bf16", "device_plan_bf16", "BF16Plan"]
+           "device_plan", "ConvPlan", "launch_plan_bf16", "device_plan_bf16", "BF16Plan",
+           "FUSES", "FUSED_TEMPLATES", "BF16_FUSED_TEMPLATES", "has_fused"]
 
 # The ring templates, by the id csrc/conv3x3.cu takes: (name, Cout tile, tile
 # rows, tile cols), as it instantiates them. One persistent block an SM
@@ -56,6 +65,10 @@ _TEMPLATES = {
     7: ("ring_walk64", 64, 16, 16),
 }
 RING_WIDTHS = (3, 16, 24, 32, 64, 128, 256, 512)   # Cin and Cout the ring templates take
+# The ring templates with a fused pool / upsample instantiation (csrc/
+# conv3x3.cu's cd_conv3x3_fused), and the C entries' ids of the two
+FUSED_TEMPLATES = frozenset({1, 2, 3, 5})
+FUSES = {"pool": 1, "up": 2}
 _FIRST_TILE = 16                         # the first kernel's square pixel tile
 MAX_GRID_Z = 65535                       # CUDA's limit on gridDim.z
 
@@ -87,13 +100,25 @@ def _template(cin: int, cout: int) -> int:
     return {128: 1, 64: 2, 16: 5, 3: 6}[cout]
 
 
-def launch_plan(n: int, h: int, w: int, cin: int, cout: int, n_sm: int) -> ConvPlan:
+def _check_fuse(fuse: str | None, t: int, templates, cin: int, cout: int, dtype: str) -> None:
+    if fuse is not None and fuse not in FUSES:
+        raise ValueError(f"fuse must be None, 'pool' or 'up', got {fuse!r}")
+    if fuse is not None and t not in templates:
+        raise ValueError(f"conv3x3 ({dtype}): no fused {fuse} instantiation at Cin {cin}, "
+                         f"Cout {cout} (template {t}; fused: {sorted(templates)})")
+
+
+def launch_plan(n: int, h: int, w: int, cin: int, cout: int, n_sm: int,
+                fuse: str | None = None) -> ConvPlan:
     """The launch for an (n, h, w, cin) -> cout conv on a card of ``n_sm``
     SMs: a ring template where Cin and Cout are both widths of the cascade
     or the teachers (one persistent block an SM, at most ``n_sm`` blocks),
     else the first kernel (a block per 16x16 tile and Cout tile). Fixed by
-    shape; raises for a batch past the first kernel's grid limit."""
+    shape; raises for a batch past the first kernel's grid limit. ``fuse``
+    (``"pool"``, ``"up"``): the template's fused instantiation, (h, w) the
+    conv's map; raises where the template has none."""
     t = _template(cin, cout)
+    _check_fuse(fuse, t, FUSED_TEMPLATES, cin, cout, "float32")
     if t == 0:
         co_t = 32 if cout > 16 else 16 if cout > 8 else 8
         per_image = -(-h // _FIRST_TILE) * -(-w // _FIRST_TILE)
@@ -114,10 +139,11 @@ def ring_plan(t: int, n: int, h: int, w: int, cout: int, n_sm: int) -> ConvPlan:
 
 
 @functools.lru_cache(maxsize=1024)
-def device_plan(n: int, h: int, w: int, cin: int, cout: int, index: int) -> ConvPlan:
+def device_plan(n: int, h: int, w: int, cin: int, cout: int, index: int,
+                fuse: str | None = None) -> ConvPlan:
     """:func:`launch_plan` on CUDA device ``index``."""
     return launch_plan(n, h, w, cin, cout,
-                       torch.cuda.get_device_properties(index).multi_processor_count)
+                       torch.cuda.get_device_properties(index).multi_processor_count, fuse)
 
 
 # The bf16 ring templates, by the id the C entries take: (name, taps, CK, NT,
@@ -142,6 +168,9 @@ BF16_TEMPLATES = {
     13: ("bf16_1x1_c128", 1, 128, 128, 8, 16, 3, 8, 0),
 }
 MAX_SMEM = 232448   # an H100 block's opt-in dynamic shared memory, bytes
+# the bf16 3x3 templates with a fused pool / upsample instantiation
+# (csrc/conv3x3_bf16.cu's cd_conv3x3_bf16_fused), with resident weights
+BF16_FUSED_TEMPLATES = frozenset({4, 8, 9, 10})
 
 
 class BF16Plan(NamedTuple):
@@ -195,13 +224,18 @@ def _bf16_template(cin: int, cout: int, taps: int) -> tuple[int, bool]:
 
 
 def launch_plan_bf16(n: int, h: int, w: int, cin: int, cout: int, n_sm: int,
-                     taps: int = 9) -> BF16Plan:
+                     taps: int = 9, fuse: str | None = None) -> BF16Plan:
     """The bf16 ring kernel's launch for an (n, h, w, cin) -> cout conv
     (``taps=9``, the 3x3) or a 1x1 over n * h * w pixels (``taps=1``) on a
     card of ``n_sm`` SMs: the template by width (:func:`_bf16_template`),
     one persistent block an SM in whole Cout tiles, no more blocks on a Cout
-    tile than there are pixel tiles. Fixed by shape."""
+    tile than there are pixel tiles. Fixed by shape. ``fuse`` (the 3x3's
+    ``"pool"`` or ``"up"``, (h, w) the conv's map): the fused instantiation,
+    raising where the template has none or streams its weights."""
     t, resident = _bf16_template(cin, cout, taps)
+    if fuse is not None:   # the 3x3's resident-weight templates only
+        _check_fuse(fuse, t, BF16_FUSED_TEMPLATES if taps == 9 and resident else frozenset(),
+                    cin, cout, "bfloat16")
     name, _, ck, nt, th, tw, _, _, _ = BF16_TEMPLATES[t]
     if taps == 1:
         tiles = -(-(n * h * w) // (th * tw))
@@ -216,10 +250,22 @@ def launch_plan_bf16(n: int, h: int, w: int, cin: int, cout: int, n_sm: int,
 
 @functools.lru_cache(maxsize=1024)
 def device_plan_bf16(n: int, h: int, w: int, cin: int, cout: int, index: int,
-                     taps: int = 9) -> BF16Plan:
+                     taps: int = 9, fuse: str | None = None) -> BF16Plan:
     """:func:`launch_plan_bf16` on CUDA device ``index``."""
     return launch_plan_bf16(n, h, w, cin, cout,
-                            torch.cuda.get_device_properties(index).multi_processor_count, taps)
+                            torch.cuda.get_device_properties(index).multi_processor_count, taps,
+                            fuse)
+
+
+def has_fused(cin: int, cout: int, dtype: torch.dtype) -> bool:
+    """Whether the launch plan has a fused pool / upsample instantiation
+    for a (cin -> cout) 3x3 conv on ``dtype`` maps (float32 or bfloat16):
+    what ``fuse=`` of :func:`launch_plan` / :func:`launch_plan_bf16` takes
+    without raising."""
+    if dtype == torch.bfloat16:
+        t, resident = _bf16_template(cin, cout, 9)
+        return resident and t in BF16_FUSED_TEMPLATES
+    return dtype == torch.float32 and _template(cin, cout) in FUSED_TEMPLATES
 
 
 def _check_halo(name: str, x: torch.Tensor, top, bot) -> None:

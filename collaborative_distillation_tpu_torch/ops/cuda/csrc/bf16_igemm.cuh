@@ -63,6 +63,17 @@
 //     pixels are one contiguous run), 2-byte elements otherwise (Cout 3). The
 //     warp needs no block barrier for it, so its stores overlap the other
 //     warps' products and the ring's loads.
+//   * the 3x3's fused pool and upsample (kernel template flags POOL and UP,
+//     conv3x3_bf16.cu's head says why). POOL: the staging rows hold the
+//     rounded outputs of the block's tile, fragment f at rows 16 f ..; a 2x2
+//     window's two tile rows are fragments TW / 16 apart, in one warp where
+//     its fragments are an even number of tile rows, else in the warps 2i
+//     and 2i + 1, which meet at a named barrier of their own (64 threads)
+//     and store half the pooled row each. The max is taken of the rounded
+//     values in pool.cu's order (a NaN wins), so it is the pool of the
+//     rounded map bit for bit. UP: x is the half-resolution map; a staged
+//     unit of the 2H x 2W map it stands for is reflected on that map and
+//     read from (gy >> 1, gx >> 1) of x by its cp.async source address.
 // Bank conflicts: staged pixels have a stride of an odd number of 16-byte
 // units (CK + 8 where CK / 8 is even), weight and output rows XOR their
 // 16-byte unit index with the row (swz), so the eight rows one ldmatrix
@@ -233,6 +244,22 @@ __device__ __forceinline__ uint4 load8_masked(const unsigned short* src, int ch,
   return make_uint4(v[0], v[1], v[2], v[3]);
 }
 
+// pool.cu's bf16 max, 8 lanes at a time: the comparison in float (exact),
+// one of the two inputs out; a NaN wins, of two equal values the second
+__device__ __forceinline__ uint32_t bmax2(uint32_t a, uint32_t b) {
+  uint32_t r = 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t ua = (a >> (16 * h)) & 0xFFFFu, ub = (b >> (16 * h)) & 0xFFFFu;
+    const float fa = __uint_as_float(ua << 16), fb = __uint_as_float(ub << 16);
+    r |= ((fa > fb || fa != fa) ? ua : ub) << (16 * h);
+  }
+  return r;
+}
+__device__ __forceinline__ uint4 bmax8(uint4 a, uint4 b) {
+  return make_uint4(bmax2(a.x, b.x), bmax2(a.y, b.y), bmax2(a.z, b.z), bmax2(a.w, b.w));
+}
+
 // The XOR of a row of U 16-byte units: the 16-byte unit q of row r sits at
 // q ^ swz<U>(r), so that the same unit of 8 consecutive rows (one ldmatrix
 // phase, one store instruction) lands in 8 distinct bank groups.
@@ -282,9 +309,10 @@ __host__ __device__ inline size_t smem_bytes(int cin, int chunks, bool resident)
   return 2 * ((size_t)R::S * R::SP * R::XS + w + (size_t)R::TH * R::TW * R::NT) + 16;
 }
 
-template <class R, bool HALO = false>
+template <class R, bool HALO = false, bool POOL = false, bool UP = false>
 __global__ void __launch_bounds__(R::THREADS, 1) bf16_ring_kernel(const Args a) {
   static_assert(!HALO || R::TAPS == 9, "halo rows are the 3x3's");
+  static_assert(!(POOL || UP) || (R::TAPS == 9 && !HALO && POOL != UP), "one 3x3 fused flag");
   constexpr int TAPS = R::TAPS, CK = R::CK, NT = R::NT, TH = R::TH, TW = R::TW, S = R::S;
   constexpr int kThreads = R::THREADS;
   constexpr int XS = R::XS, SP = R::SP, MF = R::MF, U = R::U;
@@ -373,7 +401,13 @@ __global__ void __launch_bounds__(R::THREADS, 1) bf16_ring_kernel(const Args a) 
         const int sp = e / G, g = e - (e / G) * G;
         const int hy = sp / (TW + 2), hx = sp - (sp / (TW + 2)) * (TW + 2);
         const unsigned short* src;
-        if (inner) {
+        if constexpr (UP) {   // x: the (H / 2, W / 2) map the upsampled one stands for
+          int gy = ty0 - 1 + hy, gx = tx0 - 1 + hx;
+          if ((unsigned)gy >= (unsigned)a.H) gy = reflect1(gy, a.H);
+          if ((unsigned)gx >= (unsigned)a.W) gx = reflect1(gx, a.W);
+          src = a.x + (((long long)img * (a.H >> 1) + (gy >> 1)) * (a.W >> 1) + (gx >> 1)) *
+                          a.Cin + ch0 + g * 8;
+        } else if (inner) {
           src = xb + hy * row + hx * a.Cin + g * 8;
         } else if constexpr (HALO) {
           int gy = ty0 - 1 + hy, gx = tx0 - 1 + hx;
@@ -647,6 +681,37 @@ __global__ void __launch_bounds__(R::THREADS, 1) bf16_ring_kernel(const Args a) 
     __syncwarp();
     int img = 0, ty0 = 0, tx0 = 0;
     if constexpr (TAPS == 9) origin(done.t, img, ty0, tx0);
+    if constexpr (POOL) {
+      // pooled row pr of a group (one warp, or warps 2i and 2i + 1) is tile
+      // rows 2 pr and 2 pr + 1 of its own; pixel px of fragment f is staging
+      // row 16 f + px, swizzled as row px of the warp's area
+      constexpr int RPW = MF / (TW / 16);   // tile rows a warp
+      constexpr int PG = RPW % 2 ? 2 : 1;   // warps a group
+      static_assert(RPW % 2 == 0 || (RPW == 1 && R::WARPS % 2 == 0 && R::WARPS <= 30),
+                    "pool pairs");
+      constexpr int PR = PG * RPW / 2, PC = TW / 2;   // pooled rows and columns of a group
+      if constexpr (PG == 2)
+        asm volatile("bar.sync %0, %1;\n" ::"r"(1 + warp / 2), "r"(64) : "memory");
+      const int tr0 = (warp / PG) * PG * RPW;
+      const int Ho = a.H >> 1, Wo = a.W >> 1;
+      for (int e = (warp % PG) * 32 + lane; e < PR * PC * U; e += PG * 32) {
+        const int q = e % U, pc = (e / U) % PC, tr = tr0 + 2 * (e / (U * PC));
+        const int oy = (ty0 + tr) >> 1, ox = (tx0 >> 1) + pc;
+        if (oy >= Ho || ox >= Wo) continue;
+        const int px = (2 * pc) % 16;
+        const __nv_bfloat16* s0 = os + (tr * (TW / 16) + (2 * pc) / 16) * 16 * NT;
+        const __nv_bfloat16* s1 = s0 + (TW / 16) * 16 * NT;   // the next tile row
+        const int u0 = (q ^ swz<U>(px)) * 8, u1 = (q ^ swz<U>(px + 1)) * 8;
+        const uint4 top = bmax8(*reinterpret_cast<const uint4*>(s0 + px * NT + u0),
+                                *reinterpret_cast<const uint4*>(s0 + (px + 1) * NT + u1));
+        const uint4 bot = bmax8(*reinterpret_cast<const uint4*>(s1 + px * NT + u0),
+                                *reinterpret_cast<const uint4*>(s1 + (px + 1) * NT + u1));
+        *reinterpret_cast<uint4*>(a.y + (((long long)img * Ho + oy) * Wo + ox) * a.Cout + n0 +
+                                  q * 8) = bmax8(top, bot);
+      }
+      __syncwarp();
+      continue;
+    }
 #pragma unroll
     for (int mf = 0; mf < MF; ++mf) {
       const int f = warp * MF + mf;
@@ -700,13 +765,16 @@ __global__ void __launch_bounds__(R::THREADS, 1) bf16_ring_kernel(const Args a) 
 // blocks: opts in to the card's largest dynamic shared memory once per
 // device; refuses a plan whose shared memory exceeds it or whose grid is not
 // whole Cout tiles.
-template <class R, bool HALO = false>
+template <class R, bool HALO = false, bool POOL = false, bool UP = false>
 int launch(const Args& a, int grid, cudaStream_t s) {
   const size_t smem = smem_bytes<R>(a.Cin, a.chunks, a.resident != 0);
   if (smem > (size_t)kMaxSmem || grid <= 0 || grid % a.cout_tiles != 0 ||
       (R::TAPS == 1 && a.cout_tiles != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = bf16_ring_kernel<R, HALO>;
+  // POOL stores whole 16-byte units of whole Cout tiles; UP needs an even map
+  if ((POOL && !(a.vec_y && a.Cout % R::NT == 0)) || (UP && (a.H % 2 || a.W % 2)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = bf16_ring_kernel<R, HALO, POOL, UP>;
   static bool opted[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);

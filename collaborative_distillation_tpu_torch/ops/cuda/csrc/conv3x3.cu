@@ -87,6 +87,29 @@
 // step, and only a row outside [0, H) picks between them and reflection, so
 // rows inside the map stage as they do without HALO (whose code is the
 // kernel's without halo rows).
+//
+// Pool and upsample folded in (ring templates 1, 2, 3 and 5, the cascade's
+// 128-, 64-, 32- and 16-wide layers; template flags POOL and UP). An
+// encoder's conv before a 2x2 max pool and a decoder's conv after a nearest
+// 2x upsample were each a conv launch plus a pass of csrc/pool.cu over the
+// full-resolution map in HBM: the pool read the map the conv had just
+// written and wrote a quarter of it; the upsample wrote four copies of a map
+// that the conv then read back.
+//   * POOL: the tile origins and sizes are even, so a 2x2 window never
+//     crosses a tile. The epilogue (+ bias, ReLU) reduces the horizontal
+//     pairs of a thread's strip, takes the row below from the thread that
+//     holds it (G lanes on: the strips of a warp are consecutive rows of one
+//     column of strips, TH and the strips a warp even), and stores only the
+//     pooled map, in pool.cu's order of maxima (a NaN wins), so its bits are
+//     those of the conv followed by the pool kernel. Floor semantics: a
+//     window with its second row or column past the map is dropped;
+//   * UP: x is the half-resolution map; the staging reflects the halo on the
+//     2H x 2W map it stands for and reads pixel (gy, gx) of that map from
+//     (gy >> 1, gx >> 1) of x. The staged tile is the one the upsampled map
+//     gives, so the conv's bits are those of the upsample kernel then the
+//     conv.
+// The flags are template arguments: the instantiations without them are the
+// kernels they were before them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -162,6 +185,10 @@ __device__ __forceinline__ float lane(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
+// pool.cu's max: a NaN wins (fmaxf would drop it), and of two equal values
+// (0 and -0) the second
+__device__ __forceinline__ float vmax(float a, float b) { return (a > b || a != a) ? a : b; }
+
 // ---- ring_conv3x3_kernel ------------------------------------------------------
 
 constexpr int PX = 8;   // pixels of a thread strip, one row
@@ -193,7 +220,7 @@ struct Ring {
   static_assert(TW % PX == 0 && NT % 32 == 0 && NT <= 1024, "threads");
 };
 
-template <class R, bool HALO>
+template <class R, bool HALO, bool POOL = false, bool UP = false>
 __global__ void __launch_bounds__(R::NT, 1)
 ring_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ b, float* __restrict__ y, int H, int W,
@@ -202,6 +229,10 @@ ring_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
   constexpr int CO_T = R::CO_T, CPT = R::CPT, TH = R::TH, TW = R::TW;
   constexpr int CI_T = R::CI_T, NS = R::NS, NT = R::NT, G = R::G;
   constexpr int HR = R::HR, HC = R::HC, TWP = R::TWP, CIS = R::CIS;
+  static_assert(!((POOL || UP) && (HALO || R::WALK || POOL == UP)), "one fused flag, no halo");
+  // POOL: a warp's strips pair up as rows 2i, 2i + 1 of one strip column
+  static_assert(!POOL || (G <= 16 && 32 % G == 0 && (32 / G) % 2 == 0 && TH % (32 / G) == 0),
+                "pool pairs");
   extern __shared__ __align__(16) float smem[];
 
   const int t = threadIdx.x;
@@ -230,7 +261,9 @@ ring_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int r0 = tile - n * per_img;
       const int ty0 = (r0 / tiles_w) * TH;
       const int tx0 = (r0 % tiles_w) * TW;
-      const float* xn = x + (size_t)n * H * W * Cin;
+      // UP: x holds the (H / 2, W / 2) map that the upsampled one stands for
+      const int xw = UP ? W >> 1 : W;
+      const float* xn = UP ? x + (size_t)n * (H >> 1) * xw * Cin : x + (size_t)n * H * W * Cin;
       const float* top_n = HALO ? halo_row(halo.top, halo.top_stride, n) : nullptr;
       const float* bot_n = HALO ? halo_row(halo.bot, halo.bot_stride, n) : nullptr;
       float* xs = smem + (k % NS) * R::SLOT;
@@ -249,10 +282,14 @@ ring_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
             else gy = reflect1(gy, H);
           }
           if (static_cast<unsigned>(gx) >= static_cast<unsigned>(W)) gx = reflect1(gx, W);
+          if constexpr (UP) {
+            gy >>= 1;
+            gx >>= 1;
+          }
           float* dst = xs + (r * TWP + c) * CIS + 4 * q;
           const int ci = ci0 + 4 * q;
           if (ci < Cin)
-            cp_async16(dst, xr + ((size_t)gy * W + gx) * Cin + ci);
+            cp_async16(dst, xr + ((size_t)gy * xw + gx) * Cin + ci);
           else
             *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
         }
@@ -269,9 +306,13 @@ ring_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
             else gy = reflect1(gy, H);
           }
           if (static_cast<unsigned>(gx) >= static_cast<unsigned>(W)) gx = reflect1(gx, W);
+          if constexpr (UP) {
+            gy >>= 1;
+            gx >>= 1;
+          }
           float* dst = xs + (r * TWP + c) * CIS + q;
           if (ci0 + q < Cin)
-            cp_async4(dst, xr + ((size_t)gy * W + gx) * Cin + ci0 + q);
+            cp_async4(dst, xr + ((size_t)gy * xw + gx) * Cin + ci0 + q);
           else
             *dst = 0.f;
         }
@@ -387,7 +428,44 @@ ring_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int r0 = tile - n * per_img;
       const int gy = (r0 / tiles_w) * TH + sr;
       const int gx0 = (r0 % tiles_w) * TW + sc;
-      if (gy < H) {
+      if constexpr (POOL) {
+        // pool.cu's order: max(max(row 2i's pair), max(row 2i + 1's pair));
+        // the thread G lanes on holds row sr + 1 of the same columns
+        float m[PX / 2][CPT];
+#pragma unroll
+        for (int p = 0; p < PX / 2; ++p)
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) {
+            float o0 = acc[2 * p][j] + bias[j], o1 = acc[2 * p + 1][j] + bias[j];
+            if (relu && o0 < 0.f) o0 = 0.f;   // NaN stays NaN
+            if (relu && o1 < 0.f) o1 = 0.f;
+            const float h = vmax(o0, o1);
+            m[p][j] = vmax(h, __shfl_down_sync(0xffffffffu, h, G));
+          }
+        const int Ho = H >> 1, Wo = W >> 1, oy = gy >> 1;
+        if (sr % 2 == 0 && oy < Ho) {
+          float* yrow = y + ((size_t)n * Ho + oy) * Wo * Cout;
+#pragma unroll
+          for (int p = 0; p < PX / 2; ++p) {
+            const int ox = (gx0 >> 1) + p;
+            if (ox >= Wo) break;
+            float* yp = yrow + (size_t)ox * Cout;
+#pragma unroll
+            for (int g = 0; g < R::NGRP; ++g) {
+              const int co = g * R::GSTRIDE + cg * 4;
+              if (vec_y) {
+                if (co < Cout)
+                  *reinterpret_cast<float4*>(yp + co) =
+                      make_float4(m[p][4 * g], m[p][4 * g + 1], m[p][4 * g + 2], m[p][4 * g + 3]);
+              } else {
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                  if (co + j < Cout) yp[co + j] = m[p][4 * g + j];
+              }
+            }
+          }
+        }
+      } else if (gy < H) {
         float* yrow = y + ((size_t)n * H + gy) * W * Cout;
 #pragma unroll
         for (int p = 0; p < PX; ++p) {
@@ -430,7 +508,7 @@ bool halo_aligned16(const Halo& hl) {
          hl.bot_stride % 4 == 0;
 }
 
-template <class R, bool HALO>
+template <class R, bool HALO, bool POOL = false, bool UP = false>
 int launch_ring_as(const float* x, const float* w, const float* b, float* y, const Halo& hl,
                    int n, int h, int wd, int cin, int cout, int relu, int nblocks,
                    cudaStream_t s) {
@@ -439,7 +517,7 @@ int launch_ring_as(const float* x, const float* w, const float* b, float* y, con
   const int tiles_w = (wd + R::TW - 1) / R::TW;
   const long long nitems = (long long)n * tiles_h * tiles_w * ((cout + R::CO_T - 1) / R::CO_T);
   if (nitems > 0x7fffffffLL || nblocks > nitems) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = ring_conv3x3_kernel<R, HALO>;
+  auto kernel = ring_conv3x3_kernel<R, HALO, POOL, UP>;
   // the opt-in above 48 KB of dynamic shared memory, once per device
   static bool opted[kMaxDevices];
   int dev = 0;
@@ -649,4 +727,53 @@ extern "C" int cd_conv3x3_reflect(const float* x, const float* w,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The conv with the 2x2 max pool after it (fuse 1: y is (N, H / 2, W / 2,
+// Cout)) or the nearest 2x upsample before it (fuse 2: x is (N, H / 2, W / 2,
+// Cin)); h, wd are the conv's map, the pooled map's input or the upsampled
+// map. Only the ring templates the launch plan fuses (../conv.py
+// FUSED_TEMPLATES) are instantiated; any other template is refused.
+extern "C" int cd_conv3x3_fused(const float* x, const float* w, const float* b, float* y,
+                                int n, int h, int wd, int cin, int cout, int relu, int tmpl,
+                                int nblocks, int fuse, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Halo hl{nullptr, nullptr, 0, 0};
+  if (fuse == 1) {
+    switch (tmpl) {
+      case 1:
+        return launch_ring_as<RingCo128, false, true>(x, w, b, y, hl, n, h, wd, cin, cout, relu,
+                                                      nblocks, s);
+      case 2:
+        return launch_ring_as<RingCo64, false, true>(x, w, b, y, hl, n, h, wd, cin, cout, relu,
+                                                     nblocks, s);
+      case 3:
+        return launch_ring_as<RingCo32, false, true>(x, w, b, y, hl, n, h, wd, cin, cout, relu,
+                                                     nblocks, s);
+      case 5:
+        return launch_ring_as<RingCo16, false, true>(x, w, b, y, hl, n, h, wd, cin, cout, relu,
+                                                     nblocks, s);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (fuse == 2 && h % 2 == 0 && wd % 2 == 0) {
+    switch (tmpl) {
+      case 1:
+        return launch_ring_as<RingCo128, false, false, true>(x, w, b, y, hl, n, h, wd, cin, cout,
+                                                             relu, nblocks, s);
+      case 2:
+        return launch_ring_as<RingCo64, false, false, true>(x, w, b, y, hl, n, h, wd, cin, cout,
+                                                            relu, nblocks, s);
+      case 3:
+        return launch_ring_as<RingCo32, false, false, true>(x, w, b, y, hl, n, h, wd, cin, cout,
+                                                            relu, nblocks, s);
+      case 5:
+        return launch_ring_as<RingCo16, false, false, true>(x, w, b, y, hl, n, h, wd, cin, cout,
+                                                            relu, nblocks, s);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -50,6 +50,16 @@
 // no pass and no launch of their own. The 16-byte copies need the rows and
 // their image strides 16-byte aligned too; rows that are not take the
 // kernel's 2-byte loads.
+//
+// Pool and upsample folded in (cd_conv3x3_bf16_fused; the templates the plan
+// picks at the cascade's fused widths 16, 32, 64 and 128, ids 4, 8, 9, 10,
+// resident weights). A conv before a 2x2 max pool wrote its full-resolution
+// map for pool.cu to read back and write a quarter of; a conv after a
+// nearest 2x upsample read the four copies pool.cu had written. With POOL the
+// epilogue pools the rounded tile in shared memory and writes only the
+// pooled map; with UP the staging reads the half-resolution map
+// (bf16_igemm.cuh's head says how). Both compute the bits of the two-kernel
+// sequence; the instantiations without the flags are the kernels they were.
 
 #include "bf16_igemm.cuh"
 
@@ -80,6 +90,19 @@ int run(cd_bf16::Args a, int n, int grid, int resident, cudaStream_t s) {
   a.resident = resident;
   if (a.top || a.bot) return cd_bf16::launch<R, true>(a, grid, s);
   return cd_bf16::launch<R>(a, grid, s);
+}
+
+// run<R> with the pool after the conv (POOL) or the upsample before it
+template <class R, bool POOL>
+int run_fused(cd_bf16::Args a, int n, int grid, int resident, cudaStream_t s) {
+  a.tiles_w = (a.W + R::TW - 1) / R::TW;
+  const long long tiles = (long long)n * ((a.H + R::TH - 1) / R::TH) * a.tiles_w;
+  a.cout_tiles = (a.Cout + R::NT - 1) / R::NT;
+  a.chunks = (a.Cin + R::CK - 1) / R::CK;
+  if (tiles * a.chunks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  a.tiles = (int)tiles;
+  a.resident = resident;
+  return cd_bf16::launch<R, false, POOL, !POOL>(a, grid, s);
 }
 
 }  // namespace
@@ -120,5 +143,39 @@ extern "C" int cd_conv3x3_reflect_bf16(const void* x, const void* w, const void*
     case 9: return run<RingCk32Co64>(a, n, grid, resident, s);
     case 10: return run<RingCk32Co64S2>(a, n, grid, resident, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The bf16 conv with the 2x2 max pool after it (fuse 1: y is (N, H / 2,
+// W / 2, Cout)) or the nearest 2x upsample before it (fuse 2: x is (N, H / 2,
+// W / 2, Cin)); h, wd are the conv's map. Only the templates the launch plan
+// fuses (../conv.py BF16_FUSED_TEMPLATES) are instantiated.
+extern "C" int cd_conv3x3_bf16_fused(const void* x, const void* w, const void* b, void* y,
+                                     int n, int h, int wd, int cin, int cout, int relu,
+                                     int bias_bf16, int tmpl, int grid, int resident, int fuse,
+                                     void* stream) {
+  if ((long long)n * h * wd == 0 || (fuse != 1 && fuse != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cd_bf16::Args a = cd_bf16::make_args(x, w, b, y, cin, cout, relu);
+  a.H = h;
+  a.W = wd;
+  a.bias_bf16 = bias_bf16;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool pool = fuse == 1;
+  switch (tmpl) {
+    case 4:
+      return pool ? run_fused<RingCk16Co16, true>(a, n, grid, resident, s)
+                  : run_fused<RingCk16Co16, false>(a, n, grid, resident, s);
+    case 8:
+      return pool ? run_fused<RingCk32Co32, true>(a, n, grid, resident, s)
+                  : run_fused<RingCk32Co32, false>(a, n, grid, resident, s);
+    case 9:
+      return pool ? run_fused<RingCk32Co64, true>(a, n, grid, resident, s)
+                  : run_fused<RingCk32Co64, false>(a, n, grid, resident, s);
+    case 10:
+      return pool ? run_fused<RingCk32Co64S2, true>(a, n, grid, resident, s)
+                  : run_fused<RingCk32Co64S2, false>(a, n, grid, resident, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }

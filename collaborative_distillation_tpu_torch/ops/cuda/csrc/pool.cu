@@ -4,7 +4,10 @@
 // for unpacked maps (its f == 1 branch): odd trailing rows and columns are
 // dropped, as nn.MaxPool2d(2, 2) does. upsample_nearest_2x replaces
 // packed_upsample_lane (pool.py:141): each input pixel is written to its
-// 2x2 output block.
+// 2x2 output block. On the inference paths the conv kernels beside them do
+// this work themselves (conv3x3.cu, bf16_igemm.cuh: POOL and UP); these
+// kernels serve training under autograd, the per-conv sharded path and the
+// widths without a fused instantiation.
 //
 // cd_max_pool_2x2_bf16 and cd_upsample_nearest_2x_bf16 are the bf16
 // instantiations (packed_pool_lane and packed_upsample_lane keep the input's

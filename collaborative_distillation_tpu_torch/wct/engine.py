@@ -130,7 +130,7 @@ def stylize_stage(enc_params, dec_params, enc_spec, dec_spec, img, s_mean, s_cov
     cf = apply_encoder(enc_params, img, enc_spec, aux=False)["out"]
     csf = wct_transform(cf, s_mean, s_cov, alpha, method=method,
                         newton_iters=newton_iters)
-    return apply_decoder(dec_params, csf, dec_spec)["out"]
+    return apply_decoder(dec_params, csf, dec_spec, taps=False)["out"]
 
 
 def stylize_stage_pwct(enc_params, dec_params, enc_spec, dec_spec, img, s_mean, s_cov,

@@ -190,7 +190,8 @@ class SlabCascade:
                       interior: int) -> torch.Tensor:
         """Folded WCT + decoder on one slab's features; its interior rows."""
         csf = wct_apply_folded(feats, t, c_mean, s_mean, alpha)
-        dec = apply_decoder(self.params[k]["dec"], csf, self.pyramid[k]["dec_spec"])["out"]
+        dec = apply_decoder(self.params[k]["dec"], csf, self.pyramid[k]["dec_spec"],
+                            taps=False)["out"]
         return dec[:, offset:offset + interior]
 
     def slab_sums(self, k, img: torch.Tensor, slabs, *, shift=None, keep: bool = False):

@@ -25,14 +25,16 @@ STAGES = (5, 4, 3, 2, 1)
 def _bf16_path_shapes(kernel):
     """{(N, H, W, Cin, Cout)} of ``kernel`` ("conv3x3_reflect" or
     "conv1x1_bias") on the bf16 2048^2 plain and UHD slab paths: the float32
-    plans' shapes, which the bf16 engine runs on its bf16 kernels."""
+    plans' shapes, which the bf16 engine runs on its bf16 kernels (a conv
+    with its pool or upsample fused in at its conv's shape)."""
     pyr = {k: dict(zip(("enc_spec", "dec_spec"), stage_specs("16x", k))) for k in STAGES}
     margins = SlabCascade(pyr, stages=STAGES, slab_rows=chip_smoke.UHD_SLAB).margins
     plans = [chip_smoke.path_calls(pyr, STAGES, 2048, 2048)[0],
              chip_smoke.slab_path_calls(pyr, STAGES, margins, chip_smoke.UHD_SLAB,
                                         chip_smoke.UHD_H, chip_smoke.UHD_W, 2048, 2048,
                                         FEATURE_CACHE_BYTES)[0]]
-    return sorted({s[:5] for calls in plans for k, s in calls if k == kernel})
+    kinds = chip_smoke.CONV_KERNELS if kernel == "conv3x3_reflect" else (kernel,)
+    return sorted({s[:5] for calls in plans for k, s in calls if k in kinds})
 
 
 PATH_3X3 = _bf16_path_shapes("conv3x3_reflect")

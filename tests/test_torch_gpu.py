@@ -1487,3 +1487,119 @@ def test_card_dataset_decodes_on_side_streams_in_a_two_thread_loader(tfix, tmp_p
     torch.cuda.synchronize()
     np.testing.assert_array_equal(out[0], want[ds.paths[0]])
     assert busy, "the decode waited for the default stream"
+
+
+# ---- the conv with its pool or upsample folded in (ops/cuda/fused.py) -------------------
+
+# (kind, N, H, W, Cin, Cout, relu), (H, W) the conv's map: the fused widths at
+# one past each template's pixel tile (float32 32x32, 16x32, 16x16, 8x16;
+# bf16 32x32, 16x32, 16x16), odd H or W (the pool's dropped row and column,
+# the upsample's odd half-resolution input), 1-pixel pooled outputs and
+# upsampled inputs, N = 2, and a deeper map of each width
+FUSED_CASES = [("pool", 1, 33, 33, 16, 16, True), ("pool", 2, 17, 33, 32, 32, True),
+               ("pool", 1, 17, 17, 64, 64, False), ("pool", 1, 9, 17, 128, 128, True),
+               ("pool", 1, 7, 9, 16, 16, True), ("pool", 2, 13, 5, 128, 128, True),
+               ("pool", 1, 3, 2, 64, 64, True), ("pool", 1, 130, 66, 32, 32, True),
+               ("up", 1, 34, 34, 16, 16, True), ("up", 2, 18, 34, 32, 32, True),
+               ("up", 1, 18, 18, 64, 64, False), ("up", 1, 10, 18, 128, 128, True),
+               ("up", 1, 2, 2, 16, 16, True), ("up", 1, 2, 2, 128, 128, True),
+               ("up", 2, 14, 6, 64, 64, True), ("up", 1, 130, 66, 16, 16, True)]
+
+
+def _fused_pair(kind, x, wt, b, relu):
+    if kind == "pool":
+        return kc.conv3x3_pool(x, wt, b, relu), kc.max_pool_2x2(kc.conv3x3_reflect(x, wt, b, relu))
+    return kc.conv3x3_up(x, wt, b, relu), kc.conv3x3_reflect(kc.upsample_nearest_2x(x), wt, b, relu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FUSED_CASES, ids=str)
+@pytest.mark.parametrize("nan", [False, True], ids=["finite", "nan"])
+def test_fused_conv_is_the_two_kernel_sequence_bit_for_bit(gen, dtype, case, nan):
+    """conv3x3_pool / conv3x3_up against the conv kernel and the pool or
+    upsample kernel in sequence: the same bits, NaN (which wins a max) and
+    signed zeros included; and the plain version within the conv's
+    tolerance (bf16: one ulp) where it is finite, NaN where it is NaN."""
+    kind, n, h, w, ci, co, relu = case
+    xh, xw = (h, w) if kind == "pool" else (h // 2, w // 2)
+    x = _rand(gen, n, xh, xw, ci).to(dtype)
+    if nan:
+        x.view(-1)[::4099] = float("nan")
+    wt = ((_rand(gen, 3, 3, ci, co) - 0.5) * (2 / (9 * ci) ** 0.5)).to(dtype)
+    b = (_rand(gen, co) - 0.5).to(dtype)
+    got, pair = _fused_pair(kind, x, wt, b, relu)
+    ref = (kc.conv3x3_pool if kind == "pool" else kc.conv3x3_up).plain(x, wt, b, relu)
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert got.shape == pair.shape == ref.shape and got.dtype == dtype
+    assert torch.equal(got.view(bits), pair.view(bits))
+    g, r = got.float(), ref.float()
+    assert torch.equal(torch.isnan(g), torch.isnan(r))
+    fin = ~torch.isnan(r)
+    if not bool(fin.any()):   # a map small enough that its one NaN reaches every output
+        return
+    if dtype == torch.bfloat16:
+        bound = torch.clamp(r.abs() * 2.0 ** -7, min=1e-3 * float(r[fin].abs().max()))
+    else:
+        scale = float(x.nan_to_num(0.0).abs().max() * wt.abs().sum(dim=(0, 1, 2)).max()
+                      + b.abs().max())
+        bound = torch.full_like(r, 1e-5 * scale)
+    assert bool(((g - r).abs() <= bound)[fin].all())
+
+
+def test_fused_kernels_refuse_unfused_templates_and_count(gen):
+    x = _rand(gen, 1, 8, 8, 256)
+    with pytest.raises(ValueError, match="no fused"):
+        kc.conv3x3_pool(x, _rand(gen, 3, 3, 256, 256), None, True)
+    with pytest.raises(ValueError, match="no fused"):
+        kc.conv3x3_up(x[..., :3].contiguous(), _rand(gen, 3, 3, 3, 24), None, True)
+    before = (kc.conv3x3_pool.launches, kc.conv3x3_up_bf16.launches)
+    kc.conv3x3_pool(x[..., :16].contiguous(), _rand(gen, 3, 3, 16, 16), None, True)
+    kc.conv3x3_up(x[..., :32].contiguous().bfloat16(), _rand(gen, 3, 3, 32, 32).bfloat16(),
+                  None, True)
+    assert (kc.conv3x3_pool.launches, kc.conv3x3_up_bf16.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_route_cascade_is_the_separate_route_bit_for_bit(dtype):
+    """WCTEngine on a 512^2 pair, the fused route against the separate
+    kernels (``ops.conv.FUSE_DEVICES`` empty): equal outputs, no pool or
+    upsample launch on the fused route, the same number of convs."""
+    import os
+
+    import numpy as np
+
+    from collaborative_distillation_tpu_torch.ops import conv as tconv
+    from collaborative_distillation_tpu_torch.wct.engine import WCTEngine
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    with np.load(os.path.join(os.path.dirname(__file__), "..", "collaborative_distillation_tpu_torch",
+                              "data", "photo_pair_512.npz")) as d:
+        c, s = d["content"], d["style"]
+    eng = WCTEngine(mode="16x", dtype=dtype)
+    img, sty = eng._prep(c), eng._prep(s)
+    every = kc.KERNELS + kc.BF16_KERNELS
+    outs, counts = [], []
+    on = tconv.FUSE_DEVICES
+    try:
+        for devices in (on, frozenset()):
+            tconv.FUSE_DEVICES = devices
+            for k in every:
+                k.launches = 0
+            with torch.inference_mode():
+                outs.append(eng.stylize_device(img, sty))
+            torch.cuda.synchronize()
+            counts.append({k.__name__: k.launches for k in every})
+    finally:
+        tconv.FUSE_DEVICES = on
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(outs[0].view(bits), outs[1].view(bits))
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    fused, sep = counts
+    assert fused["max_pool_2x2" + sfx] == fused["upsample_nearest_2x" + sfx] == 0
+    assert (fused["conv3x3_pool" + sfx], fused["conv3x3_up" + sfx]) == (20, 10)
+    assert (sep["max_pool_2x2" + sfx], sep["upsample_nearest_2x" + sfx]) == (20, 10)
+    convs = lambda cnt: sum(cnt[k + sfx] for k in ("conv3x3_reflect", "conv3x3_pool",
+                                                   "conv3x3_up"))
+    assert convs(fused) == convs(sep) == 93

@@ -139,7 +139,8 @@ def test_sum_gram_launch_plan_covers_every_row_once(p, c, n_sm):
 def _path_conv_shapes():
     """(N, H, W, Cin, Cout) of every conv3x3 launch on the 2048^2 plain, UHD
     slab (slab_rows=1024), sharded UHD (space=4, slab_rows=512) and plain
-    UHD paths of mode 16x, from chip_smoke.py's plans and the specs alone."""
+    UHD paths of mode 16x, from chip_smoke.py's plans and the specs alone
+    (a fused conv + pool or upsample + conv at its conv's shape)."""
     stages = (5, 4, 3, 2, 1)
     pyr = {k: dict(zip(("enc_spec", "dec_spec"), stage_specs("16x", k))) for k in stages}
     margins = SlabCascade(pyr, stages=stages, slab_rows=1024).margins
@@ -149,7 +150,7 @@ def _path_conv_shapes():
              chip_smoke.slab_path_calls(pyr, stages, margins, 1024, h, w, 2048, 2048,
                                         FEATURE_CACHE_BYTES),
              chip_smoke.sharded_path_calls(pyr, stages, margins, 512, 4, h, w, 2048, 2048)]
-    return sorted({s[:5] for calls, _ in plans for k, s in calls if k == "conv3x3_reflect"})
+    return sorted({s[:5] for calls, _ in plans for k, s in calls if k in chip_smoke.CONV_KERNELS})
 
 
 # the reference's VGG-19 teachers (mode "original"): widths up to 512

@@ -19,9 +19,19 @@ has one), one per path (sums weighted by the calls per cascade), and the
 card's name and power limit.
 
     python3 tools/bench_kernels.py --kernel {sum_gram,conv1x1_bias,conv3x3_reflect,
-        conv3x3_reflect_bf16,conv1x1_bias_bf16} [--root CHECKOUT] [--reference]
+        conv3x3_reflect_bf16,conv1x1_bias_bf16,conv3x3_pool,conv3x3_up,conv3x3_pool_bf16,
+        conv3x3_up_bf16} [--root CHECKOUT] [--reference]
         [--paths "2048^2 plain" "UHD slab" "wct_se step" "original 1024^2"]
         [--template ID ...]
+
+The fused conv + pool and upsample + conv (``conv3x3_pool``, ``conv3x3_up``
+and their bf16 entries) run at the fused shapes of the paths, keyed by the
+conv's map; with ``--reference`` beside the plain version, the two-kernel
+sequence they replace (``pair_ms``) and cuDNN's conv with ``F.max_pool2d``
+or ``F.interpolate``. In a checkout without them (``--root`` of a parent)
+the same shapes time that checkout's two-kernel sequence instead (rows
+marked ``"sequence": true``), so that parent and change compare shape by
+shape.
 
 The bf16 kernels run at the same shapes as their float32 kernels on the
 bf16 engine's paths (``chip_smoke.BF16_OF``), on bf16 inputs, against the
@@ -56,6 +66,7 @@ REPS = 10                    # calls timed per shape, after two warm-ups
 STAGES = (5, 4, 3, 2, 1)
 PATHS = ("2048^2 plain", "UHD slab")
 TEACHER_PATHS = ("wct_se step", "original 1024^2")   # conv3x3 at Cin or Cout 256/512
+FUSED = ("conv3x3_pool", "conv3x3_up")   # the conv with its pool or upsample folded in
 
 
 def device_ms(torch, fn, reps) -> dict:
@@ -110,9 +121,22 @@ def teacher_shapes(chip_smoke) -> dict:
 
 def make_call(torch, kc, kernel, shape):
     """The kernel on fresh inputs at ``shape`` (the path's own key); a bf16
-    kernel on the same values rounded to bf16 (the 1x1's bias float32)."""
-    k = getattr(kc, kernel)
+    kernel on the same values rounded to bf16 (the 1x1's bias float32). A
+    fused conv that the checkout lacks: its conv and pool or upsample
+    kernels in sequence."""
     bf = (lambda t: t.to(torch.bfloat16)) if kernel.endswith("_bf16") else (lambda t: t)
+    if kernel.removesuffix("_bf16") in FUSED:
+        n, h, w, ci, co, relu = shape[:6]
+        pool = kernel.startswith("conv3x3_pool")
+        x = bf(torch.rand(n, *((h, w) if pool else (h // 2, w // 2)), ci, device="cuda"))
+        wt = bf((torch.rand(3, 3, ci, co, device="cuda") - 0.5) * (2 / (9 * ci) ** 0.5))
+        b = bf(torch.rand(co, device="cuda") - 0.5)
+        if hasattr(kc, kernel):
+            return lambda: getattr(kc, kernel)(x, wt, b, relu)
+        if pool:
+            return lambda: kc.max_pool_2x2(kc.conv3x3_reflect(x, wt, b, relu))
+        return lambda: kc.conv3x3_reflect(kc.upsample_nearest_2x(x), wt, b, relu)
+    k = getattr(kc, kernel)
     if kernel.startswith("conv3x3_reflect"):
         n, h, w, ci, co, relu = shape[:6]
         x = bf(torch.rand(n, h, w, ci, device="cuda"))
@@ -167,6 +191,13 @@ def launch_plans(kernel):
     for ``kernel`` (None where the kernel has no plan; "first" for a
     checkout whose plan predates the kernel's)."""
     from collaborative_distillation_tpu_torch.ops.cuda import conv
+    if kernel.removesuffix("_bf16") in FUSED:
+        fuse = "pool" if kernel.startswith("conv3x3_pool") else "up"
+        if not hasattr(conv, "FUSES"):   # a checkout before the fused convs: the conv's own
+            return launch_plans("conv3x3_reflect" + kernel[len(kernel.removesuffix("_bf16")):])
+        if kernel.endswith("_bf16"):
+            return lambda s: conv.device_plan_bf16(*s[:5], 0, 9, fuse).kernel
+        return lambda s: conv.device_plan(*s[:5], 0, fuse).kernel
     if kernel == "conv3x3_reflect":
         return lambda s: conv.device_plan(*s[:5], 0).kernel if hasattr(conv, "device_plan") \
             else "first"
@@ -181,7 +212,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", required=True,
                     choices=("sum_gram", "conv1x1_bias", "conv3x3_reflect",
-                             "conv3x3_reflect_bf16", "conv1x1_bias_bf16"))
+                             "conv3x3_reflect_bf16", "conv1x1_bias_bf16", *FUSED,
+                             *(k + "_bf16" for k in FUSED)))
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--reference", action="store_true",
                     help="also time the plain version and the library call")
@@ -194,11 +226,18 @@ def main() -> int:
         print("bench_kernels: needs a CUDA device", file=sys.stderr)
         return 1
     root = os.path.abspath(args.root)
-    sys.path.insert(0, root)
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
     chip_smoke = importlib.util.module_from_spec(spec)
     sys.modules["chip_smoke"] = chip_smoke
     spec.loader.exec_module(chip_smoke)
+    # the shapes from this checkout's plans (its route decides what fuses),
+    # then the port of ``root`` for everything timed
+    sys.path.insert(0, HERE)
+    shapes = path_shapes(chip_smoke, args.kernel)
+    sys.path.remove(HERE)
+    for m in [m for m in sys.modules if m.startswith("collaborative_distillation_tpu_torch")]:
+        del sys.modules[m]
+    sys.path.insert(0, root)
     from collaborative_distillation_tpu_torch.ops import cuda as kc
     from collaborative_distillation_tpu_torch.utils.flops import card_peak_flops
     chip_smoke.PEAK_FP32_FLOPS = card_peak_flops(0, "float32")[0]   # as chip_smoke.main sets it
@@ -210,11 +249,12 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     bench = chip_smoke.Bench(torch, None)
-    shapes = path_shapes(chip_smoke, args.kernel)
     rows = {}
     for path in args.paths:
+        sequence = not hasattr(kc, args.kernel)   # a fused conv this checkout lacks
         keys = ("ms", "device_ms", "bound_ms") + (
-            ("plain_ms", "library_ms", "copy_ms") if args.reference else ()) + (
+            ("plain_ms", "library_ms", "copy_ms") if args.reference and not sequence else ()) + (
+            ("pair_ms",) if args.reference and f32_name in FUSED and not sequence else ()) + (
             ("library_conv_ms",) if args.reference and args.kernel == "conv3x3_reflect_bf16"
             else ()) + tuple(f"t{t}_ms" for t in args.template)
         tot = dict.fromkeys(keys, 0.0)
@@ -222,7 +262,8 @@ def main() -> int:
         for shape, n in sorted(shapes[path].items(), key=str):
             if shape not in rows:
                 with torch.no_grad():
-                    chk = bench.run(args.kernel, shape, timed=args.reference, reps=REPS)
+                    chk = ({"max_rel_err": None} if sequence else
+                           bench.run(args.kernel, shape, timed=args.reference, reps=REPS))
                     call = make_call(torch, kc, args.kernel, shape)
                     r = {"ms": chip_smoke.cuda_ms(torch, call, REPS)}
                     by = device_ms(torch, call, REPS)
@@ -232,10 +273,10 @@ def main() -> int:
                 flops_ms = flops / peak * 1e3
                 r.update(device_ms=sum(by.values()), bound_ms=max(bytes_ms, flops_ms),
                          bound_by="bytes" if bytes_ms >= flops_ms else "operations",
-                         max_rel_err=chk["max_rel_err"], by_kernel_ms=by)
-                if args.reference:
-                    r.update({k: chk[k] for k in ("plain_ms", "library_ms", "library_conv_ms")
-                              if k in chk})
+                         max_rel_err=chk["max_rel_err"], by_kernel_ms=by, sequence=sequence)
+                if args.reference and not sequence:
+                    r.update({k: chk[k] for k in ("plain_ms", "library_ms", "library_conv_ms",
+                                                  "pair_ms") if k in chk})
                     src = torch.empty(nbytes // 8, device="cuda")
                     dst = torch.empty_like(src)
                     r["copy_ms"] = chip_smoke.cuda_ms(torch, lambda: dst.copy_(src), REPS)

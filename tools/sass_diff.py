@@ -8,9 +8,11 @@ the same in both prints ``same``, one that differs ``DIFFERENT``, and kernels
 of one checkout only are listed as new or gone. Kernel names are demangled,
 and a flag at its default ``false`` is read as absent, so that a template
 instantiated before the flag existed matches its successor: a float32
-``Ring<...>`` argument list that ends in the Cout walk's (``WALK``), and a
-``bf16_ring_kernel<Ring<...>, false>`` (no halo rows, ``HALO``). Its halo
-instantiations (``..., true>``) are listed as new.
+``Ring<...>`` argument list that ends in the Cout walk's (``WALK``), a
+``bf16_ring_kernel<Ring<...>, false>`` (no halo rows, ``HALO``), and the
+fused pool and upsample flags after ``HALO`` in both ring kernels
+(``..., HALO, false, false>``, ``POOL`` and ``UP``). The instantiations
+with a flag set (``..., true>``) are listed as new.
 
     python3 tools/sass_diff.py OTHER_CHECKOUT [--source conv3x3.cu]
 
@@ -77,10 +79,12 @@ def sass(root: str, source: str, tmp: str) -> dict:
 
 def normalize(name: str) -> str:
     """A demangled kernel name with the flags that stand at their default
-    ``false`` taken out (``WALK`` of the float32 ``Ring``, ``HALO`` of
-    ``bf16_ring_kernel``), and ``> >`` written ``>>``."""
+    ``false`` taken out (``WALK`` of the float32 ``Ring``, ``POOL`` and
+    ``UP`` of both ring kernels, ``HALO`` of ``bf16_ring_kernel``), and
+    ``> >`` written ``>>``."""
     name = re.sub(r"(Ring<[^<>]*?), false>", lambda m: (
         m.group(1) + ">" if m.group(1).count(",") == 6 else m.group(0)), name)
+    name = re.sub(r"(_kernel<.*?Ring<[^<>]*>, (?:true|false)), false, false>", r"\1>", name)
     name = re.sub(r"(bf16_ring_kernel<.*?Ring<[^<>]*>), false>", r"\1>", name)
     return name.replace("> >", ">>")
 
