@@ -17,7 +17,9 @@ Public surface:
                the L1-pruning initializer
     utils    — carrying the reference package's parameters (and Adam
                states) across; checkpoints; host<->device copies; image
-               files, logging, profiling; FLOP counts and the card's peak
+               files, logging; the profiler's spans, the launch and pinned
+               buffer counters and a trace exporter; FLOP counts and the
+               card's peak
     data     — JPEG by device (nvJPEG on the card, the native libjpeg
                binding on the host), PNG, the training and inference
                datasets and the threaded loader

@@ -82,7 +82,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="the row halos of --space: the port's CUDA kernel "
                          "(ppermute, the default); pallas is refused: it " + NO_COUNTERPART)
     ap.add_argument("--profile", type=str, default="",
-                    help="write a torch.profiler Chrome trace into this dir")
+                    help="write a torch.profiler Chrome trace (trace.json) and the "
+                         "port's launch and pinned-buffer counts (counters.json) "
+                         "into this dir")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the cascade runs (default the GPU; cpu takes the plain "
                          "PyTorch path)")

@@ -19,6 +19,11 @@ for bit what the two ops give. Inference only. :func:`fuses` is the route
 rule the model functions apply before taking them: the map on a device of
 ``FUSE_DEVICES``, autograd not recording, and a fused instantiation in the
 conv's launch plan; nothing falls back from a fused launch to the two ops.
+
+The three 3x3 entries open a span each (:func:`..utils.profiling.span`):
+``cd.conv3x3`` (halo rows or not), ``cd.conv3x3_pool`` and ``cd.conv3x3_up``,
+on every device and under autograd (the forward only: the backward runs on
+autograd's own thread, in its own ranges).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from .cuda import autograd as _grad
 from .cuda import conv as _kconv
 from .cuda import fused as _kfused
@@ -74,14 +80,15 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
     (the per-conv sharded path's halos; ``None`` for the shard's own
     reflection row). Inference only: refused while autograd records."""
     halo = top is not None or bot is not None
-    if _records_grad(x, w, b, top, bot):
-        if halo:
-            raise ValueError("conv3x3: halo rows are inference only (the per-conv sharded "
-                             "path); autograd is recording and an input requires grad")
-        fwd = _kconv.conv3x3_reflect if on_card(x) else _kconv.conv3x3_plain
-        return _grad.Conv3x3.apply(x, w, b, relu, fwd)
-    conv = _kconv.conv3x3_reflect if on_card(x) else _kconv.conv3x3_plain
-    return conv(x, w, b, relu, top=top, bot=bot) if halo else conv(x, w, b, relu)
+    with span("cd.conv3x3"):
+        if _records_grad(x, w, b, top, bot):
+            if halo:
+                raise ValueError("conv3x3: halo rows are inference only (the per-conv sharded "
+                                 "path); autograd is recording and an input requires grad")
+            fwd = _kconv.conv3x3_reflect if on_card(x) else _kconv.conv3x3_plain
+            return _grad.Conv3x3.apply(x, w, b, relu, fwd)
+        conv = _kconv.conv3x3_reflect if on_card(x) else _kconv.conv3x3_plain
+        return conv(x, w, b, relu, top=top, bot=bot) if halo else conv(x, w, b, relu)
 
 
 def conv1x1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
@@ -175,7 +182,8 @@ def conv3x3_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None
     """:func:`conv3x3` then :func:`max_pool_2x2` (floor), one launch on the
     card: only the pooled map is written. Inference only."""
     _inference_only("conv3x3_pool", x, w, b)
-    return (_kfused.conv3x3_pool if on_card(x) else _kfused.conv3x3_pool_plain)(x, w, b, relu)
+    with span("cd.conv3x3_pool"):
+        return (_kfused.conv3x3_pool if on_card(x) else _kfused.conv3x3_pool_plain)(x, w, b, relu)
 
 
 def conv3x3_upsampled(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
@@ -184,4 +192,5 @@ def conv3x3_upsampled(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None =
     the card: the conv stages its tile from ``x`` itself, and the upsampled
     map is never written. Inference only."""
     _inference_only("conv3x3_upsampled", x, w, b)
-    return (_kfused.conv3x3_up if on_card(x) else _kfused.conv3x3_up_plain)(x, w, b, relu)
+    with span("cd.conv3x3_up"):
+        return (_kfused.conv3x3_up if on_card(x) else _kfused.conv3x3_up_plain)(x, w, b, relu)

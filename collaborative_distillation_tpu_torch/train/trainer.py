@@ -28,6 +28,11 @@ handed its own rows of the global batch); Adam steps the root's masters, which
 are then copied into every other replica. Shards are equal, so the mean is
 the gradient of the global batch's mean loss, the one the reference's
 step differentiates.
+
+A one-device step opens two spans (:func:`..utils.profiling.span`):
+``cd.train.forward`` (the batch onto the device, the loss graph, the
+weighted sum) and ``cd.train.optimizer`` (``zero_grad``, and Adam's step on
+every path); the backward keeps the autograd engine's own ranges.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from ..ops.precision import bf16_full_reduction, full_float32
 from ..parallel.mesh import Mesh
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.params import adam_state_from_jax, adam_state_to_jax
+from ..utils.profiling import span
 from ..wct.engine import resolve_device
 from .losses import kd2sd_losses, sd_reconstruct_losses, se_distill_losses
 
@@ -217,21 +223,24 @@ class Trainer:
         ``rank x N``. The losses are the global batch's and ``rec`` is the
         whole global batch's, in batch order."""
         if self.mesh is None:
-            x = _to_batch(batch, self.device)
             with self._precision():
-                losses, rec = self.loss_graph(_cast(self.params, self.dtype), self.frozen,
-                                              x.to(self.dtype))
-                total = sum(self.loss_weights[name] * val for name, val in losses.items())
-                self.opt.zero_grad(set_to_none=True)
+                with span("cd.train.forward"):
+                    x = _to_batch(batch, self.device)
+                    losses, rec = self.loss_graph(_cast(self.params, self.dtype), self.frozen,
+                                                  x.to(self.dtype))
+                    total = sum(self.loss_weights[name] * val for name, val in losses.items())
+                with span("cd.train.optimizer"):
+                    self.opt.zero_grad(set_to_none=True)
                 total.backward()
                 self._adam_step()
             return {k: v.detach() for k, v in losses.items()}, rec.detach().float()
         return self._data_parallel_step(batch)
 
     def _adam_step(self) -> None:
-        for group in self.opt.param_groups:
-            group["lr"] = self.lr_at(self.sched_count)
-        self.opt.step()
+        with span("cd.train.optimizer"):
+            for group in self.opt.param_groups:
+                group["lr"] = self.lr_at(self.sched_count)
+            self.opt.step()
         if self.cfg.lr_decay_steps:
             self.sched_count += 1
 

@@ -1,29 +1,84 @@
-"""Profiling hooks: a ``torch.profiler`` trace and a step timer.
+"""Profiling: named spans and counters inside the port, and a trace exporter.
 
+* :func:`span` — a named range around one layer's work (``cd.cascade``,
+  ``cd.conv3x3``, ...; PERF.md §3 lists them). While a ``torch.profiler``
+  records, the span is a host op in the profiler's own timeline, on the
+  clock of the kernels and copies it launches: they are correlated to it as
+  to any aten op, so the profiler's ``device_time_total`` of the range is
+  their device time, its nested spans' included. Otherwise it is one shared
+  null context: a flag test, no allocation, no dispatcher call.
+* :func:`counters` — a flat snapshot of the port's counts: the kernel
+  launches and the pinned host buffers the host boundary makes.
 * :func:`trace` — context manager that profiles the enclosed block (host
-  and, on a card, CUDA activity) and writes a Chrome trace
-  (``trace.json``, open in Perfetto or ``chrome://tracing``) into a
-  directory;
-* :class:`StepTimer` — step timer with percentile reporting.
+  and, on a card, CUDA activity) and writes a Chrome trace (``trace.json``,
+  open in Perfetto or ``chrome://tracing``) into a directory; the spans
+  show in it. Beside it, ``counters.json``: the counters' change over the
+  block.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
-import time
 
-__all__ = ["trace", "StepTimer"]
+import torch
+
+__all__ = ["span", "counters", "trace"]
+
+_NULL = contextlib.nullcontext()
+_recording = torch.autograd._profiler_enabled
+
+
+def _range(name: str):
+    """torch.profiler.record_function's range at function scope: the
+    kernels a user-scope range launches are tied to it only by the
+    profiler's separate user correlation, which leaves the port's own
+    kernels (launched through ctypes, under no aten op) out of its
+    device_time_total. A private torch class, looked up only while a
+    profiler records, so an untraced port does not depend on it."""
+    fast = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+    if fast is None:
+        raise RuntimeError("cd. spans need torch._C._profiler._RecordFunctionFast, "
+                           f"which torch {torch.__version__} lacks")
+    return fast(name)
+
+
+def span(name: str):
+    """A range named ``name`` in the running profiler's timeline, or the
+    shared null context when no profiler records. Spans nest: a span's
+    parent is the span that encloses it on the same thread."""
+    if not _recording():
+        return _NULL
+    return _range(name)
+
+
+def counters() -> dict[str, int]:
+    """The port's counts now, read where the code counting them keeps them
+    (no copy):
+
+    * ``launches``: the launches of ``ops.cuda.KERNELS`` and
+      ``ops.cuda.BF16_KERNELS`` (the loader's ``DATA_KERNELS`` apart, as
+      there);
+    * ``pinned_buffers``, ``pinned_bytes``: the pinned host buffers made
+      through :func:`.transfer.pinned_empty` (``push``'s staging, ``fetch``'s
+      output, the slab path's band buffers), and their bytes.
+
+    Take two snapshots and subtract."""
+    from ..ops.cuda import BF16_KERNELS, KERNELS
+    from .transfer import PINNED
+    return {"launches": sum(k.launches for k in KERNELS + BF16_KERNELS),
+            "pinned_buffers": PINNED["buffers"], "pinned_bytes": PINNED["bytes"]}
 
 
 @contextlib.contextmanager
 def trace(logdir: str | None):
-    """Profile the enclosed block into ``logdir``/trace.json (no-op when
-    logdir is falsy)."""
+    """Profile the enclosed block into ``logdir``/trace.json, and write the
+    change of :func:`counters` over it to ``logdir``/counters.json (no-op
+    when logdir is falsy)."""
     if not logdir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -31,31 +86,13 @@ def trace(logdir: str | None):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
     prof = profile(activities=activities)
+    before = counters()
     prof.__enter__()
     try:
         yield
     finally:
         prof.__exit__(None, None, None)
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-class StepTimer:
-    def __init__(self):
-        self.samples: list[float] = []
-        self._t0 = None
-
-    def __enter__(self):
-        self._t0 = time.time()
-        return self
-
-    def __exit__(self, *exc):
-        self.samples.append(time.time() - self._t0)
-
-    def report(self) -> str:
-        if not self.samples:
-            return "no samples"
-        s = sorted(self.samples)
-        n = len(s)
-        return (f"n={n} mean={sum(s)/n*1000:.1f}ms "
-                f"p50={s[n//2]*1000:.1f}ms p95={s[min(n-1, int(n*0.95))]*1000:.1f}ms "
-                f"min={s[0]*1000:.1f}ms")
+        after = counters()
+        with open(os.path.join(logdir, "counters.json"), "w") as f:
+            json.dump({k: after[k] - before[k] for k in after}, f, indent=1)

@@ -7,6 +7,11 @@ for the copies with an event. :func:`fetch_async` queues the copy of a CUDA
 tensor into a pinned host tensor on a side stream, behind the work already
 queued, so the card goes on computing while the bytes cross the link;
 :func:`fetch` waits for it. On the CPU both are plain tensor <-> numpy views.
+
+Every pinned host buffer the port makes (``push``'s staging, ``fetch``'s
+output, the slab path's band buffers) comes from :func:`pinned_empty`, which
+counts it and its bytes in :data:`PINNED`, read by
+:func:`.profiling.counters`.
 """
 
 from __future__ import annotations
@@ -14,13 +19,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["push", "fetch", "fetch_async", "PUSH_CHUNK_BYTES"]
+__all__ = ["push", "fetch", "fetch_async", "pinned_empty", "PINNED", "PUSH_CHUNK_BYTES"]
 
 # push's staging chunk, from chip_smoke.py phase 6(c) on an H100 (PCIe), two
 # runs: a 126 MB uint8 UHD image crossed in 8.2-12.8 ms at 16 MiB, 8.5-11.3
 # ms at 64 MiB, 13.4-46.5 ms at 4 MiB, and 21.9-34.3 ms through a pageable
 # .to(); 16 and 64 MiB are level, and 16 MiB holds less pinned memory
 PUSH_CHUNK_BYTES = 16 << 20
+
+# the pinned host buffers made by pinned_empty so far, and their bytes
+PINNED = {"buffers": 0, "bytes": 0}
+
+
+def pinned_empty(shape, dtype: torch.dtype) -> torch.Tensor:
+    """An uninitialised pinned host tensor, counted in :data:`PINNED`."""
+    out = torch.empty(shape, dtype=dtype, pin_memory=True)
+    PINNED["buffers"] += 1
+    PINNED["bytes"] += out.nbytes
+    return out
 
 
 def push(arr: np.ndarray, device, *, stream: torch.cuda.Stream | None = None,
@@ -44,8 +60,7 @@ def push(arr: np.ndarray, device, *, stream: torch.cuda.Stream | None = None,
     flat = x.reshape(-1)
     n = flat.numel()
     step = max(1, chunk_bytes // x.element_size())
-    staging = [torch.empty(min(step, n), dtype=x.dtype, pin_memory=True)
-               for _ in range(min(2, -(-n // step)))]
+    staging = [pinned_empty(min(step, n), x.dtype) for _ in range(min(2, -(-n // step)))]
     copied = [None] * len(staging)
     with torch.cuda.stream(side):
         out = torch.empty(n, dtype=x.dtype, device=device)
@@ -84,6 +99,6 @@ def fetch(x: torch.Tensor) -> np.ndarray:
     that the returned array keeps; a CPU tensor is returned as a view."""
     if x.device.type != "cuda":
         return x.numpy()
-    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    out = pinned_empty(x.shape, x.dtype)
     fetch_async(x.contiguous(), out, torch.cuda.Stream(x.device)).synchronize()
     return out.numpy()

@@ -45,6 +45,7 @@ from ..ops.pad import reflect_index
 from ..ops.wct_transform import feature_stats, wct_transform
 from ..utils.colorspace import (rgb_to_yuv420_host, rgbf_to_yuv420_device,
                                 yuv420_to_rgb_host, yuv420_to_rgbf_device)
+from ..utils.profiling import span
 from ..utils.transfer import fetch, push
 from .slab import SlabCascade, _to_u8, build_fused_slab_cascade
 
@@ -128,8 +129,9 @@ def stylize_stage(enc_params, dec_params, enc_spec, dec_spec, img, s_mean, s_cov
     """encode -> WCT -> decode for one pyramid level (WCT.py styleTransfer),
     in the dtype of ``img`` and the params (the WCT's statistics in float32)."""
     cf = apply_encoder(enc_params, img, enc_spec, aux=False)["out"]
-    csf = wct_transform(cf, s_mean, s_cov, alpha, method=method,
-                        newton_iters=newton_iters)
+    with span("cd.wct"):
+        csf = wct_transform(cf, s_mean, s_cov, alpha, method=method,
+                            newton_iters=newton_iters)
     return apply_decoder(dec_params, csf, dec_spec, taps=False)["out"]
 
 
@@ -140,8 +142,9 @@ def stylize_stage_pwct(enc_params, dec_params, enc_spec, dec_spec, img, s_mean, 
     (structure-preserving; the reference's forward_pwct paths,
     model_cd.py:443-449/621-635)."""
     feats = apply_encoder(enc_params, img, enc_spec, aux=False, with_pool_argmax=True)
-    csf = wct_transform(feats["out"], s_mean, s_cov, alpha, method=method,
-                        newton_iters=newton_iters)
+    with span("cd.wct"):
+        csf = wct_transform(feats["out"], s_mean, s_cov, alpha, method=method,
+                            newton_iters=newton_iters)
     return apply_decoder_pwct(dec_params, csf, dec_spec, feats)
 
 
@@ -318,16 +321,19 @@ class WCTEngine:
                 self._style_cache.popitem(last=False)
 
     def _cached(self, tag, style_key, style: torch.Tensor, compute):
-        """``compute()``, LRU-cached under ``(tag, style_key, shape)`` when
-        ``style_key`` is given."""
+        """``compute()`` in a ``cd.style`` span, LRU-cached under ``(tag,
+        style_key, shape)`` when ``style_key`` is given (a hit opens no
+        span)."""
         if style_key is None:
-            return compute()
+            with span("cd.style"):
+                return compute()
         key = (tag, style_key, tuple(style.shape))
         with self._cache_lock:
             if key in self._style_cache:
                 self._style_cache.move_to_end(key)
                 return self._style_cache[key]
-        stats = compute()
+        with span("cd.style"):
+            stats = compute()
         self._cache_put(key, stats)
         return stats
 
@@ -422,31 +428,32 @@ class WCTEngine:
         decided here, from the content's dtype and size, and reused for the
         output leg, so lossless float or RGB input never gets a 4:2:0
         output."""
-        transport = transport or self.transport
-        if transport == "auto":
-            big = (isinstance(content, np.ndarray) and content.dtype == np.uint8
-                   and _YUV_AUTO_PIX is not None
-                   and content.shape[-3] * content.shape[-2] >= _YUV_AUTO_PIX)
-            transport = "yuv420" if big else "rgb"
-        squeeze = content.ndim == 3
-        if squeeze:
-            content = content[None]
-        orig = (content.shape[1], content.shape[2])
-        if (transport == "yuv420" and isinstance(content, np.ndarray)
-                and content.dtype == np.uint8):
-            # JPEG-native 4:2:0 planes across the link (1.5 B/px); the style
-            # is small and stays RGB
-            ph, pw = (-orig[0]) % 2, (-orig[1]) % 2
-            if ph or pw:
-                content = np.pad(content, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="edge")
-            img = yuv420_to_rgbf_device(*self._upload_yuv420(content))
-            img = _pad_to_multiple(img.to(self.dtype))[0]
-        else:
-            # float (or device) content cannot take the 4:2:0 path, and the
-            # two legs must agree: lossless input never gets a lossy output
-            transport = "rgb"
-            img = self._prep(content)
-        return img, self._prep(style), squeeze, orig, transport
+        with span("cd.upload"):
+            transport = transport or self.transport
+            if transport == "auto":
+                big = (isinstance(content, np.ndarray) and content.dtype == np.uint8
+                       and _YUV_AUTO_PIX is not None
+                       and content.shape[-3] * content.shape[-2] >= _YUV_AUTO_PIX)
+                transport = "yuv420" if big else "rgb"
+            squeeze = content.ndim == 3
+            if squeeze:
+                content = content[None]
+            orig = (content.shape[1], content.shape[2])
+            if (transport == "yuv420" and isinstance(content, np.ndarray)
+                    and content.dtype == np.uint8):
+                # JPEG-native 4:2:0 planes across the link (1.5 B/px); the style
+                # is small and stays RGB
+                ph, pw = (-orig[0]) % 2, (-orig[1]) % 2
+                if ph or pw:
+                    content = np.pad(content, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="edge")
+                img = yuv420_to_rgbf_device(*self._upload_yuv420(content))
+                img = _pad_to_multiple(img.to(self.dtype))[0]
+            else:
+                # float (or device) content cannot take the 4:2:0 path, and the
+                # two legs must agree: lossless input never gets a lossy output
+                transport = "rgb"
+                img = self._prep(content)
+            return img, self._prep(style), squeeze, orig, transport
 
     def _upload_yuv420(self, content: np.ndarray, *, bands: int | None = None):
         """RGB uint8 (N, H, W, 3), H and W even -> device (Y, CbCr) planes.
@@ -494,16 +501,17 @@ class WCTEngine:
         ``orig_hw``: float in [0, 1] or uint8, RGB across the link or, with
         ``transport="yuv420"`` and uint8, 4:2:0 planes reassembled on the
         host. A host array (a streamed result) is only cropped."""
-        transport = transport or self.transport
-        if transport == "auto":  # internal callers pass the input side's
-            transport = "rgb"    # resolution; direct callers get lossless
-        if transport == "yuv420" and as_uint8 and not isinstance(img, np.ndarray):
-            y, cbcr = rgbf_to_yuv420_device(img)
-            img = yuv420_to_rgb_host(fetch(y), fetch(cbcr))
-        img = img[:, :orig_hw[0], :orig_hw[1]]
-        if not isinstance(img, np.ndarray):
-            img = fetch(_to_u8(img) if as_uint8 else torch.clamp(img.float(), 0.0, 1.0))
-        return img[0] if squeeze else img
+        with span("cd.readback"):
+            transport = transport or self.transport
+            if transport == "auto":  # internal callers pass the input side's
+                transport = "rgb"    # resolution; direct callers get lossless
+            if transport == "yuv420" and as_uint8 and not isinstance(img, np.ndarray):
+                y, cbcr = rgbf_to_yuv420_device(img)
+                img = yuv420_to_rgb_host(fetch(y), fetch(cbcr))
+            img = img[:, :orig_hw[0], :orig_hw[1]]
+            if not isinstance(img, np.ndarray):
+                img = fetch(_to_u8(img) if as_uint8 else torch.clamp(img.float(), 0.0, 1.0))
+            return img[0] if squeeze else img
 
     def _sync(self) -> None:
         """Wait for every card this engine uses (``stylize(timed=True)``)."""
@@ -847,46 +855,47 @@ class WCTEngine:
         after feeding every band to ``band_sink``. ``stream_ok=False`` keeps
         the cascade whole (:meth:`stylize_pairs` overlaps readbacks across
         pairs itself). ``pwct``: photo-WCT, on the plain path only."""
-        if pwct and (self.slab is not None or self._tiled_fn is not None):
-            raise ValueError(
-                "pwct=True is only supported on the plain per-stage path; "
-                "construct the engine without slab_rows/space for photo-WCT")
-        alpha = torch.as_tensor(alpha, dtype=torch.float32, device=self.device)
-        if ((self.slab is not None or self._tiled_fn is not None)
-                and (img.shape[0] > 1 or sty.shape[0] > 1)):
-            raise ValueError("the slab and sharded paths are per-image (their statistics "
-                             "would pool the batch); stylize the images one at a time "
-                             "or use stylize_pairs for cross-pair pipelining")
-        if self._tiled_fn is not None:
-            return self._run_tiled(img, sty, alpha, num_run=num_run, style_key=style_key)
-        if self.slab is None or img.shape[1] < 2 * self.slab.margin:
-            # no slabs, or an image smaller than one slab's margins
-            return self._run_plain(img, sty, alpha, num_run=num_run, style_key=style_key,
-                                   pwct=pwct)
-        if not self.fused:
-            for i in range(num_run):
-                img = self.slab.stylize(img, sty, alpha,
-                                        to_host_uint8=as_uint8 and i == num_run - 1)
+        with span("cd.cascade"):
+            if pwct and (self.slab is not None or self._tiled_fn is not None):
+                raise ValueError(
+                    "pwct=True is only supported on the plain per-stage path; "
+                    "construct the engine without slab_rows/space for photo-WCT")
+            alpha = torch.as_tensor(alpha, dtype=torch.float32, device=self.device)
+            if ((self.slab is not None or self._tiled_fn is not None)
+                    and (img.shape[0] > 1 or sty.shape[0] > 1)):
+                raise ValueError("the slab and sharded paths are per-image (their statistics "
+                                 "would pool the batch); stylize the images one at a time "
+                                 "or use stylize_pairs for cross-pair pipelining")
+            if self._tiled_fn is not None:
+                return self._run_tiled(img, sty, alpha, num_run=num_run, style_key=style_key)
+            if self.slab is None or img.shape[1] < 2 * self.slab.margin:
+                # no slabs, or an image smaller than one slab's margins
+                return self._run_plain(img, sty, alpha, num_run=num_run, style_key=style_key,
+                                       pwct=pwct)
+            if not self.fused:
+                for i in range(num_run):
+                    img = self.slab.stylize(img, sty, alpha,
+                                            to_host_uint8=as_uint8 and i == num_run - 1)
+                return img
+            h = img.shape[1]
+            slab = self.slab.slab_rows
+            if -(-h // slab) * slab - h > slab // 4:
+                # awkward height: an evenly dividing slab size, so that the last
+                # window recomputes less of its neighbour's rows
+                slab = SlabCascade.pick_slab_rows(h, slab, self.slab.margin,
+                                                  self.slab.down_max)
+            sstats = self._fused_style_stats(sty, style_key)
+            if (stream_ok and (as_uint8 or emit_planes) and num_run == 1
+                    and img.shape[1] * img.shape[2] >= self.stream_min_pix):
+                head = self._fused_fn(slab, True)
+                h_img, t, c_mean, s_mean, kept = head(img, sstats, alpha)
+                emit = "planes" if emit_planes else "yuv420" if transport == "yuv420" else "u8"
+                return head.cascade.stream_last_stage(h_img, t, c_mean, s_mean, alpha,
+                                                      kept=kept, emit=emit, on_band=band_sink)
+            fn = self._fused_fn(slab, False)
+            for _ in range(num_run):
+                img = fn(img, sstats, alpha)
             return img
-        h = img.shape[1]
-        slab = self.slab.slab_rows
-        if -(-h // slab) * slab - h > slab // 4:
-            # awkward height: an evenly dividing slab size, so that the last
-            # window recomputes less of its neighbour's rows
-            slab = SlabCascade.pick_slab_rows(h, slab, self.slab.margin,
-                                              self.slab.down_max)
-        sstats = self._fused_style_stats(sty, style_key)
-        if (stream_ok and (as_uint8 or emit_planes) and num_run == 1
-                and img.shape[1] * img.shape[2] >= self.stream_min_pix):
-            head = self._fused_fn(slab, True)
-            h_img, t, c_mean, s_mean, kept = head(img, sstats, alpha)
-            emit = "planes" if emit_planes else "yuv420" if transport == "yuv420" else "u8"
-            return head.cascade.stream_last_stage(h_img, t, c_mean, s_mean, alpha,
-                                                  kept=kept, emit=emit, on_band=band_sink)
-        fn = self._fused_fn(slab, False)
-        for _ in range(num_run):
-            img = fn(img, sstats, alpha)
-        return img
 
     def _shards(self, x: torch.Tensor, rows: list[int]) -> list[torch.Tensor]:
         """The rows of ``x`` cut into one contiguous shard per ``space``

@@ -37,6 +37,11 @@ what changes the work and the results.
 slab paths do; the style statistics then come from the folded encoders too.
 The reference's width layout has no counterpart.
 
+The content's WCT opens ``cd.wct`` spans (:func:`..utils.profiling.span`):
+each window's shifted sum and Gram, a stage's statistics and coloring
+matrix, each window's folded apply; a style's statistics taken here open
+``cd.style``.
+
 A bfloat16 pyramid and image run in bf16: bf16 slabs and feature cache (half
 the bytes), the folded WCT in bf16 (``M`` bf16, ``beta`` float32); the sums
 and Grams of pass 1 are taken in float32 over a float32 copy of each slab's
@@ -55,7 +60,8 @@ from ..ops.wct_transform import (coloring_matrix, feature_stats, gram_shift,
                                  shifted_sum_gram, stats_from_sums,
                                  wct_apply_folded)
 from ..utils.colorspace import rgbf_to_yuv420_device, yuv420_to_rgb_host
-from ..utils.transfer import fetch_async
+from ..utils.profiling import span
+from ..utils.transfer import fetch_async, pinned_empty
 
 __all__ = ["receptive_radius", "SlabCascade", "build_fused_slab_cascade",
            "FEATURE_CACHE_BYTES"]
@@ -186,10 +192,19 @@ class SlabCascade:
         the cascade's own (folded, with ``packed``) encoder."""
         return feature_stats(_encode(self.params[k]["enc"], self.pyramid[k]["enc_spec"], style))
 
+    def _style_stats_of(self, style: torch.Tensor):
+        """``stats_of`` for :meth:`run` over the style image: each stage's
+        :meth:`style_stats` in a ``cd.style`` span."""
+        def stats_of(k):
+            with span("cd.style"):
+                return self.style_stats(k, style)
+        return stats_of
+
     def _color_decode(self, k, feats, t, c_mean, s_mean, alpha, offset: int,
                       interior: int) -> torch.Tensor:
         """Folded WCT + decoder on one slab's features; its interior rows."""
-        csf = wct_apply_folded(feats, t, c_mean, s_mean, alpha)
+        with span("cd.wct"):
+            csf = wct_apply_folded(feats, t, c_mean, s_mean, alpha)
         dec = apply_decoder(self.params[k]["dec"], csf, self.pyramid[k]["dec_spec"],
                             taps=False)["out"]
         return dec[:, offset:offset + interior]
@@ -212,11 +227,12 @@ class SlabCascade:
         kept, s_sum, g_sum, count = [], 0.0, 0.0, 0
         for start, rows, off, n in slabs:
             feats = _encode(enc, spec, img[:, start:start + rows])
-            x = feats[:, off // down:(off + n) // down].reshape(-1, c).float()
-            if shift is None:
-                shift = gram_shift(x)
-            s, g = shifted_sum_gram(x, shift)
-            s_sum, g_sum, count = s_sum + s, g_sum + g, count + x.shape[0]
+            with span("cd.wct"):
+                x = feats[:, off // down:(off + n) // down].reshape(-1, c).float()
+                if shift is None:
+                    shift = gram_shift(x)
+                s, g = shifted_sum_gram(x, shift)
+                s_sum, g_sum, count = s_sum + s, g_sum + g, count + x.shape[0]
             if keep:
                 kept.append(feats)
             del feats, x
@@ -231,7 +247,8 @@ class SlabCascade:
         None)."""
         shift, s_sum, g_sum, count, kept = self.slab_sums(
             k, img, self._slabs(img.shape[1], k), keep=keep)
-        mean, cov = stats_from_sums(shift, s_sum, g_sum, count)
+        with span("cd.wct"):
+            mean, cov = stats_from_sums(shift, s_sum, g_sum, count)
         return mean, cov, kept
 
     def feature_bytes(self, k, h: int, w: int, itemsize: int = 4) -> int:
@@ -255,8 +272,9 @@ class SlabCascade:
             keep = (self.feature_bytes(k, *img.shape[1:3], img.element_size())
                     <= feature_cache_bytes)
             c_mean, c_cov, kept = self.content_stats(k, img, keep=keep)
-            t = coloring_matrix(c_cov, s_cov.float(), method=self.method, eps=self.eps,
-                                newton_iters=self.newton_iters)
+            with span("cd.wct"):
+                t = coloring_matrix(c_cov, s_cov.float(), method=self.method, eps=self.eps,
+                                    newton_iters=self.newton_iters)
             if tail and k == self.stages[-1]:
                 return img, t, c_mean, s_mean, kept
             img = self.color_decode_stage(k, img, t, c_mean, s_mean, alpha, kept=kept)
@@ -314,8 +332,7 @@ class SlabCascade:
         if n != 1:
             raise ValueError("the slab path is per-image (N = 1)")
         img = _pad_rows(content, -(-h // self.down_max) * self.down_max)
-        out = self.run(img, lambda k: self.style_stats(k, style), alpha,
-                       tail=to_host_uint8)
+        out = self.run(img, self._style_stats_of(style), alpha, tail=to_host_uint8)
         if to_host_uint8:
             img, t, c_mean, s_mean, kept = out
             out = self.stream_last_stage(img, t, c_mean, s_mean, alpha, kept=kept)
@@ -341,7 +358,7 @@ class SlabCascade:
         ``"planes"`` its ``(y, cbcr)``) while later bands compute; nothing
         is assembled and the call returns None. On the card each band is
         copied on a side stream into one of two pinned staging buffers
-        while the card decodes the next one.
+        while the card decodes the next one (:func:`..utils.transfer.pinned_empty`).
         """
         if emit not in ("u8", "yuv420", "planes"):
             raise ValueError(f"emit must be 'u8', 'yuv420' or 'planes', got {emit!r}")
@@ -386,8 +403,7 @@ class SlabCascade:
         side = torch.cuda.Stream(img.device)
         most = max(rows for *_, rows in windows)
         shapes = ([(n, most, w), (n, most // 2, w // 2, 2)] if planes else [(n, most, w, 3)])
-        staging = [[torch.empty(s, dtype=torch.uint8, pin_memory=True) for s in shapes]
-                   for _ in range(2)]
+        staging = [[pinned_empty(s, torch.uint8) for s in shapes] for _ in range(2)]
         pending = None
         for i, (row, parts) in enumerate(bands):
             # staging[i % 2] was drained (host side) one band ago
@@ -441,7 +457,7 @@ def build_fused_slab_cascade(pyramid, *, stages=(5, 4, 3, 2, 1), slab_rows: int 
                 f"granularity {helper.down_max}; pad the image (WCTEngine.stylize "
                 f"pads to 16)")
         stats_of = (style.__getitem__ if external_style_stats
-                    else lambda k: helper.style_stats(k, style))
+                    else helper._style_stats_of(style))
         return helper.run(img, stats_of, alpha, feature_cache_bytes=feature_cache_bytes,
                           tail=tail_stats)
 

@@ -172,6 +172,17 @@ def test_profile_writes_a_trace(grid, tmp_path):
     assert any("conv" in str(e.get("name", "")) for e in events)
 
 
+def test_profile_writes_the_counters(grid, tmp_path):
+    """The plain CPU path launches none of the port's kernels and pins
+    nothing: every count's change is 0."""
+    args = ["--mode", "16x", "--contentPath", str(grid / "one"), "--stylePath",
+            str(grid / "one"), "--outf", str(tmp_path / "o"), "--device", "cpu",
+            "--profile", str(tmp_path / "prof")]
+    assert tstylize.main(args) == 0
+    with open(tmp_path / "prof" / "counters.json") as f:
+        assert json.load(f) == {"launches": 0, "pinned_buffers": 0, "pinned_bytes": 0}
+
+
 @pytest.mark.parametrize("cli", ["stylize", "serve", "eval"])
 def test_every_cli_raises_without_cuda_unless_asked(cli, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -1603,3 +1603,59 @@ def test_fused_route_cascade_is_the_separate_route_bit_for_bit(dtype):
     convs = lambda cnt: sum(cnt[k + sfx] for k in ("conv3x3_reflect", "conv3x3_pool",
                                                    "conv3x3_up"))
     assert convs(fused) == convs(sep) == 93
+
+
+@pytest.mark.parametrize("nbytes,buffers", [(1000, 1), (3 << 19, 2), (3 << 20, 2)], ids=str)
+def test_push_and_fetch_count_their_pinned_buffers(gen, nbytes, buffers):
+    """push counts its staging buffers (one, or two for an array of more
+    than one chunk) and their bytes, fetch its pinned output; counters()
+    reads them."""
+    import numpy as np
+
+    from collaborative_distillation_tpu_torch.utils.profiling import counters
+    from collaborative_distillation_tpu_torch.utils.transfer import fetch, push
+    chunk = 1 << 20
+    a = np.arange(nbytes, dtype=np.int64).astype(np.uint8)
+    before = counters()
+    x = push(a, "cuda", chunk_bytes=chunk)
+    pushed = counters()
+    assert pushed["pinned_buffers"] - before["pinned_buffers"] == buffers
+    assert pushed["pinned_bytes"] - before["pinned_bytes"] == buffers * min(chunk, nbytes)
+    np.testing.assert_array_equal(fetch(x), a)
+    after = counters()
+    assert after["pinned_buffers"] - pushed["pinned_buffers"] == 1
+    assert after["pinned_bytes"] - pushed["pinned_bytes"] == nbytes
+
+
+def test_streamed_tail_counts_its_band_buffers(monkeypatch):
+    """A uint8 call on the fused slab path streams its last stage through
+    two pinned band buffers, counted with the uploads' staging, and fetches
+    nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from collaborative_distillation_tpu_torch.utils import transfer
+    from collaborative_distillation_tpu_torch.utils.profiling import counters
+    from collaborative_distillation_tpu_torch.wct import engine as weng
+    from collaborative_distillation_tpu_torch.wct import slab as wslab
+    eng = weng.WCTEngine(mode="16x", slab_rows=288, stream_min_pix=1)
+    g = np.random.default_rng(0)
+    c = g.integers(0, 256, (640, 64, 3), dtype=np.uint8)
+    s = g.integers(0, 256, (64, 64, 3), dtype=np.uint8)
+    made = {"bands": [], "transfer": []}
+
+    def counted(where, alloc):
+        return lambda shape, dtype: made[where].append(alloc(shape, dtype)) or made[where][-1]
+    monkeypatch.setattr(wslab, "pinned_empty", counted("bands", transfer.pinned_empty))
+    monkeypatch.setattr(transfer, "pinned_empty", counted("transfer", transfer.pinned_empty))
+    monkeypatch.setattr(weng, "fetch", lambda x: pytest.fail("the streamed tail fetched"))
+    before = counters()
+    out = eng.stylize(c, s, as_uint8=True)
+    assert out.shape == c.shape and out.dtype == np.uint8
+    after = counters()
+    rows = max(n for *_, n in eng.slab._slabs(640, eng.stages[-1]))
+    assert [b.nbytes for b in made["bands"]] == [rows * 64 * 3] * 2
+    every = made["bands"] + made["transfer"]
+    assert after["pinned_buffers"] - before["pinned_buffers"] == len(every)
+    assert after["pinned_bytes"] - before["pinned_bytes"] == sum(b.nbytes for b in every)
