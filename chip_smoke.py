@@ -268,6 +268,16 @@ Phases (any failure raises and the script exits non-zero):
      sharded engine's pixels (``packed=False``: the CLI folds only under
      ``--packed``, as the reference's CLI).
 
+  11. ``sym_eigh`` (the WCT's eigensolver, ``ops/cuda/eigh.py``) at every
+     stage shape (2 x C, C in 24, 32, 64, 128) on the covariances the UHD
+     slab and the 2048^2 plain cascades hand it: eigenvalues, reconstruction
+     and orthogonality against float64 within EIGH_TOL, ascending, the
+     sweeps under the cap, its time beside the bound, its plain version's
+     and ``torch.linalg.eigh``'s (``library_ms``); then each cascade under
+     ``torch.cuda.set_sync_debug_mode("error")`` (no host sync) with the
+     counters read: two covariances a stage on the kernel in one launch,
+     none on the library. ``--eigh`` runs this phase alone, after phase 1.
+
 With ``--cross-card`` (two or more cards) it runs only the halo checks, the
 conv3x3 halo staging with its rows on other cards (float32 and bf16), the
 per-conv 2048^2 cascade with one shard per card against the plain one and
@@ -329,6 +339,9 @@ KERNEL_META = {
                           "collaborative_distillation_tpu/ops/pallas/pool.py:96"),
     "conv3x3_up_bf16": ("conv3x3_bf16.cu",
                         "collaborative_distillation_tpu/ops/pallas/pool.py:141"),
+    # no TPU kernel: the reference's WCT calls a library solver
+    "sym_eigh": ("eigh.cu", "none (jnp.linalg.eigh at "
+                 "collaborative_distillation_tpu/ops/wct_transform.py:71)"),
 }
 # the bf16 engine's kernel for each float32 one (sum_gram runs on a float32
 # copy of the features, as the reference upcasts before its kernel)
@@ -467,6 +480,11 @@ STAGE_TOL = 1e-4
 RELU_FLIP_SHARE = 1e-5
 GRAM_TOL = 2e-5
 COV64_TOL = 1e-4
+# sym_eigh in float32 against float64 (phases 2, 11): eigenvalues and the
+# reconstruction relative to the largest eigenvalue, V's orthogonality (the
+# kernel reads at most 3.6e-5, cuSOLVER's float32 eigh 3.8e-5 on the same
+# matrices)
+EIGH_TOL = 1e-4
 PSNR_MIN_DB = 40.0
 CACHE_TOL = 1e-6
 # nvJPEG against libjpeg's decodes in data/jpeg_fixture.npz (phase 6a): the
@@ -546,6 +564,15 @@ def _decoder_calls(calls, layer_of, k, spec, hh, ww, fused=True):
     return hh, ww
 
 
+def _eigh_calls(calls, c) -> None:
+    """Add one stage's decompositions: one ``sym_eigh`` launch of the
+    content's and the style's (C, C) covariances up to the kernel's width
+    (wider ones go to the library)."""
+    from collaborative_distillation_tpu_torch.ops.cuda.eigh import MAX_N
+    if c <= MAX_N:
+        calls[("sym_eigh", (2, c))] += 1
+
+
 def path_calls(pyramid, stages, h, w, style=True, fused=True):
     """Kernel calls of one cascade on an (h, w) content and style of the same
     size: {(kernel, shape): count}, plus {shape: (stage, part, layer)} naming
@@ -558,6 +585,7 @@ def path_calls(pyramid, stages, h, w, style=True, fused=True):
         for _ in ("style", "content") if style else ("content",):
             hh, ww = _encoder_calls(calls, layer_of, k, es, h, w, fused)
             calls[("sum_gram", (hh * ww, es.out_channels))] += 1
+        _eigh_calls(calls, es.out_channels)
         assert _decoder_calls(calls, layer_of, k, ds, hh, ww, fused) == (h, w)
     return calls, layer_of
 
@@ -585,6 +613,7 @@ def slab_path_calls(pyramid, stages, margins, slab, h, w, sh, sw, cache_bytes, s
         for _ in range(n_slabs):
             fh, fw = _encoder_calls(calls, layer_of, k, es, rows, w, fused)
             calls[("sum_gram", (slab // down * fw, c))] += 1
+        _eigh_calls(calls, c)
         for _ in range(n_slabs):
             if not cache:
                 _encoder_calls(calls, layer_of, k, es, rows, w, fused)
@@ -616,6 +645,7 @@ def sharded_path_calls(pyramid, stages, margins, slab, space, h, w, sh, sw, devi
         c, down = es.out_channels, 2 ** (k - 1)
         hh, ww = _encoder_calls(calls, layer_of, k, es, sh, sw, fused)
         calls[("sum_gram", (hh * ww, c))] += 1
+        _eigh_calls(calls, c)
         hm = 2 * margins[k]
         rows = slab + hm
         for n_shards in per_card.values():
@@ -693,6 +723,7 @@ def per_conv_path_calls(pyramid, stages, rows, w, sh, sw) -> Counter:
         c, down = es.out_channels, 2 ** (k - 1)
         hh, ww = _encoder_calls(calls, {}, k, es, sh, sw)
         calls[("sum_gram", (hh * ww, c))] += 1
+        _eigh_calls(calls, c)
         for h in rows:
             f = 1
             for l in es.layers:
@@ -770,6 +801,14 @@ def work(kernel, shape, itemsize=4):
         # each per row; the column sum and the shift subtraction p*c each
         p, c = shape[:2]
         return 4 * (p * c + c + c * c + c), p * c * (c + 1) + 2 * p * c
+    if kernel == "sym_eigh":
+        # B matrices read and B eigenvalue vectors and eigenvector matrices
+        # written; what the problem needs, not the Jacobi sweeps' work (which
+        # depends on the data): a symmetric eigendecomposition with vectors,
+        # ~9 n^3 operations a matrix by the tridiagonal QR route (Golub and
+        # Van Loan)
+        b, n = shape
+        return 4 * b * (2 * n * n + n), 9 * b * n ** 3
     if kernel == "conv3x3_halo":
         # what the halo staging adds to the conv: the neighbours' boundary
         # rows, read once (a null side reads nothing new)
@@ -876,6 +915,8 @@ class Bench:
 
     def run(self, kernel, shape, layer=None, timed=False, reps=10):
         with self.torch.no_grad():
+            if kernel == "sym_eigh":
+                return self.run_eigh(shape, timed, reps)
             if kernel.removesuffix("_bf16") in FUSED_KERNELS:
                 return self._run_fused(kernel, shape, layer, timed, reps)
             if KERNEL_OF.get(kernel, kernel) in SHARDED_ONLY:
@@ -883,6 +924,55 @@ class Bench:
             if kernel in F32_OF:
                 return self._run_bf16(kernel, shape, layer, timed, reps)
             return self._run(kernel, shape, layer, timed, reps)
+
+    def run_eigh(self, shape, timed=False, reps=10, a=None, label=None):
+        """``sym_eigh`` on a (B, n) shape's stack: ``a`` (a cascade's own
+        covariances) or X^T X / 4n of a seeded (4n, n) X a matrix. Each
+        eigenvalue against float64's, the reconstruction V diag(w) V^T
+        against the input (both relative to the largest eigenvalue) and V's
+        orthogonality within EIGH_TOL, ascending, the sweeps under the cap.
+        Timed: the plain version (its sweeps in PyTorch) and, as
+        ``library_ms``, ``torch.linalg.eigh`` one matrix a call, what the port
+        calls for wider covariances."""
+        torch = self.torch
+        from collaborative_distillation_tpu_torch.ops.cuda import eigh as ke
+        b, n = shape
+        if a is None:
+            x = torch.randn(b, 4 * n, n, generator=self.gen, device="cuda")
+            a = (x.mT @ x / (4 * n)).contiguous()
+        w, v, sweeps = ke.sym_eigh(a)
+        a64, w32, v32 = a.double(), w.double(), v.double()
+        w64 = torch.linalg.eigh(a64)[0]
+        scale = w64.abs().amax(1)
+        abs_err = float((w32 - w64).abs().max())
+        rel_err = float(((w32 - w64).abs().amax(1) / scale).max())
+        rec = float((((v32 * w32[:, None, :]) @ v32.mT - a64).abs().amax((1, 2)) / scale).max())
+        eye = torch.eye(n, dtype=torch.float64, device="cuda")
+        orth = float((v32.mT @ v32 - eye).abs().max())
+        ascending = bool((w[:, 1:] >= w[:, :-1]).all())
+        swept = [int(s) for s in sweeps]
+        _, _, plain_sweeps = ke.sym_eigh_plain(a)
+        row = {"kernel": "sym_eigh", "shape": list(shape), "max_abs_err": abs_err,
+               "max_rel_err": rel_err, "reconstruction_rel_err": rec, "orthogonality_err": orth,
+               "sweeps": swept, "plain_sweeps": plain_sweeps.tolist(),
+               "min_over_max_eigenvalue": (w64[:, 0] / scale).tolist(),
+               **({"stage": label} if label else {})}
+        row["ok"] = (max(rel_err, rec, orth) <= EIGH_TOL and ascending
+                     and max(swept) < ke.MAX_SWEEPS)
+        if not row["ok"]:
+            raise AssertionError(f"sym_eigh{tuple(shape)} {label or ''}: eigenvalues rel err "
+                                 f"{rel_err:.3e}, reconstruction {rec:.3e}, orthogonality "
+                                 f"{orth:.3e} (tol {EIGH_TOL}), ascending {ascending}, sweeps "
+                                 f"{swept} (cap {ke.MAX_SWEEPS})")
+        if timed:
+            nbytes, flops = work("sym_eigh", shape)
+            row.update(ms=cuda_ms(torch, lambda: ke.sym_eigh(a), reps),
+                       plain_ms=cuda_ms(torch, lambda: ke.sym_eigh_plain(a), 1),
+                       library_ms=cuda_ms(torch, lambda: [torch.linalg.eigh(m) for m in a],
+                                          reps),
+                       bytes_ms=nbytes / PEAK_BYTES * 1e3,
+                       flops_ms=flops / PEAK_FP32_FLOPS * 1e3)
+        return row
 
     def _run_fused(self, kernel, shape, layer, timed, reps):
         """``conv3x3_pool`` or ``conv3x3_up`` (``_bf16``: on bf16 maps) at
@@ -2184,6 +2274,65 @@ def _zero(kc) -> None:
     kc.conv3x3_reflect_bf16.halo_launches = 0
     kc.conv3x3_reflect.by_template.clear()
     kc.conv3x3_reflect_bf16.by_template.clear()
+
+
+def eigh_phase(torch, kc, bench, engines) -> dict:
+    """Phase 11: ``sym_eigh`` at every stage shape (2 x C) on the stacks of
+    covariances each cascade of ``engines`` ({label: (engine, content,
+    style)}, device maps) hands it, recorded in one warm cascade: each
+    held to float64 and timed beside the bound, its plain version and
+    ``torch.linalg.eigh`` (``library_ms``, one matrix a call), with its
+    sweeps; then each cascade once more under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises at any host
+    sync, with the counters read around it: every stage's covariances on
+    the kernel, one launch a stage, none on the library."""
+    from collaborative_distillation_tpu_torch.ops import wct_transform as tw
+    from collaborative_distillation_tpu_torch.utils.profiling import counters
+    import types
+    out = {}
+    ke = tw._keigh
+    for label, (eng, img, sty) in engines.items():
+        stacks = []
+        # the wrapper counts its launches on its own name: leave the module as it is
+        tw._keigh = types.SimpleNamespace(
+            MAX_N=ke.MAX_N, sym_eigh=lambda a: stacks.append(a.clone()) or ke.sym_eigh(a))
+        try:
+            with torch.inference_mode():
+                eng.stylize_device(img, sty)
+        finally:
+            tw._keigh = ke
+        rows = [bench.run_eigh(tuple(a.shape[:2]), timed=True, reps=20, a=a,
+                               label=f"stage {k}")
+                for k, a in zip(eng.stages, stacks)]
+        for r in rows:
+            r["calls"] = 1
+            log(f"phase 11: {label} {r['stage']} sym_eigh{tuple(r['shape'])} {r['ms']:.4f} ms, "
+                f"bound {max(r['bytes_ms'], r['flops_ms']):.5f}, plain {r['plain_ms']:.2f}, "
+                f"torch.linalg.eigh {r['library_ms']:.4f}; sweeps {r['sweeps']}; eigenvalues "
+                f"rel err {r['max_rel_err']:.2e}, reconstruction "
+                f"{r['reconstruction_rel_err']:.2e}, orthogonality {r['orthogonality_err']:.2e}")
+        with torch.inference_mode():
+            eng.stylize_device(img, sty)
+            torch.cuda.synchronize()
+            before, launched = counters(), kc.sym_eigh.launches
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eng.stylize_device(img, sty)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+        after = counters()
+        got = {"eigh_kernel": after["eigh_kernel"] - before["eigh_kernel"],
+               "eigh_library": after["eigh_library"] - before["eigh_library"],
+               "sym_eigh_launches": kc.sym_eigh.launches - launched}
+        stages = len(eng.stages)
+        want = {"eigh_kernel": 2 * stages, "eigh_library": 0, "sym_eigh_launches": stages}
+        log(f"phase 11: {label} under sync debug mode 'error': no host sync; {got} "
+            f"(predicted {want})")
+        if got != want:
+            raise AssertionError(f"phase 11: {label}: {got} != {want}")
+        out[label] = {"counts": got, "per_cascade": path_times(rows), "shapes": rows}
+    return out
 
 
 def per_conv_run(kc, engine, img, sty):
@@ -5549,6 +5698,19 @@ def main() -> int:
         print(smi)
         return 0
 
+    if "--eigh" in sys.argv[1:]:
+        # phase 11 alone (and phase 1's build)
+        with torch.inference_mode():
+            cases = {"UHD slab": (slab_eng, slab_eng._prep(c_uhd), slab_eng._prep(s2k)),
+                     "2048^2 plain": (eng, eng._prep(c2k), eng._prep(s2k))}
+        detail["eigh"] = eigh_phase(torch, kc, bench, cases)
+        os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(HERE, "chiprun_out", "chip_smoke_eigh.json"), "w") as f:
+            json.dump(detail, f, indent=1)
+        print(json.dumps({k: v["per_cascade"] for k, v in detail["eigh"].items()}))
+        print(smi)
+        return 0
+
     # ---- phase 2: kernel vs plain at the path's shapes ---------------------
     calls512, layers512 = path_calls(pyr, eng.stages, 512, 512)
     calls2k, layers2k = path_calls(pyr, eng.stages, 2048, 2048)
@@ -6049,6 +6211,11 @@ def main() -> int:
             **({"by_plan_ms": dict(by_plan)} if name == "conv3x3_reflect" else {})})
     detail["shapes_timed"] = rows + rows_sg_uhd + rows_sep_uhd + rows_fused_uhd
     detail["checks"] = checks
+    # ---- phase 11: sym_eigh on the cascades' own covariances -----------------
+    with torch.inference_mode():
+        detail["eigh"] = eigh_phase(torch, kc, bench, {
+            "UHD slab": (slab_eng, slab_eng._prep(c_uhd), slab_eng._prep(s2k)),
+            "2048^2 plain": (eng, eng._prep(c2k), eng._prep(s2k))})
 
     # warm cascade: median of 5, and one run split by stage
     with torch.inference_mode():

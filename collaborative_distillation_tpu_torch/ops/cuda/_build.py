@@ -53,6 +53,7 @@ _SIGNATURES = {
     "cd_conv3x3_bf16_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "cd_scale_reduce_u8": [_P, _P, _I, _I, _I, _P],
     "cd_box_resize_u8": [_P, _P, _I, _I, _I, _I, _P],
+    "cd_sym_eigh": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
 }
 
 _lock = threading.Lock()

@@ -5,20 +5,29 @@ gets its result back in bf16, as the reference's bf16 engine does.
 
 The channel covariance comes from the ``sum_gram`` kernel on the card (its
 plain version on the CPU); the matrix inverse square root and square root
-from ``torch.linalg.eigh`` (a library eigensolver, as ``jnp.linalg.eigh`` is
-in the reference) or from a coupled Newton-Schulz iteration of plain
-products; whitening and coloring collapse into one C x C coloring matrix
-applied as one (P, C) x (C, C) product. The slab cascade folds the whole
-transform into one affine map applied by the ``conv1x1_bias`` kernel
-(:func:`wct_apply_folded`).
+from a symmetric eigendecomposition or from a coupled Newton-Schulz
+iteration of plain products; whitening and coloring collapse into one C x C
+coloring matrix applied as one (P, C) x (C, C) product. The slab cascade
+folds the whole transform into one affine map applied by the
+``conv1x1_bias`` kernel (:func:`wct_apply_folded`).
+
+The eigendecomposition: on the card, covariances up to ``sym_eigh``'s 128
+channels go to that kernel, the content's and the style's in one launch,
+and the host waits for nothing; wider ones, and every one on the CPU, to
+``torch.linalg.eigh`` (a library eigensolver, as ``jnp.linalg.eigh`` is in
+the reference), one matrix a call. ``EIGH`` counts the matrices each took.
+A blend weight ``alpha`` given as a number stays on the host, a float32
+scalar operand of the card's kernels, never a copy to the card.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .conv import on_card
 from .cuda import conv1x1 as _k1x1
+from .cuda import eigh as _keigh
 from .cuda import stats as _kstats
 
 __all__ = [
@@ -31,10 +40,15 @@ __all__ = [
     "coloring_matrix",
     "wct_transform",
     "wct_apply_folded",
+    "alpha_on",
+    "EIGH",
 ]
 
 # rows whose mean serves as the Gram's shift (see feature_stats)
 _SHIFT_ROWS = 4096
+
+# matrices decomposed by each path (utils.profiling.counters reads them)
+EIGH = {"kernel": 0, "library": 0}
 
 
 def feature_stats(feat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -83,6 +97,43 @@ def stats_from_sums(shift: torch.Tensor, s: torch.Tensor, g: torch.Tensor,
     return mean, cov
 
 
+def _eigh(covs: torch.Tensor, eps: float):
+    """``(lam, v, poison)`` of a (B, C, C) stack of covariances: each with
+    its non-finite entries zeroed and ``eps`` added to its diagonal,
+    decomposed (eigenvalues ascending), and a (B,) factor, NaN where the
+    matrix had a non-finite entry and 1 elsewhere: ``torch.linalg.eigh``
+    raises on such a matrix, and the kernel is only ever given finite ones.
+    The kernel takes the whole stack in one launch where it lies on the
+    card, is float32 and C <= ``sym_eigh``'s limit; otherwise the library,
+    one matrix a call. No host sync either way on the kernel's path."""
+    c = covs.shape[-1]
+    finite = torch.isfinite(covs)
+    poison = torch.where(finite.flatten(1).all(1), 1.0, float("nan")).to(covs.dtype)
+    covs = torch.where(finite, covs, 0.0)
+    covs = covs + eps * torch.eye(c, dtype=covs.dtype, device=covs.device)
+    with span("cd.eigh"):
+        if on_card(covs) and covs.dtype == torch.float32 and c <= _keigh.MAX_N:
+            EIGH["kernel"] += covs.shape[0]
+            lam, v, _ = _keigh.sym_eigh(covs.contiguous())
+        else:
+            EIGH["library"] += covs.shape[0]
+            lam, v = zip(*(torch.linalg.eigh(a) for a in covs))
+    return lam, v, poison
+
+
+def _root(lam: torch.Tensor, v: torch.Tensor, poison: torch.Tensor, *, inverse: bool,
+          eps: float, truncate: float) -> torch.Tensor:
+    """``cov^-1/2`` (``inverse``) or ``cov^1/2`` from one decomposition:
+    eigenvalues at or below ``truncate * lambda_max`` are dropped rather
+    than inverted (the reference's rank cutoff, util_wct.py:25/82-89)."""
+    lam_max = torch.clamp(lam[-1], min=eps)
+    keep = lam > truncate * lam_max
+    s = torch.rsqrt(torch.clamp(lam, min=1e-30)) if inverse else torch.sqrt(
+        torch.clamp(lam, min=0.0))
+    s = torch.where(keep, s, torch.zeros_like(lam))
+    return ((v * s[None, :]) @ v.T) * poison
+
+
 def matrix_isqrt_sqrt_eigh(cov: torch.Tensor, *, eps: float = 1e-8,
                            truncate: float = 1e-8) -> tuple[torch.Tensor, torch.Tensor]:
     """(cov^-1/2, cov^1/2) via symmetric eigendecomposition.
@@ -95,20 +146,10 @@ def matrix_isqrt_sqrt_eigh(cov: torch.Tensor, *, eps: float = 1e-8,
     on such a matrix, so it gets zeros in their place and the roots are
     multiplied by NaN after, with no host sync.
     """
-    c = cov.shape[0]
-    finite = torch.isfinite(cov)
-    poison = torch.where(finite.all(), 1.0, float("nan")).to(cov.dtype)
-    cov = torch.where(finite, cov, 0.0)
-    cov = cov + eps * torch.eye(c, dtype=cov.dtype, device=cov.device)
-    lam, v = torch.linalg.eigh(cov)
-    lam_max = torch.clamp(lam[-1], min=eps)
-    keep = lam > truncate * lam_max
-    zero = torch.zeros_like(lam)
-    inv_s = torch.where(keep, torch.rsqrt(torch.clamp(lam, min=1e-30)), zero)
-    sq_s = torch.where(keep, torch.sqrt(torch.clamp(lam, min=0.0)), zero)
-    isqrt = (v * inv_s[None, :]) @ v.T
-    sqrt = (v * sq_s[None, :]) @ v.T
-    return isqrt * poison, sqrt * poison
+    (lam,), (v,), poison = _eigh(cov[None], eps)
+    kw = dict(eps=eps, truncate=truncate)
+    return (_root(lam, v, poison[0], inverse=True, **kw),
+            _root(lam, v, poison[0], inverse=False, **kw))
 
 
 def _lambda_max_estimate(a: torch.Tensor, iters: int = 8) -> torch.Tensor:
@@ -147,14 +188,25 @@ def coloring_matrix(c_cov: torch.Tensor, s_cov: torch.Tensor, *, method: str = "
                     eps: float = 1e-8, newton_iters: int = 24) -> torch.Tensor:
     """T = Cs^{1/2} @ Cc^{-1/2}: whitening and coloring fused into one C x C map."""
     if method == "eigh":
-        c_isqrt, _ = matrix_isqrt_sqrt_eigh(c_cov, eps=eps)
-        _, s_sqrt = matrix_isqrt_sqrt_eigh(s_cov, eps=eps)
+        # both decompositions at once: one kernel launch of two blocks on the card
+        lam, v, poison = _eigh(torch.stack([c_cov, s_cov]), eps)
+        kw = dict(eps=eps, truncate=1e-8)
+        c_isqrt = _root(lam[0], v[0], poison[0], inverse=True, **kw)
+        s_sqrt = _root(lam[1], v[1], poison[1], inverse=False, **kw)
     elif method == "newton":
         c_isqrt, _ = matrix_isqrt_sqrt_newton(c_cov, eps=eps, iters=newton_iters)
         _, s_sqrt = matrix_isqrt_sqrt_newton(s_cov, eps=eps, iters=newton_iters)
     else:
         raise ValueError(f"unknown WCT method {method!r}")
     return s_sqrt @ c_isqrt
+
+
+def alpha_on(alpha, device) -> torch.Tensor:
+    """``alpha`` as a float32 operand of work on ``device``: a number, or a
+    host tensor, as a host scalar (the card's kernels take it as an
+    argument: no copy, no wait), a device tensor on ``device``."""
+    a = torch.as_tensor(alpha, dtype=torch.float32)
+    return a if a.device.type == "cpu" else a.to(device)
 
 
 def _wct_single(content_feat, style_mean, style_cov, alpha, *, method, eps,
@@ -168,7 +220,7 @@ def _wct_single(content_feat, style_mean, style_cov, alpha, *, method, eps,
                         newton_iters=newton_iters)
     # target = T @ (x - c_mean) + s_mean, applied row-wise: (P,C) @ T^T
     target = (x - c_mean) @ t.T + style_mean.float()
-    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
+    alpha = alpha_on(alpha, x.device)
     out = alpha * target + (1.0 - alpha) * x
     return out.reshape(shape).to(content_feat.dtype)
 
@@ -209,7 +261,7 @@ def wct_apply_folded(x: torch.Tensor, t: torch.Tensor, c_mean: torch.Tensor,
     bfloat16 ``x`` takes ``M`` in bf16 and ``beta`` in float32 and gives
     bf16 (the reference's ``packed_wct_apply`` in its bf16 engine)."""
     c = t.shape[0]
-    a = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
+    a = alpha_on(alpha, x.device)
     tt = t.float().T
     m = (a * tt + (1.0 - a) * torch.eye(c, dtype=torch.float32, device=x.device)).contiguous()
     beta = (a * (s_mean.float() - c_mean.float() @ tt)).contiguous()

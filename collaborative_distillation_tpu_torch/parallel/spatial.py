@@ -47,7 +47,7 @@ from ..models.vgg import runs_conv0
 from ..ops.conv import conv1x1, conv3x3, max_pool_2x2, on_card, upsample_nearest_2x
 from ..ops.cuda import halo as _khalo
 from ..ops.cuda import peer as _peer
-from ..ops.wct_transform import (coloring_matrix, gram_shift, shifted_sum_gram,
+from ..ops.wct_transform import (alpha_on, coloring_matrix, gram_shift, shifted_sum_gram,
                                  stats_from_sums, wct_apply_folded)
 from ..wct.slab import SlabCascade
 from .mesh import Mesh
@@ -74,10 +74,6 @@ def _to(tree, device):
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     return type(tree)((k, _to(v, device)) for k, v in tree.items())
-
-
-def _alpha_on(alpha, device) -> torch.Tensor:
-    return torch.as_tensor(alpha, dtype=torch.float32, device=device)
 
 
 def _per_device(tree, devices):
@@ -205,7 +201,7 @@ def wct_transform_spatial(content_feats, style_mean, style_cov, alpha, *,
     t = coloring_matrix(c_cov, style_cov.float().to(dev), method=method, eps=eps,
                         newton_iters=newton_iters)
     return [wct_apply_folded(f, t.to(f.device), c_mean.to(f.device),
-                             style_mean.to(f.device), _alpha_on(alpha, f.device))
+                             style_mean.to(f.device), alpha_on(alpha, f.device))
             for f in content_feats]
 
 
@@ -470,7 +466,7 @@ def build_tiled_slab_cascade(pyramid, mesh: Mesh, *, stages=(5, 4, 3, 2, 1),
         devs = [devices[d] for d in live]
         cas = [helpers[dev] for dev in devs]
         dev0 = devs[0]
-        alphas = {dev: _alpha_on(alpha, dev) for dev in devs}
+        alphas = {dev: alpha_on(alpha, dev) for dev in devs}
         parts = [shards[d] for d in live]
         ext = None   # the stage's extended shards, written by the stage before
         for i, k in enumerate(stages):

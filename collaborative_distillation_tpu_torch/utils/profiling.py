@@ -8,7 +8,8 @@
   their device time, its nested spans' included. Otherwise it is one shared
   null context: a flag test, no allocation, no dispatcher call.
 * :func:`counters` — a flat snapshot of the port's counts: the kernel
-  launches and the pinned host buffers the host boundary makes.
+  launches, the pinned host buffers the host boundary makes, and the WCT's
+  decompositions by path.
 * :func:`trace` — context manager that profiles the enclosed block (host
   and, on a card, CUDA activity) and writes a Chrome trace (``trace.json``,
   open in Perfetto or ``chrome://tracing``) into a directory; the spans
@@ -62,13 +63,18 @@ def counters() -> dict[str, int]:
       there);
     * ``pinned_buffers``, ``pinned_bytes``: the pinned host buffers made
       through :func:`.transfer.pinned_empty` (``push``'s staging, ``fetch``'s
-      output, the slab path's band buffers), and their bytes.
+      output, the slab path's band buffers), and their bytes;
+    * ``eigh_kernel``, ``eigh_library``: the covariances the WCT decomposed
+      with the ``sym_eigh`` kernel and with ``torch.linalg.eigh``
+      (:data:`..ops.wct_transform.EIGH`).
 
     Take two snapshots and subtract."""
     from ..ops.cuda import BF16_KERNELS, KERNELS
+    from ..ops.wct_transform import EIGH
     from .transfer import PINNED
     return {"launches": sum(k.launches for k in KERNELS + BF16_KERNELS),
-            "pinned_buffers": PINNED["buffers"], "pinned_bytes": PINNED["bytes"]}
+            "pinned_buffers": PINNED["buffers"], "pinned_bytes": PINNED["bytes"],
+            "eigh_kernel": EIGH["kernel"], "eigh_library": EIGH["library"]}
 
 
 @contextlib.contextmanager

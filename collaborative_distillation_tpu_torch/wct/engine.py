@@ -860,7 +860,6 @@ class WCTEngine:
                 raise ValueError(
                     "pwct=True is only supported on the plain per-stage path; "
                     "construct the engine without slab_rows/space for photo-WCT")
-            alpha = torch.as_tensor(alpha, dtype=torch.float32, device=self.device)
             if ((self.slab is not None or self._tiled_fn is not None)
                     and (img.shape[0] > 1 or sty.shape[0] > 1)):
                 raise ValueError("the slab and sharded paths are per-image (their statistics "

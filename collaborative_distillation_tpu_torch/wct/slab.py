@@ -266,7 +266,6 @@ class SlabCascade:
         in ``feature_cache_bytes``; the coloring matrix; pass 2. With
         ``tail``, stop before the last stage's pass 2 and return ``(img, t,
         c_mean, s_mean, kept)`` for :meth:`stream_last_stage`."""
-        alpha = torch.as_tensor(alpha, dtype=torch.float32, device=img.device)
         for k in self.stages:
             s_mean, s_cov = stats_of(k)
             keep = (self.feature_bytes(k, *img.shape[1:3], img.element_size())
@@ -372,7 +371,6 @@ class SlabCascade:
         if not even:
             emit = "u8"
         planes = emit != "u8"
-        alpha = torch.as_tensor(alpha, dtype=torch.float32, device=img.device)
         if on_band is not None:
             out = None
         elif emit == "planes":

@@ -174,13 +174,15 @@ def test_profile_writes_a_trace(grid, tmp_path):
 
 def test_profile_writes_the_counters(grid, tmp_path):
     """The plain CPU path launches none of the port's kernels and pins
-    nothing: every count's change is 0."""
+    nothing, and its WCT decomposes each stage's content and style
+    covariances with the library: two a stage of the one pair."""
     args = ["--mode", "16x", "--contentPath", str(grid / "one"), "--stylePath",
             str(grid / "one"), "--outf", str(tmp_path / "o"), "--device", "cpu",
             "--profile", str(tmp_path / "prof")]
     assert tstylize.main(args) == 0
     with open(tmp_path / "prof" / "counters.json") as f:
-        assert json.load(f) == {"launches": 0, "pinned_buffers": 0, "pinned_bytes": 0}
+        assert json.load(f) == {"launches": 0, "pinned_buffers": 0, "pinned_bytes": 0,
+                                "eigh_kernel": 0, "eigh_library": 10}
 
 
 @pytest.mark.parametrize("cli", ["stylize", "serve", "eval"])

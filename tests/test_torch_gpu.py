@@ -6,6 +6,8 @@ them from the repository root without the JAX conftest:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 """
 
+import types
+
 import pytest
 import torch
 
@@ -1659,3 +1661,121 @@ def test_streamed_tail_counts_its_band_buffers(monkeypatch):
     every = made["bands"] + made["transfer"]
     assert after["pinned_buffers"] - before["pinned_buffers"] == len(every)
     assert after["pinned_bytes"] - before["pinned_bytes"] == sum(b.nbytes for b in every)
+
+
+def _photo_pair():
+    import os
+
+    import numpy as np
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with np.load(os.path.join(root, "collaborative_distillation_tpu_torch", "data",
+                              "photo_pair_512.npz")) as d:
+        return d["content"], d["style"]
+
+
+def _tiled(img, h, w):
+    """A host uint8 image reflect-tiled to (h, w) on the card, in [0, 1]."""
+    from collaborative_distillation_tpu_torch.ops.pad import reflect_index
+    x = torch.from_numpy(img).cuda()
+    x = x.index_select(0, reflect_index(x.shape[0], 0, h - x.shape[0], x.device))
+    return x.index_select(1, reflect_index(x.shape[1], 0, w - x.shape[1], x.device)).float() / 255
+
+
+# sym_eigh in float32 against float64: eigenvalues and the reconstruction
+# relative to the largest eigenvalue, V's orthogonality. The kernel reads at
+# most 3.6e-5 (orthogonality at n = 128), cuSOLVER's float32 eigh 3.8e-5 on
+# the same matrices: rounding of some hundreds of rotations a column
+EIGH_TOL = 1e-4
+
+
+def _check_eigh(a, w, v, sweeps):
+    from collaborative_distillation_tpu_torch.ops.cuda import eigh as ke
+    a64, w32, v32 = a.double(), w.double(), v.double()
+    w64 = torch.linalg.eigh(a64)[0]
+    scale = w64.abs().amax(1)
+    n = a.shape[-1]
+    assert float(((w32 - w64).abs().amax(1) / scale).max()) <= EIGH_TOL
+    rec = ((v32 * w32[:, None, :]) @ v32.mT - a64).abs().amax((1, 2)) / scale
+    assert float(rec.max()) <= EIGH_TOL
+    eye = torch.eye(n, dtype=torch.float64, device="cuda")
+    assert float((v32.mT @ v32 - eye).abs().max()) <= EIGH_TOL
+    assert bool((w[:, 1:] >= w[:, :-1]).all())
+    assert int(sweeps.max()) < ke.MAX_SWEEPS
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 24, 32, 64, 127, 128])
+def test_sym_eigh_matches_float64(gen, n):
+    """X^T X of a tall X and of one of rank n // 3, in one launch."""
+    from collaborative_distillation_tpu_torch.ops.cuda import eigh as ke
+    x = torch.randn(2, 4 * n + 5, n, generator=gen, device="cuda")
+    x[1, max(n // 3, 1):] = 0
+    a = (x.mT @ x).contiguous()
+    launched = ke.sym_eigh.launches
+    w, v, sweeps = ke.sym_eigh(a)
+    torch.cuda.synchronize()
+    assert ke.sym_eigh.launches == launched + 1 and sweeps.dtype == torch.int32
+    _check_eigh(a, w, v, sweeps)
+    # the kernel reads the lower triangle, as torch.linalg.eigh does
+    w2, v2, _ = ke.sym_eigh((torch.tril(a) + 7.0 * torch.triu(torch.ones_like(a), 1))
+                            .contiguous())
+    assert torch.equal(w, w2) and torch.equal(v, v2)
+
+
+@pytest.mark.parametrize("path", ["uhd_slab", "plain_2k"])
+def test_sym_eigh_on_the_cascades_covariances(path):
+    """The stacks the cd16x UHD slab and 2048^2 plain cascades hand the
+    kernel, one a stage: each within EIGH_TOL of float64, sweeps under the
+    cap."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from collaborative_distillation_tpu_torch.ops import wct_transform as tw
+    from collaborative_distillation_tpu_torch.ops.cuda import eigh as ke
+    from collaborative_distillation_tpu_torch.wct.engine import WCTEngine
+    c, s = _photo_pair()
+    eng, hw = ((WCTEngine(mode="16x", slab_rows=1024), (4096, 10240)) if path == "uhd_slab"
+               else (WCTEngine(mode="16x"), (2048, 2048)))
+    img, sty = eng._prep(_tiled(c, *hw)), eng._prep(_tiled(s, 2048, 2048))
+    stacks = []
+    try:   # the wrapper counts its launches on its own name: leave its module as it is
+        tw._keigh = types.SimpleNamespace(
+            MAX_N=ke.MAX_N, sym_eigh=lambda a: stacks.append(a.clone()) or ke.sym_eigh(a))
+        with torch.inference_mode():
+            eng.stylize_device(img, sty)
+    finally:
+        tw._keigh = ke
+    widths = [eng.pyramid[k]["enc_spec"].out_channels for k in eng.stages]
+    assert [tuple(a.shape) for a in stacks] == [(2, c, c) for c in widths]
+    for a in stacks:
+        _check_eigh(a, *ke.sym_eigh(a))
+
+
+@pytest.mark.parametrize("path", ["uhd_slab", "plain_2k"])
+def test_cascade_runs_without_a_host_sync(path):
+    """A whole cd16x cascade, UHD slab or 2048^2 plain, under sync debug mode
+    "error", which raises at any call that waits for the card; for each
+    image, every stage's content and style covariances on the kernel, one
+    launch a stage, none on the library."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from collaborative_distillation_tpu_torch.utils.profiling import counters
+    from collaborative_distillation_tpu_torch.wct.engine import WCTEngine
+    c, s = _photo_pair()
+    eng, hw = ((WCTEngine(mode="16x", slab_rows=1024), (4096, 10240)) if path == "uhd_slab"
+               else (WCTEngine(mode="16x"), (2048, 2048)))
+    img, sty = eng._prep(_tiled(c, *hw)), eng._prep(_tiled(s, 2048, 2048))
+    with torch.inference_mode():
+        want = eng.stylize_device(img, sty)   # warm: builds, plans, allocator
+        torch.cuda.synchronize()
+        before, launched = counters(), kc.sym_eigh.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = eng.stylize_device(img, sty)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    after = counters()
+    stages = len(eng.stages)
+    assert (after["eigh_kernel"] - before["eigh_kernel"],
+            after["eigh_library"] - before["eigh_library"],
+            kc.sym_eigh.launches - launched) == (2 * stages, 0, stages)
+    assert torch.equal(got, want)

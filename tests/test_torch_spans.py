@@ -3,8 +3,8 @@
 Without a profiler a span is one shared null context and enters nothing;
 under ``torch.profiler`` each layer's span is recorded with the nesting
 PERF.md §3 gives: ``cd.upload``, ``cd.cascade`` and ``cd.readback`` at the
-top of a host call, ``cd.style`` and ``cd.wct`` inside the cascade, the
-3x3 convs inside those or the cascade, and in a training step
+top of a host call, ``cd.style`` and ``cd.wct`` inside the cascade, ``cd.eigh`` inside
+``cd.wct``, the 3x3 convs inside those or the cascade, and in a training step
 ``cd.train.forward`` and ``cd.train.optimizer``. ``counters`` sums the
 kernels' launch counts and the host boundary's pinned-buffer counts as
 they stand, and ``trace`` writes their change over a profiled block. Tiny shapes on the shipped 16x weights, one intra-op thread.
@@ -164,6 +164,16 @@ def test_slab_path_opens_wct_spans_for_sums_matrices_and_applies(engines):
 
 
 @pytest.mark.parametrize("path", ["plain", "slab"])
+def test_each_stage_decomposes_its_covariances_inside_a_wct_span(engines, path):
+    """One ``cd.eigh`` a stage, the content's and the style's covariances
+    together, inside the ``cd.wct`` of the coloring matrix."""
+    events = _recorded(lambda: engines[path].stylize(*_pair(path), as_uint8=True))
+    eighs = [e for e in events if e.name == "cd.eigh"]
+    assert len(eighs) == len(engines[path].stages)
+    assert all(_span_parent(e) == "cd.wct" for e in eighs)
+
+
+@pytest.mark.parametrize("path", ["plain", "slab"])
 def test_a_cached_style_opens_no_style_span(engines, path):
     content, style = _pair(path, seed=2)
     eng = engines[path]
@@ -221,7 +231,8 @@ def test_counters_sum_the_pinned_buffers_of_the_host_boundary(monkeypatch):
     after = counters()
     assert after["pinned_buffers"] - before["pinned_buffers"] == 7
     assert after["pinned_bytes"] - before["pinned_bytes"] == 1110
-    assert set(after) == {"launches", "pinned_buffers", "pinned_bytes"}
+    assert set(after) == {"launches", "pinned_buffers", "pinned_bytes", "eigh_kernel",
+                          "eigh_library"}
 
 
 def test_pinned_empty_counts_each_buffer_and_its_bytes(monkeypatch):
@@ -267,7 +278,8 @@ def test_trace_writes_the_counters_change_over_the_block(tmp_path, monkeypatch):
             transfer.PINNED["bytes"] += 96
     kc.conv3x3_reflect.launches += 9          # after the block: not counted
     with open(tmp_path / "prof" / "counters.json") as f:
-        assert json.load(f) == {"launches": 4, "pinned_buffers": 3, "pinned_bytes": 96}
+        assert json.load(f) == {"launches": 4, "pinned_buffers": 3, "pinned_bytes": 96,
+                                "eigh_kernel": 0, "eigh_library": 0}
     with open(tmp_path / "prof" / "trace.json") as f:
         assert any(e.get("name") == "cd.cascade" for e in json.load(f)["traceEvents"])
 
