@@ -29,3 +29,20 @@ def mfu_pct(r: dict):
 def per_item_ms(r: dict, key: str):
     tr = traced(r)
     return None if tr is None or tr[key] <= 0 else 1e3 * tr[key] / tr["items"]
+
+
+def span_ms(r: dict, name: str):
+    """Device ms an item inside the program's span ``name`` (the trace's
+    ``spans_s``); None where the span did not open or ran nothing on the
+    device."""
+    tr = traced(r)
+    s = tr["spans_s"].get(name, 0.0) if tr else 0.0
+    return None if s <= 0 else 1e3 * s / tr["items"]
+
+
+def span_opens(r: dict, name: str):
+    """Times an item the program's span ``name`` opened (the trace's
+    ``span_calls``); None where it never opened."""
+    tr = traced(r)
+    n = tr["span_calls"].get(name, 0) if tr else 0
+    return None if n <= 0 else n / tr["items"]

@@ -5,17 +5,28 @@ activity; the benchmark's own ranges mark the traced window
 (``bench.window``) and, on paced cells, each call (``bench.item``). The
 reduction keeps numbers, never the trace: the device's busy time (the union
 of its kernels, copies and sets) within the window, device time by kernel
-name, device time launched under named host ops (``aten::linalg_eigh``, the
-autograd engine's ``evaluate_function`` nodes), each call's wall and busy
-time, and the window's idle gaps by what the host was doing."""
+name, device time launched under the autograd engine's ``evaluate_function``
+nodes, the device time and count of each of the program's spans (host
+ranges named ``cd.*``), each call's wall and busy time, and the window's
+idle gaps by what the host was doing.
+
+A range the host opens has a card-side shadow in the trace (``CUDA``
+device type, ``is_user_annotation``), which covers no work of its own: the
+window, the calls and the spans are the host's ranges, never their
+shadows."""
 
 from __future__ import annotations
 
 import bisect
+import re
 from collections import Counter
 
 WINDOW = "bench.window"
 ITEM = "bench.item"
+SPAN = "cd."
+# a CUDA runtime or driver call on the host (cudaLaunchKernel, cuLaunchKernel,
+# cudaMemcpyAsync, ...): it carries the correlation id of the device event it starts
+_LAUNCH = re.compile(r"cu(da)?[A-Z]")
 
 
 class Tracer:
@@ -47,12 +58,43 @@ class Tracer:
         return reduce(self.prof.events(), self.items)
 
 
+def _on_card(e) -> bool:
+    return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+
 def _is_device(e) -> bool:
     """A kernel, copy or set on the card; not the device-side shadow of a
     host range (``record_function``), which covers no work of its own."""
-    return (str(getattr(e, "device_type", "")).endswith("CUDA")
-            and not getattr(e, "is_user_annotation", False)
+    return (_on_card(e) and not getattr(e, "is_user_annotation", False)
             and not e.name.startswith("bench."))
+
+
+def _spans(host, dev, w0, w1) -> tuple[dict, dict]:
+    """Device seconds and count of each program span (a host range named
+    ``cd.*``) that opens inside the window. A span's device time is that of
+    the kernels, copies and sets launched inside it, nested spans and host
+    ops included: the device events whose correlation ids are those of the
+    launches among the span's descendants, each counted once. Not
+    ``device_time_total`` and not an op's ``kernels``: the profiler's buffer
+    events inside an op that waits for the card carry kernels again, and
+    host ops number their ids apart from the launches, so an op's id can
+    be a foreign launch's."""
+    dur = {}
+    for e in dev:
+        dur[e.id] = dur.get(e.id, 0.0) + e.time_range.end - e.time_range.start
+    calls, launches = Counter(), {}
+    for e in host:
+        if not (e.name.startswith(SPAN) and w0 <= e.time_range.start <= w1):
+            continue
+        calls[e.name] += 1
+        ids, stack = launches.setdefault(e.name, set()), [e]
+        while stack:
+            x = stack.pop()
+            stack.extend(x.cpu_children)
+            if _LAUNCH.match(x.name):
+                ids.add(x.id)
+    seconds = {name: sum(dur.get(i, 0.0) for i in ids) / 1e6 for name, ids in launches.items()}
+    return seconds, dict(calls)
 
 
 def _merge(ivs):
@@ -78,7 +120,10 @@ def reduce(events, items: int) -> dict | None:
     """Times in seconds; None where the window range is missing."""
     cpu, dev = [], []
     for e in events:
-        (dev if _is_device(e) else cpu).append(e)
+        if _is_device(e):
+            dev.append(e)
+        elif not _on_card(e):
+            cpu.append(e)
     wins = [e for e in cpu if e.name == WINDOW]
     if not wins:
         return None
@@ -110,11 +155,12 @@ def reduce(events, items: int) -> dict | None:
     for a, b in sorted(gaps, key=lambda g: g[0] - g[1])[:5000]:
         idle[_doing(host, host_starts, (a + b) / 2)] += (b - a) / 1e6
     busy = sum(b - a for a, b in merged) / 1e6
+    spans_s, span_calls = _spans(cpu, dev, w0, w1)
     return {
         "window_s": (w1 - w0) / 1e6, "busy_s": busy, "items": items,
         "kernels_s": dict(by_name),
-        "eigh_s": under("aten::linalg_eigh"),
         "backward_s": under("autograd::engine::evaluate_function"),
+        "spans_s": spans_s, "span_calls": span_calls,
         "call_wall_s": [(b - a) / 1e6 for a, b in calls],
         "call_busy_s": [_busy_within(merged, starts, a, b) / 1e6 for a, b in calls],
         "device_ops": [[n, s] for n, s in by_name.most_common(10)],

@@ -5,9 +5,10 @@
 
 For each cell: the program's compared numbers on every ``--seeds`` seed
 (their largest is a limit's lower reading), then the control's on every
-``--control-seeds`` seed: the plain reference computed in TF32, the next
-precision below the configurations' float32, put in the program's place
-(its smallest is the upper reading). ``--fault`` plants one of
+``--control-seeds`` seed: the plain reference computed in the precision
+next below the configuration's (``reference/precision.py``: TF32 for
+float32, fp8 for bfloat16), put in the program's place (its smallest is
+the upper reading). ``--fault`` plants one of
 :data:`FAULTS` in the program for the program's seeds instead (a fault's
 readings are further upper readings). Each run is ``run.run_cell`` with a
 short window at the cell's own sizes. One JSON line a run on standard

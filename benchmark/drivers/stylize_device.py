@@ -13,7 +13,12 @@ import time
 
 from benchlib import checks, counts, device as dv, inputs, loop, weights
 from benchlib.trace import Tracer
-from reference import cascade as ref
+from reference import cascade as ref, precision as lower
+
+# the faults of control.FAULTS a cell of this driver can have: an answer
+# altered where it is produced
+HELD_TO = ("altered_answer",)
+
 
 
 def engine(torch, ctx, pyramid):
@@ -43,9 +48,9 @@ def run(ctx) -> dict:
 
         def call(c, s):
             return eng.stylize_device(c, s, alpha)
-    else:  # the control: the reference in TF32 in the program's place
+    else:  # the control: the reference a precision below, in the program's place
         def call(c, s):
-            return ref.stylize(pyramid, c, s, cfg, alpha=alpha, precision="tf32")
+            return ref.stylize(pyramid, c, s, cfg, alpha=alpha, precision=lower.control(cfg))
     ctx.mark("system")
     n = len(ring)
     for j in range(mix["warm_items"]):

@@ -4,9 +4,9 @@ fixed rate; a call's latency runs from when it was due to the uint8 result
 in host memory (upload, conversion, cascade, readback).
 
 Mix keys: ``content_hw``, ``style_hw``, ``ring`` (distinct host pairs),
-``rate_per_s`` (0: back to back), ``alpha``, ``warm_items``,
-``trace_items``, ``sample`` (answers compared with the reference, drawn
-from the seed among the first 2 x ring calls)."""
+``rate_per_s`` (0: back to back), ``host_threads`` (read by ``run.py``),
+``alpha``, ``warm_items``, ``trace_items``, ``sample`` (answers compared
+with the reference, drawn from the seed among the first 2 x ring calls)."""
 
 from __future__ import annotations
 
@@ -16,7 +16,12 @@ import time
 from benchlib import checks, counts, device as dv, inputs, loop, weights
 from benchlib.trace import Tracer
 from drivers.stylize_device import engine
-from reference import cascade as ref
+from reference import cascade as ref, precision as lower
+
+# the faults of control.FAULTS a cell of this driver can have: an answer
+# altered where it is produced
+HELD_TO = ("altered_answer",)
+
 
 
 def _u8(torch, x):
@@ -40,10 +45,10 @@ def run(ctx) -> dict:
 
         def call(c, s):
             return eng.stylize(c, s, alpha, as_uint8=True)
-    else:  # the control: the reference in TF32 in the program's place
+    else:  # the control: the reference a precision below, in the program's place
         def call(c, s):
             img = ref.stylize(pyramid, _float(torch, c, dev), _float(torch, s, dev), cfg,
-                              alpha=alpha, precision="tf32")
+                              alpha=alpha, precision=lower.control(cfg))
             return _u8(torch, img).cpu().numpy()
     ctx.mark("system")
     n = len(ring)

@@ -18,7 +18,12 @@ import time
 
 from benchlib import checks, counts, device as dv, inputs, loop, weights
 from benchlib.trace import Tracer
-from reference import train as ref
+from reference import precision as lower, train as ref
+
+# the faults of control.FAULTS a cell of this driver can have: a step that
+# leaves its state unchanged, a step over half its batch
+HELD_TO = ("unchanged_state", "half_batch")
+
 
 
 class _Program:
@@ -60,8 +65,8 @@ def run(ctx) -> dict:
               weights=mix["loss_weights"], lr=mix["lr"])
     if ctx.system == "program":
         system = _Program(ctx, weights.clone(student0), frozen)
-    else:  # the control: the reference in TF32 in the program's place
-        system = ref.Student(student0, frozen, precision="tf32", **kw)
+    else:  # the control: the reference a precision below, in the program's place
+        system = ref.Student(student0, frozen, precision=lower.control(cfg), **kw)
     ctx.mark("system")
     n_ref = mix["ref_steps"]
     got = {"losses": []}

@@ -7,8 +7,8 @@ cov + eps I; eigenvalues at or below truncate x the largest are dropped),
 add the style's mean, blend by alpha, decode. The image is reflect-padded
 at the bottom and right to a multiple of 16 first, cropped and clipped to
 [0, 1] last. A 3x3 conv is reflect-pad(1), conv, bias, ReLU; pools are 2x2
-max, upsamples nearest 2x. ``precision="tf32"`` rounds every conv's and
-product's operands to TF32: the control.
+max, upsamples nearest 2x. ``precision`` other than the default rounds
+every conv's and product's operands to it (``precision.py``): the control.
 
 The statistics are float32, as the configuration states, but their sums
 are accumulated in float64 and rounded once: a covariance summed by one
@@ -27,13 +27,11 @@ import torch.nn.functional as F
 
 from benchlib import arch
 
-from . import tf32
+from . import precision as lower
 
 
 def _mm(a, b, precision):
-    if precision == "tf32":
-        a, b = tf32.operand(a), tf32.operand(b)
-    return a @ b
+    return lower.operand(a, precision) @ lower.operand(b, precision)
 
 
 def conv(x, p, layer: arch.Layer | None, precision: str, *, relu: bool | None = None):
@@ -42,11 +40,8 @@ def conv(x, p, layer: arch.Layer | None, precision: str, *, relu: bool | None = 
     w = p["w"].permute(3, 2, 0, 1)
     if layer is not None and layer.kernel == 3:
         x = F.pad(x, (1, 1, 1, 1), mode="reflect")
-    if precision == "tf32":
-        x, w = tf32.operand(x), tf32.operand(w)
-    y = F.conv2d(x, w, p["b"])
-    if precision == "tf32":
-        y = tf32.grad(y)
+    y = lower.grad(F.conv2d(lower.operand(x, precision), lower.operand(w, precision), p["b"]),
+                   precision)
     on = layer.relu if relu is None else relu
     if on and layer is not None:
         return y.relu_() if not torch.is_grad_enabled() else F.relu(y)
@@ -81,7 +76,7 @@ def decode(params, x, cfg, stage, precision):
 def stats(f, precision):
     """Mean (C,) and covariance (C, C), /(P-1), of an NCHW map of one image:
     summed in float64, returned float32 (in the control: the covariance's
-    products on TF32 operands, summed in float32)."""
+    products on operands in its precision, summed in float32)."""
     c = f.shape[1]
     x = f[0].reshape(c, -1).double()
     mean = x.mean(1)

@@ -8,7 +8,7 @@ BD of the same stage.
     perc = sum_j MSE(BE relu{j}1 of the reconstruction, BE relu{j}1 of the batch)
 
 then Adam (lr, betas 0.9 / 0.999, eps 1e-8, bias-corrected) on the
-weighted sum. Float32 with TF32 off, or the control's TF32."""
+weighted sum. Float32, or the control's precision (``precision.py``)."""
 
 from __future__ import annotations
 

@@ -42,7 +42,7 @@ class Ctx:
     seconds: float
     trace: bool
     device: object
-    system: str = "program"      # or "control": the reference in TF32 in its place
+    system: str = "program"      # or "control": the reference a precision below
     t_start: float = T_START
     marks: dict = dataclasses.field(default_factory=dict)
 
@@ -77,14 +77,23 @@ def setup_env(root: str) -> None:
 def run_cell(torch, cell, *, seed: int, seconds: float, trace: bool, device,
              system: str = "program", mix_overrides: dict | None = None) -> dict:
     """Drive one run and return its result object (without printing). The
-    entry the tests use, on the CPU, at their own sizes."""
+    entry the tests use, on the CPU, at their own sizes. A mix's
+    ``host_threads`` fixes torch's intra-op threads on the host for the run:
+    a host-paced cell's parallel copies wait for their slowest thread, and
+    the card's host shares its cores."""
     tf32 = bool(cell.config.get("tf32", False))
     torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.backends.cudnn.allow_tf32 = tf32
     ctx = Ctx(torch=torch, cell=cell, mix={**cell.mix, **(mix_overrides or {})}, seed=seed,
               seconds=seconds, trace=trace, device=device, system=system)
     ctx.mark("torch")
-    rec = cell.driver().run(ctx)
+    threads = torch.get_num_threads()
+    if ctx.mix.get("host_threads"):
+        torch.set_num_threads(ctx.mix["host_threads"])
+    try:
+        rec = cell.driver().run(ctx)
+    finally:
+        torch.set_num_threads(threads)
     limits = cell.workload["limits"]
     judged = [checks.judge(s, limits) for s in rec["samples"]]
     failed = sum(not ok for ok, _ in judged)

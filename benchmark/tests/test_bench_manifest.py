@@ -63,18 +63,34 @@ def test_names_are_unique_and_consistent():
         assert 0.01 <= m["bound"] <= 0.25 and m["source"] in ("host_clock", "device_trace")
     layers = {}
     for m in MANIFEST["per_layer"]:
+        assert m["source"] in ("device_trace", "program_span", "program_counter", "host_clock")
         assert m["moves"] in e2e
         assert set(m["workloads"]) <= cells
         for cell in m["workloads"]:
             assert "workloads" not in e2e[m["moves"]] or cell in e2e[m["moves"]]["workloads"]
         layers.setdefault(m["layer"], m["layer"])
+    assert chips_fit(MANIFEST["workloads"])
     for w in MANIFEST["workloads"]:
-        assert w["chips"] == 1
         assert w["config"] in {c["name"] for c in MANIFEST["configs"]}
         reported = [m for m in MANIFEST["end_to_end"]
                     if "workloads" not in m or w["name"] in m["workloads"]]
         assert any(m["name"] == "setup_s" for m in reported) and len(reported) >= 2
         assert any(w["name"] in m["workloads"] for m in MANIFEST["per_layer"])
+
+
+def chips_fit(workloads) -> bool:
+    """Each cell on 1 or 4 chips, and at most a quarter of the cells, rounded
+    down, on 4 (one always may)."""
+    four = sum(w["chips"] == 4 for w in workloads)
+    return (all(w["chips"] in (1, 4) for w in workloads)
+            and four <= max(1, len(workloads) // 4))
+
+
+@pytest.mark.parametrize("chips,fit", [
+    ([1], True), ([4], True), ([1, 1, 1, 4], True), ([1] * 6 + [4, 4], True),
+    ([1, 1, 4, 4], False), ([1] * 5 + [4, 4, 4], False), ([1, 2], False), ([8], False)])
+def test_chips_rule(chips, fit):
+    assert chips_fit([{"chips": n} for n in chips]) is fit
 
 
 @pytest.mark.parametrize("cell", [w["name"] for w in MANIFEST["workloads"]])
@@ -88,13 +104,24 @@ def test_each_cell_found_from_its_files(cell):
         assert callable(c.reader(m["name"]).read)
 
 
+# keys of a configuration that are widths, which ``reduced`` may never name
+WIDTHS = re.compile(r"(^|_)widths?$|_dim$|_rank$|_size$|^hidden|^intermediate|latent|proj|"
+                    r"expan|heads?$|experts_per_tok")
+
+
 @pytest.mark.parametrize("cfg", MANIFEST["configs"], ids=lambda c: c["name"])
 def test_config_files(cfg):
+    """The file holds the configuration as run: its source and its cuts as
+    BENCHMARK.json names them (no width among them), a precision whose
+    control is defined (``reference/precision.py``), its own file."""
+    from reference import precision
     path = os.path.join(ROOT, cfg["file"])
     assert cfg["file"].startswith("benchmark/")
     data = json.load(open(path))
-    assert data["source"] == cfg["source"] and data["reduced"] == cfg["reduced"] == []
-    assert data["dtype"] == "float32" and data["tf32"] is False
+    assert data["source"] == cfg["source"] and data["reduced"] == cfg["reduced"]
+    assert len(cfg["reduced"]) <= 16 and not [k for k in cfg["reduced"] if WIDTHS.search(k)]
+    assert data["dtype"] in precision.DTYPES and isinstance(data["tf32"], bool)
+    assert precision.control(data) in precision.ROUND
     assert len([c for c in MANIFEST["configs"] if c["file"] == cfg["file"]]) == 1
 
 
